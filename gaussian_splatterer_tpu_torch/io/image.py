@@ -1,0 +1,138 @@
+"""PNG load/save with ``zlib`` and ``struct`` only (counterpart of
+gaussian_splatterer_tpu.io.image's ``save_png`` / ``load_png``).
+
+Conventions, as in the JAX package: framework images are (H, W, 3) float32
+in [0, 1] whose row 0 is framebuffer row y = 0 (GL-style, bottom-up), so
+PNG export flips vertically by default (reference screenshot path
+src/ui/tools/UiPanelToolsView.cpp:237-239).  Quantisation is the
+reference's value * 256 clamped to [0, 255] (src/Trainer.cu:25-27).
+
+The writer emits 8-bit RGB, non-interlaced, filter type 0.  The reader
+takes 8-bit grey, grey+alpha, RGB and RGBA, non-interlaced, with any of the
+five PNG row filters, and returns RGB.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
+
+
+def float_image_to_u8(img: np.ndarray) -> np.ndarray:
+    """Reference quantisation: value*256, clamped to [0, 255] (src/Trainer.cu:25-27)."""
+    return np.clip((np.asarray(img, np.float32) * 256.0).astype(np.int32), 0, 255).astype(
+        np.uint8
+    )
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    crc = zlib.crc32(kind + data) & 0xFFFFFFFF
+    return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
+
+
+def encode_png(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> PNG bytes (rows top to bottom as given)."""
+    h, w, c = rgb.shape
+    if c != 3 or rgb.dtype != np.uint8:
+        raise ValueError(f"encode_png wants (H, W, 3) uint8, got {rgb.shape} {rgb.dtype}")
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)  # filter byte 0 per row
+    raw[:, 1:] = rgb.reshape(h, 3 * w)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (
+        _SIGNATURE
+        + _chunk(b"IHDR", header)
+        + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+        + _chunk(b"IEND", b"")
+    )
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    buf = np.frombuffer(data, np.uint8)
+    if buf.size != h * (stride + 1):
+        raise ValueError("PNG image data has the wrong length")
+    rows = buf.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int64)
+    for y in range(h):
+        ftype, line = int(rows[y, 0]), rows[y, 1:].astype(np.int64)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:  # Sub: a running sum mod 256 along each channel
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+        elif ftype == 2:  # Up
+            cur = (line + prev) & 0xFF
+        elif ftype in (3, 4):  # Average, Paeth: sequential along the row
+            c, up = [0] * stride, prev.tolist()
+            for x, v in enumerate(line.tolist()):
+                left = c[x - bpp] if x >= bpp else 0
+                if ftype == 3:
+                    pred = (left + up[x]) >> 1
+                else:
+                    pred = _paeth(left, up[x], up[x - bpp] if x >= bpp else 0)
+                c[x] = (v + pred) & 0xFF
+            cur = np.asarray(c, np.int64)
+        else:
+            raise ValueError(f"unknown PNG filter type {ftype}")
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def decode_png(blob: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8 (rows top to bottom as stored)."""
+    if blob[:8] != _SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos < len(blob):
+        (length,) = struct.unpack(">I", blob[pos : pos + 4])
+        kind = blob[pos + 4 : pos + 8]
+        data = blob[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data)
+        elif kind == b"IDAT":
+            idat.append(data)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = header
+    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
+        raise ValueError(
+            f"unsupported PNG (bit depth {depth}, colour type {ctype}, interlace {interlace})"
+        )
+    ch = _CHANNELS[ctype]
+    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch).reshape(h, w, ch)
+    if ch <= 2:
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def save_png(img: np.ndarray, path: str, flip_vertical: bool = True) -> None:
+    """img: (H, W, 3) float in [0, 1] or uint8."""
+    arr = img if img.dtype == np.uint8 else float_image_to_u8(img)
+    if flip_vertical:
+        arr = arr[::-1]
+    with open(path, "wb") as fh:
+        fh.write(encode_png(np.ascontiguousarray(arr)))
+
+
+def load_png(path: str, flip_vertical: bool = True) -> np.ndarray:
+    with open(path, "rb") as fh:
+        arr = decode_png(fh.read()).astype(np.float32) / 255.0
+    if flip_vertical:
+        arr = arr[::-1]
+    return arr

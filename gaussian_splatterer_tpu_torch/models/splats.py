@@ -1,0 +1,149 @@
+"""Gaussian-splat model state (counterpart of gaussian_splatterer_tpu.models.splats).
+
+The reference keeps splats as SoA float arrays with an explicit
+``capacity``/``count`` pair (src/ModelSplatsHost.h:11-21).  The port keeps
+the same capacity-padded layout: ``SplatModel`` is an ``nn.Module`` whose
+parameters are the padded (capacity, ...) tensors, and ``count`` says how
+many leading rows are live.  Rows past ``count`` are masked by every
+renderer.
+
+Quaternions are scalar-first ``[w, x, y, z]``, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+_FIELDS = ("means", "shs", "scales", "opacities", "rotations")
+
+
+class SplatModel(nn.Module):
+    """Fixed-capacity padded splat set on one device.
+
+    Shapes (C = capacity, K = SH coefficient count):
+      means      (C, 3)    world-space centers
+      shs        (C, K, 3) spherical-harmonics color coefficients
+      scales     (C, 3)    per-axis standard deviations
+      opacities  (C,)      in [0, 1]
+      rotations  (C, 4)    quaternions, scalar-first [w, x, y, z]
+      count      int       number of live splats (<= C)
+
+    The parameters do not require gradients: the render path is forward
+    only.
+    """
+
+    def __init__(self, means, shs, scales, opacities, rotations, count: int,
+                 sh_degree: int = 1):
+        super().__init__()
+        for name, value in zip(_FIELDS, (means, shs, scales, opacities, rotations)):
+            setattr(self, name, nn.Parameter(value.to(torch.float32), requires_grad=False))
+        self.count = int(count)
+        self.sh_degree = int(sh_degree)
+        if not 0 <= self.count <= self.capacity:
+            raise ValueError(f"count {self.count} outside [0, {self.capacity}]")
+
+    @property
+    def capacity(self) -> int:
+        return self.means.shape[0]
+
+    @property
+    def sh_coeffs(self) -> int:
+        return self.shs.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.means.device
+
+    def active_mask(self) -> torch.Tensor:
+        return torch.arange(self.capacity, device=self.device) < self.count
+
+    @classmethod
+    def empty(cls, capacity: int, sh_degree: int = 1, sh_coeffs: int = 4,
+              device="cpu") -> "SplatModel":
+        rot = torch.zeros((capacity, 4), dtype=torch.float32, device=device)
+        rot[:, 0] = 1.0
+        z = dict(dtype=torch.float32, device=device)
+        return cls(
+            torch.zeros((capacity, 3), **z), torch.zeros((capacity, sh_coeffs, 3), **z),
+            torch.zeros((capacity, 3), **z), torch.zeros((capacity,), **z), rot,
+            0, sh_degree,
+        )
+
+    @classmethod
+    def from_numpy(cls, means, shs, scales, opacities, rotations, count: int,
+                   device, sh_degree: Optional[int] = None) -> "SplatModel":
+        """Carry a JAX model over: its capacity-padded arrays, as numpy,
+        become this model's parameters on ``device``.  The SH degree is
+        inferred from the coefficient count when not given."""
+        arrays = [np.ascontiguousarray(a, np.float32) for a in
+                  (means, shs, scales, opacities, rotations)]
+        if sh_degree is None:
+            sh_degree = _sh_degree_of(arrays[1].shape[1])
+        tensors = [torch.from_numpy(a).to(device) for a in arrays]
+        return cls(*tensors, count=count, sh_degree=sh_degree)
+
+    def to_host(self) -> "SplatModelHost":
+        m = SplatModelHost(self.capacity, self.sh_degree, self.sh_coeffs)
+        m.count = self.count
+        for name in _FIELDS:
+            getattr(m, name)[:] = getattr(self, name).detach().cpu().numpy()
+        return m
+
+
+def _sh_degree_of(k: int) -> int:
+    r = math.isqrt(k)
+    return r - 1 if r * r == k else (k - 1) // 3
+
+
+class SplatModelHost:
+    """Host-side (numpy) mutable splat set, mirror of the device model
+    (reference ModelSplatsHost, src/ModelSplatsHost.{h,cpp})."""
+
+    def __init__(self, capacity: int, sh_degree: int = 1, sh_coeffs: int = 4):
+        self.capacity = int(capacity)
+        self.sh_degree = int(sh_degree)
+        self.sh_coeffs = int(sh_coeffs)
+        self.count = 0
+        self.means = np.zeros((capacity, 3), np.float32)
+        self.shs = np.zeros((capacity, sh_coeffs, 3), np.float32)
+        self.scales = np.zeros((capacity, 3), np.float32)
+        self.opacities = np.zeros((capacity,), np.float32)
+        self.rotations = np.zeros((capacity, 4), np.float32)
+        self.rotations[:, 0] = 1.0
+
+    @classmethod
+    def from_arrays(cls, means, shs, scales, opacities, rotations,
+                    capacity: Optional[int] = None) -> "SplatModelHost":
+        """Build from flat arrays.  Capacity grows x10 from 1e6 like the
+        reference (src/ModelSplatsHost.cpp:31-37) when not given, and a
+        too-small explicit capacity grows to fit; the SH degree is inferred
+        from the coefficient count."""
+        means = np.asarray(means, np.float32).reshape(-1, 3)
+        n = means.shape[0]
+        if n == 0:
+            return cls(capacity or 1, sh_degree=1, sh_coeffs=4)
+        shs = np.asarray(shs, np.float32).reshape(n, -1, 3)
+        k = shs.shape[1]
+        if capacity is None:
+            capacity = 1_000_000
+            while capacity < n:
+                capacity *= 10
+        m = cls(max(capacity, n), sh_degree=_sh_degree_of(k), sh_coeffs=k)
+        m.count = n
+        m.means[:n] = means
+        m.shs[:n] = shs
+        m.scales[:n] = np.asarray(scales, np.float32).reshape(n, 3)
+        m.opacities[:n] = np.asarray(opacities, np.float32).reshape(n)
+        m.rotations[:n] = np.asarray(rotations, np.float32).reshape(n, 4)
+        return m
+
+    def to_device(self, device) -> SplatModel:
+        return SplatModel.from_numpy(
+            self.means, self.shs, self.scales, self.opacities, self.rotations,
+            self.count, device, self.sh_degree,
+        )

@@ -1,0 +1,90 @@
+"""Tile binning: screen-space splats -> per-tile depth-ordered duplicate lists
+(counterpart of gaussian_splatterer_tpu.ops.binning's ``tile_aabb`` and
+``bin_splats``).
+
+  1. depth-sort the splats (stable; invalid splats last, ties keep index
+     order as JAX's stable argsort does),
+  2. enumerate the (splat, covered tile) duplicates in depth order over each
+     splat's ``tile_aabb`` rectangle, row-major within the rectangle,
+  3. stable-sort the duplicates by tile id, which keeps depth order within
+     each tile,
+  4. per-tile ``[tile_start, tile_end)`` ranges by binary search.
+
+The buffer is sized from the true duplicate count, capped at ``max_dup``:
+as in the reference, duplicates past ``max_dup`` in depth order are dropped
+and ``num_dup`` reports the true total, so a caller can tell it overflowed.
+The TPU work list (``make_window_worklist``, chunk blocking) has no
+counterpart: the CUDA compositor walks each tile's range itself.
+
+Plain PyTorch integer bookkeeping; runs on any device.  One host sync reads
+the duplicate count, which sizes the buffers.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from gaussian_splatterer_tpu_torch.ops.transforms import SplatComponents
+
+
+class TileBins(NamedTuple):
+    """D = min(num_dup, max_dup) duplicates, T = number of tiles."""
+
+    gather_idx: torch.Tensor  # (D,) int64 splat id per tile-sorted duplicate
+    tile_start: torch.Tensor  # (T,) int32 first duplicate index of each tile
+    tile_end: torch.Tensor  # (T,) int32 one past the last
+    num_dup: int  # true duplicate total (may exceed max_dup)
+    depth_order: torch.Tensor  # (N,) int64 splat id per depth slot
+
+
+def tile_aabb(mx, my, rx, ry, tile: int, tx_tiles: int, ty_tiles: int):
+    """Per-splat covered tile rectangle [x0, x1) x [y0, y1), INRIA getRect
+    semantics over per-axis half-extents, clipped to the tile grid.  All
+    arguments and results are (N,) vectors; results are int64."""
+    ftile = float(tile)
+    x0 = torch.clamp(torch.floor((mx - rx) / ftile), 0, tx_tiles).to(torch.int64)
+    y0 = torch.clamp(torch.floor((my - ry) / ftile), 0, ty_tiles).to(torch.int64)
+    x1 = torch.clamp(torch.floor((mx + rx + ftile - 1.0) / ftile), 0, tx_tiles).to(torch.int64)
+    y1 = torch.clamp(torch.floor((my + ry + ftile - 1.0) / ftile), 0, ty_tiles).to(torch.int64)
+    return x0, y0, x1, y1
+
+
+def bin_splats(comps: SplatComponents, width: int, height: int, tile: int,
+               max_dup: int) -> TileBins:
+    dev = comps.mx.device
+    n = comps.mx.shape[0]
+    tx_tiles = -(-width // tile)
+    ty_tiles = -(-height // tile)
+    num_tiles = tx_tiles * ty_tiles
+
+    # 1. depth order (invalid splats last; stable for deterministic ties)
+    key = torch.where(comps.valid, comps.depth, torch.full_like(comps.depth, float("inf")))
+    order = torch.sort(key, stable=True).indices
+    x0, y0, x1, y1 = tile_aabb(
+        comps.mx[order], comps.my[order], comps.rx[order], comps.ry[order],
+        tile, tx_tiles, ty_tiles,
+    )
+    spans_x = torch.clamp(x1 - x0, min=0)
+    ntiles = torch.where(comps.valid[order], spans_x * torch.clamp(y1 - y0, min=0), 0)
+    offs = torch.cumsum(ntiles, 0)  # inclusive, int64: no wrap
+    num_dup = int(offs[-1]) if n else 0
+    d_count = min(num_dup, max_dup)
+
+    # 2. duplicates in depth order, cut at max_dup
+    kept = torch.clamp(offs, max=d_count) - torch.clamp(offs - ntiles, max=d_count)
+    slot = torch.repeat_interleave(torch.arange(n, device=dev), kept, output_size=d_count)
+    local = torch.arange(d_count, device=dev) - (offs - ntiles)[slot]
+    width_of = torch.clamp(spans_x[slot], min=1)
+    tid = (y0[slot] + local // width_of) * tx_tiles + x0[slot] + local % width_of
+
+    # 3. stable sort by tile id: depth order survives within each tile
+    tid_sorted, perm = torch.sort(tid, stable=True)
+    gather_idx = order[slot[perm]]
+
+    # 4. per-tile ranges
+    tids = torch.arange(num_tiles, device=dev, dtype=tid_sorted.dtype)
+    tile_start = torch.searchsorted(tid_sorted, tids, side="left").to(torch.int32)
+    tile_end = torch.searchsorted(tid_sorted, tids, side="right").to(torch.int32)
+    return TileBins(gather_idx, tile_start, tile_end, num_dup, order)
