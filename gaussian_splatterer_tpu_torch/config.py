@@ -139,9 +139,16 @@ class RuntimeConfig:
 
     The render path of this port reads ``render_resolution_x/y``,
     ``splats_capacity``, ``sh_degree``/``sh_coeffs``, ``tile_px`` (8, 16 or
-    32), ``max_dup`` and ``mip_antialias``.  The other fields belong to
-    parts of the JAX package not ported yet; they are kept so that
-    ``runtime.json`` files round-trip unchanged.
+    32), ``max_dup`` and ``mip_antialias``; training also ``frame_group``,
+    ``train_chunk`` (the rounding of a grown ``max_dup``),
+    ``opacity_reset_interval``, ``densify_variance_decay``,
+    ``lr_location_decay``, ``lr_resolution_ref`` and ``train_devices``
+    (more than one is not ported yet).  ``train_mm_bf16``,
+    ``train_work_cap``, ``train_fast_exp`` and ``train_mm_power`` tune the
+    TPU kernel and are accepted without effect: the CUDA kernel computes
+    in float32 and has no work list.  The other fields belong to parts of
+    the JAX package not ported yet; they are kept so that ``runtime.json``
+    files round-trip unchanged.
     """
 
     render_resolution_x: int = 1024  # truth/training resolution (src/Config.h:13-14)

@@ -78,13 +78,14 @@ class SplatModel(nn.Module):
     def from_numpy(cls, means, shs, scales, opacities, rotations, count: int,
                    device, sh_degree: Optional[int] = None) -> "SplatModel":
         """Carry a JAX model over: its capacity-padded arrays, as numpy,
-        become this model's parameters on ``device``.  The SH degree is
+        become this model's parameters on ``device``, copied, so that
+        training in place leaves them as they were.  The SH degree is
         inferred from the coefficient count when not given."""
         arrays = [np.ascontiguousarray(a, np.float32) for a in
                   (means, shs, scales, opacities, rotations)]
         if sh_degree is None:
             sh_degree = _sh_degree_of(arrays[1].shape[1])
-        tensors = [torch.from_numpy(a).to(device) for a in arrays]
+        tensors = [torch.tensor(a, device=device) for a in arrays]
         return cls(*tensors, count=count, sh_degree=sh_degree)
 
     def to_host(self) -> "SplatModelHost":

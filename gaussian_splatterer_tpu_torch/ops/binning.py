@@ -22,7 +22,7 @@ the duplicate count, which sizes the buffers.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -88,3 +88,33 @@ def bin_splats(comps: SplatComponents, width: int, height: int, tile: int,
     tile_start = torch.searchsorted(tid_sorted, tids, side="left").to(torch.int32)
     tile_end = torch.searchsorted(tid_sorted, tids, side="right").to(torch.int32)
     return TileBins(gather_idx, tile_start, tile_end, num_dup, order)
+
+
+class FrameBins(NamedTuple):
+    """The bins of F frames, concatenated so that one compositor launch
+    covers all F x T (frame, tile) blocks, frame-major.  D = the sum of the
+    frames' kept duplicates."""
+
+    gather_idx: torch.Tensor  # (D,) int64 column in the frame-stacked (9, F*N) rows
+    tile_start: torch.Tensor  # (F*T,) int32 first duplicate of each (frame, tile)
+    tile_end: torch.Tensor  # (F*T,) int32 one past the last
+    num_dup: int  # max over frames of the true duplicate count
+
+
+def bin_frames(comps_frames: Sequence[SplatComponents], width: int, height: int,
+               tile: int, max_dup: int) -> FrameBins:
+    """Bin each frame with ``bin_splats`` (each keeps at most ``max_dup``
+    duplicates) and offset its tile ranges into the concatenation."""
+    frames = [bin_splats(c, width, height, tile, max_dup) for c in comps_frames]
+    gathers, starts, ends = [], [], []
+    offset = 0
+    for f, (c, b) in enumerate(zip(comps_frames, frames)):
+        n = c.mx.shape[0]
+        gathers.append(b.gather_idx + f * n)
+        starts.append(b.tile_start + offset)
+        ends.append(b.tile_end + offset)
+        offset += b.gather_idx.shape[0]
+    if offset >= 2**31:
+        raise ValueError(f"{offset} duplicates in one frame group exceed int32 tile ranges")
+    return FrameBins(torch.cat(gathers), torch.cat(starts), torch.cat(ends),
+                     max(b.num_dup for b in frames))

@@ -51,27 +51,44 @@ def find_nvcc() -> str:
     )
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
-    if name in _loaded:
-        return _loaded[name]
+def _lib_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
-    info = {"seconds": 0.0, "ptxas": "", "path": str(lib_path)}
-    if not lib_path.exists():
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names) -> None:
+    """Compile the sources of ``names`` that have no library yet: one
+    ``nvcc`` per source, all started together."""
+    jobs = []
+    for name in names:
+        lib_path = _lib_path(name)
+        build_info.setdefault(name, {"seconds": 0.0, "ptxas": "", "path": str(lib_path)})
+        if lib_path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        src = CSRC_DIR / f"{name}.cu"
+        proc = subprocess.Popen(
             [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
+        jobs.append((name, src, tmp, lib_path, proc, time.perf_counter()))
+    failed = []
+    for name, src, tmp, lib_path, proc, t0 in jobs:
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stdout}\n{proc.stderr}")
+            failed.append(f"nvcc failed to build {src}:\n{out}\n{err}")
+            continue
         os.replace(tmp, lib_path)
-        info.update(seconds=time.perf_counter() - t0, ptxas=proc.stderr.strip())
-    lib = ctypes.CDLL(str(lib_path))
-    build_info[name] = info
-    _loaded[name] = lib
-    return lib
+        build_info[name].update(seconds=time.perf_counter() - t0, ptxas=err.strip())
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` if needed and return the loaded library."""
+    if name not in _loaded:
+        build([name])
+        _loaded[name] = ctypes.CDLL(build_info[name]["path"])
+    return _loaded[name]

@@ -1,7 +1,7 @@
-"""Tiled rasterizer, serving half (counterpart of the forward path of
-gaussian_splatterer_tpu.ops.raster_tiled).
+"""Tiled rasterizer (counterpart of gaussian_splatterer_tpu.ops.raster_tiled,
+without the serve path's backward).
 
-Pipeline:
+Serving half:
 
   project_splat_components (transforms.py)
     -> bin_splats (depth sort + stable tile sort + per-tile ranges, binning.py)
@@ -13,34 +13,57 @@ Pipeline:
 
 Compositing rules (identical to the oracle, raster_reference.py): skip a
 duplicate where power > 0 or alpha < 1/255, clamp alpha at 0.99, and stop a
-pixel, without that duplicate, once T would fall below 1e-4.  The training
-half (fused forward + backward kernels) is not ported yet.
+pixel, without that duplicate, once T would fall below 1e-4.
+
+Training half (counterpart of render_train_grads_rows / _batch / and
+render_train_grads):
+
+  project_frames: the nine feature rows of F frames under autograd
+    -> bin_frames (binning.py: each frame binned, ranges concatenated)
+    -> gather of the rows per duplicate
+    -> composite_train: per (frame, tile), forward composite, signed
+       residual truth - (C + T_final * bg) and backward replay into
+       per-duplicate gradients of the nine rows; the CUDA kernel
+       csrc/composite_train.cu on a CUDA tensor, composite_train_reference
+       on a CPU tensor
+    -> dup_grads_to_rows: one index_add_ of the duplicate gradients onto
+       the frame-stacked rows (each frame's duplicates land in its own
+       columns, so the rows stay per frame)
+    -> torch.autograd.grad through the projection.
+
+Truth and residual tiles are pixel-major, (F, T, P, 3) and (F, T, P, 4);
+the JAX package's channel-major (8, P) layout is a TPU memory-layout
+workaround.  Everything is float32.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from gaussian_splatterer_tpu_torch.ops import cuda_build
-from gaussian_splatterer_tpu_torch.ops.binning import bin_splats
+from gaussian_splatterer_tpu_torch.ops.binning import FrameBins, bin_frames, bin_splats
 from gaussian_splatterer_tpu_torch.ops.transforms import (
     ALPHA_MAX,
     ALPHA_MIN,
     T_EPS,
+    SplatComponents,
     project_splat_components,
 )
 
 # feature row layout of the (9, D) duplicate array
 F_MX, F_MY, F_CA, F_CB, F_CC, F_CR, F_CG, F_CB2, F_OP = range(9)
 F_ROWS = 9
-TILE_SIZES = (8, 16, 32)  # one CUDA thread per pixel: 64, 256, 1024 threads
+TILE_SIZES = (8, 16, 32)  # composite_fwd: one CUDA thread per pixel, 64 to 1024
 
 # Launches of the CUDA compositor in this process.  Only the CUDA branch of
 # composite_fwd adds to it; a run can read it to show that its path went
 # through the kernel.
 composite_fwd_launches = 0
+# Launches of the CUDA train kernel, counted the same way by composite_train.
+composite_train_launches = 0
 
 
 def _check_composite_args(feat, tile_start, tile_end, tile):
@@ -57,8 +80,77 @@ def _check_composite_args(feat, tile_start, tile_end, tile):
         raise ValueError("more than 2^31 - 1 duplicates")
 
 
+class _Steps(NamedTuple):
+    """Tiles ordered by duplicate count, so that the tiles still running at
+    step k of a plain replay are a prefix."""
+
+    order: torch.Tensor  # (n,) tile ids, most duplicates first
+    start: torch.Tensor  # (n,) int64 first duplicate of each ordered tile
+    running: list  # running[k] = number of tiles with more than k duplicates
+    px: torch.Tensor  # (n, P) float32 pixel coordinates of the ordered tiles
+    py: torch.Tensor
+
+
+def _steps(tile_start, tile_end, tile: int, tx_tiles: int, tiles_frame: int) -> _Steps:
+    dev = tile_start.device
+    num_tiles = tile_start.shape[0]
+    count = (tile_end.to(torch.int64) - tile_start.to(torch.int64)).clamp(min=0)
+    count_sorted, order = torch.sort(count, descending=True, stable=True)
+    steps = int(count_sorted[0]) if num_tiles else 0
+    running = (num_tiles - torch.searchsorted(
+        count_sorted.flip(0), torch.arange(steps, device=dev), side="right"
+    )).tolist()
+    t_img = order % tiles_frame
+    pix = torch.arange(tile * tile, device=dev)
+    px = ((t_img % tx_tiles) * tile)[:, None].to(torch.float32) + (pix % tile).to(torch.float32)
+    py = ((t_img // tx_tiles) * tile)[:, None].to(torch.float32) + (pix // tile).to(torch.float32)
+    return _Steps(order, tile_start.to(torch.int64)[order], running, px, py)
+
+
+def _gauss(f, px, py):
+    """Per-(tile, pixel) Gaussian of step k's duplicates ``f`` (9, m, 1), in
+    the kernels' order of operations: (dx, dy, power, exp(power), alpha_raw,
+    alpha clamped at 0.99)."""
+    dx = px - f[F_MX]
+    dy = py - f[F_MY]
+    power = -0.5 * (f[F_CA] * dx * dx + f[F_CC] * dy * dy) - f[F_CB] * dx * dy
+    expp = torch.exp(power)
+    alpha_raw = f[F_OP] * expp
+    return dx, dy, power, expp, alpha_raw, torch.clamp(alpha_raw, max=ALPHA_MAX)
+
+
+def _forward_replay(feat, s: _Steps, stats):
+    """Plain forward composite over the ordered tiles: (rgb (n, P, 3), T (n, P))."""
+    n, p_count = s.px.shape
+    trans = torch.ones((n, p_count), dtype=torch.float32, device=feat.device)
+    rgb = torch.zeros((n, p_count, 3), dtype=torch.float32, device=feat.device)
+    alive = torch.ones((n, p_count), dtype=torch.bool, device=feat.device)
+    pairs = torch.zeros((), dtype=torch.int64, device=feat.device)
+    kept = torch.zeros((), dtype=torch.int64, device=feat.device)
+    for k, m in enumerate(s.running):
+        f = feat[:, s.start[:m] + k][:, :, None]  # (9, m, 1)
+        _, _, power, _, _, alpha = _gauss(f, s.px[:m], s.py[:m])
+        t_m = trans[:m]
+        if stats is not None:
+            pairs += alive[:m].sum()
+        contrib = (power <= 0.0) & (alpha >= ALPHA_MIN) & alive[:m]
+        test_t = t_m * (1.0 - alpha)
+        stop = contrib & (test_t < T_EPS)
+        use = contrib & ~stop
+        if stats is not None:
+            kept += use.sum()
+        w = torch.where(use, alpha * t_m, torch.zeros_like(alpha))
+        rgb[:m] += w[..., None] * f[F_CR : F_CB2 + 1].permute(1, 2, 0)
+        trans[:m] = torch.where(use, test_t, t_m)
+        alive[:m] &= ~stop
+    if stats is not None:
+        stats.update(pairs=int(pairs), composited=int(kept))
+    return rgb, trans
+
+
 def composite_fwd_reference(feat: torch.Tensor, tile_start: torch.Tensor,
-                            tile_end: torch.Tensor, tile: int, tx_tiles: int) -> torch.Tensor:
+                            tile_end: torch.Tensor, tile: int, tx_tiles: int,
+                            stats: Optional[dict] = None) -> torch.Tensor:
     """Plain PyTorch compositor with composite_fwd's contract.
 
     feat (9, D) float32 rows [mx, my, conic a, b, c, r, g, b, opacity] of the
@@ -67,47 +159,17 @@ def composite_fwd_reference(feat: torch.Tensor, tile_start: torch.Tensor,
     (r, g, b, T_final), pixels row-major within the tile.
 
     It steps through duplicate position k of all tiles at once, in the
-    kernel's order of operations, one rounding per operation; tiles are
-    ordered by duplicate count so that the tiles still running at step k
-    are a prefix."""
+    kernel's order of operations, one rounding per operation.  A ``stats``
+    dict receives the work the kernel does: ``pairs``, the (pixel,
+    duplicate) pairs visited before their pixel terminated, and
+    ``composited``, those of them that were composited."""
     _check_composite_args(feat, tile_start, tile_end, tile)
-    dev = feat.device
     num_tiles, p_count = tile_start.shape[0], tile * tile
-    count = (tile_end.to(torch.int64) - tile_start.to(torch.int64)).clamp(min=0)
-    count_sorted, order = torch.sort(count, descending=True, stable=True)
-    steps = int(count_sorted[0]) if num_tiles else 0
-    # running[k] = number of tiles with more than k duplicates
-    running = (num_tiles - torch.searchsorted(
-        count_sorted.flip(0), torch.arange(steps, device=dev), side="right"
-    )).tolist()
-
-    pix = torch.arange(p_count, device=dev)
-    px = ((order % tx_tiles) * tile)[:, None].to(torch.float32) + (pix % tile).to(torch.float32)
-    py = ((order // tx_tiles) * tile)[:, None].to(torch.float32) + (pix // tile).to(torch.float32)
-    start = tile_start.to(torch.int64)[order]
-    trans = torch.ones((num_tiles, p_count), dtype=torch.float32, device=dev)
-    rgb = torch.zeros((num_tiles, p_count, 3), dtype=torch.float32, device=dev)
-    alive = torch.ones((num_tiles, p_count), dtype=torch.bool, device=dev)
-    for k in range(steps):
-        m = running[k]
-        f = feat[:, start[:m] + k][:, :, None]  # (9, m, 1)
-        dx = px[:m] - f[F_MX]
-        dy = py[:m] - f[F_MY]
-        power = -0.5 * (f[F_CA] * dx * dx + f[F_CC] * dy * dy) - f[F_CB] * dx * dy
-        alpha = torch.clamp(f[F_OP] * torch.exp(power), max=ALPHA_MAX)
-        t_m = trans[:m]
-        contrib = (power <= 0.0) & (alpha >= ALPHA_MIN) & alive[:m]
-        test_t = t_m * (1.0 - alpha)
-        stop = contrib & (test_t < T_EPS)
-        use = contrib & ~stop
-        w = torch.where(use, alpha * t_m, torch.zeros_like(alpha))
-        rgb[:m] += w[..., None] * f[F_CR : F_CB2 + 1].permute(1, 2, 0)
-        trans[:m] = torch.where(use, test_t, t_m)
-        alive[:m] &= ~stop
-
-    out = torch.empty((num_tiles, p_count, 4), dtype=torch.float32, device=dev)
-    out[order, :, 0:3] = rgb
-    out[order, :, 3] = trans
+    s = _steps(tile_start, tile_end, tile, tx_tiles, max(num_tiles, 1))
+    rgb, trans = _forward_replay(feat, s, stats)
+    out = torch.empty((num_tiles, p_count, 4), dtype=torch.float32, device=feat.device)
+    out[s.order, :, 0:3] = rgb
+    out[s.order, :, 3] = trans
     return out
 
 
@@ -150,12 +212,13 @@ def _composite_lib() -> ctypes.CDLL:
 
 
 def image_to_tiles(img: torch.Tensor, tile: int) -> torch.Tensor:
-    """(H, W, C) -> (T, tile*tile, C) in the compositor's tile-major pixel
-    order.  Requires tile | H and tile | W."""
-    h, w, c = img.shape
+    """(..., H, W, C) -> (..., T, tile*tile, C) in the compositor's
+    tile-major pixel order.  Requires tile | H and tile | W; the training
+    path's truth tiles are this of the (F, H, W, 3) truth images."""
+    *lead, h, w, c = img.shape
     ty, txx = h // tile, w // tile
-    return img.reshape(ty, tile, txx, tile, c).permute(0, 2, 1, 3, 4).reshape(
-        ty * txx, tile * tile, c)
+    return img.reshape(*lead, ty, tile, txx, tile, c).transpose(-4, -3).reshape(
+        *lead, ty * txx, tile * tile, c)
 
 
 def tiles_to_image(img_tiles: torch.Tensor, width: int, height: int, tile: int) -> torch.Tensor:
@@ -168,11 +231,14 @@ def tiles_to_image(img_tiles: torch.Tensor, width: int, height: int, tile: int) 
     return img[:height, :width, :]
 
 
+def _rows(c: SplatComponents) -> torch.Tensor:
+    """(9, N) feature rows [mx, my, conic a, b, c, r, g, b, opacity]."""
+    return torch.stack([c.mx, c.my, c.ca, c.cb, c.cc, c.cr, c.cg, c.cb2, c.opacity])
+
+
 def gather_features(comps, bins) -> torch.Tensor:
     """(9, D) feature rows of the tile-sorted duplicates."""
-    rows = torch.stack([comps.mx, comps.my, comps.ca, comps.cb, comps.cc,
-                        comps.cr, comps.cg, comps.cb2, comps.opacity])  # (9, N)
-    return rows[:, bins.gather_idx].contiguous()
+    return _rows(comps)[:, bins.gather_idx].contiguous()
 
 
 def render_tiled_tiles(
@@ -224,3 +290,276 @@ def render_tiled_model(model, camera, width, height, background, scale_mod=1.0,
         camera.location, tan_fovx, tan_fovy, width, height, background,
         model.sh_degree, scale_mod, **kw,
     )
+
+
+# -- training half -------------------------------------------------------------
+
+
+def _check_train_args(feat, tile_start, tile_end, truth, bg, tile, tiles_frame):
+    _check_composite_args(feat, tile_start, tile_end, tile)
+    blocks = tile_start.shape[0]
+    if truth.dtype != torch.float32 or tuple(truth.shape) != (blocks, tile * tile, 3):
+        raise ValueError(f"truth must be ({blocks}, {tile * tile}, 3) float32, "
+                         f"got {tuple(truth.shape)} {truth.dtype}")
+    if bg.dtype != torch.float32 or bg.dim() != 2 or bg.shape[1] != 3:
+        raise ValueError(f"bg must be (F, 3) float32, got {tuple(bg.shape)} {bg.dtype}")
+    if bg.shape[0] * tiles_frame != blocks:
+        raise ValueError(f"{bg.shape[0]} frames x {tiles_frame} tiles != {blocks} blocks")
+    if truth.device != feat.device or bg.device != feat.device:
+        raise ValueError("truth and bg must be on the features' device")
+
+
+def composite_train_reference(feat, tile_start, tile_end, truth, bg, tile: int,
+                              tx_tiles: int, tiles_frame: int,
+                              stats: Optional[dict] = None):
+    """Plain PyTorch fused training compositor with composite_train's
+    contract.
+
+    feat (9, D) rows of the tile-sorted duplicates of F frames; block b =
+    f * tiles_frame + t composites feat[:, tile_start[b]:tile_end[b]] for
+    tile t of frame f against truth[b] (P, 3) and background bg[f].
+    Returns (res (F*T, P, 4) = (truth - (C + T_final bg), T_final),
+    d_feat (9, D)): per duplicate, the sums over its tile's pixels of the
+    gradient of the nine rows, J^T residual (see csrc/composite_train.cu).
+
+    Like composite_fwd_reference it steps through duplicate position k of
+    all blocks at once, in the kernel's order of operations; only the sums
+    over pixels are taken in another order.  ``stats`` receives ``pairs``
+    and ``composited`` as from composite_fwd_reference; each of the
+    kernel's two passes visits those pairs once."""
+    _check_train_args(feat, tile_start, tile_end, truth, bg, tile, tiles_frame)
+    num_blocks, p_count = tile_start.shape[0], tile * tile
+    s = _steps(tile_start, tile_end, tile, tx_tiles, tiles_frame)
+    rgb, t_n = _forward_replay(feat, s, stats)
+
+    bgo = bg[s.order // tiles_frame][:, None, :]  # (n, 1, 3)
+    resid = truth[s.order] - (rgb + t_n[..., None] * bgo)
+    rr, rg, rb = resid.unbind(-1)
+    g_t = rr * bgo[..., 0] + rg * bgo[..., 1] + rb * bgo[..., 2]
+    g_ctot = rr * rgb[..., 0] + rg * rgb[..., 1] + rb * rgb[..., 2]
+    gtn = g_t * t_n
+
+    d_feat = torch.zeros_like(feat)
+    trans = torch.ones_like(t_n)
+    acc = torch.zeros_like(t_n)  # running sum of w * gc over kept duplicates
+    alive = torch.ones(t_n.shape, dtype=torch.bool, device=feat.device)
+    zero = torch.zeros((), dtype=torch.float32, device=feat.device)
+    for k, m in enumerate(s.running):
+        cols = s.start[:m] + k
+        f = feat[:, cols][:, :, None]  # (9, m, 1)
+        dx, dy, power, expp, alpha_raw, alpha = _gauss(f, s.px[:m], s.py[:m])
+        t_m = trans[:m]
+        contrib = (power <= 0.0) & (alpha >= ALPHA_MIN) & alive[:m]
+        test_t = t_m * (1.0 - alpha)
+        stop = contrib & (test_t < T_EPS)
+        use = contrib & ~stop
+        w = torch.where(use, alpha * t_m, zero)
+        r_m, g_m, b_m = rr[:m], rg[:m], rb[:m]
+        gc = r_m * f[F_CR] + g_m * f[F_CG] + b_m * f[F_CB2]
+        acc[:m] = torch.where(use, acc[:m] + w * gc, acc[:m])
+        g_s = g_ctot[:m] - acc[:m]
+        inv = 1.0 / (1.0 - alpha)
+        d_alpha = gc * t_m - (g_s + gtn[:m]) * inv
+        d_alpha = torch.where(use & (alpha_raw < ALPHA_MAX), d_alpha, zero)
+        d_power = d_alpha * alpha_raw
+        d_feat[:, cols] = torch.stack([
+            (d_power * (f[F_CA] * dx + f[F_CB] * dy)).sum(1),
+            (d_power * (f[F_CC] * dy + f[F_CB] * dx)).sum(1),
+            -0.5 * (d_power * dx * dx).sum(1),
+            -(d_power * dx * dy).sum(1),
+            -0.5 * (d_power * dy * dy).sum(1),
+            (r_m * w).sum(1),
+            (g_m * w).sum(1),
+            (b_m * w).sum(1),
+            (d_alpha * expp).sum(1),
+        ])
+        trans[:m] = torch.where(use, test_t, t_m)
+        alive[:m] &= ~stop
+
+    res = torch.empty((num_blocks, p_count, 4), dtype=torch.float32, device=feat.device)
+    res[s.order, :, 0:3] = resid
+    res[s.order, :, 3] = t_n
+    return res, d_feat
+
+
+def composite_train(feat, tile_start, tile_end, truth, bg, tile: int, tx_tiles: int,
+                    tiles_frame: int):
+    """Fused training compositor: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors (same contract as composite_train_reference)."""
+    global composite_train_launches
+    if feat.device.type == "cpu":
+        return composite_train_reference(feat, tile_start, tile_end, truth, bg, tile,
+                                         tx_tiles, tiles_frame)
+    if feat.device.type != "cuda":
+        raise ValueError(f"composite_train: unsupported device {feat.device}")
+    _check_train_args(feat, tile_start, tile_end, truth, bg, tile, tiles_frame)
+    args = (feat, tile_start, tile_end, truth, bg)
+    if not all(x.is_contiguous() for x in args):
+        raise ValueError("composite_train: inputs must be contiguous")
+    lib = _train_lib()
+    num_blocks = tile_start.shape[0]
+    res = torch.empty((num_blocks, tile * tile, 4), dtype=torch.float32, device=feat.device)
+    d_feat = torch.zeros_like(feat)
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream(feat.device).cuda_stream
+        err = lib.composite_train(
+            feat.data_ptr(), feat.shape[1], tile_start.data_ptr(), tile_end.data_ptr(),
+            truth.data_ptr(), bg.data_ptr(), res.data_ptr(), d_feat.data_ptr(),
+            num_blocks, tile, tx_tiles, tiles_frame, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"composite_train kernel launch failed: cudaError_t {err}")
+    composite_train_launches += 1
+    return res, d_feat
+
+
+def _train_lib() -> ctypes.CDLL:
+    lib = cuda_build.load_library("composite_train")
+    fn = lib.composite_train
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def project_frames(means_b, shs, scales, opacities, rotations, active,
+                   views, proj_views, cam_posns, tan_fovxs, tan_fovys,
+                   width: int, height: int, sh_degree: int, aa: bool = False):
+    """Project F frames.  ``means_b`` is (F, N, 3), one copy of the means
+    per frame, so that a backward through the rows gives per-frame location
+    gradients.  Returns (the per-frame SplatComponents, detached, for
+    binning; rows (9, F*N), frame-stacked, in the autograd graph of the
+    inputs)."""
+    comps, rows = [], []
+    for i in range(means_b.shape[0]):
+        c = project_splat_components(
+            means_b[i], shs, scales, opacities, rotations, active,
+            views[i], proj_views[i], cam_posns[i], float(tan_fovxs[i]), float(tan_fovys[i]),
+            width, height, sh_degree, 1.0, aa=aa,
+        )
+        comps.append(SplatComponents(*(x.detach() for x in c)))
+        rows.append(_rows(c))
+    return comps, torch.cat(rows, dim=1)
+
+
+def gather_rows(rows9: torch.Tensor, fb: FrameBins) -> torch.Tensor:
+    """(9, D) feature rows of the frame group's duplicates."""
+    return rows9[:, fb.gather_idx].contiguous()
+
+
+def dup_grads_to_rows(d_feat: torch.Tensor, fb: FrameBins, columns: int) -> torch.Tensor:
+    """(9, D) per-duplicate gradients -> (9, F*N) per-row gradients.  Each
+    frame's duplicates index only its own N columns, so no sum crosses
+    frames; duplicates dropped past max_dup have no column and add
+    nothing."""
+    out = torch.zeros((F_ROWS, columns), dtype=torch.float32, device=d_feat.device)
+    return out.index_add_(1, fb.gather_idx, d_feat)
+
+
+def train_launch_inputs(rows9, comps_frames, width: int, height: int, truth_tiles,
+                        backgrounds, tile: int, max_dup: int):
+    """Bin F frames whose rows (9, F*N) are given and gather their
+    duplicates.  Returns (the FrameBins, the arguments of one
+    composite_train launch over all F x T (frame, tile) blocks)."""
+    if tile not in TILE_SIZES:
+        raise ValueError(f"tile {tile} not supported (one of {TILE_SIZES})")
+    f = len(comps_frames)
+    tx_tiles = -(-width // tile)
+    num_tiles = tx_tiles * -(-height // tile)
+    dev = rows9.device
+    truth = torch.as_tensor(truth_tiles, dtype=torch.float32, device=dev)
+    if tuple(truth.shape) != (f, num_tiles, tile * tile, 3):
+        raise ValueError(f"truth_tiles must be ({f}, {num_tiles}, {tile * tile}, 3), "
+                         f"got {tuple(truth.shape)}")
+    bg = torch.as_tensor(backgrounds, dtype=torch.float32, device=dev).reshape(f, 3)
+    fb = bin_frames(comps_frames, width, height, tile, max_dup)
+    return fb, (gather_rows(rows9, fb), fb.tile_start, fb.tile_end,
+                truth.reshape(f * num_tiles, tile * tile, 3).contiguous(), bg.contiguous(),
+                tile, tx_tiles, num_tiles)
+
+
+def _train_core(rows9, comps_frames, width, height, truth_tiles, backgrounds,
+                tile: int, max_dup: int):
+    """Bin, gather, composite and reduce F frames whose rows (9, F*N) are
+    given.  Returns (loss_sum, d_rows9 (9, F*N), res (F, T, P, 4),
+    num_dup)."""
+    fb, args = train_launch_inputs(rows9, comps_frames, width, height, truth_tiles,
+                                   backgrounds, tile, max_dup)
+    res, d_feat = composite_train(*args)
+    d_rows9 = dup_grads_to_rows(d_feat, fb, rows9.shape[1])
+    res = res.reshape(len(comps_frames), args[-1], tile * tile, 4)
+    loss_sum = torch.square(res[..., 0:3]).mean(dim=(1, 2, 3)).sum()
+    return loss_sum, d_rows9, res, fb.num_dup
+
+
+def render_train_grads_rows(comps: SplatComponents, width: int, height: int,
+                            truth_tiles, backgrounds, *, tile: int = 32,
+                            max_dup: int = 2**18):
+    """Fused training core from pre-projected splats: every field of
+    ``comps`` is (F, M).  Returns (loss_sum, d_rows (F, 9, M), res
+    (F, T, P, 4), num_dup, num_work): loss_sum is the sum over frames of the
+    mean squared residual, d_rows the gradients of the rows [mx, my, ca,
+    cb, cc, cr, cg, cb2, opacity], num_dup the most duplicates any frame
+    generated (> max_dup: the deepest were dropped), and num_work -1 (there
+    is no work list)."""
+    f, m = comps.mx.shape
+    frames = [SplatComponents(*(x[i].detach() for x in comps)) for i in range(f)]
+    rows9 = torch.cat([_rows(c) for c in frames], dim=1)
+    loss_sum, d_rows9, res, num_dup = _train_core(
+        rows9, frames, width, height, truth_tiles, backgrounds, tile, max_dup)
+    return loss_sum, d_rows9.reshape(F_ROWS, f, m).transpose(0, 1), res, num_dup, -1
+
+
+def render_train_grads_batch(
+    means, shs, scales, opacities, rotations, active,
+    views, proj_views, cam_posns, tan_fovxs, tan_fovys,  # (F, ...) stacks
+    width: int, height: int,
+    truth_tiles,  # (F, T, P, 3) pixel-major truth tiles
+    backgrounds,  # (F, 3)
+    sh_degree: int,
+    *, tile: int = 32, max_dup: int = 2**18, aa: bool = False,
+):
+    """Fused training core for F frames in one compositor launch.
+
+    Returns (loss_sum, grads, var_loc, res, num_dup, num_work):
+      loss_sum = sum over frames of the per-frame mean squared residual;
+      grads    = (means, shs, scales, opacities, rotations) gradients,
+                 summed over frames, J^T residual: the negative L2
+                 gradient that the SGD step adds;
+      var_loc  = (N,) sum over frames of the per-frame norms of the
+                 location gradient, the densify signal;
+      res      = (F, T, P, 4) residual rgb and T_final per pixel;
+      num_dup  = the most duplicates any frame generated; num_work = -1."""
+    f = len(views)
+    leaves = [means.detach().expand(f, -1, -1).clone()] + [
+        x.detach() for x in (shs, scales, opacities, rotations)]
+    for x in leaves:
+        x.requires_grad_(True)
+    with torch.enable_grad():
+        comps, rows9 = project_frames(*leaves, active, views, proj_views, cam_posns,
+                                      tan_fovxs, tan_fovys, width, height, sh_degree, aa)
+    loss_sum, d_rows9, res, num_dup = _train_core(
+        rows9.detach(), comps, width, height, truth_tiles, backgrounds, tile, max_dup)
+    d_means_b, *grads = torch.autograd.grad(rows9, leaves, d_rows9)
+    var_loc = torch.sqrt(torch.sum(torch.square(d_means_b), dim=-1)).sum(0)
+    return loss_sum, (d_means_b.sum(0), *grads), var_loc, res, num_dup, -1
+
+
+def render_train_grads(
+    means, shs, scales, opacities, rotations, active,
+    view, proj_view, cam_pos, tan_fovx, tan_fovy,
+    width: int, height: int, truth_tiles, background, sh_degree: int,
+    *, tile: int = 32, max_dup: int = 2**18, aa: bool = False,
+):
+    """Fused training core for one frame: (loss_mean, grads, res (T, P, 4)),
+    truth_tiles (T, P, 3).  render_train_grads_batch with F = 1."""
+    loss, grads, _var, res, _nd, _nw = render_train_grads_batch(
+        means, shs, scales, opacities, rotations, active,
+        [view], [proj_view], [cam_pos], [tan_fovx], [tan_fovy], width, height,
+        torch.as_tensor(truth_tiles)[None], torch.as_tensor(background)[None], sh_degree,
+        tile=tile, max_dup=max_dup, aa=aa,
+    )
+    return loss, grads, res[0]

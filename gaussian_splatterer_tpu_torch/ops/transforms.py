@@ -136,6 +136,15 @@ def _sh_to_rgb_channels(shs, dx, dy, dz, sh_degree: int):
     return tuple(out)
 
 
+def _safe_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(x) for x >= 0 whose gradient at x = 0 is 0, not inf: the
+    clamp after it zeroes the cotangent there, and inf * 0 would put NaN
+    into autograd (a zero quaternion, a splat at the camera centre)."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, torch.ones_like(x))),
+                       torch.zeros_like(x))
+
+
 def _as_f32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -186,7 +195,7 @@ def project_splat_components(
 
     # quaternion -> rotation matrix components (normalised, see quat_to_rotmat)
     q = rotations.to(f32)
-    qn = torch.sqrt(q[:, 0] ** 2 + q[:, 1] ** 2 + q[:, 2] ** 2 + q[:, 3] ** 2)
+    qn = _safe_sqrt(q[:, 0] ** 2 + q[:, 1] ** 2 + q[:, 2] ** 2 + q[:, 3] ** 2)
     qi = 1.0 / torch.clamp(qn, min=1e-12)
     qr, qx, qy, qz = q[:, 0] * qi, q[:, 1] * qi, q[:, 2] * qi, q[:, 3] * qi
     r00 = 1 - 2 * (qy * qy + qz * qz)
@@ -285,7 +294,7 @@ def project_splat_components(
     dx = x - cam[0]
     dy = y - cam[1]
     dz = z - cam[2]
-    dn = 1.0 / torch.clamp(torch.sqrt(dx * dx + dy * dy + dz * dz), min=1e-12)
+    dn = 1.0 / torch.clamp(_safe_sqrt(dx * dx + dy * dy + dz * dz), min=1e-12)
     cr, cg, cb2 = _sh_to_rgb_channels(shs.to(f32), dx * dn, dy * dn, dz * dn, sh_degree)
 
     zero = torch.zeros_like(radius)

@@ -1,0 +1,438 @@
+"""Training engine: capture, train step, SGD apply, render (counterpart of
+gaussian_splatterer_tpu.train.trainer).
+
+One training iteration renders the model from every truth camera twice
+(white background set, then black; dual-background supervision is what
+teaches opacity, src/Trainer.cu:311-314), feeds the signed residual
+``truth - rendered`` back through the rasterizer (src/Trainer.cu:33-44,
+378-412), averages the per-splat gradients over all 2F frames, accumulates
+the mean |location gradient| as the densify "variance" signal
+(src/Trainer.cu:47-77), and applies one per-feature-LR SGD step with scale
+and opacity clamps (src/Trainer.cu:81-101).  The residual is the negative
+L2 gradient, so ``param += grad * lr`` is gradient descent on
+0.5 * |render - truth|^2.
+
+Two step kinds, as in the JAX package:
+  * fused (renderer "tiled", resolution a multiple of the tile): the
+    frame-batched training core ops.raster_tiled.render_train_grads_batch,
+    ``frame_group`` frames per launch of the CUDA kernel composite_train,
+    against pre-tiled truths;
+  * autograd of a differentiable renderer (renderer "oracle", or a caller's
+    ``render_fn``), the port's reference step.
+A tiled step that cannot be fused needs the serve path's backward kernel,
+which is not ported yet (ROADMAP A2), and raises; so does a multi-device
+step (ROADMAP A6).
+
+The step updates the model's parameters in place (the JAX step returns a
+new model); densify returns a new model.
+"""
+
+from __future__ import annotations
+
+import random
+import warnings
+from functools import partial
+from typing import Callable, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
+from gaussian_splatterer_tpu_torch.models.camera import Camera
+from gaussian_splatterer_tpu_torch.models.splats import SplatModel
+from gaussian_splatterer_tpu_torch.ops.raster_tiled import image_to_tiles, render_train_grads_batch
+from gaussian_splatterer_tpu_torch.train.densify import DensifyParams, densify
+
+
+class CameraBatch(NamedTuple):
+    """Stacked per-frame camera data.  The matrices live on the model's
+    device; the FOV tangents stay on the host, where the projection reads
+    them as scalars."""
+
+    view: torch.Tensor  # (F, 4, 4)
+    proj_view: torch.Tensor  # (F, 4, 4)
+    cam_pos: torch.Tensor  # (F, 3)
+    tan_fovx: torch.Tensor  # (F,) on the CPU
+    tan_fovy: torch.Tensor  # (F,) on the CPU
+
+    @classmethod
+    def from_cameras(cls, cameras: Sequence[Camera], width: int, height: int, *,
+                     device, train: bool = True) -> "CameraBatch":
+        tans = np.array([c.tan_fov(width, height, train=train) for c in cameras], np.float32)
+
+        def stack(xs):
+            return torch.from_numpy(np.stack(xs).astype(np.float32)).to(device)
+
+        return cls(
+            view=stack([c.get_view() for c in cameras]),
+            proj_view=stack([c.get_proj_view(width / height) for c in cameras]),
+            cam_pos=stack([c.location for c in cameras]),
+            tan_fovx=torch.from_numpy(tans[:, 0].copy()),
+            tan_fovy=torch.from_numpy(tans[:, 1].copy()),
+        )
+
+    @property
+    def num_frames(self) -> int:
+        return self.view.shape[0]
+
+    def twice(self) -> "CameraBatch":
+        """The 2F cameras of a step: the white-background pass, then the
+        black one."""
+        return CameraBatch(*(torch.cat([x, x]) for x in self))
+
+
+class LearningRates(NamedTuple):
+    location: float
+    sh: float
+    scale: float
+    opacity: float
+    rotation: float
+    scale_max: float
+
+    @classmethod
+    def from_project(cls, p: Project) -> "LearningRates":
+        return cls(location=p.lrLocation, sh=p.lrSh, scale=p.lrScale,
+                   opacity=p.lrOpacity, rotation=p.lrRotation, scale_max=p.paramScaleMax)
+
+
+class TrainMetrics(NamedTuple):
+    loss: torch.Tensor  # () mean MSE over all 2F frames
+    var_loc: torch.Tensor  # (C,) densify variance signal
+    avg_grad_loc: torch.Tensor  # (C, 3) mean location gradient
+    num_dup: int  # most binning duplicates of any frame this step (fused
+    # path; -1 when the renderer doesn't report it).  > max_dup means the
+    # deepest duplicates were dropped; Trainer.maybe_grow_dup_buffer grows it.
+    num_work: int = -1  # the JAX package's work-list count; no work list here
+
+
+RenderFn = Callable[..., torch.Tensor]
+
+
+def _default_render(kind: str, row_chunk: int,
+                    runtime: Optional[RuntimeConfig] = None) -> RenderFn:
+    if kind == "oracle":
+        from gaussian_splatterer_tpu_torch.ops.raster_reference import render_oracle
+
+        return partial(render_oracle, row_chunk=row_chunk)
+    if kind == "tiled":
+        from gaussian_splatterer_tpu_torch.ops.raster_tiled import render_tiled
+
+        # only the Trainer's serve render reaches here: make_train_step
+        # refuses a non-fused tiled step before asking for a renderer
+        return partial(render_tiled, tile=runtime.tile_px, max_dup=runtime.max_dup,
+                       aa=runtime.mip_antialias)
+    raise ValueError(f"unknown renderer {kind!r}")
+
+
+def fused_kw_from_runtime(runtime: Optional[RuntimeConfig]) -> dict:
+    """Fused-step options from the RuntimeConfig.  ``train_mm_bf16``,
+    ``train_chunk``, ``train_work_cap``, ``train_fast_exp`` and
+    ``train_mm_power`` tune the TPU kernel and have no counterpart here:
+    the CUDA kernel computes in float32 and has no work list."""
+    if runtime is None:
+        return {}
+    return dict(tile=runtime.tile_px, max_dup=runtime.max_dup, aa=runtime.mip_antialias)
+
+
+def _largest_divisor_leq(n: int, k: int) -> int:
+    k = max(1, min(n, k))
+    while n % k:
+        k -= 1
+    return k
+
+
+def _params(model: SplatModel):
+    return (model.means, model.shs, model.scales, model.opacities, model.rotations)
+
+
+@torch.no_grad()
+def _apply_sgd(model: SplatModel, avg, lrs: LearningRates) -> None:
+    g_means, g_shs, g_scales, g_opac, g_rot = avg
+    model.means.add_(g_means * lrs.location)
+    model.shs.add_(g_shs * lrs.sh)
+    model.scales.copy_(torch.clamp(model.scales + g_scales * lrs.scale, 0.0, lrs.scale_max))
+    model.opacities.copy_(torch.clamp(model.opacities + g_opac * lrs.opacity, 0.0, 1.0))
+    model.rotations.add_(g_rot * lrs.rotation)
+
+
+def make_train_step(
+    width: int,
+    height: int,
+    sh_degree: int,
+    renderer: str = "oracle",
+    row_chunk: int = 32,
+    render_fn: Optional[RenderFn] = None,
+    fused: bool = False,
+    fused_opts: Optional[dict] = None,
+    frame_group: int = 8,
+):
+    """Build a (model, truths, cams, lrs) -> (model, metrics) step.
+
+    truths: (2F, H, W, 3) float32, F white-background frames then F
+    black-background frames in the same camera order (src/Trainer.cu:
+    311-314); with ``fused=True`` pre-tiled to (2F, T, P, 3) with
+    ops.raster_tiled.image_to_tiles.  The fused step composites
+    ``frame_group`` frames per kernel launch, snapped down to a divisor of
+    2F.  The model's parameters are updated in place."""
+    fkw = dict(fused_opts or {})
+    if not fused:
+        if render_fn is None and renderer == "tiled":
+            raise NotImplementedError(
+                "the non-fused tiled train step needs the backward kernel of the "
+                "serve path (K2, ROADMAP A2), which is not ported yet; train at a "
+                "resolution that is a multiple of the tile to take the fused step")
+        render = render_fn if render_fn is not None else _default_render(renderer, row_chunk)
+
+    def step(model: SplatModel, truths: torch.Tensor, cams: CameraBatch, lrs: LearningRates):
+        f = cams.num_frames
+        if truths.shape[0] != 2 * f:
+            raise ValueError("need a white and a black frame per camera")
+        samples = float(2 * f)
+        dev = model.device
+        active = model.active_mask()
+        cams2 = cams.twice()
+        bgs = torch.cat([torch.ones((f, 3)), torch.zeros((f, 3))]).to(dev)
+        gsum = [torch.zeros_like(p) for p in _params(model)]
+        var = torch.zeros((model.capacity,), dtype=torch.float32, device=dev)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        if fused:
+            group = _largest_divisor_leq(2 * f, frame_group)
+            num_dup = 0
+            for g0 in range(0, 2 * f, group):
+                sl = slice(g0, g0 + group)
+                l_sum, g, v, _, nd, _ = render_train_grads_batch(
+                    *_params(model), active, *(x[sl] for x in cams2),
+                    width, height, truths[sl], bgs[sl], sh_degree, **fkw)
+                for acc, gi in zip(gsum, g):
+                    acc += gi
+                var += v
+                loss_sum += l_sum
+                num_dup = max(num_dup, nd)
+            avg = [x / samples for x in gsum]
+            var = var / samples
+        else:
+            avg = gsum
+            for i in range(2 * f):
+                leaves = [p.detach().clone().requires_grad_(True) for p in _params(model)]
+                with torch.enable_grad():
+                    img = render(*leaves, active, cams2.view[i], cams2.proj_view[i],
+                                 cams2.cam_pos[i], float(cams2.tan_fovx[i]),
+                                 float(cams2.tan_fovy[i]), width, height, bgs[i],
+                                 sh_degree, 1.0)
+                residual = (truths[i] - img).detach()  # signed diff = -dL/dpixel of L2/2
+                g = torch.autograd.grad(img, leaves, residual)
+                for acc, gi in zip(avg, g):
+                    acc += gi / samples
+                var += torch.linalg.vector_norm(g[0], dim=-1) / samples
+                loss_sum += torch.mean(torch.square(residual))
+            num_dup = -1  # not reported off the fused path
+        _apply_sgd(model, avg, lrs)
+        return model, TrainMetrics(loss=loss_sum / samples, var_loc=var,
+                                   avg_grad_loc=avg[0], num_dup=num_dup)
+
+    return step
+
+
+def randomize_rig_rotations(project: Project, rng: Optional[random.Random] = None) -> None:
+    """All four rig rotations -> uniform [0, 360) (reference
+    src/ui/tools/UiPanelToolsTruth.cpp:192-197; auto-train triggers this
+    before every re-capture, src/ui/UiFrame.cpp:286-290)."""
+    r = rng or random
+    for sph in (project.sphere1, project.sphere2):
+        sph.rotX = r.uniform(0.0, 360.0)
+        sph.rotY = r.uniform(0.0, 360.0)
+
+
+class Trainer:
+    """Host-side orchestration: owns the model, truth buffers and schedules.
+
+    ``rtx`` is any object with ``render(camera, background, samples, width,
+    height) -> (H, W, 3)`` image (numpy or tensor): the path tracer once it
+    is ported (ROADMAP A4), a surrogate such as renders of a teacher model
+    until then.  The model's device is the training device.
+    """
+
+    def __init__(
+        self,
+        project: Project,
+        runtime: RuntimeConfig,
+        model: SplatModel,
+        renderer: str = "oracle",
+        row_chunk: int = 32,
+        render_fn: Optional[RenderFn] = None,
+        devices: Optional[Sequence] = None,
+    ):
+        n_dev = len(devices) if devices is not None else int(runtime.train_devices or 0)
+        if n_dev > 1:
+            raise NotImplementedError(
+                "multi-device training (train_devices / devices > 1) is not ported "
+                "yet (ROADMAP A6)")
+        self.project = project
+        self.runtime = runtime
+        self.model = model
+        self.renderer = renderer
+        self.row_chunk = row_chunk
+        self._user_render = render_fn is not None
+        self._render_fn = render_fn
+        self.truths: Optional[torch.Tensor] = None  # (2F, H, W, 3) or (2F, T, P, 3)
+        self.truth_cams: Optional[CameraBatch] = None
+        self.last_metrics: Optional[TrainMetrics] = None
+        self._last_buffer_check_it: Optional[int] = None
+        self._build_step()
+
+    def _build_step(self) -> None:
+        """(Re)build the step from the current RuntimeConfig: at
+        construction and when maybe_grow_dup_buffer grows max_dup."""
+        runtime = self.runtime
+        if not self._user_render:
+            self._render_fn = _default_render(self.renderer, self.row_chunk, runtime)
+        self._fused = (
+            self.renderer == "tiled" and not self._user_render
+            and runtime.render_resolution_x % runtime.tile_px == 0
+            and runtime.render_resolution_y % runtime.tile_px == 0
+        )
+        self._step = make_train_step(
+            runtime.render_resolution_x, runtime.render_resolution_y, runtime.sh_degree,
+            renderer=self.renderer, row_chunk=self.row_chunk,
+            render_fn=self._render_fn if self._user_render else None,
+            fused=self._fused, fused_opts=fused_kw_from_runtime(runtime),
+            frame_group=runtime.frame_group,
+        )
+
+    # ------------------------------------------------------------------
+    def maybe_grow_dup_buffer(self, metrics: Optional[TrainMetrics] = None) -> bool:
+        """Grow max_dup after a binning overflow.
+
+        The fused step reports the most duplicates any frame generated
+        (TrainMetrics.num_dup).  The reference radix-sorts the exact count
+        and cannot truncate (src/Trainer.cu:334-360), so when num_dup >
+        max_dup this grows max_dup, with 25% headroom rounded up to a
+        multiple of train_chunk, and returns True.  The step that overflowed
+        dropped its deepest duplicates.  One check per iteration.  (The JAX
+        package also shrinks its static buffers; here buffers are sized from
+        the true count every step, so there is nothing to shrink.)"""
+        metrics = metrics if metrics is not None else self.last_metrics
+        if metrics is None:
+            return False
+        it = self.project.iterations
+        if self._last_buffer_check_it == it:
+            return False
+        self._last_buffer_check_it = it
+        nd = int(metrics.num_dup)
+        if nd <= self.runtime.max_dup:
+            return False
+        chunk = self.runtime.train_chunk
+        new_max = -(-int(nd * 1.25) // chunk) * chunk
+        warnings.warn(
+            f"binning duplicate buffer overflow: {nd} > max_dup={self.runtime.max_dup}; "
+            f"growing to {new_max} (the overflowing step dropped its deepest duplicates)")
+        self.runtime.max_dup = new_max
+        self._build_step()
+        return True
+
+    def calibrate_work_cap(self, metrics: Optional[TrainMetrics] = None,
+                           slack: float = 4.0) -> bool:
+        """The JAX package sizes its TPU work-list budget here.  The CUDA
+        kernel has no work list: nothing to calibrate."""
+        return False
+
+    # ------------------------------------------------------------------
+    def capture_truths(self, rtx) -> None:
+        """Photograph the scene from every rig camera against white AND
+        black backgrounds (src/Trainer.cu:218-250): whites then blacks,
+        tiled for the fused step."""
+        w = self.runtime.render_resolution_x
+        h = self.runtime.render_resolution_y
+        dev = self.model.device
+        cameras = Camera.get_cameras(self.project)
+
+        def shoot(c, bg):
+            img = rtx.render(c, bg, self.project.rtSamples, w, h)
+            return torch.as_tensor(img, dtype=torch.float32).to(dev)
+
+        whites = [shoot(c, (1.0, 1.0, 1.0)) for c in cameras]
+        blacks = [shoot(c, (0.0, 0.0, 0.0)) for c in cameras]
+        truths = torch.stack(whites + blacks)
+        if self._fused:
+            truths = image_to_tiles(truths, self.runtime.tile_px).contiguous()
+        self.truths = truths
+        self.truth_cams = CameraBatch.from_cameras(cameras, w, h, train=True, device=dev)
+
+    # ------------------------------------------------------------------
+    def train(self, densify_now: bool = False) -> TrainMetrics:
+        if self.truths is None:
+            raise RuntimeError("Can't run training iteration, no truth data available!")
+        p, runtime = self.project, self.runtime
+        p.iterations += 1
+        lrs = LearningRates.from_project(p)
+        px_scale = 1.0
+        if runtime.lr_resolution_ref:
+            # gradients are pixel sums (src/Trainer.cu:33-44): scale the LRs by
+            # ref_pixels / actual_pixels so a recipe tuned at
+            # lr_resolution_ref^2 behaves the same at this resolution
+            ref = runtime.lr_resolution_ref
+            px_scale = (ref * ref) / float(runtime.render_resolution_x
+                                           * runtime.render_resolution_y)
+            lrs = lrs._replace(location=p.lrLocation * px_scale, sh=p.lrSh * px_scale,
+                               scale=p.lrScale * px_scale, opacity=p.lrOpacity * px_scale,
+                               rotation=p.lrRotation * px_scale)
+        if runtime.lr_location_decay != 1.0:
+            # 3DGS-style exponential location-LR schedule (off by default)
+            lrs = lrs._replace(location=p.lrLocation * px_scale
+                               * runtime.lr_location_decay ** p.iterations)
+        self.model, metrics = self._step(self.model, self.truths, self.truth_cams, lrs)
+        if densify_now:
+            dp = DensifyParams.from_project(p)
+            threshold = p.paramDensifyVariance / px_scale
+            if runtime.densify_variance_decay != 1.0:
+                # anneal the split/clone trigger over training (off by default)
+                threshold *= runtime.densify_variance_decay ** p.iterations
+            dp = dp._replace(densify_variance=threshold)
+            self.model = densify(self.model, metrics.var_loc, metrics.avg_grad_loc, dp)
+            self.maybe_grow_dup_buffer(metrics)
+        reset_iv = runtime.opacity_reset_interval
+        if reset_iv and p.iterations % reset_iv == 0:
+            # 3DGS-style opacity reset (off by default; no reference equivalent)
+            with torch.no_grad():
+                self.model.opacities.clamp_(max=0.01)
+        self.last_metrics = metrics
+        return metrics
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def binning_stats(self, camera_index: int = 0) -> dict:
+        """Duplicate-buffer utilization for one truth camera: num_dup over
+        max_dup; > 1.0 means the deepest duplicates are dropped."""
+        from gaussian_splatterer_tpu_torch.ops.binning import bin_splats
+        from gaussian_splatterer_tpu_torch.ops.transforms import project_splat_components
+
+        if self.truth_cams is None:
+            raise RuntimeError("no truth cameras captured")
+        i, m, rt = camera_index, self.model, self.runtime
+        cams = self.truth_cams
+        c = project_splat_components(
+            m.means, m.shs, m.scales, m.opacities, m.rotations, m.active_mask(),
+            cams.view[i], cams.proj_view[i], cams.cam_pos[i], float(cams.tan_fovx[i]),
+            float(cams.tan_fovy[i]), rt.render_resolution_x, rt.render_resolution_y,
+            rt.sh_degree, 1.0, aa=rt.mip_antialias,
+        )
+        num = bin_splats(c, rt.render_resolution_x, rt.render_resolution_y, rt.tile_px,
+                         rt.max_dup).num_dup
+        return {"num_dup": num, "max_dup": rt.max_dup, "utilization": num / rt.max_dup,
+                "overflow": num > rt.max_dup}
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def render(self, camera: Camera, width: Optional[int] = None,
+               height: Optional[int] = None, splat_scale: float = 1.0) -> torch.Tensor:
+        """Forward-only serve path: black background, aspect-scaled x-FOV
+        quirk preserved (src/Trainer.cu:148-216)."""
+        w = width or self.runtime.render_resolution_x
+        h = height or self.runtime.render_resolution_y
+        tan_x, tan_y = camera.tan_fov(w, h, train=False)
+        m = self.model
+        return self._render_fn(
+            m.means, m.shs, m.scales, m.opacities, m.rotations, m.active_mask(),
+            camera.get_view(), camera.get_proj_view(w / h), camera.location, tan_x, tan_y,
+            w, h, torch.zeros(3, device=m.device), m.sh_degree, splat_scale,
+        )

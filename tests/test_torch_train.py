@@ -1,0 +1,547 @@
+"""PyTorch port vs JAX package: the training slice (fused train core,
+densify, train step, Trainer and auto_train).
+
+On the CPU the port's fused compositor is its plain PyTorch version
+(composite_train_reference); the JAX side runs its Pallas kernel in
+interpret mode with float32 cumsums (mm_bf16=False; the Trainer's
+train_mm_bf16 default rounds them to bf16).  Tolerances: loss rtol 1e-5,
+residuals atol 1e-5, gradients atol 5e-5 of the largest magnitude of
+their row or parameter (tests/test_raster_tiled.py's tolerance).  The two
+sides differ only in summation order: sequential transmittance products
+and pixel sums here, triangular-matmul cumsums there.
+
+The CUDA kernel's tests (marker ``cuda``) need a card and skip here."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+from torch_parity import (  # noqa: F401
+    W, H, camera_stack, cuda_device, jax_model, model_arrays, random_splats, random_truths,
+    to_jax, to_torch,
+)
+
+from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
+from gaussian_splatterer_tpu_torch.models.camera import Camera
+from gaussian_splatterer_tpu_torch.models.splats import SplatModel
+from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+from gaussian_splatterer_tpu_torch.ops.binning import bin_frames, bin_splats
+from gaussian_splatterer_tpu_torch.ops.raster_reference import render_oracle
+from gaussian_splatterer_tpu_torch.ops.transforms import (
+    SH_C0, SplatComponents, project_splat_components,
+)
+from gaussian_splatterer_tpu_torch.train import (
+    CameraBatch, DensifyParams, LearningRates, Trainer, auto_train, densify,
+    make_train_step,
+)
+
+LOSS_RTOL, RES_ATOL, GRAD_ATOL = 1e-5, 1e-5, 5e-5
+GRAD_NAMES = ("means", "shs", "scales", "opacities", "rotations")
+
+
+def assert_rel_close(a, b, err_msg=""):
+    """|a - b| <= GRAD_ATOL * max(1e-3, max |b|)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    scale = max(1e-3, float(np.max(np.abs(b)))) if b.size else 1.0
+    np.testing.assert_allclose(a / scale, b / scale, atol=GRAD_ATOL, err_msg=err_msg)
+
+
+def jax_res(res8):
+    """JAX channel-major (F, T, 8, P) residual tiles -> (F, T, P, 4)."""
+    return np.asarray(res8)[..., 0:4, :].swapaxes(-1, -2)
+
+
+def project_stack(arrays, cams, width=W, height=H):
+    """Port projection of each frame, fields stacked to (F, N)."""
+    views, pvs, poss, txs, tys = cams
+    frames = [project_splat_components(*to_torch(arrays), views[i], pvs[i], poss[i],
+                                       float(txs[i]), float(tys[i]), width, height, 1)
+              for i in range(len(views))]
+    return SplatComponents(*(torch.stack(xs) for xs in zip(*frames)))
+
+
+def jax_tiles(imgs, tile):
+    import jax
+    import jax.numpy as jnp
+    from gaussian_splatterer_tpu.ops.raster_tiled import image_to_tiles_cm
+
+    return jax.vmap(lambda im: image_to_tiles_cm(im, tile))(jnp.asarray(imgs))
+
+
+# -- the fused train core ------------------------------------------------------
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_train_grads_rows_match_jax(tile):
+    """Same pre-projected rows into both: loss, residual tiles, d_rows."""
+    from gaussian_splatterer_tpu.ops.raster_tiled import render_train_grads_rows as j_rows
+    from gaussian_splatterer_tpu.ops.transforms import SplatComponents as JComps
+
+    comps = project_stack(random_splats(40, 21), camera_stack(2))
+    truths, bgs = random_truths(2, 3)
+    loss_t, d_t, res_t, nd_t, nw_t = rt.render_train_grads_rows(
+        comps, W, H, rt.image_to_tiles(torch.from_numpy(truths), tile), torch.from_numpy(bgs),
+        tile=tile, max_dup=2**12)
+    loss_j, d_j, res_j, nd_j, _ = j_rows(
+        JComps(*to_jax([x.numpy() for x in comps])), W, H, jax_tiles(truths, tile),
+        to_jax([bgs])[0], tile=tile, max_dup=2**12, interpret=True, mm_bf16=False)
+    assert nd_t == int(nd_j) > 0 and nw_t == -1
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(res_t.numpy(), jax_res(res_j), atol=RES_ATOL)
+    d_j = np.asarray(d_j)
+    assert d_t.shape == d_j.shape == (2, 9, 40)
+    for r in range(9):
+        assert_rel_close(d_t[:, r].numpy(), d_j[:, r], f"d_rows row {r}")
+
+
+def _batch_inputs(frames, tile, seed=31, n=40, cap=None):
+    arrays = random_splats(n, seed, cap=cap)
+    cams = camera_stack(frames)
+    truths, bgs = random_truths(frames, 5)
+    return arrays, cams, truths, bgs
+
+
+def _jax_batch(arrays, cams, truths, bgs, tile, max_dup):
+    from gaussian_splatterer_tpu.ops.raster_tiled import render_train_grads_batch as j_batch
+
+    return j_batch(*to_jax(arrays), *to_jax(cams), W, H, jax_tiles(truths, tile),
+                   to_jax([bgs])[0], 1, tile=tile, max_dup=max_dup, interpret=True,
+                   mm_bf16=False)
+
+
+@pytest.mark.parametrize("max_dup", [2**12, 96])
+def test_train_grads_batch_match_jax(max_dup):
+    """F = 3: loss, the five gradients, var_loc, residuals and num_dup; at
+    max_dup 96 the frames overflow and drop their deepest duplicates."""
+    tile = 16
+    arrays, cams, truths, bgs = _batch_inputs(3, tile)
+    loss_t, g_t, var_t, res_t, nd_t, nw_t = rt.render_train_grads_batch(
+        *to_torch(arrays), *cams, W, H, rt.image_to_tiles(torch.from_numpy(truths), tile),
+        torch.from_numpy(bgs), 1, tile=tile, max_dup=max_dup)
+    loss_j, g_j, var_j, res_j, nd_j, _ = _jax_batch(arrays, cams, truths, bgs, tile, max_dup)
+    assert nd_t == int(nd_j) and nw_t == -1
+    assert (nd_t > max_dup) == (max_dup < 2**12)
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(res_t.numpy(), jax_res(res_j), atol=RES_ATOL)
+    for name, a, b in zip(GRAD_NAMES, g_t, g_j):
+        assert a.shape == b.shape
+        assert_rel_close(a.numpy(), b, f"gradient {name}")
+    assert_rel_close(var_t.numpy(), var_j, "var_loc")
+
+
+def test_train_grads_single_frame_match_jax():
+    """F = 1 at tile 16.  (At tile 32 the JAX side's tile-local moment
+    products put up to 8e-5 of the largest scale and rotation gradient on
+    them against a float64 oracle, and the port 1e-6: the oracle test below
+    holds the port at tile 32.)"""
+    from gaussian_splatterer_tpu.ops.raster_tiled import render_train_grads as j_one
+
+    tile = 16
+    arrays, cams, truths, bgs = _batch_inputs(1, tile, seed=8)
+    one = [c[0] for c in cams]
+    loss_t, g_t, res_t = rt.render_train_grads(
+        *to_torch(arrays), *one, W, H, rt.image_to_tiles(torch.from_numpy(truths[0]), tile),
+        torch.from_numpy(bgs[0]), 1, tile=tile, max_dup=2**12)
+    loss_j, g_j, res_j = j_one(*to_jax(arrays), *to_jax(one[:3]), one[3], one[4], W, H,
+                               jax_tiles(truths, tile)[0], to_jax([bgs[0]])[0], 1,
+                               tile=tile, max_dup=2**12, interpret=True, mm_bf16=False)
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(res_t.numpy(), jax_res(res_j[None])[0], atol=RES_ATOL)
+    for name, a, b in zip(GRAD_NAMES, g_t, g_j):
+        assert_rel_close(a.numpy(), b, f"gradient {name}")
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_fused_grads_match_autograd_of_oracle(tile):
+    """The fused gradients are J^T residual: autograd of -1/2 |img - truth|^2
+    through the port's oracle with the tile-granular cull."""
+    arrays, cams, truths, bgs = _batch_inputs(2, tile, seed=12)
+    params = to_torch(arrays)
+    loss_f, g_f, *_ = rt.render_train_grads_batch(
+        *params, *cams, W, H, rt.image_to_tiles(torch.from_numpy(truths), tile),
+        torch.from_numpy(bgs), 1, tile=tile, max_dup=2**12)
+    leaves = [p.clone().requires_grad_(True) for p in params[:5]]
+    total, loss_o = 0.0, 0.0
+    for i in range(2):
+        img = render_oracle(*leaves, params[5], *(c[i] for c in cams), W, H,
+                            torch.from_numpy(bgs[i]), 1, row_chunk=16, tile_cull=tile)
+        diff = img - torch.from_numpy(truths[i])
+        total = total - 0.5 * torch.sum(diff * diff)
+        loss_o = loss_o + float(torch.mean(diff.detach() ** 2))
+    g_o = torch.autograd.grad(total, leaves)
+    np.testing.assert_allclose(float(loss_f), loss_o, rtol=1e-5)
+    for name, a, b in zip(GRAD_NAMES, g_f, g_o):
+        assert_rel_close(a.numpy(), b.numpy(), f"gradient {name}")
+
+
+@pytest.mark.parametrize("aa", [False, True])
+def test_padded_slots_get_finite_zero_gradients(aa):
+    """Inactive capacity slots (zero means and scales, identity rotation)
+    and a zero quaternion in one: every gradient finite, zero off the
+    live splats, with and without the mip anti-aliasing."""
+    tile = 16
+    arrays, cams, truths, bgs = _batch_inputs(2, tile, n=30, cap=48)
+    rot = arrays[4].copy()
+    rot[40] = 0.0  # a padded slot with a zero quaternion
+    arrays = (*arrays[:4], rot, arrays[5])
+    _, grads, var, res, _, _ = rt.render_train_grads_batch(
+        *to_torch(arrays), *cams, W, H, rt.image_to_tiles(torch.from_numpy(truths), tile),
+        torch.from_numpy(bgs), 1, tile=tile, max_dup=2**12, aa=aa)
+    for name, g in zip(GRAD_NAMES, grads):
+        assert torch.isfinite(g).all(), name
+        assert not g[30:].any(), name
+    assert torch.isfinite(var).all() and not var[30:].any()
+    assert torch.isfinite(res).all()
+    assert grads[0][:30].abs().max() > 0
+
+
+def test_bin_frames_concatenates_ranges():
+    comps = project_stack(random_splats(40, 21), camera_stack(2))
+    frames = [SplatComponents(*(x[i] for x in comps)) for i in range(2)]
+    fb = bin_frames(frames, W, H, 16, 2**12)
+    b0, b1 = (bin_splats(c, W, H, 16, 2**12) for c in frames)
+    d0 = b0.gather_idx.shape[0]
+    assert fb.tile_start.shape == (32,) and int(fb.tile_end[15]) == d0
+    assert torch.equal(fb.tile_start[16:], b1.tile_start + d0)
+    assert torch.equal(fb.gather_idx[d0:], b1.gather_idx + 40)
+    assert fb.num_dup == max(b0.num_dup, b1.num_dup) != min(b0.num_dup, b1.num_dup)
+
+
+def test_train_empty_tiles_write_truth_minus_background():
+    feat = torch.zeros((9, 0))
+    ranges = torch.zeros(8, dtype=torch.int32)
+    truth = torch.rand((8, 64, 3), generator=torch.Generator().manual_seed(0))
+    bg = torch.tensor([[0.1, 0.2, 0.3], [0.5, 0.5, 0.5]])
+    res, d_feat = rt.composite_train(feat, ranges, ranges, truth, bg, 8, 2, 4)
+    assert d_feat.shape == (9, 0)
+    assert torch.equal(res[:4, :, :3], truth[:4] - bg[0])
+    assert torch.equal(res[4:, :, :3], truth[4:] - bg[1])
+    assert torch.equal(res[..., 3], torch.ones((8, 64)))
+
+
+def test_composite_train_rejects_bad_arguments():
+    feat = torch.zeros((9, 4))
+    ranges = torch.zeros(4, dtype=torch.int32)
+    truth, bg = torch.zeros((4, 256, 3)), torch.zeros((2, 3))
+    with pytest.raises(ValueError, match="truth"):
+        rt.composite_train(feat, ranges, ranges, truth[:, :64], bg, 16, 2, 2)
+    with pytest.raises(ValueError, match="frames"):
+        rt.composite_train(feat, ranges, ranges, truth, bg[:1], 16, 2, 2)
+    with pytest.raises(ValueError, match="tile"):
+        rt.composite_train(feat, ranges, ranges, truth, bg, 12, 2, 2)
+
+
+# -- CUDA kernel (needs a card) ------------------------------------------------
+
+
+def _kernel_inputs(device, tile, frames=2, n=200, seed=3):
+    """Binned duplicate rows, truth tiles and backgrounds of ``frames``
+    frames, as one composite_train launch takes them."""
+    comps = project_stack(random_splats(n, seed), camera_stack(frames))
+    frames_c = [SplatComponents(*(x[i].to(device) for x in comps)) for i in range(frames)]
+    rows9 = torch.cat([rt._rows(c) for c in frames_c], dim=1)
+    truths, bgs = random_truths(frames, 4)
+    _, args = rt.train_launch_inputs(
+        rows9, frames_c, W, H, rt.image_to_tiles(torch.from_numpy(truths), tile),
+        torch.from_numpy(bgs), tile, 2**13)
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_train_kernel_matches_plain_version(cuda_device, tile):
+    """Residual atol 1e-5 and d_feat within 1e-4 of each row's largest
+    magnitude: the two take the same decisions and differ only in the order
+    of the sums over a tile's pixels."""
+    args = _kernel_inputs(cuda_device, tile)
+    before = rt.composite_train_launches
+    res_k, d_k = rt.composite_train(*args)
+    torch.cuda.synchronize()
+    assert rt.composite_train_launches == before + 1
+    res_p, d_p = rt.composite_train_reference(*args)
+    assert torch.isfinite(res_k).all() and torch.isfinite(d_k).all()
+    assert float((res_k - res_p).abs().max()) <= 1e-5
+    scale = d_p.abs().amax(dim=1, keepdim=True).clamp(min=1e-3)
+    assert float(((d_k - d_p).abs() / scale).max()) <= 1e-4
+    assert d_p.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_train_kernel_empty_tiles(cuda_device):
+    feat = torch.zeros((9, 0), device=cuda_device)
+    ranges = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    truth = torch.rand((8, 1024, 3), device=cuda_device)
+    bg = torch.tensor([[0.1, 0.2, 0.3], [0.5, 0.5, 0.5]], device=cuda_device)
+    res, _ = rt.composite_train(feat, ranges, ranges, truth, bg, 32, 2, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(res[:4, :, :3], truth[:4] - bg[0])
+    assert torch.equal(res[4:, :, :3], truth[4:] - bg[1])
+    assert torch.equal(res[..., 3], torch.ones((8, 1024), device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_train_grads_on_card_match_cpu(cuda_device):
+    tile = 32
+    arrays, cams, truths, bgs = _batch_inputs(3, tile, n=120)
+    tiles = rt.image_to_tiles(torch.from_numpy(truths), tile)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = to_torch(arrays, dev)
+        out[str(dev)] = rt.render_train_grads_batch(
+            *params, *cams, W, H, tiles.to(dev), torch.from_numpy(bgs).to(dev), 1,
+            tile=tile, max_dup=2**12)
+    (loss_c, g_c, var_c, res_c, nd_c, _), (loss_k, g_k, var_k, res_k, nd_k, _) = out.values()
+    assert nd_c == nd_k
+    np.testing.assert_allclose(float(loss_k), float(loss_c), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(res_k.cpu().numpy(), res_c.numpy(), atol=RES_ATOL)
+    for name, a, b in zip(GRAD_NAMES, g_k, g_c):
+        assert_rel_close(a.cpu().numpy(), b.numpy(), f"gradient {name}")
+    assert_rel_close(var_k.cpu().numpy(), var_c.numpy(), "var_loc")
+
+
+# -- train step, densify, Trainer and auto_train -------------------------------
+
+RES, TILE = 32, 16
+
+
+def _rig(cams=4):
+    """The app's rig cut to ``cams`` cameras, with the boosted rates of
+    tests/test_trainer.py so that a short run moves."""
+    p = Project.app_default()
+    p.sphere1.count = cams
+    p.lrLocation, p.lrSh, p.lrScale, p.lrOpacity, p.lrRotation = 1e-2, 2.5e-2, 5e-3, 2.5e-2, 5e-3
+    return p
+
+
+def _runtime(**kw):
+    return RuntimeConfig(render_resolution_x=RES, render_resolution_y=RES, tile_px=TILE,
+                         max_dup=2**12, frame_group=4, train_mm_bf16=False, **kw)
+
+
+def test_fused_train_step_matches_jax():
+    """4-camera rig, 8 frames a step, frame_group 4 (two launches): the
+    metrics and the parameter updates of one SGD step."""
+    import jax.numpy as jnp
+    from gaussian_splatterer_tpu.train.trainer import CameraBatch as JCams
+    from gaussian_splatterer_tpu.train.trainer import LearningRates as JLrs
+    from gaussian_splatterer_tpu.train.trainer import make_train_step as j_make_step
+
+    arrays = random_splats(40, 17, cap=48)
+    p = _rig()
+    cams = CameraBatch.from_cameras(Camera.get_cameras(p), RES, RES, device="cpu")
+    truths, _ = random_truths(8, 9, RES, RES)
+    lrs = LearningRates.from_project(p)
+    model = SplatModel.from_numpy(*arrays[:5], count=40, device="cpu")
+    step = make_train_step(RES, RES, 1, renderer="tiled", fused=True,
+                           fused_opts=dict(tile=TILE, max_dup=2**12), frame_group=4)
+    before = rt.composite_train_launches
+    model, m_t = step(model, rt.image_to_tiles(torch.from_numpy(truths), TILE), cams, lrs)
+    assert rt.composite_train_launches == before  # the plain version, on the CPU
+    j_step = j_make_step(RES, RES, 1, renderer="tiled", fused=True,
+                         fused_opts=dict(tile=TILE, max_dup=2**12, mm_bf16=False), frame_group=4)
+    j_model, m_j = j_step(jax_model(arrays, 40), jax_tiles(truths, TILE),
+                          JCams(*(jnp.asarray(x.numpy()) for x in cams)),
+                          JLrs(*(jnp.float32(x) for x in lrs)))
+    assert m_t.num_dup == int(m_j.num_dup) > 0
+    np.testing.assert_allclose(float(m_t.loss), float(m_j.loss), rtol=LOSS_RTOL)
+    assert_rel_close(m_t.var_loc.numpy(), m_j.var_loc, "var_loc")
+    assert_rel_close(m_t.avg_grad_loc.numpy(), m_j.avg_grad_loc, "avg_grad_loc")
+    (new_t, _), (new_j, _) = model_arrays(model), model_arrays(j_model)
+    for name, a, b, old in zip(GRAD_NAMES, new_t, new_j, arrays):
+        assert_rel_close(a - old, b - old, f"update of {name}")
+
+
+@pytest.mark.parametrize("capacity", [96, 52])
+def test_densify_matches_jax(capacity):
+    """Cull, split and clone of 40 splats; at capacity 52 the appends stop
+    at the capacity, splits first."""
+    from gaussian_splatterer_tpu.train.densify import DensifyParams as JParams
+    from gaussian_splatterer_tpu.train.densify import densify as j_densify
+
+    n = 40
+    means, shs, scales, opac, rot, _ = random_splats(n, 23, cap=capacity)
+    opac[:3] = 0.001  # culled for opacity
+    scales[3:5] = 0.001  # culled for size
+    rng = np.random.default_rng(5)
+    var = np.zeros(capacity, np.float32)
+    var[:n] = rng.uniform(0.0, 2.0, n)
+    grad = np.zeros((capacity, 3), np.float32)
+    grad[:n] = rng.normal(0.0, 0.3, (n, 3))
+    arrays = (means, shs, scales, opac, rot)
+    dp = DensifyParams(cull_opacity=0.005, cull_size=0.004, densify_variance=0.5,
+                       split_size=0.45, split_distance=1.5, split_scale=0.8, clone_distance=1.6)
+    out_t = densify(SplatModel.from_numpy(*arrays, count=n, device="cpu"),
+                    torch.from_numpy(var), torch.from_numpy(grad), dp)
+    out_j = j_densify(jax_model(arrays, n), *to_jax([var, grad]), JParams(*map(np.float32, dp)))
+    (a_t, c_t), (a_j, c_j) = model_arrays(out_t), model_arrays(out_j)
+    volatile = (var - np.linalg.norm(grad, axis=-1) > 0.5)[5:n]
+    splits = (volatile & (np.linalg.norm(scales, axis=-1)[5:n] > 0.45)).sum()
+    assert 0 < splits < volatile.sum()  # both kinds of append
+    assert (capacity - n < volatile.sum()) == (capacity == 52)  # capped at 52 only
+    assert c_t == c_j == n - 5 + min(volatile.sum(), capacity - n)
+    for name, a, b in zip(GRAD_NAMES, a_t, a_j):
+        np.testing.assert_allclose(a, b, atol=1e-6, err_msg=name)
+
+
+class StubRtx:
+    """Truth source: one fixed image per background, whatever the camera."""
+
+    def __init__(self, seed):
+        self.images = random_truths(2, seed, RES, RES)[0]
+
+    def render(self, camera, background, samples, width, height):
+        return self.images[0 if background[0] > 0.5 else 1]
+
+
+def test_trainer_auto_train_matches_jax():
+    """Three auto_train steps of the port's Trainer and the JAX package's,
+    with the same truths: capture at iterations 0 and 2 (with a rig
+    rotation), densify at 0 and 2 (every splat splits; the second densify
+    reaches the capacity), the same counts and parameters."""
+    import dataclasses
+
+    from gaussian_splatterer_tpu.config import Project as JProject
+    from gaussian_splatterer_tpu.config import RuntimeConfig as JRuntimeConfig
+    from gaussian_splatterer_tpu.train import Trainer as JTrainer
+    from gaussian_splatterer_tpu.train import auto_train as j_auto_train
+
+    n, cap = 12, 40
+    arrays = random_splats(n, 29, cap=cap)
+    p = _rig()
+    p.intervalCapture = p.intervalDensify = 2
+    p.paramDensifyVariance = -1.0  # every splat volatile
+    p.paramSplitSize = 0.0  # and split: the split offsets do not read the gradient
+    runtime = _runtime(splats_capacity=cap)
+    trainers = {
+        "port": (Trainer(p, runtime, SplatModel.from_numpy(*arrays[:5], count=n, device="cpu"),
+                         renderer="tiled"), auto_train),
+        "jax": (JTrainer(JProject.from_json(p.to_json()),
+                         JRuntimeConfig(**dataclasses.asdict(runtime)), jax_model(arrays, n),
+                         renderer="tiled"), j_auto_train),
+    }
+    seen = {}
+    for name, (trainer, run) in trainers.items():
+        log = seen[name] = {"captures": [], "counts": [], "losses": []}
+        capture = trainer.capture_truths
+
+        def counting_capture(rtx, capture=capture, trainer=trainer, log=log):
+            log["captures"].append(trainer.project.iterations)
+            capture(rtx)
+
+        def on_step(it, m, trainer=trainer, log=log):
+            log["counts"].append(int(trainer.model.count))
+            log["losses"].append(float(m.loss))
+
+        trainer.capture_truths = counting_capture
+        run(trainer, StubRtx(7), 3, rng=random.Random(0), on_step=on_step)
+    port, jax_ = seen["port"], seen["jax"]
+    assert port["captures"] == jax_["captures"] == [0, 2]
+    assert port["counts"] == jax_["counts"] == [24, 24, 40]
+    np.testing.assert_allclose(port["losses"], jax_["losses"], rtol=LOSS_RTOL)
+    t_port, t_jax = trainers["port"][0], trainers["jax"][0]
+    assert t_port.project.sphere1.rotX == t_jax.project.sphere1.rotX != 0.0
+    (a_t, _), (a_j, _) = model_arrays(t_port.model), model_arrays(t_jax.model)
+    for name, a, b in zip(GRAD_NAMES, a_t, a_j):
+        np.testing.assert_allclose(a, b, atol=1e-5, err_msg=name)
+
+
+def _rgb_sh(rgb):
+    sh = np.zeros((4, 3), np.float32)
+    sh[0] = (np.asarray(rgb, np.float32) - 0.5) / SH_C0
+    return sh
+
+
+def _two_splats(centres, colours, sizes, opacities):
+    """A 16-slot model of two axis-aligned splats (tests/test_trainer.py's)."""
+    cap = 16
+    means, shs = np.zeros((cap, 3), np.float32), np.zeros((cap, 4, 3), np.float32)
+    scales, opac = np.zeros((cap, 3), np.float32), np.zeros(cap, np.float32)
+    rot = np.zeros((cap, 4), np.float32)
+    rot[:, 0] = 1.0
+    for i in range(2):
+        means[i], shs[i], scales[i], opac[i] = centres[i], _rgb_sh(colours[i]), sizes[i], \
+            opacities[i]
+    return SplatModel.from_numpy(means, shs, scales, opac, rot, count=2, device="cpu")
+
+
+class OracleRtx:
+    """Truth source: the port's oracle renders of a target model."""
+
+    def __init__(self, target):
+        self.target = target
+
+    def render(self, camera, background, samples, width, height):
+        m = self.target
+        tx, ty = camera.tan_fov(width, height, train=True)
+        return render_oracle(m.means, m.shs, m.scales, m.opacities, m.rotations,
+                             m.active_mask(), camera.get_view(),
+                             camera.get_proj_view(width / height), camera.location, tx, ty,
+                             width, height, torch.tensor(background, dtype=torch.float32),
+                             m.sh_degree, 1.0, row_chunk=16)
+
+
+def test_port_trainer_lowers_loss():
+    """tests/test_trainer.py's convergence check, on the port's fused step."""
+    p = _rig()
+    p.sphere1.distance = 5.0
+    target = _two_splats([[0.5, 0, 0], [-0.5, 0.3, 0]], [[0.9, 0.2, 0.1], [0.1, 0.8, 0.3]],
+                         [[0.4] * 3, [0.35] * 3], [0.9, 0.8])
+    student = _two_splats([[0.3, 0.1, 0.1], [-0.3, 0.2, -0.1]], [[0.5] * 3, [0.5] * 3],
+                          [[0.35] * 3, [0.4] * 3], [0.7, 0.7])
+    trainer = Trainer(p, _runtime(), student, renderer="tiled")
+    trainer.capture_truths(OracleRtx(target))
+    assert trainer._fused and trainer.truths.shape == (8, 4, 256, 3)
+    first = trainer.train()
+    for _ in range(29):
+        last = trainer.train()
+    assert p.iterations == 30
+    assert float(last.loss) < 0.5 * float(first.loss)
+    assert trainer.binning_stats()["num_dup"] > 0
+    img = trainer.render(Camera.get_cameras(p)[0])
+    assert img.shape == (RES, RES, 3) and torch.isfinite(img).all()
+
+
+def test_overflow_grows_dup_buffer():
+    """tests/test_trainer.py's overflow recovery: a step past max_dup drops
+    its deepest duplicates and reports the true count; the trainer grows
+    max_dup (25% headroom, a multiple of train_chunk) and trains on."""
+    student = SplatModel.from_numpy(*random_splats(30, 2, cap=32)[:5], count=30, device="cpu")
+    runtime = _runtime()
+    runtime.max_dup = 8
+    trainer = Trainer(_rig(), runtime, student, renderer="tiled")
+    trainer.capture_truths(StubRtx(3))
+    m1 = trainer.train()
+    assert m1.num_dup > 8
+    with pytest.warns(UserWarning, match="overflow"):
+        assert trainer.maybe_grow_dup_buffer(m1)
+    assert runtime.max_dup == -(-int(m1.num_dup * 1.25) // runtime.train_chunk) \
+        * runtime.train_chunk
+    m2 = trainer.train()
+    assert m2.num_dup <= runtime.max_dup and np.isfinite(float(m2.loss))
+    assert not trainer.maybe_grow_dup_buffer(m2)
+
+
+def test_from_numpy_copies_the_arrays():
+    """Training updates the model in place: the arrays it was made from
+    stay as they were."""
+    arrays = random_splats(8, 1, cap=16)[:5]
+    means = arrays[0].copy()
+    model = SplatModel.from_numpy(*arrays, count=8, device="cpu")
+    with torch.no_grad():
+        model.means.add_(1.0)
+    assert np.array_equal(arrays[0], means)
+
+
+def test_unported_training_paths_raise():
+    """A tiled step that cannot be fused needs kernel K2, and more than one
+    device the parallel modules: both raise instead of training another
+    way."""
+    student = SplatModel.from_numpy(*random_splats(8, 1, cap=16)[:5], count=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="A2"):
+        Trainer(_rig(), RuntimeConfig(render_resolution_x=40, render_resolution_y=40,
+                                      tile_px=16), student, renderer="tiled")
+    with pytest.raises(NotImplementedError, match="A6"):
+        Trainer(_rig(), _runtime(train_devices=2), student, renderer="tiled")
+    trainer = Trainer(_rig(), _runtime(), student, renderer="tiled")
+    assert not trainer.calibrate_work_cap()
