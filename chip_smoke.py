@@ -4,8 +4,9 @@
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 gaussian_splatterer_tpu_torch/csrc/, holds each against its plain PyTorch
-version, drives the serving path (``render --mode splats`` through the CLI)
-and the training path (``Trainer`` under ``auto_train``) at full size,
+version, drives the serving path (``render --mode splats`` through the CLI),
+the training path (``Trainer`` under ``auto_train``) and the tracer path
+(``new`` -> ``train`` -> ``render --mode rtx`` through the CLI) at full size,
 times the stages with CUDA events, and exits nonzero at the first phase
 that fails.  It imports nothing of JAX.
 
@@ -29,14 +30,30 @@ Phases:
      kernel launch), truths rendered by the serve path from a perturbed
      teacher; then kernel against plain on one launch of the trained model;
   8. times: per-layer step times, steps/s, the bench headline (fwd+bwd
-     ms/frame) and the device's busy share of a step.
+     ms/frame) and the device's busy share of a step;
+  tracer path (kernel mt_intersect):
+  9. kernel against plain on the random soup of the JAX package's tests,
+     on 2^16 bounce rays leaving the north-star mushroom's surface and on
+     one batch of its primary rays as a capture launches it (8 samples of
+     a 1024^2 frame, 8,388,608 rays); a 32^2 render with the kernel against
+     one with the plain intersector, same seed;
+ 10. main path: the CLI's new -> train -> render --mode rtx on the north
+     star (the procedural mushroom, 1024^2, 8-camera rig, 32 samples,
+     capacity 262,144), 6 steps that capture before iterations 0 and 3 and
+     densify at 0 and 4, in subprocesses; the launches ``train`` prints;
+ 11. times: seconds per 32-sample 1024^2 capture frame at the north-star
+     and the close-up camera with the device's busy share, and the kernel,
+     its plain twin and the FP32 product alone on one batch of primary rays
+     (the kernel also on one 1024^2 frame of them).
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of its FP32 operations over 67 TFLOP/s and its bytes (each input read once,
 each output written once) over 3.35 TB/s.  The operations are counted from
 the (pixel, duplicate) pairs that these inputs evaluate before their pixel
 terminates, which the plain version counts, times the operations per pair
-of the kernel's source (an expf counts as one operation).
+of the kernel's source (an expf counts as one operation).  The tracer
+kernel's operations are every (ray, real triangle) pair of the launch
+times its operations per pair, an FMA counted as two.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel summary.
@@ -81,6 +98,26 @@ K1_OPS_COMPOSITED = 10  # transmittance (2), stop test, weight, rgb (6)
 K3_OPS_VISITED = 2 * K1_OPS_VISITED  # both passes evaluate the Gaussian
 K3_OPS_COMPOSITED = K1_OPS_COMPOSITED + 47  # + pass 2: transmittance, d_alpha, nine sums
 K3_OPS_PIXEL = 20  # residual (9), g_t (5), g_ctot (5), g_t T_final
+# K5, per (ray, triangle) pair: four dot products of length 10 (4 products
+# and 36 FMAs, an FMA two operations) and the epilogue (guard 3, division,
+# 3 products, u + v, 5 tests, the running minimum 2)
+K5_OPS_PAIR = 76 + 15
+K5_MASK_SHARE = 0.9999  # hit masks, and winners where both hit: a guard within rounding may flip
+K5_TIE_BARY_ATOL = 1e-4  # a tie's winner holds the hit point in float64, to float32 rounding
+K5_T_RTOL, K5_UV_ATOL = 1e-5, 1e-5  # FMA chains vs the product's own summation order
+K5_RENDER_ATOL, K5_RENDER_SHARE = 1e-3, 0.98  # tests/test_rt.py:279-281
+K5_BOUNCE_RAYS = 1 << 16
+# the north star (runs/README.md, ns_r5): the mushroom at mesh resolution 32
+# (960 triangles), 1024^2, 8-camera rig, 32 samples, capacity 262,144,
+# max_dup 786,432, location-LR decay 0.9988, densify variance 0.001 decaying
+# by 0.999; the schedule is cut to 6 steps that capture at 0 and 3 and
+# densify at 0 and 4
+NS_MESH, NS_RES, NS_CAMS, NS_SAMPLES = (32, 16), 1024, 8, 32
+NS_CAPACITY, NS_MAX_DUP = 262_144, 786_432
+NS_RUNTIME = ("--runtime", "lr_location_decay=0.9988", "--runtime", "densify_variance_decay=0.999")
+NS_DENSIFY_VARIANCE = 0.001
+NS_STEPS, NS_INTERVAL_CAPTURE, NS_INTERVAL_DENSIFY = 6, 3, 4
+NS_LIT_SHARE = 0.005  # the mushroom covers a few percent of the frame
 
 
 def phase(title: str) -> None:
@@ -583,7 +620,7 @@ def train_main(dev, card):
     print(f"  fwd+bwd ms/frame (render_train_grads_batch, {n} splats, {res}^2, F = "
           f"{TRAIN_GROUP}, tile {tile}): {headline:.3f}  [{card}]")
 
-    busy_ms, profiled_ms = device_busy_ms(
+    busy_ms, profiled_ms, _ = device_busy_ms(
         lambda: trainer._step(trainer.model, trainer.truths, trainer.truth_cams, lrs))
     print(f"  device busy time of a step (torch.profiler): {busy_ms:.3f} ms, busy share "
           f"{busy_ms / step['whole step']:.3f} of the {step['whole step']:.3f} ms step "
@@ -605,10 +642,390 @@ def train_main(dev, card):
     }
 
 
-def device_busy_ms(fn) -> tuple[float, float]:
+def mushroom_mesh(n_theta: int = 48, n_prof: int = 24):
+    """The north star's procedural mushroom (scripts/quality_run.py
+    mushroom_mesh): a surface of revolution, stem and cap, UV (theta,
+    profile), as the port's TriangleMesh."""
+    from gaussian_splatterer_tpu_torch.io.obj import TriangleMesh
+
+    prof = []
+    for t in np.linspace(0.0, 1.0, n_prof):
+        if t < 0.45:  # stem
+            r = 0.35 + 0.05 * np.cos(t * 9)
+            y = -1.2 + t / 0.45 * 1.2
+        else:  # cap: hemisphere-ish with a lip
+            u = (t - 0.45) / 0.55 * np.pi / 2
+            r = 1.25 * np.cos(u) + 0.02
+            y = 0.85 * np.sin(u)
+        prof.append((r, y))
+    verts, uvs = [], []
+    for i, (r, y) in enumerate(prof):
+        for j in range(n_theta):
+            th = 2 * np.pi * j / n_theta
+            verts.append((r * np.cos(th), y, r * np.sin(th)))
+            uvs.append((j / n_theta, i / (n_prof - 1)))
+    verts, uvs = np.array(verts, np.float32), np.array(uvs, np.float32)
+    tris, tri_uv = [], []
+    for i in range(n_prof - 1):
+        for j in range(n_theta):
+            j2 = (j + 1) % n_theta
+            a, b = i * n_theta + j, i * n_theta + j2
+            c, d = (i + 1) * n_theta + j, (i + 1) * n_theta + j2
+            for t3 in ((a, b, d), (a, d, c)):
+                tris.append(t3)
+                tri_uv.append([uvs[k] for k in t3])
+    return TriangleMesh(verts, np.array(tris, np.int32), np.array(tri_uv, np.float32))
+
+
+def mushroom_texture(n: int = 128) -> np.ndarray:
+    """(n, n, 4) red-capped, white-spotted texture (scripts/quality_run.py
+    mushroom_texture, opaque spots)."""
+    t = np.zeros((n, n, 4), np.float32)
+    v = np.linspace(0, 1, n)[:, None]  # profile coordinate (rows)
+    t[..., 0] = np.where(v > 0.45, 0.85, 0.93)
+    t[..., 1] = np.where(v > 0.45, 0.12, 0.87)
+    t[..., 2] = np.where(v > 0.45, 0.10, 0.72)
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:n, 0:n]
+    for _ in range(25):  # white spots on the cap
+        cy, cx = rng.uniform(0.55, 0.95) * n, rng.uniform(0, 1) * n
+        d2 = (yy - cy) ** 2 + (np.minimum(np.abs(xx - cx), n - np.abs(xx - cx))) ** 2
+        t[d2 < (n * 0.035) ** 2, 0:3] = 0.95
+    t[..., 3] = 1.0
+    return t
+
+
+def write_obj(mesh, path: str) -> None:
+    """The mesh as a Wavefront OBJ, one ``vt`` per triangle corner."""
+    lines = [f"v {x!r} {y!r} {z!r}" for x, y, z in mesh.vertices.tolist()]
+    lines += [f"vt {u!r} {v!r}" for u, v in mesh.tri_uv.reshape(-1, 2).tolist()]
+    lines += [f"f {a + 1}/{3 * i + 1} {b + 1}/{3 * i + 2} {c + 1}/{3 * i + 3}"
+              for i, (a, b, c) in enumerate(mesh.triangles)]
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+def surface_rays(mesh, n: int, seed: int):
+    """``n`` bounce rays as the tracer makes them, as CPU tensors: origins on
+    random triangles of the mesh (the cancellation case of t_num),
+    directions the face normal plus a unit-ball sample, not normalised."""
+    rng = np.random.default_rng(seed)
+    tri = rng.integers(0, mesh.num_triangles, n)
+    a, b, c = (mesh.vertices[mesh.triangles[tri, k]] for k in range(3))
+    w = rng.dirichlet(np.ones(3), n).astype(np.float32)
+    o = w[:, :1] * a + w[:, 1:2] * b + w[:, 2:] * c
+    nrm = np.cross(b - a, c - a)
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-12)
+    g = rng.normal(size=(n, 3))
+    ball = g / np.linalg.norm(g, axis=1, keepdims=True) * rng.uniform(size=(n, 1)) ** (1 / 3)
+    d = (nrm + ball).astype(np.float32)
+    return torch.from_numpy(o.astype(np.float32)), torch.from_numpy(d)
+
+
+def ns_project():
+    """The north star's rig: 8 cameras on sphere 1 (16 frames a capture),
+    32 samples a pixel (runs/README.md, ns_r5)."""
+    from gaussian_splatterer_tpu_torch.config import Project
+
+    p = Project.app_default()
+    p.sphere1.count = NS_CAMS
+    p.rtSamples = NS_SAMPLES
+    return p
+
+
+def close_camera():
+    """The close-up camera of scripts/tracer_one.py (about 13.6% coverage)."""
+    from gaussian_splatterer_tpu_torch.models.camera import Camera
+
+    return Camera(np.array([0.3, -0.2, -4.0], np.float32), np.zeros(3, np.float32), 60.0)
+
+
+def camera_rays(camera, res: int, dev, seed: int, samples: int):
+    """``samples`` jittered res^2 frames of primary rays from ``camera``,
+    sample-major, as render_rtx_sums launches one batch of them."""
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+
+    inv_pv = np.linalg.inv(camera.get_proj_view(1.0).astype(np.float64)).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = samples * res * res
+    jitter = torch.rand((r, 2), generator=gen, device=dev)
+    d = tr.primary_rays(torch.arange(res * res, device=dev).repeat(samples), jitter, res, res,
+                        inv_pv, camera.location)
+    o = torch.as_tensor(camera.location, device=dev).expand(r, 3).contiguous()
+    return o, d
+
+
+def pair_hits64(o, d, tris, idx):
+    """float64 (t, u, v) of each ray (o, d) with its triangle ``idx``, in
+    the component Möller-Trumbore form."""
+    o, d = o.double(), d.double()
+    a, e1, e2 = (torch.stack([tris[f"{n}{c}"][idx] for c in "xyz"], 1).double()
+                 for n in ("a", "e1", "e2"))
+    p = torch.cross(d, e2, dim=1)
+    det = (e1 * p).sum(1)
+    tv = o - a
+    q = torch.cross(tv, e1, dim=1)
+    return (e2 * q).sum(1) / det, (tv * p).sum(1) / det, (d * q).sum(1) / det
+
+
+def compare_hits(label: str, o, d, tris, k, p) -> float:
+    """K5's hits (t, idx, u, v) against its plain twin's on the same rays:
+    the gate of phase 9.  Where both hit, the winners are the same
+    triangle on K5_MASK_SHARE of the rays, and every other winner is an
+    exact tie: in float64 the kernel's triangle lies at the plain winner's
+    distance (rel K5_T_RTOL) and holds the hit point (barycentrics within
+    K5_TIE_BARY_ATOL).  A tie is judged in float64 because the two sides
+    round their sums in different orders.  Returns the largest |difference|
+    of t, u and v where both found the same triangle."""
+    hk, hp = torch.isfinite(k[0]), torch.isfinite(p[0])
+    r = hk.numel()
+    mask_share = float((hk == hp).float().mean()) if r else 1.0
+    both = hk & hp
+    same = both & (k[1] == p[1])
+    other = (both & ~same).nonzero()[:, 0]
+    n_other, limit = other.numel(), (1.0 - K5_MASK_SHARE) * int(both.sum())
+    ties = True
+    if n_other:
+        tk, uk, vk = pair_hits64(o[other], d[other], tris, k[1][other].long())
+        tp, _, _ = pair_hits64(o[other], d[other], tris, p[1][other].long())
+        ties = bool((((tk - tp).abs() <= K5_T_RTOL * tp.abs()) & (uk >= -K5_TIE_BARY_ATOL)
+                     & (vk >= -K5_TIE_BARY_ATOL) & (uk + vk <= 1.0 + K5_TIE_BARY_ATOL)).all())
+    rel = ((k[0] - p[0]).abs() / p[0].abs().clamp(min=1e-30))[both]
+    t_rel = float(rel.max()) if rel.numel() else 0.0
+    uv_err = max((float((a - b).abs()[same].max()) if same.any() else 0.0)
+                 for a, b in ((k[2], p[2]), (k[3], p[3])))
+    t_err = float((k[0] - p[0]).abs()[same].max()) if same.any() else 0.0
+    miss_ok = not (k[1][~hk].any() or k[2][~hk].any() or k[3][~hk].any()
+                   or torch.isfinite(k[0][~hk]).any())
+    print(f"  {label}: {r} rays, {int(hk.sum())} hits; masks agree {mask_share:.6f} "
+          f"(>= {K5_MASK_SHARE}); another winner on {n_other} rays (<= {limit:.1f}), "
+          f"all exact ties {ties}; t rel {t_rel:.3e} (<= {K5_T_RTOL}); |u|,|v| {uv_err:.3e} "
+          f"(<= {K5_UV_ATOL}); miss contract {miss_ok}", flush=True)
+    if not (mask_share >= K5_MASK_SHARE and n_other <= limit and ties and t_rel <= K5_T_RTOL
+            and uv_err <= K5_UV_ATOL and miss_ok):
+        raise SystemExit(f"phase 9 failed: {label}")
+    return max(uv_err, t_err)
+
+
+def tracer_gate(dev) -> float:
+    """Phase 9.  Returns the largest kernel-vs-plain error."""
+    from gaussian_splatterer_tpu_torch.io.obj import TriangleMesh
+    from gaussian_splatterer_tpu_torch.models.camera import Camera
+    from gaussian_splatterer_tpu_torch.rt import RtxHost
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+
+    phase("9. tracer kernel mt_intersect vs plain (random soup; mushroom bounce rays and "
+          "a batch of primary rays; a 32^2 render)")
+    worst = 0.0
+    rng = np.random.default_rng(3)  # the random soup of tests/test_rt.py:377-393
+    soup = RtxHost(tri_chunk=16, device=dev)
+    soup.load_model(TriangleMesh(rng.uniform(-2, 2, (120, 3)).astype(np.float32),
+                                 np.arange(120, dtype=np.int32).reshape(40, 3),
+                                 rng.uniform(0, 1, (40, 3, 2)).astype(np.float32)))
+    o = rng.uniform(-4, 4, (128, 3)).astype(np.float32)
+    d = rng.normal(size=(128, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    pairs = [("random soup, 40 triangles", soup, o, d)]
+
+    mesh = mushroom_mesh(NS_MESH[0], NS_MESH[1])
+    host = RtxHost(device=dev)
+    host.load_model(mesh)
+    o, d = surface_rays(mesh, K5_BOUNCE_RAYS, seed=4)
+    pairs.append((f"mushroom ({mesh.num_triangles} triangles), bounce rays from its surface",
+                  host, o.to(dev), d.to(dev)))
+    o, d = camera_rays(Camera.get_cameras(ns_project())[0], NS_RES, dev, seed=1,
+                       samples=host.sample_batch)
+    pairs.append((f"mushroom, one batch of primary rays from rig camera 0 "
+                  f"({host.sample_batch} samples of {NS_RES}^2)", host, o, d))
+    for label, h, o, d in pairs:
+        k = tr.intersect(o, d, h._tris, h.tri_chunk)
+        p = tr.intersect_reference(o, d, h._tris, h.tri_chunk)
+        torch.cuda.synchronize()
+        worst = max(worst, compare_hits(label, o, d, h._tris, k, p))
+    del o, d, k, p, pairs
+
+    # the same 32^2 render, one generator seed, through either intersector
+    host.load_texture_diffuse(mushroom_texture())
+    cam = close_camera()
+    inv_pv = np.linalg.inv(cam.get_proj_view(1.0).astype(np.float64)).astype(np.float32)
+    imgs = []
+    for fn in (tr.intersect, tr.intersect_reference):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        sums = tr.render_rtx_sums(host._tris, host._texture, cam.location, inv_pv, 32, 32,
+                                  NS_SAMPLES, (0.0, 0.0, 0.0), gen, tri_chunk=host.tri_chunk,
+                                  sample_batch=host.sample_batch, intersector=fn)
+        imgs.append(tr.finish_rtx(*sums, NS_SAMPLES, 32, 32))
+    diff = (imgs[0] - imgs[1]).abs().amax(dim=-1)
+    share = float((diff < K5_RENDER_ATOL).float().mean())
+    print(f"  32^2 render, close-up camera, {NS_SAMPLES} samples, seed 5: kernel vs plain "
+          f"pixels within {K5_RENDER_ATOL}: {share:.4f} (>= {K5_RENDER_SHARE}); means "
+          f"{float(imgs[0].mean()):.6f} and {float(imgs[1].mean()):.6f}", flush=True)
+    if share < K5_RENDER_SHARE:
+        raise SystemExit("phase 9 failed: render with the kernel vs with the plain intersector")
+    return worst
+
+
+def cli(*args: str, timeout: int) -> tuple[str, float]:
+    """One ``gsplat-torch`` command in a subprocess from the checkout:
+    (its standard output, its seconds on the host clock)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gaussian_splatterer_tpu_torch.app", *args],
+                          cwd=HERE, capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", file=sys.stderr)
+        raise SystemExit(f"phase 10 failed: `{args[0]}` exited {proc.returncode}")
+    return proc.stdout, secs
+
+
+def tracer_main(device: str = "cuda") -> dict:
+    """Phase 10: ``new`` -> ``train`` -> ``render --mode rtx`` through the
+    CLI on the north star.  Returns the K5 and K3 launches of ``train``."""
+    from gaussian_splatterer_tpu_torch.config import Project
+    from gaussian_splatterer_tpu_torch.io.image import load_png, save_png
+
+    phase(f"10. tracer main path: gsplat-torch new -> train -> render --mode rtx, the "
+          f"mushroom north star ({NS_RES}^2, {NS_CAMS}-camera rig, {NS_SAMPLES} samples, "
+          f"capacity {NS_CAPACITY})")
+    (HERE / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_rtx_", dir=HERE / "build"))
+    mesh = mushroom_mesh(NS_MESH[0], NS_MESH[1])
+    write_obj(mesh, str(work / "mushroom.obj"))
+    save_png(mushroom_texture()[..., :3], str(work / "mushroom.png"), flip_vertical=False)
+    proj = str(work / "project")
+    out, secs = cli("new", proj, "--obj", str(work / "mushroom.obj"), "--texture",
+                    str(work / "mushroom.png"), "--init-field", "model", "--resolution",
+                    str(NS_RES), "--capacity", str(NS_CAPACITY), "--max-dup", str(NS_MAX_DUP),
+                    *NS_RUNTIME, "--device", device, timeout=300)
+    print(f"  new: {secs:.3f} s (host clock): {out.strip()}")
+    # the north star's rig and schedule: capture before iteration 0 and
+    # again at 3, densify at 0 and 4 (train/schedule.py)
+    p = Project.load(f"{proj}/settings.json")
+    ns = ns_project()
+    p.sphere1.count, p.rtSamples = ns.sphere1.count, ns.rtSamples
+    p.intervalCapture, p.intervalDensify = NS_INTERVAL_CAPTURE, NS_INTERVAL_DENSIFY
+    p.paramDensifyVariance = NS_DENSIFY_VARIANCE
+    p.save(f"{proj}/settings.json")
+
+    out, secs = cli("train", proj, "--steps", str(NS_STEPS), "--log-every", "1",
+                    "--device", device, timeout=900)
+    lines = out.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"  {line}")
+    stats = json.loads(lines[-1])
+    k5, k3 = stats["launches"]["mt_intersect"], stats["launches"]["composite_train"]
+    captures = [i for i in range(NS_STEPS) if i % NS_INTERVAL_CAPTURE == 0]
+    groups = 2 * NS_CAMS // TRAIN_GROUP
+    print(f"  train: {secs:.3f} s (host clock, process included); capture {stats['capture_s']} s "
+          f"in {1 + stats['recaptures']} captures of {2 * NS_CAMS} frames; mt_intersect "
+          f"launches by step (the capture before it included) {k5}; composite_train {k3} "
+          f"(= {NS_STEPS} steps x {groups} groups); splats {stats['splats']}")
+    losses = [float(line.split()[3]) for line in lines if line.startswith("iter ")]
+    launched = all(k5[i] > 0 for i in captures) and sum(k3) == NS_STEPS * groups
+    if len(losses) != NS_STEPS or not all(np.isfinite(losses)):
+        raise SystemExit("phase 10 failed: a loss is missing or not finite")
+    if device != "cpu" and not launched:  # the CPU runs the plain versions
+        raise SystemExit("phase 10 failed: a capture or a step did not launch its kernel")
+    from gaussian_splatterer_tpu_torch.io.gobj import load_gobj
+
+    host_model = load_gobj(f"{proj}/splats.gobj", capacity=NS_CAPACITY)
+    n = host_model.count
+    finite = all(np.isfinite(getattr(host_model, k)[:n]).all()
+                 for k in ("means", "shs", "scales", "opacities", "rotations"))
+    if not finite or n == 0:
+        raise SystemExit("phase 10 failed: the trained parameters are not finite")
+
+    png = str(work / "rtx.png")
+    out, secs = cli("render", proj, png, "--mode", "rtx", "--size", f"{NS_RES}x{NS_RES}",
+                    "--samples", str(NS_SAMPLES), "--device", device, timeout=300)
+    img = load_png(png)
+    lit = float((img.max(axis=2) > 0).mean())
+    print(f"  render --mode rtx: {secs:.3f} s (host clock, process included); png "
+          f"{img.shape}, {lit:.4f} of the pixels not black (>= {NS_LIT_SHARE}), "
+          f"{len(np.unique(img.reshape(-1, 3), axis=0))} colours", flush=True)
+    if img.shape != (NS_RES, NS_RES, 3) or lit < NS_LIT_SHARE or img.min() == img.max():
+        raise SystemExit("phase 10 failed: PNG check")
+    return {"mt_intersect": sum(k5), "composite_train": sum(k3)}
+
+
+def tracer_times(dev, card, launches: int, gate_err: float) -> dict:
+    """Phase 11.  Returns the kernel summary entry of mt_intersect."""
+    from gaussian_splatterer_tpu_torch.models.camera import Camera
+    from gaussian_splatterer_tpu_torch.rt import RtxHost
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+
+    phase(f"11. tracer times (CUDA events; {card})")
+    mesh = mushroom_mesh(NS_MESH[0], NS_MESH[1])
+    host = RtxHost(device=dev)
+    host.load_model(mesh)
+    host.load_texture_diffuse(mushroom_texture())
+    cams = (("north-star camera (rig camera 0)", Camera.get_cameras(ns_project())[0]),
+            ("close-up camera", close_camera()))
+    for label, cam in cams:
+        s = cuda_ms(lambda: host.render(cam, (0.0, 0.0, 0.0), NS_SAMPLES, NS_RES, NS_RES),
+                    warmup=1, reps=2) / 1e3
+        img = host.render(cam, (0.0, 0.0, 0.0), NS_SAMPLES, NS_RES, NS_RES, seed=1)
+        cover = float((img.amax(dim=-1) > 0).float().mean())
+        before = tr.mt_intersect_launches
+        busy_ms, wall_ms, by_name = device_busy_ms(
+            lambda: host.render(cam, (0.0, 0.0, 0.0), NS_SAMPLES, NS_RES, NS_RES))
+        per_frame = (tr.mt_intersect_launches - before) // 2  # warm-up and profiled frame
+        print(f"  {label}: {s:.4f} s per {NS_SAMPLES}-sample {NS_RES}^2 capture frame "
+              f"(median of 2 after 1 warm-up); coverage {cover:.4f}; device busy "
+              f"{busy_ms:.3f} ms of a {wall_ms:.3f} ms profiled frame, share "
+              f"{busy_ms / wall_ms:.3f}; {per_frame} mt_intersect launches and "
+              f"{sum(n for _, n in by_name.values())} device kernels and copies a frame  "
+              f"[{card}]", flush=True)
+        for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+            print(f"    device {ms:.3f} ms in {n} runs: {name[:90]}")
+        if busy_ms <= 0.0:
+            raise SystemExit("phase 11 failed: the profiler recorded no device time")
+
+    # one batch of primary rays, the launch shape of a capture's primary
+    # step (sample_batch samples of the frame); its first frame alone too
+    o, d = camera_rays(cams[0][1], NS_RES, dev, seed=1, samples=host.sample_batch)
+    tris, tc = host._tris, host.tri_chunk
+    r, n_pix, t_pad = o.shape[0], NS_RES * NS_RES, int(tris["valid"].numel())
+    t_real = int(tris["valid"].sum())
+    k5_ms = cuda_ms(lambda: tr.intersect(o, d, tris, tc))
+    k5_frame_ms = cuda_ms(lambda: tr.intersect(o[:n_pix], d[:n_pix], tris, tc))
+    plain_ms = cuda_ms(lambda: tr.intersect_reference(o, d, tris, tc), warmup=1, reps=3)
+    # the (R, 10) x (10, 4T) product alone, one frame of rays a call into
+    # one reused output: the whole batch's would not fit on the card
+    r10 = tr._ray_features(o, d)
+    prod = torch.empty((n_pix, 4 * t_pad), dtype=torch.float32, device=dev)
+    lib_ms = cuda_ms(lambda: [torch.matmul(r10[s:s + n_pix], tris["feat10"], out=prod)
+                              for s in range(0, r, n_pix)], warmup=1, reps=3)
+    del prod, r10
+    # every (ray, real triangle) pair; rays in (24 B) and out (16 B), the
+    # triangle table (160 B) and its valid flag (1 B) once
+    b_ms, b_by = bound_ms(K5_OPS_PAIR * r * t_real, 40 * r + 161 * t_pad)
+    print(f"  mt_intersect per launch on a batch of primary rays ({host.sample_batch} samples "
+          f"of {NS_RES}^2 = {r} rays x {t_pad} triangles, {t_real} real): kernel {k5_ms:.3f} "
+          f"ms  plain {plain_ms:.3f} ms  torch.matmul of the (R, 10) x (10, {4 * t_pad}) "
+          f"product alone, {r // n_pix} calls of {n_pix} rays, {lib_ms:.3f} ms  bound "
+          f"{b_ms:.4f} ms ({b_by}, {K5_OPS_PAIR} operations a pair)  kernel at "
+          f"{b_ms / k5_ms:.3f} of the bound; the kernel on one frame ({n_pix} rays) "
+          f"{k5_frame_ms:.3f} ms  [{card}]", flush=True)
+    return {
+        "name": "mt_intersect",
+        "route": "cuda",
+        "source": "gaussian_splatterer_tpu_torch/csrc/mt_intersect.cu",
+        "replaces": "gaussian_splatterer_tpu/rt/tracer.py:444",
+        "launches": launches,
+        "max_abs_err": gate_err,
+        "ms": k5_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": lib_ms,  # the product alone: no PyTorch call finds a first hit
+    }
+
+
+def device_busy_ms(fn) -> tuple[float, float, dict]:
     """(milliseconds in which the device ran a kernel or a copy, wall
-    milliseconds) of one fn() under torch.profiler's CUDA activity, after
-    one warm-up."""
+    milliseconds, {name: [device ms, count]} of the kernels and copies) of
+    one fn() under torch.profiler's CUDA activity, after one warm-up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -619,13 +1036,18 @@ def device_busy_ms(fn) -> tuple[float, float]:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict[str, list] = {}
+    for e in events:
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += (e.time_range.end - e.time_range.start) / 1e3
+        entry[1] += 1
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy_us, reach = 0.0, float("-inf")
     for start, end in spans:  # the union of the device's busy intervals
         busy_us += max(0.0, end - max(start, reach))
         reach = max(reach, end)
-    return busy_us / 1e3, wall_ms
+    return busy_us / 1e3, wall_ms, by_name
 
 
 def main() -> int:
@@ -659,7 +1081,7 @@ def main() -> int:
 
     phase("2. build")
     t0 = time.perf_counter()
-    kernels = ("composite_fwd", "composite_train")
+    kernels = cuda_build.KERNELS
     cuda_build.build(kernels)
     print(f"built {len(kernels)} kernels in {time.perf_counter() - t0:.2f} s (wall)")
     for name in kernels:
@@ -671,10 +1093,13 @@ def main() -> int:
     gate_err = train_gate(dev)
     train = train_main(dev, card)
     train["max_abs_err"] = max(train["max_abs_err"], gate_err)
+    k5_err = tracer_gate(dev)
+    launches = tracer_main()
+    k5 = tracer_times(dev, card, launches["mt_intersect"], k5_err)
     if "jax" in sys.modules:
         raise SystemExit("chip_smoke: jax was imported")
 
-    print(json.dumps({"kernels": [fwd, train]}))
+    print(json.dumps({"kernels": [fwd, train, k5]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,3 +21,12 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+
+def resolve_device(device) -> torch.device:
+    """The device asked for; a CUDA device without CUDA raises (there is
+    no silent fall back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} asked for, but CUDA is not available")
+    return dev

@@ -1,11 +1,16 @@
 """Command-line interface of the PyTorch/CUDA port (counterpart of
-gaussian_splatterer_tpu.app.cli; the ``render`` and ``info`` subcommands):
+gaussian_splatterer_tpu.app.cli):
 
-    gsplat-torch render PROJECT_DIR OUT.png [--mode splats] [--size WxH] [--device cuda]
+    gsplat-torch new PROJECT_DIR [--obj model.obj --texture tex.png] [--init-field grid|mono|model]
+    gsplat-torch train PROJECT_DIR --steps N [--renderer tiled|oracle] [--log-every K]
+    gsplat-torch render PROJECT_DIR OUT.png [--mode splats|rtx] [--size WxH] [--samples S]
     gsplat-torch info PROJECT_DIR
 
-Flags keep the JAX CLI's names and meaning, including ``--runtime
-KEY=VALUE`` and the rule that sizes ``max_dup`` from the scene.
+Every subcommand takes ``--device`` (default cuda; cpu runs the kernels'
+plain PyTorch versions).  Flags keep the JAX CLI's names and meaning,
+including ``--runtime KEY=VALUE`` and the rule that sizes ``max_dup`` from
+the scene.  Checkpoints, snapshots, the watch page, ``--devices``,
+``export``, ``doctor`` and ``--mode viewer`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import dataclasses
 import json
 import os
 import sys
+import time
 
 from gaussian_splatterer_tpu_torch.config import RuntimeConfig
 
@@ -90,16 +96,69 @@ def _make_session(args, require: bool = False):
     return session
 
 
+def cmd_new(args):
+    session = _make_session(args)
+    if args.obj:
+        session.load_model_obj(args.obj)
+    if args.texture:
+        session.load_texture(args.texture)
+    if args.init_field:
+        session.init_field(args.init_field)
+    session.save_project(args.project)
+    print(f"created project at {args.project}")
+
+
+def cmd_train(args):
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled
+    from gaussian_splatterer_tpu_torch.rt import tracer
+
+    session = _make_session(args, require=True)
+    if session.rtx.mesh is None:
+        raise SystemExit("project has no OBJ model; run `new --obj` first")
+    t0 = time.perf_counter()
+    last = {"it": session.project.iterations, "t": t0}
+    # kernel launches of each step, the capture before it included
+    launches = {"mt_intersect": [], "composite_train": []}
+    seen = {"mt_intersect": tracer.mt_intersect_launches,
+            "composite_train": raster_tiled.composite_train_launches}
+
+    def on_step(it, metrics):
+        for name, now in (("mt_intersect", tracer.mt_intersect_launches),
+                          ("composite_train", raster_tiled.composite_train_launches)):
+            launches[name].append(now - seen[name])
+            seen[name] = now
+        if it % args.log_every == 0:
+            now = time.perf_counter()
+            rate = (it - last["it"]) / max(now - last["t"], 1e-9)
+            last["it"], last["t"] = it, now
+            # cadence countdowns, as the reference's train panel shows them
+            # (src/ui/tools/UiPanelToolsTrain.cpp:98-107)
+            p = session.project
+            cadence = "  ".join(f"{name} in {iv - (it % iv)}" for name, iv in (
+                ("capture", p.intervalCapture), ("densify", p.intervalDensify)) if iv)
+            print(f"iter {it}  loss {float(metrics.loss):.6f}  splats {int(session.model.count)}"
+                  f"  {rate:.1f} steps/s" + (f"  [{cadence}]" if cadence else ""), flush=True)
+
+    stats = session.auto_train(args.steps, on_step=on_step)
+    session.save_project(args.project)
+    print(f"trained {args.steps} steps in {time.perf_counter() - t0:.1f}s; saved")
+    print(json.dumps({**stats, "iterations": session.project.iterations,
+                      "splats": int(session.model.count), "launches": launches}))
+
+
 def cmd_render(args):
     session = _make_session(args, require=True)
     w, h = (int(x) for x in args.size.split("x")) if args.size else (None, None)
-    if args.samples:
-        print(
-            "warning: --samples only applies to --mode rtx "
-            "(the splat rasterizer is deterministic); ignoring",
-            file=sys.stderr,
-        )
-    session.export_splats_png(args.output, w, h)
+    if args.mode == "rtx":
+        session.export_rtx_png(args.output, w, h, samples=args.samples)
+    else:
+        if args.samples:
+            print(
+                "warning: --samples only applies to --mode rtx "
+                "(the splat rasterizer is deterministic); ignoring",
+                file=sys.stderr,
+            )
+        session.export_splats_png(args.output, w, h)
     print(f"wrote {args.output}")
 
 
@@ -136,8 +195,8 @@ def _add_runtime_flags(p):
                    help="set any RuntimeConfig field (repeatable), e.g. "
                         "--runtime tile_px=16")
     p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; cpu runs the plain "
-                        "PyTorch compositor)")
+                   help="torch device (default cuda; cpu runs the kernels' "
+                        "plain PyTorch versions)")
 
 
 def main(argv=None) -> int:
@@ -145,11 +204,27 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    p_new = sub.add_parser("new", help="create a project directory")
+    p_new.add_argument("project")
+    p_new.add_argument("--obj", help="OBJ mesh to trace as truth")
+    p_new.add_argument("--texture", help="diffuse texture (PNG or TGA)")
+    p_new.add_argument("--init-field", choices=["grid", "mono", "model"], default="grid")
+    _add_runtime_flags(p_new)
+    p_new.set_defaults(fn=cmd_new)
+
+    p_tr = sub.add_parser("train", help="run auto-training")
+    p_tr.add_argument("project")
+    p_tr.add_argument("--steps", type=int, default=200)
+    p_tr.add_argument("--renderer", choices=["tiled", "oracle"], default="tiled")
+    p_tr.add_argument("--log-every", type=int, default=10)
+    _add_runtime_flags(p_tr)
+    p_tr.set_defaults(fn=cmd_train)
+
     p_re = sub.add_parser("render", help="export a PNG")
     p_re.add_argument("project")
     p_re.add_argument("output")
-    p_re.add_argument("--mode", choices=["splats"], default="splats",
-                      help="splats (the ray-traced and viewer modes are not ported yet)")
+    p_re.add_argument("--mode", choices=["splats", "rtx"], default="splats",
+                      help="splats, or rtx: the path-traced truth view")
     p_re.add_argument("--size", help="WxH, e.g. 1024x1024")
     p_re.add_argument("--samples", type=int)
     p_re.add_argument("--renderer", choices=["tiled", "oracle"], default="tiled")

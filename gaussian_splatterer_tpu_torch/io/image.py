@@ -9,7 +9,13 @@ reference's value * 256 clamped to [0, 255] (src/Trainer.cu:25-27).
 
 The writer emits 8-bit RGB, non-interlaced, filter type 0.  The reader
 takes 8-bit grey, grey+alpha, RGB and RGBA, non-interlaced, with any of the
-five PNG row filters, and returns RGB.
+five PNG row filters.
+
+Textures load to (H, W, 4) float32 RGBA in [0, 1] with row 0 the top of the
+file, as Pillow's ``convert("RGBA")`` gives them (the tracer's texel lookup
+flips V itself); a missing texture is an 8x8 mid-grey (0x80) opaque
+fallback (src/rtx/RtxHost.cpp:23-36).  Texture formats: PNG as above, and
+TGA, uncompressed or run-length encoded true colour at 24 or 32 bits.
 """
 
 from __future__ import annotations
@@ -91,8 +97,8 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(blob: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 3) uint8 (rows top to bottom as stored)."""
+def _decode_png_samples(blob: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, C) uint8 samples as stored (C = 1, 2, 3 or 4)."""
     if blob[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
     pos, header, idat = 8, None, []
@@ -115,10 +121,91 @@ def decode_png(blob: bytes) -> np.ndarray:
             f"unsupported PNG (bit depth {depth}, colour type {ctype}, interlace {interlace})"
         )
     ch = _CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch).reshape(h, w, ch)
-    if ch <= 2:
-        return np.repeat(px[..., :1], 3, axis=2)
-    return np.ascontiguousarray(px[..., :3])
+    return _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch).reshape(h, w, ch)
+
+
+def _to_rgba(px: np.ndarray) -> np.ndarray:
+    """(H, W, C) uint8 grey, grey+alpha, RGB or RGBA -> (H, W, 4) uint8."""
+    h, w, ch = px.shape
+    out = np.full((h, w, 4), 255, np.uint8)
+    out[..., :3] = px[..., :1] if ch <= 2 else px[..., :3]
+    if ch in (2, 4):
+        out[..., 3] = px[..., -1]
+    return out
+
+
+def decode_png(blob: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8 (rows top to bottom as stored)."""
+    return np.ascontiguousarray(_to_rgba(_decode_png_samples(blob))[..., :3])
+
+
+def decode_png_rgba(blob: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 4) uint8 RGBA (rows top to bottom as stored)."""
+    return _to_rgba(_decode_png_samples(blob))
+
+
+def decode_tga(blob: bytes) -> np.ndarray:
+    """TGA bytes -> (H, W, 4) uint8 RGBA, row 0 the top of the picture.
+    True colour only: image type 2 (uncompressed) or 10 (run-length
+    encoded), 24 or 32 bits a pixel."""
+    if len(blob) < 18:
+        raise ValueError("TGA file too short")
+    id_len, cmap_type, img_type = blob[0], blob[1], blob[2]
+    cmap_len, cmap_bits = struct.unpack("<H", blob[5:7])[0], blob[7]
+    w, h, bpp, desc = struct.unpack("<HHBB", blob[12:18])
+    if img_type not in (2, 10) or bpp not in (24, 32):
+        raise ValueError(f"unsupported TGA (image type {img_type}, {bpp} bits a pixel)")
+    nb = bpp // 8
+    pos = 18 + id_len + (cmap_len * ((cmap_bits + 7) // 8) if cmap_type else 0)
+    count = w * h
+    if img_type == 2:
+        data = np.frombuffer(blob, np.uint8, count * nb, pos)
+    else:
+        data = np.empty(count * nb, np.uint8)
+        out = 0
+        while out < count:
+            head = blob[pos]
+            n = (head & 0x7F) + 1
+            if head & 0x80:  # one pixel repeated n times
+                data[out * nb:(out + n) * nb] = np.tile(
+                    np.frombuffer(blob, np.uint8, nb, pos + 1), n)
+                pos += 1 + nb
+            else:  # n literal pixels
+                data[out * nb:(out + n) * nb] = np.frombuffer(blob, np.uint8, n * nb, pos + 1)
+                pos += 1 + n * nb
+            out += n
+    bgra = data.reshape(h, w, nb)
+    rgba = np.full((h, w, 4), 255, np.uint8)
+    rgba[..., :3] = bgra[..., 2::-1]
+    if nb == 4:
+        rgba[..., 3] = bgra[..., 3]
+    if not desc & 0x20:  # stored bottom row first
+        rgba = rgba[::-1]
+    if desc & 0x10:  # stored right to left
+        rgba = rgba[:, ::-1]
+    return np.ascontiguousarray(rgba)
+
+
+def load_texture_rgba(path: str) -> np.ndarray:
+    """Texture file -> (H, W, 4) float32 RGBA in [0, 1], row 0 the top of
+    the file.  PNG and TGA; any other format raises ValueError."""
+    with open(path, "rb") as fh:
+        blob = fh.read()
+    if blob[:8] == _SIGNATURE:
+        rgba = decode_png_rgba(blob)
+    elif blob[:3] == b"\xff\xd8\xff":
+        raise ValueError(f"{path}: JPEG textures are not supported yet (PNG or TGA)")
+    elif path.lower().endswith(".tga"):
+        rgba = decode_tga(blob)
+    else:
+        raise ValueError(f"{path}: unknown texture format (PNG or TGA)")
+    return rgba.astype(np.float32) / 255.0
+
+
+def blank_texture() -> np.ndarray:
+    tex = np.full((8, 8, 4), 0x80 / 255.0, np.float32)
+    tex[..., 3] = 1.0
+    return tex
 
 
 def save_png(img: np.ndarray, path: str, flip_vertical: bool = True) -> None:

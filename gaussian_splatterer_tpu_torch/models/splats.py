@@ -8,6 +8,8 @@ many leading rows are live.  Rows past ``count`` are masked by every
 renderer.
 
 Quaternions are scalar-first ``[w, x, y, z]``, as in the JAX package.
+The field initializers (reference src/ui/UiFrame.cpp:137-264) build a
+``SplatModelHost`` in numpy, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -63,8 +65,8 @@ class SplatModel(nn.Module):
         return torch.arange(self.capacity, device=self.device) < self.count
 
     @classmethod
-    def empty(cls, capacity: int, sh_degree: int = 1, sh_coeffs: int = 4,
-              device="cpu") -> "SplatModel":
+    def empty(cls, capacity: int, sh_degree: int = 1, sh_coeffs: int = 4, *,
+              device) -> "SplatModel":
         rot = torch.zeros((capacity, 4), dtype=torch.float32, device=device)
         rot[:, 0] = 1.0
         z = dict(dtype=torch.float32, device=device)
@@ -148,3 +150,73 @@ class SplatModelHost:
             self.means, self.shs, self.scales, self.opacities, self.rotations,
             self.count, device, self.sh_degree,
         )
+
+
+def quat_identity() -> np.ndarray:
+    return np.array([1.0, 0.0, 0.0, 0.0], dtype=np.float32)
+
+
+def quat_from_axis_angle(axis: np.ndarray, angle_rad: float) -> np.ndarray:
+    """Unit quaternion [w, x, y, z] from a (possibly unnormalized) axis.  The
+    reference passes glm::angleAxis an unnormalized cross product
+    (src/ui/UiFrame.cpp:254-257); like the JAX package, this normalizes."""
+    axis = np.asarray(axis, dtype=np.float64)
+    n = np.linalg.norm(axis)
+    if n < 1e-12:
+        return quat_identity()
+    axis = axis / n
+    h = angle_rad * 0.5
+    return np.array([math.cos(h), *(math.sin(h) * axis)], dtype=np.float32)
+
+
+def init_field_grid(capacity: int = 1_000_000, sh_degree: int = 1,
+                    sh_coeffs: int = 4) -> SplatModelHost:
+    """17^3 grid of splats over [-4, 4]^3, spacing 0.5, scale 0.05
+    (reference src/ui/UiFrame.cpp:137-160); a smaller capacity keeps the
+    grid's first points."""
+    m = SplatModelHost(capacity, sh_degree, sh_coeffs)
+    coords = (np.arange(17, dtype=np.float32) * 0.5 - 4.0).astype(np.float32)
+    xs, ys, zs = np.meshgrid(coords, coords, coords, indexing="ij")
+    pts = np.stack([xs.ravel(), ys.ravel(), zs.ravel()], axis=-1)
+    n = min(pts.shape[0], capacity)
+    m.means[:n] = pts[:n]
+    m.scales[:n] = 0.05
+    m.opacities[:n] = 1.0
+    m.rotations[:n] = quat_identity()
+    m.count = n
+    return m
+
+
+def init_field_mono(capacity: int = 1_000_000, sh_degree: int = 1,
+                    sh_coeffs: int = 4) -> SplatModelHost:
+    """One 0.3-scale splat at the origin (reference src/ui/UiFrame.cpp:162-176)."""
+    m = SplatModelHost(capacity, sh_degree, sh_coeffs)
+    m.scales[0] = 0.3
+    m.opacities[0] = 1.0
+    m.rotations[0] = quat_identity()
+    m.count = 1
+    return m
+
+
+def init_field_model(vertices: np.ndarray, triangles: np.ndarray, capacity: int = 1_000_000,
+                     sh_degree: int = 1, sh_coeffs: int = 4) -> SplatModelHost:
+    """One thin splat per mesh triangle, oriented to the face normal
+    (reference src/ui/UiFrame.cpp:178-264).  vertices (V, 3), triangles
+    (T, 3) int indices."""
+    m = SplatModelHost(capacity, sh_degree, sh_coeffs)
+    v0, v1, v2 = (vertices[triangles[:, k]] for k in range(3))
+    n = triangles.shape[0]
+    m.means[:n] = (v0 + v1 + v2) / 3.0
+    e1, e2 = v1 - v0, v2 - v0
+    scales = np.stack([np.linalg.norm(e1, axis=-1), np.linalg.norm(e2, axis=-1),
+                       np.full(n, 0.005, np.float32)], axis=-1)
+    m.scales[:n] = scales * 0.2
+    m.opacities[:n] = 1.0
+    up = np.array([0.0, 0.0, 1.0])
+    normals = np.cross(e1, e2)
+    normals = normals / np.maximum(np.linalg.norm(normals, axis=-1, keepdims=True), 1e-12)
+    for i in range(n):
+        angle = math.acos(float(np.clip(np.dot(up, normals[i]), -1.0, 1.0)))
+        m.rotations[i] = quat_from_axis_angle(np.cross(up, normals[i]), angle)
+    m.count = n
+    return m

@@ -20,8 +20,8 @@ Two step kinds, as in the JAX package:
   * autograd of a differentiable renderer (renderer "oracle", or a caller's
     ``render_fn``), the port's reference step.
 A tiled step that cannot be fused needs the serve path's backward kernel,
-which is not ported yet (ROADMAP A2), and raises; so does a multi-device
-step (ROADMAP A6).
+which is not ported yet (ROADMAP A2): it raises when it runs.  A
+multi-device trainer (ROADMAP A6) raises when it is made.
 
 The step updates the model's parameters in place (the JAX step returns a
 new model); densify returns a new model.
@@ -177,10 +177,15 @@ def make_train_step(
     fkw = dict(fused_opts or {})
     if not fused:
         if render_fn is None and renderer == "tiled":
-            raise NotImplementedError(
-                "the non-fused tiled train step needs the backward kernel of the "
-                "serve path (K2, ROADMAP A2), which is not ported yet; train at a "
-                "resolution that is a multiple of the tile to take the fused step")
+            # a session at such a resolution still serves and captures;
+            # only its training step is missing
+            def unported(*_):
+                raise NotImplementedError(
+                    "the non-fused tiled train step needs the backward kernel of the "
+                    "serve path (K2, ROADMAP A2), which is not ported yet; train at a "
+                    "resolution that is a multiple of the tile to take the fused step")
+
+            return unported
         render = render_fn if render_fn is not None else _default_render(renderer, row_chunk)
 
     def step(model: SplatModel, truths: torch.Tensor, cams: CameraBatch, lrs: LearningRates):
@@ -247,9 +252,10 @@ class Trainer:
     """Host-side orchestration: owns the model, truth buffers and schedules.
 
     ``rtx`` is any object with ``render(camera, background, samples, width,
-    height) -> (H, W, 3)`` image (numpy or tensor): the path tracer once it
-    is ported (ROADMAP A4), a surrogate such as renders of a teacher model
-    until then.  The model's device is the training device.
+    height) -> (H, W, 3)`` image (numpy or tensor): the path tracer
+    (rt.RtxHost, whose images already lie on its device) or a surrogate
+    such as renders of a teacher model.  The model's device is the training
+    device.
     """
 
     def __init__(

@@ -120,11 +120,220 @@ def test_png_roundtrip_and_pillow_interop(tmp_path):
                                       np.asarray(pil.convert("RGB")))
 
 
+OBJ_TEXT = """\
+# quads, a triangle, negative indices, a corner without vt, normals
+v -1 -1 0
+v 1 -1 0
+v 1 1 0
+v -1 1 0.5
+vt 0 0
+vt 1 0
+vt 1 1
+vt 0 1
+vn 0 0 1
+f 1/1/1 2/2/1 3/3/1 4/4/1
+f -4/-4 -2/-2 -1/-1
+v 0 0 2
+
+f 1//1 2//1 5//1
+f 2/2 3/3 5
+"""
+
+
+def test_obj_loader_matches_jax(tmp_path):
+    """The parser against the JAX package's (its Python path and its C++
+    fast path): quad split, negative indices, the (0, 0) UV fallback."""
+    from gaussian_splatterer_tpu.io import obj as jobj
+    from gaussian_splatterer_tpu_torch.io import obj as tobj
+
+    path = tmp_path / "m.obj"
+    path.write_text(OBJ_TEXT)
+    calls = []
+    got = tobj.load_obj(str(path), progress=lambda: calls.append(1))
+    assert got.num_triangles == 5 and len(calls) == OBJ_TEXT.count("\n")
+    for ref in (jobj.load_obj(str(path), progress=lambda: None), jobj.load_obj(str(path))):
+        for name in ("vertices", "triangles", "tri_uv"):
+            a, b = getattr(got, name), np.asarray(getattr(ref, name))
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    assert not got.tri_uv[3:].any()  # a corner without vt: (0, 0) on all three
+    (tmp_path / "bad.obj").write_text("v 0 0 0\nf 1 2 3\n")
+    with pytest.raises(ValueError, match="out of range"):
+        tobj.load_obj(str(tmp_path / "bad.obj"))
+
+
+@pytest.mark.parametrize("fmt,mode", [("png", "L"), ("png", "LA"), ("png", "RGB"),
+                                      ("png", "RGBA"), ("tga", "RGB"), ("tga", "RGBA"),
+                                      ("tga_rle", "RGBA")])
+def test_texture_loader_matches_jax(tmp_path, fmt, mode):
+    """load_texture_rgba against the JAX package's (Pillow's RGBA): the
+    same floats, row 0 the top of the file, for the colour types and the
+    TGA encodings the port reads; blank_texture equal."""
+    from gaussian_splatterer_tpu.io import image as jimg_mod
+
+    rng = np.random.default_rng(8)
+    px = np.repeat(rng.integers(0, 256, (13, 1, 4)), 17, axis=1).astype(np.uint8)
+    px[:, ::3] = rng.integers(0, 256, (13, 6, 4))  # runs and literals for RLE
+    img = Image.fromarray(px, "RGBA").convert(mode)
+    path = str(tmp_path / f"t.{fmt[:3]}")
+    img.save(path, **({"compression": "tga_rle"} if fmt == "tga_rle" else {}))
+    got = timage.load_texture_rgba(path)
+    assert got.shape == (13, 17, 4) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, jimg_mod.load_texture_rgba(path))
+    np.testing.assert_array_equal(timage.blank_texture(), jimg_mod.blank_texture())
+
+
+def test_texture_loader_names_what_it_cannot_read(tmp_path):
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(tmp_path / "t.jpg")
+    with pytest.raises(ValueError, match="JPEG"):
+        timage.load_texture_rgba(str(tmp_path / "t.jpg"))
+    (tmp_path / "t.bmp").write_bytes(b"BM" + bytes(60))
+    with pytest.raises(ValueError, match="unknown texture format"):
+        timage.load_texture_rgba(str(tmp_path / "t.bmp"))
+
+
+def test_field_initializers_match_jax():
+    """grid (full and cut by the capacity), mono and model: the same host
+    arrays as the JAX package's, exactly."""
+    from gaussian_splatterer_tpu.models import splats as jsp
+    from gaussian_splatterer_tpu_torch.models import splats as tsp
+
+    rng = np.random.default_rng(6)
+    verts = rng.normal(size=(30, 3)).astype(np.float32)
+    tris = rng.integers(0, 30, (40, 3)).astype(np.int32)
+    tris[0] = (0, 0, 1)  # a degenerate triangle: normal 0, identity rotation
+    cases = [(fn, args) for fn, args in (
+        ("init_field_grid", (5000, 1, 4)), ("init_field_grid", (100, 3, 16)),
+        ("init_field_mono", (64, 1, 4)), ("init_field_model", (verts, tris, 64, 1, 4)))]
+    for fn, args in cases:
+        a, b = getattr(tsp, fn)(*args), getattr(jsp, fn)(*args)
+        assert (a.count, a.capacity) == (b.count, b.capacity), fn
+        for name in ("means", "shs", "scales", "opacities", "rotations"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=fn)
+    axis = np.array([0.3, -1.0, 2.0])
+    np.testing.assert_array_equal(tsp.quat_from_axis_angle(axis, 0.7),
+                                  jsp.quat_from_axis_angle(axis, 0.7))
+
+
+def test_splat_model_empty_needs_a_device():
+    """The entry point no longer lands on the CPU unless asked."""
+    with pytest.raises(TypeError, match="device"):
+        SplatModel.empty(16)
+    m = SplatModel.empty(16, device="cpu")
+    assert m.device.type == "cpu" and m.count == 0 and m.capacity == 16
+
+
+def test_metrics_match_jax(tmp_path):
+    """mse and psnr on the same images, and the JSONL step log."""
+    from gaussian_splatterer_tpu.utils import metrics as jm
+    from gaussian_splatterer_tpu_torch.utils import metrics as tm
+
+    rng = np.random.default_rng(2)
+    a, b = rng.uniform(0, 1, (2, 9, 11, 3)).astype(np.float32)
+    np.testing.assert_allclose(float(tm.mse(a, b)), float(jm.mse(a, b)), rtol=1e-6)
+    np.testing.assert_allclose(float(tm.psnr(torch.from_numpy(a), b)),
+                               float(jm.psnr(a, b)), rtol=1e-6)
+    logs = []
+    for mod in (tm, jm):
+        with open(tmp_path / f"{mod.__name__}.jsonl", "w") as fh:
+            log = mod.MetricsLogger(file=fh, log_every=2)
+            for it in range(1, 6):
+                log.log_step(it, np.float32(0.5 / it), 10 * it, psnr=20.0 + it, lr=np.array(1.5, np.float32))
+        lines = [json.loads(x) for x in open(tmp_path / f"{mod.__name__}.jsonl")]
+        logs.append([{k: v for k, v in x.items() if k != "steps_per_s"} for x in lines])
+        assert [h.iteration for h in log.history] == [2, 4]
+    assert logs[0] == logs[1]
+
+
+def _tiny_scene(tmp_path):
+    """A tent of two triangles and a 2x2 PNG texture, written for the CLI."""
+    (tmp_path / "tent.obj").write_text(
+        "v -1 -1 0\nv 1 -1 0\nv 0 1 0.6\nv 0 -0.2 -0.8\nvt 0 0\nvt 1 0\nvt 0.5 1\n"
+        "f 1/1 2/2 3/3\nf 1/1 4/3 2/2\n")
+    Image.fromarray(np.array([[[200, 40, 30], [30, 200, 40]], [[40, 30, 200], [220, 220, 220]]],
+                             np.uint8)).save(tmp_path / "tent.png")
+    return str(tmp_path / "tent.obj"), str(tmp_path / "tent.png")
+
+
+def _set_rig(proj, cams=2, samples=2, capture=1):
+    p = tcfg.Project.load(os.path.join(proj, "settings.json"))
+    p.sphere1.count, p.rtSamples, p.intervalCapture = cams, samples, capture
+    p.sphere1.distance = p.sphere2.distance = 4.0
+    p.save(os.path.join(proj, "settings.json"))
+
+
+def test_cli_new_train_render_rtx_on_cpu(tmp_path, capsys):
+    """The tracer slice through the port's CLI on the CPU: new --obj
+    --texture --init-field model, then train 2 steps capturing every step,
+    then render --mode rtx.  The truths hold both backgrounds of every rig
+    camera, the losses are finite, the PNG decodes, and the project loads
+    in the JAX Session."""
+    from gaussian_splatterer_tpu.app.session import Session as JSession
+    from gaussian_splatterer_tpu_torch.app import cli as tcli
+
+    obj, png = _tiny_scene(tmp_path)
+    proj = str(tmp_path / "proj")
+    flags = ["--resolution", "32", "--capacity", "64", "--device", "cpu"]
+    assert tcli.main(["new", proj, "--obj", obj, "--texture", png, "--init-field", "model",
+                      *flags]) == 0
+    _set_rig(proj)
+    capsys.readouterr()
+    assert tcli.main(["train", proj, "--steps", "2", "--log-every", "1", *flags]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    losses = [float(x.split()[3]) for x in out if x.startswith("iter ")]
+    stats = json.loads(out[-1])
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert stats["iterations"] == 2 and stats["recaptures"] == 1
+    # on the CPU the plain versions run: no launch is counted
+    assert stats["launches"] == {"mt_intersect": [0, 0], "composite_train": [0, 0]}
+    out_png = str(tmp_path / "rtx.png")
+    assert tcli.main(["render", proj, out_png, "--mode", "rtx", "--size", "24x16",
+                      "--samples", "4", "--device", "cpu"]) == 0
+    img = timage.load_png(out_png)
+    assert img.shape == (16, 24, 3) and img.max() > img.min()
+
+    session = tcli._make_session(argparse.Namespace(project=proj, device="cpu"), require=True)
+    assert session.rtx.mesh.num_triangles == 2 and session.model.count >= 2
+    session.capture()
+    assert session.trainer.truths.shape[0] == 2 * session.project.num_cameras == 4
+    assert torch.isfinite(session.trainer.truths).all()
+    jsession = JSession(runtime=jcfg.RuntimeConfig.load(os.path.join(proj, "runtime.json")))
+    jsession.load_project(proj)
+    assert jsession.rtx.mesh.num_triangles == 2 and jsession.project.iterations == 2
+    jhost = JHost.from_device(jsession.model)
+    np.testing.assert_array_equal(jhost.means, session.model.to_host().means)
+
+
+def test_jax_project_trains_and_renders_in_the_port(tmp_path, capsys):
+    """A project made by the JAX CLI's ``new`` (OBJ, texture, model field)
+    trains one step and renders --mode rtx through the port's CLI."""
+    from gaussian_splatterer_tpu.app import cli as jcli
+    from gaussian_splatterer_tpu_torch.app import cli as tcli
+
+    obj, png = _tiny_scene(tmp_path)
+    proj = str(tmp_path / "proj")
+    flags = ["--resolution", "32", "--capacity", "64"]
+    assert jcli.main(["new", proj, "--obj", obj, "--texture", png, "--init-field", "model",
+                      *flags]) == 0
+    _set_rig(proj, capture=0)
+    capsys.readouterr()
+    jcli.main(["info", proj])
+    j_info = json.loads(capsys.readouterr().out)
+    tcli.main(["info", proj, "--device", "cpu"])
+    assert json.loads(capsys.readouterr().out) == j_info
+    assert tcli.main(["train", proj, "--steps", "1", "--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["iterations"] == 1
+    assert tcli.main(["render", proj, str(tmp_path / "o.png"), "--mode", "rtx", "--size",
+                      "16x16", "--samples", "2", "--device", "cpu"]) == 0
+
+
 def test_port_imports_no_jax_flax_or_pillow():
     code = (
         "import importlib, pkgutil, sys\n"
         "import gaussian_splatterer_tpu_torch as p\n"
         "import gaussian_splatterer_tpu_torch.app.cli\n"
+        "import gaussian_splatterer_tpu_torch.rt\n"
+        "import gaussian_splatterer_tpu_torch.utils.metrics\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"

@@ -538,9 +538,11 @@ def test_unported_training_paths_raise():
     device the parallel modules: both raise instead of training another
     way."""
     student = SplatModel.from_numpy(*random_splats(8, 1, cap=16)[:5], count=8, device="cpu")
+    unfused = Trainer(_rig(), RuntimeConfig(render_resolution_x=40, render_resolution_y=40,
+                                            tile_px=16), student, renderer="tiled")
+    unfused.capture_truths(StubRtx(3))
     with pytest.raises(NotImplementedError, match="A2"):
-        Trainer(_rig(), RuntimeConfig(render_resolution_x=40, render_resolution_y=40,
-                                      tile_px=16), student, renderer="tiled")
+        unfused.train()
     with pytest.raises(NotImplementedError, match="A6"):
         Trainer(_rig(), _runtime(train_devices=2), student, renderer="tiled")
     trainer = Trainer(_rig(), _runtime(), student, renderer="tiled")
