@@ -5,10 +5,12 @@
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 gaussian_splatterer_tpu_torch/csrc/, holds each against its plain PyTorch
 version, drives the serving path (``render --mode splats`` through the CLI),
-the training path (``Trainer`` under ``auto_train``) and the tracer path
-(``new`` -> ``train`` -> ``render --mode rtx`` through the CLI) at full size,
-times the stages with CUDA events, and exits nonzero at the first phase
-that fails.  It imports nothing of JAX.
+the training path (``Trainer`` under ``auto_train``), the tracer path
+(``new`` -> ``train`` -> ``render --mode rtx`` through the CLI) and the
+non-fused tiled training path (``Trainer`` and the CLI's ``train`` at a
+resolution that is not a multiple of the tile) at full size, times the
+stages with CUDA events, and exits nonzero at the first phase that fails.
+It imports nothing of JAX.
 
 Phases:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
@@ -44,7 +46,19 @@ Phases:
  11. times: seconds per 32-sample 1024^2 capture frame at the north-star
      and the close-up camera with the device's busy share, and the kernel,
      its plain twin and the FP32 product alone on one batch of primary rays
-     (the kernel also on one 1024^2 frame of them).
+     (the kernel also on one 1024^2 frame of them);
+  non-fused tiled training (kernel composite_bwd, the compositor's backward):
+ 12. kernel against plain on the gate scene (seeded uniform gradients, tile
+     16 and 32), two launches bit-equal; render_tiled gradients through the
+     kernel against autograd through the oracle on the grad gate scene at
+     128^2 and at 120^2 (not a multiple of the tile);
+ 13. main path: auto_train for TRAIN_STEPS steps of the bench scene at
+     1000^2 on the 16-camera rig, which is not a multiple of the tile, so
+     the Trainer renders every frame under autograd (32 K2 launches a step,
+     no K3); kernel against plain on one frame of the trained model; the
+     CLI's new --resolution 1000 -> train --steps 2 on the mushroom;
+ 14. times: per-frame layers, the step, steps/s, the device's busy share,
+     and K2 against its plain twin and its bound on one 1000^2 frame.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of its FP32 operations over 67 TFLOP/s and its bytes (each input read once,
@@ -53,7 +67,9 @@ the (pixel, duplicate) pairs that these inputs evaluate before their pixel
 terminates, which the plain version counts, times the operations per pair
 of the kernel's source (an expf counts as one operation).  The tracer
 kernel's operations are every (ray, real triangle) pair of the launch
-times its operations per pair, an FMA counted as two.
+times its operations per pair, an FMA counted as two.  K2's bytes are the
+rows in, their gradients out, the ranges, and the forward output and its
+gradient in.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel summary.
@@ -69,6 +85,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -118,6 +135,14 @@ NS_RUNTIME = ("--runtime", "lr_location_decay=0.9988", "--runtime", "densify_var
 NS_DENSIFY_VARIANCE = 0.001
 NS_STEPS, NS_INTERVAL_CAPTURE, NS_INTERVAL_DENSIFY = 6, 3, 4
 NS_LIT_SHARE = 0.005  # the mushroom covers a few percent of the frame
+# the non-fused tiled step (phases 12-14): the bench scene trained at a
+# resolution that is not a multiple of the tile, so the Trainer runs render
+# tiled under autograd frame by frame (K1 forward, K2 backward)
+NF_RES, NF_GATE_CROP = 1000, 120
+NF_CLI_STEPS = 2
+K2_OPS_VISITED = K1_OPS_VISITED  # the replay evaluates the Gaussian once
+K2_OPS_COMPOSITED = 47  # transmittance, stop test, weight, d_alpha, nine sums: K3's pass 2
+K2_OPS_PIXEL = 6  # g . C_total (5), g_t T_final
 
 
 def phase(title: str) -> None:
@@ -194,6 +219,28 @@ def k3_bound(args, stats) -> tuple[float, str]:
     # feat in, d_feat out, ranges, truth in, residual out, backgrounds
     nbytes = 2 * 4 * feat.numel() + 8 * tile_start.numel() + (12 + 16) * pixels + 4 * bg.numel()
     return bound_ms(ops, nbytes)
+
+
+def k2_bound(args, stats) -> tuple[float, str]:
+    feat, tile_start, _, out, *_ = args
+    pixels = out.shape[0] * out.shape[1]
+    ops = (K2_OPS_VISITED * stats["pairs"] + K2_OPS_COMPOSITED * stats["composited"]
+           + K2_OPS_PIXEL * pixels)
+    # feat in, d_feat out, ranges, the forward output and its gradient in
+    nbytes = 2 * 4 * feat.numel() + 8 * tile_start.numel() + 2 * 16 * pixels
+    return bound_ms(ops, nbytes)
+
+
+def compare_bwd(args, d_k, stats=None):
+    """K2's d_feat against the plain version's on the same launch: (finite,
+    max |d_feat|, max and mean of |d_feat| over its row's largest
+    magnitude)."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+
+    d_p = rt.composite_bwd_reference(*args, stats=stats)
+    dd = (d_k - d_p).abs()
+    rel = dd / d_p.abs().amax(dim=1, keepdim=True).clamp(min=1e-3)
+    return bool(torch.isfinite(d_k).all()), float(dd.max()), float(rel.max()), float(rel.mean())
 
 
 def compare_train(args, out_k, stats=None):
@@ -865,7 +912,7 @@ def tracer_gate(dev) -> float:
     return worst
 
 
-def cli(*args: str, timeout: int) -> tuple[str, float]:
+def cli(*args: str, timeout: int, phase_no: int = 10) -> tuple[str, float]:
     """One ``gsplat-torch`` command in a subprocess from the checkout:
     (its standard output, its seconds on the host clock)."""
     t0 = time.perf_counter()
@@ -874,7 +921,7 @@ def cli(*args: str, timeout: int) -> tuple[str, float]:
     secs = time.perf_counter() - t0
     if proc.returncode != 0:
         print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", file=sys.stderr)
-        raise SystemExit(f"phase 10 failed: `{args[0]}` exited {proc.returncode}")
+        raise SystemExit(f"phase {phase_no} failed: `{args[0]}` exited {proc.returncode}")
     return proc.stdout, secs
 
 
@@ -1022,6 +1069,305 @@ def tracer_times(dev, card, launches: int, gate_err: float) -> dict:
     }
 
 
+def frame_bwd_args(model, cams, i, width, height, truth, bg, tile, max_dup):
+    """Frame ``i`` as the non-fused step renders it (projection, binning,
+    gather, K1) and the gradient its backward hands the compositor, the
+    residual ``truth - image`` in tile order, zero past W and H, with its
+    background dot product as the T_final channel: the arguments of one
+    composite_bwd launch."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.ops.binning import bin_splats
+    from gaussian_splatterer_tpu_torch.ops.transforms import project_splat_components
+
+    tx, ty = -(-width // tile), -(-height // tile)
+    with torch.no_grad():
+        comps = project_splat_components(
+            model.means, model.shs, model.scales, model.opacities, model.rotations,
+            model.active_mask(), cams.view[i], cams.proj_view[i], cams.cam_pos[i],
+            float(cams.tan_fovx[i]), float(cams.tan_fovy[i]), width, height, model.sh_degree,
+            1.0)
+        bins = bin_splats(comps, width, height, tile, max_dup)
+        feat = rt.gather_features(comps, bins)
+        out = rt.composite_fwd(feat, bins.tile_start, bins.tile_end, tile, tx)
+        img = rt.tiles_to_image(out[..., 0:3] + out[..., 3:4] * bg, width, height, tile)
+        resid = torch.zeros((ty * tile, tx * tile, 3), device=feat.device)
+        resid[:height, :width] = truth - img
+        g = rt.image_to_tiles(resid, tile)
+        gin = torch.cat([g, (g * bg).sum(-1, keepdim=True)], dim=-1).contiguous()
+    return feat, bins.tile_start, bins.tile_end, out, gin, tile, tx
+
+
+def bwd_gate(dev) -> float:
+    """Phase 12.  Returns the largest kernel-vs-plain |d_feat| difference."""
+    from gaussian_splatterer_tpu_torch.models.camera import Camera
+    from gaussian_splatterer_tpu_torch.models.splats import SplatModel
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.ops.binning import bin_splats
+    from gaussian_splatterer_tpu_torch.ops.raster_reference import render_oracle
+    from gaussian_splatterer_tpu_torch.ops.transforms import project_splat_components
+    from gaussian_splatterer_tpu_torch.train import CameraBatch
+
+    phase("12. serve backward kernel composite_bwd vs plain (gate scene: 150 splats, 128^2, "
+          f"seed 7); render_tiled gradients vs the oracle's (grad gate scene, 128^2 and "
+          f"{NF_GATE_CROP}^2, tile {TRAIN_TILE})")
+    model = SplatModel.from_numpy(*build_scene(150, 256, seed=7), count=150, device=dev,
+                                  sh_degree=1)
+    cam = Camera(np.array([0.3, -0.2, -10.0], np.float32), np.zeros(3, np.float32), 60.0)
+    gate_args = render_args(model, cam, 128, 128, True, BG_GATE, dev)
+    worst = 0.0
+    for tile in (16, 32):
+        tx = -(-128 // tile)
+        with torch.no_grad():
+            comps = project_splat_components(*gate_args[:13], 1, 1.0)
+            bins = bin_splats(comps, 128, 128, tile, 2**13)
+            feat = rt.gather_features(comps, bins)
+            out = rt.composite_fwd(feat, bins.tile_start, bins.tile_end, tile, tx)
+            gin = torch.from_numpy(np.random.default_rng(7).uniform(
+                -1, 1, tuple(out.shape)).astype(np.float32)).to(dev)
+            args = (feat, bins.tile_start, bins.tile_end, out, gin, tile, tx)
+            d_k = rt.composite_bwd(*args)
+            d_k2 = rt.composite_bwd(*args)
+            torch.cuda.synchronize()
+            finite, d_max, rel_max, _ = compare_bwd(args, d_k)
+        same = bool(torch.equal(d_k, d_k2))
+        print(f"tile {tile}: {feat.shape[1]} duplicates; max|d_feat kernel - plain| {d_max:.3e}, "
+              f"over the row's largest {rel_max:.3e} (<= {GATE_ATOL_PLAIN})  two launches "
+              f"bit-equal {same}  finite {finite}")
+        if not (finite and same and rel_max <= GATE_ATOL_PLAIN):
+            raise SystemExit("phase 12 failed: kernel vs plain")
+        worst = max(worst, d_max)
+
+    model = SplatModel.from_numpy(*build_scene(150, 256, seed=11), count=150, device=dev,
+                                  sh_degree=1)
+    params = (model.means, model.shs, model.scales, model.opacities, model.rotations)
+    for res in (128, NF_GATE_CROP):
+        cams = CameraBatch.from_cameras(bench_cameras(2), res, res, device=dev)
+        truths = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (2, res, res, 3))
+                                  .astype(np.float32)).to(dev)
+        bgs = torch.zeros((2, 3), device=dev)
+        before = rt.composite_bwd_launches
+        grads = []
+        for render in (partial(rt.render_tiled, tile=TRAIN_TILE, max_dup=2**13),
+                       partial(render_oracle, row_chunk=8, tile_cull=TRAIN_TILE)):
+            leaves = [p.detach().clone().requires_grad_(True) for p in params]
+            total = 0.0
+            with torch.enable_grad():
+                for i in range(2):
+                    img = render(*leaves, model.active_mask(), cams.view[i], cams.proj_view[i],
+                                 cams.cam_pos[i], float(cams.tan_fovx[i]),
+                                 float(cams.tan_fovy[i]), res, res, bgs[i], 1, 1.0)
+                    diff = img - truths[i]
+                    total = total - 0.5 * torch.sum(diff * diff)
+                grads.append(torch.autograd.grad(total, leaves))
+        launched = rt.composite_bwd_launches - before
+        print(f"  {res}^2: composite_bwd launches {launched} (= 2 frames)")
+        if launched != 2:
+            raise SystemExit("phase 12 failed: the gradients did not go through the kernel")
+        for name, a, b in zip(("means", "shs", "scales", "opacities", "rotations"), *grads):
+            finite = bool(torch.isfinite(a).all())
+            dev_rel = float((a - b).abs().max()) / max(1e-3, float(b.abs().max()))
+            print(f"    gradient {name}: max deviation over the oracle's largest {dev_rel:.3e} "
+                  f"(<= {GRAD_GATE_RTOL})  finite {finite}")
+            if not (finite and dev_rel <= GRAD_GATE_RTOL):
+                raise SystemExit(f"phase 12 failed: {name} gradient against the oracle at {res}^2")
+    return worst
+
+
+def nonfused_cli(device: str) -> None:
+    """The CLI drive of phase 13: ``new`` at --resolution NF_RES, which is
+    not a multiple of the runtime's tile 32, then ``train --steps
+    NF_CLI_STEPS``; every step must launch composite_bwd and not
+    composite_train."""
+    from gaussian_splatterer_tpu_torch.config import Project
+    from gaussian_splatterer_tpu_torch.io.image import save_png
+
+    print(f"  CLI: gsplat-torch new --obj <mushroom> --texture ... --init-field model "
+          f"--resolution {NF_RES}, then train --steps {NF_CLI_STEPS} ({NS_CAMS}-camera rig, "
+          f"{NS_SAMPLES} samples)", flush=True)
+    (HERE / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_nf_", dir=HERE / "build"))
+    write_obj(mushroom_mesh(NS_MESH[0], NS_MESH[1]), str(work / "mushroom.obj"))
+    save_png(mushroom_texture()[..., :3], str(work / "mushroom.png"), flip_vertical=False)
+    proj = str(work / "project")
+    out, secs = cli("new", proj, "--obj", str(work / "mushroom.obj"), "--texture",
+                    str(work / "mushroom.png"), "--init-field", "model", "--resolution",
+                    str(NF_RES), "--capacity", str(NS_CAPACITY), "--device", device,
+                    timeout=300, phase_no=13)
+    print(f"  new: {secs:.3f} s (host clock): {out.strip()}")
+    p = Project.load(f"{proj}/settings.json")
+    p.sphere1.count, p.rtSamples = NS_CAMS, NS_SAMPLES
+    p.save(f"{proj}/settings.json")
+    out, secs = cli("train", proj, "--steps", str(NF_CLI_STEPS), "--log-every", "1",
+                    "--device", device, timeout=600, phase_no=13)
+    lines = out.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"  {line}")
+    stats = json.loads(lines[-1])
+    launches = stats["launches"]
+    k2, k3 = launches["composite_bwd"], launches["composite_train"]
+    print(f"  train: {secs:.3f} s (host clock, process included); launches by step: "
+          f"composite_bwd {k2}, composite_fwd {launches['composite_fwd']}, composite_train "
+          f"{k3}, mt_intersect {launches['mt_intersect']}")
+    losses = [float(line.split()[3]) for line in lines if line.startswith("iter ")]
+    if len(losses) != NF_CLI_STEPS or not all(np.isfinite(losses)) or len(k2) != NF_CLI_STEPS:
+        raise SystemExit("phase 13 failed: the CLI's steps or losses")
+    if any(k3) or (device != "cpu" and not all(x > 0 for x in k2)):
+        raise SystemExit("phase 13 failed: a CLI step did not take the non-fused step")
+
+
+def nonfused_main(dev, card) -> dict:
+    """Phases 13 and 14.  Returns the kernel summary entry of composite_bwd."""
+    from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
+    from gaussian_splatterer_tpu_torch.models.splats import SplatModel
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.ops.binning import bin_splats
+    from gaussian_splatterer_tpu_torch.ops.transforms import (
+        SplatComponents, project_splat_components,
+    )
+    from gaussian_splatterer_tpu_torch.train import LearningRates, Trainer, auto_train
+
+    n, cap, res, tile = TRAIN_SPLATS, TRAIN_CAPACITY, NF_RES, TRAIN_TILE
+    phase(f"13. non-fused train main path: Trainer(renderer='tiled') + auto_train, {n} splats, "
+          f"{res}^2 (not a multiple of tile {tile}), 16-camera rig")
+    arrays = build_scene(n, cap, seed=0)
+    t_arrays = [a.copy() for a in arrays]
+    rng = np.random.default_rng(1)
+    t_arrays[1][:n] += rng.normal(0, 0.2, t_arrays[1][:n].shape).astype(np.float32)
+    t_arrays[3][:n] *= np.float32(0.7)
+    runtime = RuntimeConfig(render_resolution_x=res, render_resolution_y=res,
+                            splats_capacity=cap, sh_degree=1, sh_coeffs=4, tile_px=tile)
+    project = Project.app_default()
+    project.intervalDensify = 3
+    rtx = TeacherRtx(SplatModel.from_numpy(*t_arrays, count=n, device=dev, sh_degree=1),
+                     tile, runtime.max_dup)
+    trainer = Trainer(project, runtime,
+                      SplatModel.from_numpy(*arrays, count=n, device=dev, sh_degree=1),
+                      renderer="tiled")
+    if trainer._fused is not False:
+        raise SystemExit("phase 13 failed: the trainer took the fused step")
+    frames = 2 * project.num_cameras
+
+    def counts():
+        return rt.composite_fwd_launches, rt.composite_bwd_launches, rt.composite_train_launches
+
+    log = []
+
+    def on_step(it, m):
+        now = counts()
+        k1, k2, k3 = (a - b for a, b in zip(now, seen[-1]))
+        seen.append(now)
+        log.append((it, float(m.loss), trainer.model.count, k1, k2, k3))
+        print(f"  step {it}: loss {log[-1][1]:.6f}  splats {log[-1][2]}  launches: "
+              f"composite_fwd {k1} (truth capture included)  composite_bwd {k2}  "
+              f"composite_train {k3}", flush=True)
+
+    rt.composite_fwd_launches = rt.composite_bwd_launches = rt.composite_train_launches = 0
+    seen = [counts()]
+    stats = auto_train(trainer, rtx, TRAIN_STEPS, rng=random.Random(0), on_step=on_step)
+    torch.cuda.synchronize()
+    launches = rt.composite_bwd_launches
+    print(f"auto_train: {stats}  composite_bwd launches {launches} (= {TRAIN_STEPS} steps x "
+          f"{frames} frames)  composite_train launches {rt.composite_train_launches}")
+    m = trainer.model
+    params = (m.means, m.shs, m.scales, m.opacities, m.rotations)
+    finite = all(np.isfinite(x[1]) for x in log) and all(bool(torch.isfinite(p).all())
+                                                        for p in params)
+    per_step = all(k1 >= frames and k2 == frames and k3 == 0 for *_, k1, k2, k3 in log)
+    if not (finite and per_step and len(log) == TRAIN_STEPS):
+        raise SystemExit("phase 13 failed: launches per step, or a non-finite loss or parameter")
+
+    # one frame of the trained model, the step's first (white background)
+    cams2 = trainer.truth_cams.twice()
+    bg = torch.ones(3, device=dev)
+    args = frame_bwd_args(m, cams2, 0, res, res, trainer.truths[0], bg, tile, runtime.max_dup)
+    k2_stats: dict = {}
+    d_k = rt.composite_bwd(*args)
+    torch.cuda.synchronize()
+    finite, d_max, rel_max, rel_mean = compare_bwd(args, d_k, k2_stats)
+    print(f"kernel vs plain, one frame ({args[0].shape[1]} duplicates): max|d_feat| {d_max:.3e}, "
+          f"over the row's largest: max {rel_max:.3e} (<= {MAIN_MAX_ATOL}) mean {rel_mean:.3e} "
+          f"(<= {MAIN_MEAN_ATOL})  finite {finite}  pairs visited {k2_stats['pairs']} "
+          f"composited {k2_stats['composited']}")
+    if not (finite and rel_max <= MAIN_MAX_ATOL and rel_mean <= MAIN_MEAN_ATOL):
+        raise SystemExit("phase 13 failed: kernel vs plain at full size")
+    nonfused_cli(dev.type)
+
+    phase(f"14. non-fused train times (CUDA events, median; {card})")
+    reps = 10
+    active = m.active_mask()
+    cam = (cams2.view[0], cams2.proj_view[0], cams2.cam_pos[0], float(cams2.tan_fovx[0]),
+           float(cams2.tan_fovy[0]))
+    leaves = [p.detach().clone().requires_grad_(True) for p in params]
+
+    def project_fn():
+        with torch.enable_grad():
+            return project_splat_components(*leaves, active, *cam, res, res, m.sh_degree, 1.0)
+
+    comps = project_fn()
+    detached = SplatComponents(*(x.detach() for x in comps))
+    bins = bin_splats(detached, res, res, tile, runtime.max_dup)
+    graph = {}  # a fresh autograd graph of the frame for each backward
+
+    def build_graph():
+        with torch.enable_grad():
+            img = trainer._render_fn(*leaves, active, *cam, res, res, bg, m.sh_degree, 1.0)
+        graph.update(img=img, resid=(trainer.truths[0] - img).detach())
+
+    def backward():
+        return torch.autograd.grad(graph["img"], leaves, graph["resid"])
+
+    feat, tile_start, tile_end, *_, tx = args
+    frame = {
+        "projection forward": cuda_ms(project_fn, reps=reps),
+        "binning": cuda_ms(lambda: bin_splats(detached, res, res, tile, runtime.max_dup),
+                           reps=reps),
+        "gather": cuda_ms(lambda: rt.gather_features(comps, bins), reps=reps),
+        "composite_fwd kernel": cuda_ms(
+            lambda: rt.composite_fwd(feat, tile_start, tile_end, tile, tx), reps=reps),
+        "composite_bwd kernel": cuda_ms(lambda: rt.composite_bwd(*args), reps=reps),
+        "autograd backward (composite_bwd, gather and projection backward)": cuda_ms(
+            backward, reps=reps, setup=build_graph),
+        "render + backward": cuda_ms(lambda: (build_graph(), backward()), reps=reps),
+    }
+    print(f"  per frame: " + "  ".join(f"{k} {v:.3f} ms" for k, v in frame.items())
+          + f"  [{card}]")
+    lrs = LearningRates.from_project(project)
+    step_ms = cuda_ms(lambda: trainer._step(trainer.model, trainer.truths, trainer.truth_cams,
+                                            lrs), warmup=1, reps=3)
+    print(f"  per step of {frames} frames: " + "  ".join(
+        f"{k} {v * frames:.3f} ms" for k, v in frame.items()) + f"  whole step {step_ms:.3f} ms"
+        f"  [{card}]")
+    print(f"  non-fused train steps/s {1e3 / step_ms:.3f}  [{card}]")
+    busy_ms, profiled_ms, _ = device_busy_ms(
+        lambda: trainer._step(trainer.model, trainer.truths, trainer.truth_cams, lrs))
+    print(f"  device busy time of a step (torch.profiler): {busy_ms:.3f} ms, busy share "
+          f"{busy_ms / step_ms:.3f} of the {step_ms:.3f} ms step ({busy_ms / profiled_ms:.3f} "
+          f"of the {profiled_ms:.3f} ms profiled step)  [{card}]")
+    if busy_ms <= 0.0:
+        raise SystemExit("phase 14 failed: the profiler recorded no device time")
+
+    plain_ms = cuda_ms(lambda: rt.composite_bwd_reference(*args), warmup=0, reps=2)
+    b_ms, b_by = k2_bound(args, k2_stats)
+    k2_ms = frame["composite_bwd kernel"]
+    print(f"  composite_bwd per launch (one {res}^2 frame): kernel {k2_ms:.3f} ms  plain "
+          f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by}, {k2_stats['pairs']} pairs visited, "
+          f"{k2_stats['composited']} composited)  kernel at {b_ms / k2_ms:.3f} of the bound  "
+          f"[{card}]")
+    return {
+        "name": "composite_bwd",
+        "route": "cuda",
+        "source": "gaussian_splatterer_tpu_torch/csrc/composite_bwd.cu",
+        "replaces": "gaussian_splatterer_tpu/ops/raster_tiled.py:407",
+        "launches": launches,
+        "max_abs_err": d_max,
+        "ms": k2_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,  # no PyTorch call computes the compositor's VJP
+    }
+
+
 def device_busy_ms(fn) -> tuple[float, float, dict]:
     """(milliseconds in which the device ran a kernel or a copy, wall
     milliseconds, {name: [device ms, count]} of the kernels and copies) of
@@ -1096,10 +1442,13 @@ def main() -> int:
     k5_err = tracer_gate(dev)
     launches = tracer_main()
     k5 = tracer_times(dev, card, launches["mt_intersect"], k5_err)
+    k2_err = bwd_gate(dev)
+    bwd = nonfused_main(dev, card)
+    bwd["max_abs_err"] = max(bwd["max_abs_err"], k2_err)
     if "jax" in sys.modules:
         raise SystemExit("chip_smoke: jax was imported")
 
-    print(json.dumps({"kernels": [fwd, train, k5]}))
+    print(json.dumps({"kernels": [fwd, train, k5, bwd]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

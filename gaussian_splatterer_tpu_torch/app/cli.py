@@ -117,14 +117,19 @@ def cmd_train(args):
         raise SystemExit("project has no OBJ model; run `new --obj` first")
     t0 = time.perf_counter()
     last = {"it": session.project.iterations, "t": t0}
-    # kernel launches of each step, the capture before it included
-    launches = {"mt_intersect": [], "composite_train": []}
-    seen = {"mt_intersect": tracer.mt_intersect_launches,
-            "composite_train": raster_tiled.composite_train_launches}
+    # kernel launches of each step, the capture before it included: the
+    # fused step launches composite_train, the non-fused one (a resolution
+    # that is not a multiple of the tile) composite_fwd and composite_bwd
+    counters = {"mt_intersect": lambda: tracer.mt_intersect_launches,
+                "composite_train": lambda: raster_tiled.composite_train_launches,
+                "composite_fwd": lambda: raster_tiled.composite_fwd_launches,
+                "composite_bwd": lambda: raster_tiled.composite_bwd_launches}
+    launches = {name: [] for name in counters}
+    seen = {name: count() for name, count in counters.items()}
 
     def on_step(it, metrics):
-        for name, now in (("mt_intersect", tracer.mt_intersect_launches),
-                          ("composite_train", raster_tiled.composite_train_launches)):
+        for name, count in counters.items():
+            now = count()
             launches[name].append(now - seen[name])
             seen[name] = now
         if it % args.log_every == 0:

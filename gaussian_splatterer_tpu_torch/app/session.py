@@ -192,10 +192,11 @@ class Session:
     def preview_camera(self) -> Camera:
         return Camera.get_preview_camera(self.project)
 
-    @torch.no_grad()
     def render_splats(self, width=None, height=None, camera=None,
                       splat_scale=None) -> torch.Tensor:
-        """(H, W, 3) float32 on the session's device (JAX Trainer.render)."""
+        """(H, W, 3) float32 on the session's device (JAX Trainer.render).
+        Differentiable with respect to the model's parameters where they
+        require a gradient (they do not by default)."""
         cam = camera or self.preview_camera()
         scale = splat_scale if splat_scale is not None else self.project.previewSplatScale
         w = width or self.runtime.render_resolution_x
@@ -240,4 +241,4 @@ class Session:
 
     @staticmethod
     def _save(img: torch.Tensor, path: str) -> None:
-        save_png(np.ascontiguousarray(torch.clamp(img, 0, 1).cpu().numpy()), path)
+        save_png(np.ascontiguousarray(torch.clamp(img.detach(), 0, 1).cpu().numpy()), path)

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 # every kernel source of the package: csrc/<name>.cu
-KERNELS = ("composite_fwd", "composite_train", "mt_intersect")
+KERNELS = ("composite_fwd", "composite_train", "mt_intersect", "composite_bwd")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

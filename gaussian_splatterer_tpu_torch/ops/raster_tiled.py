@@ -1,14 +1,18 @@
-"""Tiled rasterizer (counterpart of gaussian_splatterer_tpu.ops.raster_tiled,
-without the serve path's backward).
+"""Tiled rasterizer (counterpart of gaussian_splatterer_tpu.ops.raster_tiled).
 
-Serving half:
+Serving half, differentiable with respect to the splat parameters and the
+background (render_tiled, render_tiled_model):
 
   project_splat_components (transforms.py)
     -> bin_splats (depth sort + stable tile sort + per-tile ranges, binning.py)
     -> gather of the nine feature rows per duplicate into a (9, D) array
-    -> composite_fwd: front-to-back compositing of each tile's duplicates,
-       the CUDA kernel csrc/composite_fwd.cu on a CUDA tensor and its plain
-       PyTorch version composite_fwd_reference on a CPU tensor
+    -> composite: front-to-back compositing of each tile's duplicates, a
+       torch.autograd.Function (the JAX package's custom VJP) whose
+       forward is composite_fwd (the CUDA kernel csrc/composite_fwd.cu on
+       a CUDA tensor, its plain PyTorch version composite_fwd_reference on
+       a CPU tensor) and whose backward is composite_bwd
+       (csrc/composite_bwd.cu, or composite_bwd_reference), from the saved
+       rows and forward output
     -> C + T_final * background.
 
 Compositing rules (identical to the oracle, raster_reference.py): skip a
@@ -42,6 +46,7 @@ import ctypes
 from typing import NamedTuple, Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from gaussian_splatterer_tpu_torch.ops import cuda_build
 from gaussian_splatterer_tpu_torch.ops.binning import FrameBins, bin_frames, bin_splats
@@ -64,6 +69,8 @@ TILE_SIZES = (8, 16, 32)  # composite_fwd: one CUDA thread per pixel, 64 to 1024
 composite_fwd_launches = 0
 # Launches of the CUDA train kernel, counted the same way by composite_train.
 composite_train_launches = 0
+# Launches of the CUDA backward compositor, counted the same way by composite_bwd.
+composite_bwd_launches = 0
 
 
 def _check_composite_args(feat, tile_start, tile_end, tile):
@@ -148,6 +155,64 @@ def _forward_replay(feat, s: _Steps, stats):
     return rgb, trans
 
 
+def _backward_replay(feat, s: _Steps, g, g_ctot, gtn, stats):
+    """Plain backward replay over the ordered tiles: d_feat (9, D), the
+    per-duplicate sums over their tile's pixels of g-weighted gradients of
+    the nine rows.  g (n, P, 3) is the pixel gradient of C, g_ctot (n, P)
+    g . C_total and gtn (n, P) g_t T_final, with g_t the pixel gradient of
+    T_final.  The forward is replayed front to back with _forward_replay's
+    decisions; for a kept duplicate with t_k = T before it and w = alpha t_k,
+    d_alpha = g.c t_k - (g . S_k + g_t T_final) / (1 - alpha), where S_k =
+    C_total - sum_{j<=k} w_j c_j, zero where alpha_raw >= 0.99 (the clamp).
+    ``stats`` receives ``pairs`` and ``composited`` as from _forward_replay."""
+    rr, rg, rb = g.unbind(-1)
+    d_feat = torch.zeros_like(feat)
+    trans = torch.ones_like(gtn)
+    acc = torch.zeros_like(gtn)  # running sum of w * gc over kept duplicates
+    alive = torch.ones(gtn.shape, dtype=torch.bool, device=feat.device)
+    zero = torch.zeros((), dtype=torch.float32, device=feat.device)
+    pairs = torch.zeros((), dtype=torch.int64, device=feat.device)
+    kept = torch.zeros((), dtype=torch.int64, device=feat.device)
+    for k, m in enumerate(s.running):
+        cols = s.start[:m] + k
+        f = feat[:, cols][:, :, None]  # (9, m, 1)
+        dx, dy, power, expp, alpha_raw, alpha = _gauss(f, s.px[:m], s.py[:m])
+        t_m = trans[:m]
+        if stats is not None:
+            pairs += alive[:m].sum()
+        contrib = (power <= 0.0) & (alpha >= ALPHA_MIN) & alive[:m]
+        test_t = t_m * (1.0 - alpha)
+        stop = contrib & (test_t < T_EPS)
+        use = contrib & ~stop
+        if stats is not None:
+            kept += use.sum()
+        w = torch.where(use, alpha * t_m, zero)
+        r_m, g_m, b_m = rr[:m], rg[:m], rb[:m]
+        gc = r_m * f[F_CR] + g_m * f[F_CG] + b_m * f[F_CB2]
+        acc[:m] = torch.where(use, acc[:m] + w * gc, acc[:m])
+        g_s = g_ctot[:m] - acc[:m]
+        inv = 1.0 / (1.0 - alpha)
+        d_alpha = gc * t_m - (g_s + gtn[:m]) * inv
+        d_alpha = torch.where(use & (alpha_raw < ALPHA_MAX), d_alpha, zero)
+        d_power = d_alpha * alpha_raw
+        d_feat[:, cols] = torch.stack([
+            (d_power * (f[F_CA] * dx + f[F_CB] * dy)).sum(1),
+            (d_power * (f[F_CC] * dy + f[F_CB] * dx)).sum(1),
+            -0.5 * (d_power * dx * dx).sum(1),
+            -(d_power * dx * dy).sum(1),
+            -0.5 * (d_power * dy * dy).sum(1),
+            (r_m * w).sum(1),
+            (g_m * w).sum(1),
+            (b_m * w).sum(1),
+            (d_alpha * expp).sum(1),
+        ])
+        trans[:m] = torch.where(use, test_t, t_m)
+        alive[:m] &= ~stop
+    if stats is not None:
+        stats.update(pairs=int(pairs), composited=int(kept))
+    return d_feat
+
+
 def composite_fwd_reference(feat: torch.Tensor, tile_start: torch.Tensor,
                             tile_end: torch.Tensor, tile: int, tx_tiles: int,
                             stats: Optional[dict] = None) -> torch.Tensor:
@@ -211,6 +276,105 @@ def _composite_lib() -> ctypes.CDLL:
     return lib
 
 
+def _check_bwd_args(feat, tile_start, tile_end, out, gin, tile):
+    _check_composite_args(feat, tile_start, tile_end, tile)
+    shape = (tile_start.shape[0], tile * tile, 4)
+    for name, x in (("out", out), ("gin", gin)):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != feat.device:
+            raise ValueError(f"{name} must be {shape} float32 on {feat.device}, "
+                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+
+
+def composite_bwd_reference(feat: torch.Tensor, tile_start: torch.Tensor,
+                            tile_end: torch.Tensor, out: torch.Tensor, gin: torch.Tensor,
+                            tile: int, tx_tiles: int,
+                            stats: Optional[dict] = None) -> torch.Tensor:
+    """Plain PyTorch backward compositor with composite_bwd's contract: the
+    vector-Jacobian product of composite_fwd.
+
+    feat, tile_start, tile_end, tile and tx_tiles as composite_fwd took
+    them; out (T, P, 4) its output (r, g, b, T_final) and gin (T, P, 4) the
+    gradient with respect to it.  Returns d_feat (9, D): per duplicate, the
+    sums over its tile's pixels of gin-weighted gradients of the nine rows.
+    The forward is replayed in the kernel's order of operations, so every
+    skip and stop decision is the forward's; C_total and T_final come from
+    ``out``.  ``stats`` receives ``pairs`` and ``composited`` as from
+    composite_fwd_reference."""
+    _check_bwd_args(feat, tile_start, tile_end, out, gin, tile)
+    s = _steps(tile_start, tile_end, tile, tx_tiles, max(tile_start.shape[0], 1))
+    g, fwd = gin[s.order], out[s.order]
+    rr, rg, rb, g_t = g.unbind(-1)
+    g_ctot = rr * fwd[..., 0] + rg * fwd[..., 1] + rb * fwd[..., 2]
+    return _backward_replay(feat, s, g[..., 0:3], g_ctot, g_t * fwd[..., 3], stats)
+
+
+def composite_bwd(feat: torch.Tensor, tile_start: torch.Tensor, tile_end: torch.Tensor,
+                  out: torch.Tensor, gin: torch.Tensor, tile: int,
+                  tx_tiles: int) -> torch.Tensor:
+    """Backward tile compositor: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors (same contract as composite_bwd_reference)."""
+    global composite_bwd_launches
+    if feat.device.type == "cpu":
+        return composite_bwd_reference(feat, tile_start, tile_end, out, gin, tile, tx_tiles)
+    if feat.device.type != "cuda":
+        raise ValueError(f"composite_bwd: unsupported device {feat.device}")
+    _check_bwd_args(feat, tile_start, tile_end, out, gin, tile)
+    if not all(x.is_contiguous() for x in (feat, tile_start, tile_end, out, gin)):
+        raise ValueError("composite_bwd: inputs must be contiguous")
+    lib = _bwd_lib()
+    d_feat = torch.zeros_like(feat)
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream(feat.device).cuda_stream
+        err = lib.composite_bwd(
+            feat.data_ptr(), feat.shape[1], tile_start.data_ptr(), tile_end.data_ptr(),
+            out.data_ptr(), gin.data_ptr(), d_feat.data_ptr(), tile_start.shape[0], tile,
+            tx_tiles, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"composite_bwd kernel launch failed: cudaError_t {err}")
+    composite_bwd_launches += 1
+    return d_feat
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = cuda_build.load_library("composite_bwd")
+    fn = lib.composite_bwd
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+class _Composite(torch.autograd.Function):
+    """composite_fwd with composite_bwd as its backward (the JAX package's
+    custom VJP of the compositor).  It saves the gathered rows, the tile
+    ranges and the forward output; the ranges get no gradient."""
+
+    @staticmethod
+    def forward(ctx, feat, tile_start, tile_end, tile: int, tx_tiles: int):
+        out = composite_fwd(feat, tile_start, tile_end, tile, tx_tiles)
+        ctx.save_for_backward(feat, tile_start, tile_end, out)
+        ctx.tile, ctx.tx_tiles = tile, tx_tiles
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gin):
+        feat, tile_start, tile_end, out = ctx.saved_tensors
+        d_feat = composite_bwd(feat, tile_start, tile_end, out, gin.contiguous(), ctx.tile,
+                               ctx.tx_tiles)
+        return d_feat, None, None, None, None
+
+
+def composite(feat: torch.Tensor, tile_start: torch.Tensor, tile_end: torch.Tensor,
+              tile: int, tx_tiles: int) -> torch.Tensor:
+    """composite_fwd, differentiable with respect to ``feat``."""
+    return _Composite.apply(feat, tile_start, tile_end, tile, tx_tiles)
+
+
 def image_to_tiles(img: torch.Tensor, tile: int) -> torch.Tensor:
     """(..., H, W, C) -> (..., T, tile*tile, C) in the compositor's
     tile-major pixel order.  Requires tile | H and tile | W; the training
@@ -247,7 +411,9 @@ def render_tiled_tiles(
     width: int, height: int, background, sh_degree: int, scale_mod=1.0,
     *, tile: int = 16, max_dup: int = 2**19, aa: bool = False,
 ) -> torch.Tensor:
-    """Tile-space render: (T, tile*tile, 3) image tiles, background applied."""
+    """Tile-space render: (T, tile*tile, 3) image tiles, background applied.
+    Binning reads the projection without its gradient, as the JAX package's
+    stop_gradient does; the gathered rows carry it into the compositor."""
     if tile not in TILE_SIZES:
         raise ValueError(f"tile {tile} not supported (one of {TILE_SIZES})")
     tx_tiles = -(-width // tile)
@@ -256,9 +422,10 @@ def render_tiled_tiles(
         view, proj_view, cam_pos, tan_fovx, tan_fovy,
         width, height, sh_degree, scale_mod, aa=aa,
     )
-    bins = bin_splats(comps, width, height, tile, max_dup)
-    out = composite_fwd(gather_features(comps, bins), bins.tile_start, bins.tile_end,
-                        tile, tx_tiles)
+    bins = bin_splats(SplatComponents(*(x.detach() for x in comps)), width, height, tile,
+                      max_dup)
+    out = composite(gather_features(comps, bins), bins.tile_start, bins.tile_end, tile,
+                    tx_tiles)
     bg = torch.as_tensor(background, dtype=torch.float32, device=out.device)
     return out[..., 0:3] + out[..., 3:4] * bg
 
@@ -270,7 +437,9 @@ def render_tiled(
     *, tile: int = 16, max_dup: int = 2**19, aa: bool = False,
 ) -> torch.Tensor:
     """Render (H, W, 3) float32 with the tiled path; matches
-    render_oracle(tile_cull=tile)."""
+    render_oracle(tile_cull=tile).  Differentiable with respect to the
+    five splat parameters and the background; pixels cropped past W and H
+    carry no gradient."""
     img_tiles = render_tiled_tiles(
         means, shs, scales, opacities, rotations, active,
         view, proj_view, cam_pos, tan_fovx, tan_fovy,
@@ -337,44 +506,7 @@ def composite_train_reference(feat, tile_start, tile_end, truth, bg, tile: int,
     rr, rg, rb = resid.unbind(-1)
     g_t = rr * bgo[..., 0] + rg * bgo[..., 1] + rb * bgo[..., 2]
     g_ctot = rr * rgb[..., 0] + rg * rgb[..., 1] + rb * rgb[..., 2]
-    gtn = g_t * t_n
-
-    d_feat = torch.zeros_like(feat)
-    trans = torch.ones_like(t_n)
-    acc = torch.zeros_like(t_n)  # running sum of w * gc over kept duplicates
-    alive = torch.ones(t_n.shape, dtype=torch.bool, device=feat.device)
-    zero = torch.zeros((), dtype=torch.float32, device=feat.device)
-    for k, m in enumerate(s.running):
-        cols = s.start[:m] + k
-        f = feat[:, cols][:, :, None]  # (9, m, 1)
-        dx, dy, power, expp, alpha_raw, alpha = _gauss(f, s.px[:m], s.py[:m])
-        t_m = trans[:m]
-        contrib = (power <= 0.0) & (alpha >= ALPHA_MIN) & alive[:m]
-        test_t = t_m * (1.0 - alpha)
-        stop = contrib & (test_t < T_EPS)
-        use = contrib & ~stop
-        w = torch.where(use, alpha * t_m, zero)
-        r_m, g_m, b_m = rr[:m], rg[:m], rb[:m]
-        gc = r_m * f[F_CR] + g_m * f[F_CG] + b_m * f[F_CB2]
-        acc[:m] = torch.where(use, acc[:m] + w * gc, acc[:m])
-        g_s = g_ctot[:m] - acc[:m]
-        inv = 1.0 / (1.0 - alpha)
-        d_alpha = gc * t_m - (g_s + gtn[:m]) * inv
-        d_alpha = torch.where(use & (alpha_raw < ALPHA_MAX), d_alpha, zero)
-        d_power = d_alpha * alpha_raw
-        d_feat[:, cols] = torch.stack([
-            (d_power * (f[F_CA] * dx + f[F_CB] * dy)).sum(1),
-            (d_power * (f[F_CC] * dy + f[F_CB] * dx)).sum(1),
-            -0.5 * (d_power * dx * dx).sum(1),
-            -(d_power * dx * dy).sum(1),
-            -0.5 * (d_power * dy * dy).sum(1),
-            (r_m * w).sum(1),
-            (g_m * w).sum(1),
-            (b_m * w).sum(1),
-            (d_alpha * expp).sum(1),
-        ])
-        trans[:m] = torch.where(use, test_t, t_m)
-        alive[:m] &= ~stop
+    d_feat = _backward_replay(feat, s, resid, g_ctot, g_t * t_n, None)
 
     res = torch.empty((num_blocks, p_count, 4), dtype=torch.float32, device=feat.device)
     res[s.order, :, 0:3] = resid

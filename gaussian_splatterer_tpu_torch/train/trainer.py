@@ -17,11 +17,13 @@ Two step kinds, as in the JAX package:
     frame-batched training core ops.raster_tiled.render_train_grads_batch,
     ``frame_group`` frames per launch of the CUDA kernel composite_train,
     against pre-tiled truths;
-  * autograd of a differentiable renderer (renderer "oracle", or a caller's
-    ``render_fn``), the port's reference step.
-A tiled step that cannot be fused needs the serve path's backward kernel,
-which is not ported yet (ROADMAP A2): it raises when it runs.  A
-multi-device trainer (ROADMAP A6) raises when it is made.
+  * frame by frame, ``torch.autograd.grad`` of a differentiable renderer:
+    renderer "tiled" at a resolution that is not a multiple of the tile
+    (render_tiled, whose compositor's backward is the CUDA kernel
+    composite_bwd), renderer "oracle", or a caller's ``render_fn``.  The
+    Trainer passes its runtime-configured renderer, so this step bins with
+    the runtime's tile_px, max_dup and mip_antialias.
+A multi-device trainer (ROADMAP A6) raises when it is made.
 
 The step updates the model's parameters in place (the JAX step returns a
 new model); densify returns a new model.
@@ -117,10 +119,10 @@ def _default_render(kind: str, row_chunk: int,
     if kind == "tiled":
         from gaussian_splatterer_tpu_torch.ops.raster_tiled import render_tiled
 
-        # only the Trainer's serve render reaches here: make_train_step
-        # refuses a non-fused tiled step before asking for a renderer
-        return partial(render_tiled, tile=runtime.tile_px, max_dup=runtime.max_dup,
-                       aa=runtime.mip_antialias)
+        if runtime is not None:
+            return partial(render_tiled, tile=runtime.tile_px, max_dup=runtime.max_dup,
+                           aa=runtime.mip_antialias)
+        return render_tiled
     raise ValueError(f"unknown renderer {kind!r}")
 
 
@@ -176,16 +178,6 @@ def make_train_step(
     2F.  The model's parameters are updated in place."""
     fkw = dict(fused_opts or {})
     if not fused:
-        if render_fn is None and renderer == "tiled":
-            # a session at such a resolution still serves and captures;
-            # only its training step is missing
-            def unported(*_):
-                raise NotImplementedError(
-                    "the non-fused tiled train step needs the backward kernel of the "
-                    "serve path (K2, ROADMAP A2), which is not ported yet; train at a "
-                    "resolution that is a multiple of the tile to take the fused step")
-
-            return unported
         render = render_fn if render_fn is not None else _default_render(renderer, row_chunk)
 
     def step(model: SplatModel, truths: torch.Tensor, cams: CameraBatch, lrs: LearningRates):
@@ -300,7 +292,10 @@ class Trainer:
         self._step = make_train_step(
             runtime.render_resolution_x, runtime.render_resolution_y, runtime.sh_degree,
             renderer=self.renderer, row_chunk=self.row_chunk,
-            render_fn=self._render_fn if self._user_render else None,
+            # the runtime-configured renderer even when it is the default:
+            # the bare fallback would bin with render_tiled's own defaults
+            # (tile 16, max_dup 2^19, no AA) on the non-fused tiled step
+            render_fn=self._render_fn,
             fused=self._fused, fused_opts=fused_kw_from_runtime(runtime),
             frame_group=runtime.frame_group,
         )

@@ -388,10 +388,10 @@ class StubRtx:
     """Truth source: one fixed image per background, whatever the camera."""
 
     def __init__(self, seed):
-        self.images = random_truths(2, seed, RES, RES)[0]
+        self.seed = seed
 
     def render(self, camera, background, samples, width, height):
-        return self.images[0 if background[0] > 0.5 else 1]
+        return random_truths(2, self.seed, width, height)[0][0 if background[0] > 0.5 else 1]
 
 
 def test_trainer_auto_train_matches_jax():
@@ -534,15 +534,15 @@ def test_from_numpy_copies_the_arrays():
 
 
 def test_unported_training_paths_raise():
-    """A tiled step that cannot be fused needs kernel K2, and more than one
-    device the parallel modules: both raise instead of training another
-    way."""
+    """More than one device needs the parallel modules: it raises instead of
+    training another way.  A tiled step that cannot be fused (40 x 40 at
+    tile 16) trains on the serve path's backward."""
     student = SplatModel.from_numpy(*random_splats(8, 1, cap=16)[:5], count=8, device="cpu")
     unfused = Trainer(_rig(), RuntimeConfig(render_resolution_x=40, render_resolution_y=40,
                                             tile_px=16), student, renderer="tiled")
     unfused.capture_truths(StubRtx(3))
-    with pytest.raises(NotImplementedError, match="A2"):
-        unfused.train()
+    assert not unfused._fused
+    assert np.isfinite(float(unfused.train().loss))
     with pytest.raises(NotImplementedError, match="A6"):
         Trainer(_rig(), _runtime(train_devices=2), student, renderer="tiled")
     trainer = Trainer(_rig(), _runtime(), student, renderer="tiled")
