@@ -6,11 +6,12 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 gaussian_splatterer_tpu_torch/csrc/, holds each against its plain PyTorch
 version, drives the serving path (``render --mode splats`` through the CLI),
 the training path (``Trainer`` under ``auto_train``), the tracer path
-(``new`` -> ``train`` -> ``render --mode rtx`` through the CLI) and the
+(``new`` -> ``train`` -> ``render --mode rtx`` through the CLI), the
 non-fused tiled training path (``Trainer`` and the CLI's ``train`` at a
-resolution that is not a multiple of the tile) at full size, times the
-stages with CUDA events, and exits nonzero at the first phase that fails.
-It imports nothing of JAX.
+resolution that is not a multiple of the tile), the fused step on its
+cumsum reduction route (``Trainer(reduction="cumsum")``) and the H100
+probes at full size, times the stages with CUDA events, and exits nonzero
+at the first phase that fails.  It imports nothing of JAX.
 
 Phases:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
@@ -58,10 +59,34 @@ Phases:
      no K3); kernel against plain on one frame of the trained model; the
      CLI's new --resolution 1000 -> train --steps 2 on the mushroom;
  14. times: per-frame layers, the step, steps/s, the device's busy share,
-     and K2 against its plain twin and its bound on one 1000^2 frame.
+     and K2 against its plain twin and its bound on one 1000^2 frame;
+  the cumsum reduction route (kernel cumsum_frames, K4):
+ 15. K4 against plain at the JAX test's shapes and at D = 1000 and 100 (no
+     multiple-of-128 divisor), two launches bit-equal; at full size on one
+     group of the phase-7 model's duplicate gradients against a float64
+     scan, no worse than twice torch.cumsum's own error;
+ 16. main path: auto_train for TRAIN_STEPS steps of phase 7's cell with
+     Trainer(reduction="cumsum") (4 K4 launches a step); both routes'
+     reduction of one group against float64, the cumsum route within its
+     float32 bound (twice the scan's error plus the rounding of a prefix
+     difference, per row and frame); one step's gradients and var_loc from
+     both routes within the full-size gradient gate (5e-2 of the largest;
+     whether the small-scene 2e-4 holds is printed); two cumsum-route
+     steps bit-equal (the index_add route's printed);
+     per-layer times of both routes, the whole step on each, K4 against
+     its bound and torch.cumsum;
+  the probes (kernels peak_fma K8, gather_cols K7, smem_gather K6):
+ 17. each probe's run(), as ``python -m
+     gaussian_splatterer_tpu_torch.scripts.<name>`` runs it: K8's forms at
+     the reference's shape (memory-bound) and register-resident, with the
+     SM clock and power, K7 at the bench scale, K6 on the (16, 4096) table;
+     each kernel against its plain twin (K6 and K7 exactly); then K1-K5's
+     times from this run with their shares of the bound at the published
+     67 TFLOP/s and at K8's measured FP32 rate.
 
 Bounds: the least time the card could take for a kernel's work, the larger
-of its FP32 operations over 67 TFLOP/s and its bytes (each input read once,
+of its FP32 operations over 67 TFLOP/s (the data sheet's; phase 17 adds a
+second share at K8's measured rate) and its bytes (each input read once,
 each output written once) over 3.35 TB/s.  The operations are counted from
 the (pixel, duplicate) pairs that these inputs evaluate before their pixel
 terminates, which the plain version counts, times the operations per pair
@@ -69,7 +94,7 @@ of the kernel's source (an expf counts as one operation).  The tracer
 kernel's operations are every (ray, real triangle) pair of the launch
 times its operations per pair, an FMA counted as two.  K2's bytes are the
 rows in, their gradients out, the ranges, and the forward output and its
-gradient in.
+gradient in.  K4's bytes are its input read and its output written once.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel summary.
@@ -143,6 +168,17 @@ NF_CLI_STEPS = 2
 K2_OPS_VISITED = K1_OPS_VISITED  # the replay evaluates the Gaussian once
 K2_OPS_COMPOSITED = 47  # transmittance, stop test, weight, d_alpha, nine sums: K3's pass 2
 K2_OPS_PIXEL = 6  # g . C_total (5), g_t T_final
+# the cumsum route (phases 15-16): the JAX test's scan tolerance
+# (tests/test_raster_tiled.py:817-829) and its route tolerance on a 96-splat
+# scene, of the largest value (tests/test_raster_tiled.py:872-884).  The
+# route's error is eps x the frame's prefix, which grows with the frame's
+# duplicates, so at full size its gradients are gated by GRAD_GATE_RTOL and
+# its reduction by a float32 bound (route_gate); ROUTE_ATOL is printed.
+K4_RTOL, K4_ATOL = 2e-5, 2e-3
+K4_GATE_SHAPES = ((9, 3, 512), (9, 1, 384), (2, 2, 1024), (9, 2, 96), (9, 2, 1000), (9, 2, 100))
+ROUTE_ATOL = 2e-4
+# (operations, bytes) of each kernel's summary bound, for phase 17's second share
+BOUND_PARTS: dict[str, tuple[float, float]] = {}
 
 
 def phase(title: str) -> None:
@@ -199,36 +235,39 @@ def cuda_ms(fn, warmup: int = WARMUP, reps: int = REPS, setup=None) -> float:
     return statistics.median(times)
 
 
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+def bound_ms(ops: float, nbytes: float, name: str | None = None,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    if name is not None:
+        BOUND_PARTS[name] = (ops, nbytes)
+    t_ops, t_bytes = ops / ops_per_s, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def k1_bound(args, stats) -> tuple[float, str]:
+def k1_bound(args, stats, name=None) -> tuple[float, str]:
     feat, tile_start, _, tile, _ = args
     ops = K1_OPS_VISITED * stats["pairs"] + K1_OPS_COMPOSITED * stats["composited"]
     nbytes = 4 * feat.numel() + 8 * tile_start.numel() + 16 * tile_start.numel() * tile * tile
-    return bound_ms(ops, nbytes)
+    return bound_ms(ops, nbytes, name)
 
 
-def k3_bound(args, stats) -> tuple[float, str]:
+def k3_bound(args, stats, name=None) -> tuple[float, str]:
     feat, tile_start, _, truth, bg, *_ = args
     pixels = truth.shape[0] * truth.shape[1]
     ops = (K3_OPS_VISITED * stats["pairs"] + K3_OPS_COMPOSITED * stats["composited"]
            + K3_OPS_PIXEL * pixels)
     # feat in, d_feat out, ranges, truth in, residual out, backgrounds
     nbytes = 2 * 4 * feat.numel() + 8 * tile_start.numel() + (12 + 16) * pixels + 4 * bg.numel()
-    return bound_ms(ops, nbytes)
+    return bound_ms(ops, nbytes, name)
 
 
-def k2_bound(args, stats) -> tuple[float, str]:
+def k2_bound(args, stats, name=None) -> tuple[float, str]:
     feat, tile_start, _, out, *_ = args
     pixels = out.shape[0] * out.shape[1]
     ops = (K2_OPS_VISITED * stats["pairs"] + K2_OPS_COMPOSITED * stats["composited"]
            + K2_OPS_PIXEL * pixels)
     # feat in, d_feat out, ranges, the forward output and its gradient in
     nbytes = 2 * 4 * feat.numel() + 8 * tile_start.numel() + 2 * 16 * pixels
-    return bound_ms(ops, nbytes)
+    return bound_ms(ops, nbytes, name)
 
 
 def compare_bwd(args, d_k, stats=None):
@@ -448,7 +487,7 @@ def serve_phases(dev, card) -> dict:
             + f"  kernel bound {b_ms:.4f} ms ({b_by})  [{card}]", flush=True)
 
     head = cells[("bench50k", 1024)]
-    b_ms, b_by = k1_bound(head.composite_args, head.stats)
+    b_ms, b_by = k1_bound(head.composite_args, head.stats, "composite_fwd")
     print("(composite_fwd ms / plain_ms / bound: the 50k-splat bench scene at 1024^2, tile 32)")
     return {
         "name": "composite_fwd",
@@ -527,19 +566,16 @@ def train_gate(dev) -> float:
     return max(r_max, d_max)
 
 
-def train_main(dev, card):
-    """Phases 7 and 8.  Returns the kernel summary entry of composite_train."""
+def fused_cell(dev, reduction: str = "index_add"):
+    """The fused train cell of phases 7 and 16: the bench scene (50k splats)
+    at 1024^2, tile 32, frame_group 8, on the app's 16-camera rig, truths
+    rendered by the serve path from a perturbed teacher.  Returns (the
+    Trainer on the route ``reduction``, its rtx, the scene's arrays)."""
     from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
     from gaussian_splatterer_tpu_torch.models.splats import SplatModel
-    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
-    from gaussian_splatterer_tpu_torch.train import (
-        CameraBatch, DensifyParams, LearningRates, auto_train, densify,
-    )
-    from gaussian_splatterer_tpu_torch.train.trainer import Trainer, _apply_sgd
+    from gaussian_splatterer_tpu_torch.train.trainer import Trainer
 
     n, cap, res, tile = TRAIN_SPLATS, TRAIN_CAPACITY, TRAIN_RES, TRAIN_TILE
-    phase(f"7. train main path: auto_train, {n} splats, {res}^2, tile {tile}, "
-          f"frame_group {TRAIN_GROUP}, 16-camera rig")
     arrays = build_scene(n, cap, seed=0)
     t_arrays = [a.copy() for a in arrays]
     rng = np.random.default_rng(1)
@@ -554,7 +590,25 @@ def train_main(dev, card):
                      tile, runtime.max_dup)
     trainer = Trainer(project, runtime,
                       SplatModel.from_numpy(*arrays, count=n, device=dev, sh_degree=1),
-                      renderer="tiled")
+                      renderer="tiled", reduction=reduction)
+    return trainer, rtx, arrays
+
+
+def train_main(dev, card):
+    """Phases 7 and 8.  Returns (the kernel summary entry of
+    composite_train, the duplicate gradients of one launch of the trained
+    model with its FrameBins and column count)."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.train import (
+        CameraBatch, DensifyParams, LearningRates, auto_train, densify,
+    )
+    from gaussian_splatterer_tpu_torch.train.trainer import _apply_sgd
+
+    n, cap, res, tile = TRAIN_SPLATS, TRAIN_CAPACITY, TRAIN_RES, TRAIN_TILE
+    phase(f"7. train main path: auto_train, {n} splats, {res}^2, tile {tile}, "
+          f"frame_group {TRAIN_GROUP}, 16-camera rig")
+    trainer, rtx, arrays = fused_cell(dev)
+    runtime, project = trainer.runtime, trainer.project
     frames = 2 * project.num_cameras
     groups = frames // TRAIN_GROUP
     log = []
@@ -647,7 +701,7 @@ def train_main(dev, card):
     print(f"  train steps/s {1e3 / step['whole step']:.3f}  [{card}]")
 
     plain_ms = cuda_ms(lambda: rt.composite_train_reference(*args), warmup=0, reps=2)
-    b_ms, b_by = k3_bound(args, k3_stats)
+    b_ms, b_by = k3_bound(args, k3_stats, "composite_train")
     k3_ms = group["composite_train kernel"]
     print(f"  composite_train per launch ({TRAIN_GROUP} frames): kernel {k3_ms:.3f} ms  plain "
           f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by}, {k3_stats['pairs']} pairs visited, "
@@ -686,7 +740,7 @@ def train_main(dev, card):
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,  # no PyTorch call composites splats
-    }
+    }, (d_feat, fb, rows9.shape[1])
 
 
 def mushroom_mesh(n_theta: int = 48, n_prof: int = 24):
@@ -1046,7 +1100,7 @@ def tracer_times(dev, card, launches: int, gate_err: float) -> dict:
     del prod, r10
     # every (ray, real triangle) pair; rays in (24 B) and out (16 B), the
     # triangle table (160 B) and its valid flag (1 B) once
-    b_ms, b_by = bound_ms(K5_OPS_PAIR * r * t_real, 40 * r + 161 * t_pad)
+    b_ms, b_by = bound_ms(K5_OPS_PAIR * r * t_real, 40 * r + 161 * t_pad, "mt_intersect")
     print(f"  mt_intersect per launch on a batch of primary rays ({host.sample_batch} samples "
           f"of {NS_RES}^2 = {r} rays x {t_pad} triangles, {t_real} real): kernel {k5_ms:.3f} "
           f"ms  plain {plain_ms:.3f} ms  torch.matmul of the (R, 10) x (10, {4 * t_pad}) "
@@ -1347,7 +1401,7 @@ def nonfused_main(dev, card) -> dict:
         raise SystemExit("phase 14 failed: the profiler recorded no device time")
 
     plain_ms = cuda_ms(lambda: rt.composite_bwd_reference(*args), warmup=0, reps=2)
-    b_ms, b_by = k2_bound(args, k2_stats)
+    b_ms, b_by = k2_bound(args, k2_stats, "composite_bwd")
     k2_ms = frame["composite_bwd kernel"]
     print(f"  composite_bwd per launch (one {res}^2 frame): kernel {k2_ms:.3f} ms  plain "
           f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by}, {k2_stats['pairs']} pairs visited, "
@@ -1366,6 +1420,328 @@ def nonfused_main(dev, card) -> dict:
         "bound_by": b_by,
         "library_ms": None,  # no PyTorch call computes the compositor's VJP
     }
+
+def cumsum_gate(dev, group) -> float:
+    """Phase 15.  ``group``: (d_feat, FrameBins, columns) of one launch of
+    the phase-7 model.  Returns the largest |kernel - plain| difference."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+
+    phase("15. per-frame scan cumsum_frames (K4) vs plain; full size on one group of the "
+          "trained bench model's duplicate gradients vs float64")
+    rng = np.random.default_rng(7)  # the JAX test's inputs: normal x 100
+    worst = 0.0
+    for shape in K4_GATE_SHAPES:
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 100).to(dev)
+        y, y2 = rt.cumsum_frames(x), rt.cumsum_frames(x)
+        ref = rt.cumsum_frames_reference(x)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        ok = bool(torch.allclose(y, ref, rtol=K4_RTOL, atol=K4_ATOL)) and torch.equal(y, y2)
+        print(f"  {shape}: max|kernel - plain| {err:.3e} (rtol {K4_RTOL}, atol {K4_ATOL})  "
+              f"two launches bit-equal {torch.equal(y, y2)}")
+        if not ok:
+            raise SystemExit(f"phase 15 failed: K4 at {shape}")
+        worst = max(worst, err)
+    d_feat, fb, _ = group
+    x = rt.dups_to_depth_order(d_feat, fb)
+    y, y2 = rt.cumsum_frames(x), rt.cumsum_frames(x)
+    lib = torch.cumsum(x, dim=2)
+    ref64 = torch.cumsum(x.double(), dim=2)
+    torch.cuda.synchronize()
+    err_k = float((y.double() - ref64).abs().max())
+    err_lib = float((lib.double() - ref64).abs().max())
+    floor = float(torch.finfo(torch.float32).eps * ref64.abs().max())  # one ulp of the largest
+    same = torch.equal(y, y2)
+    finite = bool(torch.isfinite(y).all())
+    print(f"  full size {tuple(x.shape)} ({x.numel() * 4 / 1e6:.1f} MB, D % 128 = "
+          f"{x.shape[2] % 128}): max|kernel - float64| {err_k:.3e}, max|torch.cumsum - "
+          f"float64| {err_lib:.3e} (kernel <= max(2 x that, {floor:.3e}))  max|kernel - "
+          f"torch.cumsum| {float((y - lib).abs().max()):.3e}  two launches bit-equal {same}  "
+          f"finite {finite}")
+    if not (finite and same and err_k <= max(2 * err_lib, floor)):
+        raise SystemExit("phase 15 failed: K4 at full size")
+    return max(worst, float((y - lib).abs().max()))
+
+
+def step_grads(trainer, reduction: str):
+    """One fused step's summed gradients (five), var_loc and loss on the
+    trainer's model and truths, by the route ``reduction``, without the
+    SGD update: the work of make_train_step's fused branch."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.train.trainer import fused_kw_from_runtime
+
+    m, cams2, rtm = trainer.model, trainer.truth_cams.twice(), trainer.runtime
+    f, dev = trainer.truth_cams.num_frames, m.device
+    bgs = torch.cat([torch.ones((f, 3)), torch.zeros((f, 3))]).to(dev)
+    params = (m.means, m.shs, m.scales, m.opacities, m.rotations)
+    grads = [torch.zeros_like(p) for p in params]
+    var = torch.zeros((m.capacity,), dtype=torch.float32, device=dev)
+    for g0 in range(0, 2 * f, TRAIN_GROUP):
+        sl = slice(g0, g0 + TRAIN_GROUP)
+        _, g, v, *_ = rt.render_train_grads_batch(
+            *params, m.active_mask(), *(x[sl] for x in cams2), rtm.render_resolution_x,
+            rtm.render_resolution_y, trainer.truths[sl], bgs[sl], m.sh_degree,
+            **fused_kw_from_runtime(rtm), reduction=reduction)
+        for acc, gi in zip(grads, g):
+            acc += gi
+        var += v
+    return grads + [var]
+
+
+def route_gate(d_feat, fb, columns: int, x, cs) -> None:
+    """Phase 16: both routes' (9, F*N) output on one group against the
+    same reduction in float64.  Each segment sum of the cumsum route is a
+    difference of two float32 prefixes of its frame, so its error is at
+    most twice the scan's error in that (row, frame) plus the rounding of
+    the difference, eps x the largest prefix: a bound of absolute size,
+    which a splat with small gradients in a long frame feels most.  ``x``
+    and ``cs``: the scan's input and output on the card."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+
+    f = x.shape[1]
+    ref = torch.zeros((rt.F_ROWS, columns), dtype=torch.float64, device=x.device)
+    ref.index_add_(1, fb.gather_idx, d_feat.double())
+    cs64 = torch.cumsum(x.double(), dim=2)
+    scan_err = (cs.double() - cs64).abs().amax(dim=2)  # (9, F)
+    eps = torch.finfo(torch.float32).eps
+    bound = 2 * scan_err + 2 * eps * cs64.abs().amax(dim=2)
+    per_frame = {}
+    for route in rt.REDUCTIONS:
+        got = rt.reduce_dup_grads(d_feat, fb, columns, route).double()
+        per_frame[route] = (got - ref).abs().view(rt.F_ROWS, f, -1).amax(dim=2)  # (9, F)
+    share = float((per_frame["cumsum"] / bound.clamp(min=1e-30)).max())
+    largest = ref.abs().view(rt.F_ROWS, f, -1).amax(dim=2).clamp(min=1e-30)
+    err = {k: (float(v.max()), float((v / largest).max())) for k, v in per_frame.items()}
+    print(f"  reduction of one group vs float64: cumsum route max err {err['cumsum'][0]:.3e} "
+          f"(at {share:.3f} of its (row, frame) bound, 2 x scan error + 2 eps x largest prefix; "
+          f"largest prefix {float(cs64.abs().max()):.3e}), over the (row, frame)'s largest sum "
+          f"{err['cumsum'][1]:.3e}; index_add route max err {err['index_add'][0]:.3e}, over the "
+          f"largest {err['index_add'][1]:.3e}")
+    if not share <= 1.0:
+        raise SystemExit("phase 16 failed: the cumsum route's reduction past its float32 bound")
+
+
+def cumsum_cell(dev, card, gate_err: float) -> dict:
+    """Phase 16.  Returns the kernel summary entry of cumsum_frames."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.train import (
+        CameraBatch, LearningRates, auto_train, make_train_step,
+    )
+    from gaussian_splatterer_tpu_torch.train.trainer import fused_kw_from_runtime
+
+    res, tile = TRAIN_RES, TRAIN_TILE
+    phase(f"16. fused train cell on the cumsum route: Trainer(reduction='cumsum') + auto_train, "
+          f"{TRAIN_SPLATS} splats, {res}^2, tile {tile}, frame_group {TRAIN_GROUP}")
+    trainer, rtx, _ = fused_cell(dev, reduction="cumsum")
+    groups = 2 * trainer.project.num_cameras // TRAIN_GROUP
+    log = []
+
+    def on_step(it, m):
+        log.append((it, float(m.loss), trainer.model.count, rt.cumsum_frames_launches))
+        print(f"  step {it}: loss {log[-1][1]:.6f}  splats {log[-1][2]}  cumsum_frames "
+              f"launches so far {log[-1][3]}", flush=True)
+
+    rt.cumsum_frames_launches = rt.composite_train_launches = 0
+    stats = auto_train(trainer, rtx, TRAIN_STEPS, rng=random.Random(0), on_step=on_step)
+    torch.cuda.synchronize()
+    launches = rt.cumsum_frames_launches
+    print(f"auto_train: {stats}  cumsum_frames launches {launches} (= {TRAIN_STEPS} steps x "
+          f"{groups} groups)  composite_train launches {rt.composite_train_launches}")
+    per_step = [b[3] - a[3] for a, b in zip([(0, 0, 0, 0)] + log, log)]
+    finite = all(np.isfinite(x[1]) for x in log)
+    if not (finite and len(log) == TRAIN_STEPS and all(k == groups for k in per_step)
+            and rt.composite_train_launches == TRAIN_STEPS * groups):
+        raise SystemExit("phase 16 failed: launches per step, or a non-finite loss")
+
+    # one group of the trained model (the step's first): the reduction's
+    # output against a float64 reduction, then the layer times below
+    m = trainer.model
+    cams = CameraBatch(*(x[:TRAIN_GROUP] for x in trainer.truth_cams.twice()))
+    with torch.no_grad():
+        comps, rows9 = rt.project_frames(
+            m.means.expand(TRAIN_GROUP, -1, -1), m.shs, m.scales, m.opacities, m.rotations,
+            m.active_mask(), *cams, res, res, m.sh_degree)
+        fb, args = rt.train_launch_inputs(rows9, comps, res, res, trainer.truths[:TRAIN_GROUP],
+                                          torch.ones((TRAIN_GROUP, 3), device=dev), tile,
+                                          trainer.runtime.max_dup)
+        _, d_feat = rt.composite_train(*args)
+        columns = rows9.shape[1]
+        x = rt.dups_to_depth_order(d_feat, fb)
+        cs = rt.cumsum_frames(x)
+        seg = rt.segment_sums(cs, fb, columns)
+        route_gate(d_feat, fb, columns, x, cs)
+
+    names = ("means", "shs", "scales", "opacities", "rotations", "var_loc")
+    with torch.no_grad():
+        c1, c2 = step_grads(trainer, "cumsum"), step_grads(trainer, "cumsum")
+        i1, i2 = step_grads(trainer, "index_add"), step_grads(trainer, "index_add")
+    torch.cuda.synchronize()
+    bit_c = all(torch.equal(a, b) for a, b in zip(c1, c2))
+    bit_i = all(torch.equal(a, b) for a, b in zip(i1, i2))
+    for name, a, b in zip(names, c1, i1):
+        diff, largest = float((a - b).abs().max()), float(b.abs().max())
+        rel = diff / max(1e-30, largest)
+        finite = bool(torch.isfinite(a).all())
+        print(f"  one step ({2 * trainer.project.num_cameras} frames) of the trained model, "
+              f"{name}: max|cumsum - index_add| {diff:.3e}, largest {largest:.3e}, over the "
+              f"largest {rel:.3e} (<= {GRAD_GATE_RTOL}; within the small-scene {ROUTE_ATOL}: "
+              f"{rel <= ROUTE_ATOL})  finite {finite}")
+        if not (finite and rel <= GRAD_GATE_RTOL):
+            raise SystemExit(f"phase 16 failed: {name}, the cumsum route against index_add")
+    print(f"  two cumsum-route steps bit-equal: {bit_c}  two index_add-route steps bit-equal: "
+          f"{bit_i} (printed, not gated: index_add_ adds with atomics)")
+    if not bit_c:
+        raise SystemExit("phase 16 failed: two cumsum-route steps differ")
+
+    with torch.no_grad():
+        layers = {
+            "permute to depth order": cuda_ms(lambda: rt.dups_to_depth_order(d_feat, fb)),
+            "K4 cumsum_frames": cuda_ms(lambda: rt.cumsum_frames(x)),
+            "boundaries": cuda_ms(lambda: rt.segment_sums(cs, fb, columns)),
+            "gather to rows": cuda_ms(lambda: rt.rows_from_depth(seg, fb)),
+            "cumsum route": cuda_ms(lambda: rt.dup_grads_to_rows_cumsum(d_feat, fb, columns)),
+            "index_add_ route": cuda_ms(lambda: rt.dup_grads_to_rows(d_feat, fb, columns)),
+        }
+        k4_plain = cuda_ms(lambda: rt.cumsum_frames_reference(x))
+        k4_lib = cuda_ms(lambda: torch.cumsum(x, dim=2))
+    print(f"  reduction of one group ({TRAIN_GROUP} frames, {d_feat.shape[1]} duplicates, scan "
+          f"{tuple(x.shape)}): " + "  ".join(f"{k} {v:.4f} ms" for k, v in layers.items())
+          + f"  [{card}]")
+    lrs = LearningRates.from_project(trainer.project)
+    whole = {}
+    for reduction in ("index_add", "cumsum", "cumsum", "index_add"):
+        step = make_train_step(res, res, m.sh_degree, renderer="tiled", fused=True,
+                               fused_opts=dict(fused_kw_from_runtime(trainer.runtime),
+                                               reduction=reduction), frame_group=TRAIN_GROUP)
+        whole.setdefault(reduction, []).append(cuda_ms(
+            lambda: step(trainer.model, trainer.truths, trainer.truth_cams, lrs),
+            warmup=1, reps=5))
+    print("  whole step (32 frames, median of 5 after 1; in turns index_add, cumsum, cumsum, "
+          "index_add): " + "  ".join(f"{k} {' / '.join(f'{t:.3f}' for t in v)} ms"
+                                     for k, v in whole.items()) + f"  [{card}]")
+    k4_ms = layers["K4 cumsum_frames"]
+    b_ms, b_by = bound_ms(x.numel(), 2 * 4 * x.numel(), "cumsum_frames")  # one add an element
+    print(f"  cumsum_frames per launch {tuple(x.shape)}: kernel {k4_ms:.4f} ms  plain "
+          f"{k4_plain:.4f} ms  torch.cumsum {k4_lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+          f"kernel at {b_ms / k4_ms:.3f} of the bound  [{card}]")
+    return {
+        "name": "cumsum_frames",
+        "route": "cuda",
+        "source": "gaussian_splatterer_tpu_torch/csrc/cumsum_frames.cu",
+        "replaces": "gaussian_splatterer_tpu/ops/raster_tiled.py:1077",
+        "launches": launches,
+        "max_abs_err": gate_err,
+        "ms": k4_ms,
+        "plain_ms": k4_plain,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": k4_lib,  # torch.cumsum(x, dim=2)
+    }
+
+
+def probe_phase(dev, card, earlier: list) -> list:
+    """Phase 17.  ``earlier``: the summary entries of K1-K5.  Returns the
+    summary entries of peak_fma, gather_cols and smem_gather."""
+    from gaussian_splatterer_tpu_torch.scripts import gather_probe as gp
+    from gaussian_splatterer_tpu_torch.scripts import peak_probe as pp
+    from gaussian_splatterer_tpu_torch.scripts import smem_gather_probe as sp
+
+    phase(f"17. H100 probes: peak (K8), gather at the bench scale (K7), gather from shared "
+          f"memory (K6) ({card})")
+    pp.peak_launches = 0
+    peak = pp.run(dev)
+    k8_launches = pp.peak_launches
+    pp.report(peak, card)
+    gp.gather_cols_launches = 0
+    gather = gp.run(dev)
+    k7_launches = gp.gather_cols_launches
+    gp.report(gather, card)
+    sp.smem_gather_launches = 0
+    smem = sp.run(dev)
+    k6_launches = sp.smem_gather_launches
+    sp.report(smem, card)
+    print(f"  launches in the probes' runs: peak_fma {k8_launches}, gather_cols {k7_launches}, "
+          f"smem_gather {k6_launches}")
+
+    k8_err = 0.0
+    for key, shape, runs, seed in (("reference", pp.REFERENCE_SHAPE, pp.REFERENCE_RUNS, 0),
+                                   ("resident", (pp.RESIDENT_N,), pp.RESIDENT_RUNS, 1)):
+        x32 = pp.probe_input(shape, "fma", dev, seed)
+        for form, kk in runs:
+            x = x32 if not form.endswith("bf16") else x32.bfloat16()
+            k, p = pp.peak(x, form, kk).float(), pp.peak_reference(x, form, kk).float()
+            err = float((k - p).abs().max())
+            atol = 2e-2 if form.endswith("bf16") else 1e-5
+            print(f"  peak_fma {key} {form} x {kk}: max|kernel - plain| {err:.3e} (<= {atol})")
+            if not (bool(torch.isfinite(k).all()) and err <= atol):
+                raise SystemExit(f"phase 17 failed: peak_fma {form} against plain")
+            k8_err = max(k8_err, err)
+        del x32
+    tab16, ids, ids_sorted = gp.probe_inputs(dev, gp.PADDED_ROWS, gp.COLS, gp.IDS)
+    for rows in (gp.ROWS, gp.PADDED_ROWS):
+        tab = tab16[:rows].contiguous()
+        for idx in (ids, ids_sorted):
+            if not torch.equal(gp.gather_cols(tab, idx), gp.gather_cols_reference(tab, idx)):
+                raise SystemExit(f"phase 17 failed: gather_cols at {rows} rows")
+    tab6, ids6, _ = gp.probe_inputs(dev, sp.ROWS, sp.COLS, sp.BENCH_IDS, seed=1)
+    for d in (sp.PROBE_IDS, sp.BENCH_IDS):
+        flat = ids6[:d].contiguous()
+        for idx in (flat, flat.view(-1, 128)):
+            if not torch.equal(sp.smem_gather(tab6, idx), sp.smem_gather_reference(tab6, idx)):
+                raise SystemExit(f"phase 17 failed: smem_gather at D = {d}")
+    print("  gather_cols (9 and 16 rows, random and sorted ids) and smem_gather (16 rows in "
+          "two blocks of 8, D = 8192 and 2^21, both index layouts) equal their plain twins")
+
+    rate = pp.fp32_rate(peak)
+    w = peak["window"]
+    r8 = next(r for r in peak["resident"] if (r["form"], r["kk"]) == pp.PEAK_FORM)
+    print(f"  measured FP32 rate (register-resident {pp.PEAK_FORM[0]} x {pp.PEAK_FORM[1]}, "
+          f"{w['launches']} launches back to back): {rate / 1e12:.3f} TFLOP/s = "
+          f"{rate / FP32_OPS_PER_S:.3f} of the published {FP32_OPS_PER_S / 1e12:.0f}, at SM clock "
+          f"{w['sm_clock_mhz']} MHz, {w['power_w']} W of {w['power_limit_w']} W; one launch "
+          f"(median) {r8['rate_per_s'] / 1e12:.3f} TFLOP/s")
+    print("  K1-K5 against both FP32 lines (this run):")
+    for e in earlier:
+        ops, nbytes = BOUND_PARTS[e["name"]]
+        b2, by2 = bound_ms(ops, nbytes, ops_per_s=rate)
+        print(f"    {e['name']}: {e['ms']:.4f} ms; bound {e['bound_ms']:.4f} ms ({e['bound_by']}) "
+              f"at 67 TFLOP/s, share {e['bound_ms'] / e['ms']:.4f}; bound {b2:.4f} ms ({by2}) "
+              f"at the measured {rate / 1e12:.3f} TFLOP/s, share {b2 / e['ms']:.4f}  [{card}]")
+
+    # the summary entries: K8 register-resident, K7 at the bench scale, K6 at D = 2^21
+    form, kk = pp.PEAK_FORM
+    x8 = pp.probe_input((pp.RESIDENT_N,), form, dev, 1)
+    k8_plain = cuda_ms(lambda: pp.peak_reference(x8, form, kk), warmup=1, reps=2)
+    c7 = next(c for c in gather["cases"] if c["rows"] == gp.ROWS and c["order"] == "random")
+    tab9 = tab16[:gp.ROWS].contiguous()
+    k7_plain = cuda_ms(lambda: gp.gather_cols_reference(tab9, ids))
+    c6 = next(c for c in smem["cases"] if c["ids"] == sp.BENCH_IDS)
+    k6_plain = cuda_ms(lambda: sp.smem_gather_reference(tab6, ids6))
+    return [{
+        "name": "peak_fma", "route": "cuda",
+        "source": "gaussian_splatterer_tpu_torch/csrc/peak_fma.cu",
+        "replaces": "scripts/peak_probe.py:60",
+        "launches": k8_launches, "max_abs_err": k8_err,
+        "ms": r8["ms"], "plain_ms": k8_plain, "bound_ms": r8["bound_ms"],
+        "bound_by": r8["bound_by"],
+        "library_ms": None,  # no PyTorch call runs a chain of FMAs
+    }, {
+        "name": "gather_cols", "route": "cuda",
+        "source": "gaussian_splatterer_tpu_torch/csrc/gather_cols.cu",
+        "replaces": "scripts/gather_probe.py:96",
+        "launches": k7_launches, "max_abs_err": 0.0,
+        "ms": c7["kernel_ms"], "plain_ms": k7_plain, "bound_ms": c7["bound_ms"],
+        "bound_by": c7["bound_by"],
+        "library_ms": c7["index_select_ms"],  # torch.index_select(tab, 1, ids)
+    }, {
+        "name": "smem_gather", "route": "cuda",
+        "source": "gaussian_splatterer_tpu_torch/csrc/smem_gather.cu",
+        "replaces": "scripts/vmem_gather_probe.py:50",
+        "launches": k6_launches, "max_abs_err": 0.0,
+        "ms": c6["kernel_ms"], "plain_ms": k6_plain, "bound_ms": c6["bound_ms"],
+        "bound_by": c6["bound_by"],
+        "library_ms": c6["index_select_ms"],  # torch.index_select(tab, 1, ids)
+    }]
 
 
 def device_busy_ms(fn) -> tuple[float, float, dict]:
@@ -1437,7 +1813,7 @@ def main() -> int:
 
     fwd = serve_phases(dev, card)
     gate_err = train_gate(dev)
-    train = train_main(dev, card)
+    train, group = train_main(dev, card)
     train["max_abs_err"] = max(train["max_abs_err"], gate_err)
     k5_err = tracer_gate(dev)
     launches = tracer_main()
@@ -1445,10 +1821,13 @@ def main() -> int:
     k2_err = bwd_gate(dev)
     bwd = nonfused_main(dev, card)
     bwd["max_abs_err"] = max(bwd["max_abs_err"], k2_err)
+    k4 = cumsum_cell(dev, card, cumsum_gate(dev, group))
+    del group
+    probes = probe_phase(dev, card, [fwd, bwd, train, k4, k5])
     if "jax" in sys.modules:
         raise SystemExit("chip_smoke: jax was imported")
 
-    print(json.dumps({"kernels": [fwd, train, k5, bwd]}))
+    print(json.dumps({"kernels": [fwd, train, k5, bwd, k4, *probes]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

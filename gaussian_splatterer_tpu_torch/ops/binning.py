@@ -10,6 +10,11 @@
      each tile,
   4. per-tile ``[tile_start, tile_end)`` ranges by binary search.
 
+The tile sort's permutation and each depth slot's duplicate range are
+kept (``presort_pos``, ``seg_start``, ``seg_end``): the cumsum route of
+the fused step's gradient reduction (raster_tiled.dup_grads_to_rows_cumsum)
+carries the duplicates back to depth order with them.
+
 The buffer is sized from the true duplicate count, capped at ``max_dup``:
 as in the reference, duplicates past ``max_dup`` in depth order are dropped
 and ``num_dup`` reports the true total, so a caller can tell it overflowed.
@@ -37,6 +42,9 @@ class TileBins(NamedTuple):
     tile_end: torch.Tensor  # (T,) int32 one past the last
     num_dup: int  # true duplicate total (may exceed max_dup)
     depth_order: torch.Tensor  # (N,) int64 splat id per depth slot
+    presort_pos: torch.Tensor  # (D,) int64 depth-order position per tile-sorted duplicate
+    seg_start: torch.Tensor  # (N,) int64 first kept duplicate (depth order) per depth slot
+    seg_end: torch.Tensor  # (N,) int64 one past the last, clamped to D
 
 
 def tile_aabb(mx, my, rx, ry, tile: int, tx_tiles: int, ty_tiles: int):
@@ -87,18 +95,26 @@ def bin_splats(comps: SplatComponents, width: int, height: int, tile: int,
     tids = torch.arange(num_tiles, device=dev, dtype=tid_sorted.dtype)
     tile_start = torch.searchsorted(tid_sorted, tids, side="left").to(torch.int32)
     tile_end = torch.searchsorted(tid_sorted, tids, side="right").to(torch.int32)
-    return TileBins(gather_idx, tile_start, tile_end, num_dup, order)
+    seg_start = torch.clamp(offs - ntiles, max=d_count)
+    seg_end = torch.clamp(offs, max=d_count)
+    return TileBins(gather_idx, tile_start, tile_end, num_dup, order, perm, seg_start, seg_end)
 
 
 class FrameBins(NamedTuple):
     """The bins of F frames, concatenated so that one compositor launch
     covers all F x T (frame, tile) blocks, frame-major.  D = the sum of the
-    frames' kept duplicates."""
+    frames' kept duplicates.  Duplicate positions are offset by the kept
+    duplicates of the frames before, depth slots and row columns by f * N."""
 
     gather_idx: torch.Tensor  # (D,) int64 column in the frame-stacked (9, F*N) rows
     tile_start: torch.Tensor  # (F*T,) int32 first duplicate of each (frame, tile)
     tile_end: torch.Tensor  # (F*T,) int32 one past the last
     num_dup: int  # max over frames of the true duplicate count
+    frame_dups: tuple  # (F,) kept duplicates of each frame, host ints
+    presort_pos: torch.Tensor  # (D,) int64 depth-order position per tile-sorted duplicate
+    seg_start: torch.Tensor  # (F*N,) int64 first kept duplicate per depth slot
+    seg_end: torch.Tensor  # (F*N,) int64 one past the last
+    depth_order: torch.Tensor  # (F*N,) int64 row column per depth slot
 
 
 def bin_frames(comps_frames: Sequence[SplatComponents], width: int, height: int,
@@ -106,15 +122,21 @@ def bin_frames(comps_frames: Sequence[SplatComponents], width: int, height: int,
     """Bin each frame with ``bin_splats`` (each keeps at most ``max_dup``
     duplicates) and offset its tile ranges into the concatenation."""
     frames = [bin_splats(c, width, height, tile, max_dup) for c in comps_frames]
-    gathers, starts, ends = [], [], []
+    parts = {k: [] for k in ("gather", "start", "end", "pos", "seg_start", "seg_end", "order")}
     offset = 0
     for f, (c, b) in enumerate(zip(comps_frames, frames)):
         n = c.mx.shape[0]
-        gathers.append(b.gather_idx + f * n)
-        starts.append(b.tile_start + offset)
-        ends.append(b.tile_end + offset)
+        parts["gather"].append(b.gather_idx + f * n)
+        parts["start"].append(b.tile_start + offset)
+        parts["end"].append(b.tile_end + offset)
+        parts["pos"].append(b.presort_pos + offset)
+        parts["seg_start"].append(b.seg_start + offset)
+        parts["seg_end"].append(b.seg_end + offset)
+        parts["order"].append(b.depth_order + f * n)
         offset += b.gather_idx.shape[0]
     if offset >= 2**31:
         raise ValueError(f"{offset} duplicates in one frame group exceed int32 tile ranges")
-    return FrameBins(torch.cat(gathers), torch.cat(starts), torch.cat(ends),
-                     max(b.num_dup for b in frames))
+    cat = {k: torch.cat(v) for k, v in parts.items()}
+    return FrameBins(cat["gather"], cat["start"], cat["end"], max(b.num_dup for b in frames),
+                     tuple(b.gather_idx.shape[0] for b in frames), cat["pos"],
+                     cat["seg_start"], cat["seg_end"], cat["order"])

@@ -30,9 +30,16 @@ render_train_grads):
        per-duplicate gradients of the nine rows; the CUDA kernel
        csrc/composite_train.cu on a CUDA tensor, composite_train_reference
        on a CPU tensor
-    -> dup_grads_to_rows: one index_add_ of the duplicate gradients onto
-       the frame-stacked rows (each frame's duplicates land in its own
-       columns, so the rows stay per frame)
+    -> the reduction of the duplicate gradients onto the frame-stacked rows
+       (each frame's duplicates land in its own columns, so the rows stay
+       per frame), by one of two routes, the ``reduction`` argument:
+         "index_add" (the default), dup_grads_to_rows: one index_add_;
+         "cumsum", dup_grads_to_rows_cumsum: the JAX package's route, the
+         duplicates carried back to depth order, a per-frame inclusive
+         scan (cumsum_frames: the CUDA kernel csrc/cumsum_frames.cu on a
+         CUDA tensor, torch.cumsum on a CPU tensor) and per-splat segment
+         differences; its sums run in a fixed order, so it is
+         deterministic on the card, where index_add_'s atomics are not
     -> torch.autograd.grad through the projection.
 
 Truth and residual tiles are pixel-major, (F, T, P, 3) and (F, T, P, 4);
@@ -43,6 +50,7 @@ workaround.  Everything is float32.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -71,6 +79,9 @@ composite_fwd_launches = 0
 composite_train_launches = 0
 # Launches of the CUDA backward compositor, counted the same way by composite_bwd.
 composite_bwd_launches = 0
+# Launches of the CUDA per-frame scan, counted the same way by cumsum_frames.
+cumsum_frames_launches = 0
+REDUCTIONS = ("index_add", "cumsum")  # routes of the duplicate-gradient reduction
 
 
 def _check_composite_args(feat, tile_start, tile_end, tile):
@@ -591,6 +602,134 @@ def dup_grads_to_rows(d_feat: torch.Tensor, fb: FrameBins, columns: int) -> torc
     return out.index_add_(1, fb.gather_idx, d_feat)
 
 
+def _check_cumsum_args(x):
+    if x.dtype != torch.float32 or x.dim() != 3:
+        raise ValueError(f"x must be (K, F, D) float32, got {tuple(x.shape)} {x.dtype}")
+
+
+def cumsum_frames_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of cumsum_frames: torch.cumsum along D."""
+    _check_cumsum_args(x)
+    return torch.cumsum(x, dim=2)
+
+
+def cumsum_frames(x: torch.Tensor) -> torch.Tensor:
+    """Per-frame inclusive scan of a (K, F, D) float32 array along D (the
+    JAX package's cumsum_frames): the CUDA kernel for CUDA tensors, any D,
+    bit-equal from launch to launch; the plain version for CPU tensors."""
+    global cumsum_frames_launches
+    if x.device.type == "cpu":
+        return cumsum_frames_reference(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"cumsum_frames: unsupported device {x.device}")
+    _check_cumsum_args(x)
+    if not x.is_contiguous():
+        raise ValueError("cumsum_frames: x must be contiguous")
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    lib = _cumsum_lib()
+    k, f, d = x.shape
+    scratch = torch.empty((k * f * math.ceil(d / lib.cumsum_frames_chunk()),),
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.cumsum_frames(x.data_ptr(), y.data_ptr(), scratch.data_ptr(), k * f, d,
+                                stream)
+    if err != 0:
+        raise RuntimeError(f"cumsum_frames kernel launch failed: cudaError_t {err}")
+    cumsum_frames_launches += 1
+    return y
+
+
+def _cumsum_lib() -> ctypes.CDLL:
+    lib = cuda_build.load_library("cumsum_frames")
+    fn = lib.cumsum_frames
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    lib.cumsum_frames_chunk.argtypes = []
+    lib.cumsum_frames_chunk.restype = ctypes.c_int
+    return lib
+
+
+def _frame_firsts(fb: FrameBins, device) -> torch.Tensor:
+    """(F,) int64 first duplicate of each frame in the concatenation."""
+    counts = torch.tensor(fb.frame_dups, dtype=torch.int64, device=device)
+    return torch.cumsum(counts, 0) - counts
+
+
+def dups_to_depth_order(d_feat: torch.Tensor, fb: FrameBins) -> torch.Tensor:
+    """(9, D) tile-sorted duplicate gradients -> (9, F, Dmax) in each
+    frame's depth order, Dmax the group's largest kept count, each frame's
+    tail zero.  The move is a permutation, so the store is exact."""
+    f, dmax = len(fb.frame_dups), max(fb.frame_dups, default=0)
+    dev = d_feat.device
+    out = torch.zeros((F_ROWS, f * dmax), dtype=torch.float32, device=dev)
+    counts = torch.tensor(fb.frame_dups, dtype=torch.int64, device=dev)
+    frame_of = torch.repeat_interleave(torch.arange(f, device=dev), counts,
+                                       output_size=d_feat.shape[1])
+    col = fb.presort_pos - _frame_firsts(fb, dev)[frame_of] + frame_of * dmax
+    out[:, col] = d_feat
+    return out.view(F_ROWS, f, dmax)
+
+
+def segment_sums(cs: torch.Tensor, fb: FrameBins, columns: int) -> torch.Tensor:
+    """(9, F, Dmax) per-frame inclusive scans -> (9, F*N) per depth slot:
+    the sum over the slot's duplicates [a, b) of its frame is cs[b - 1] -
+    cs[a - 1], with 0 for a prefix that starts at the frame's own first
+    duplicate (told from the slot's frame, not from a modulo).  A frame's
+    last slot ends at its kept count, where its scan holds the frame total;
+    an empty segment gives exactly 0."""
+    f, dmax = cs.shape[1], cs.shape[2]
+    dev = cs.device
+    if columns % max(f, 1):
+        raise ValueError(f"{columns} columns are not {f} frames of N")
+    out = torch.zeros((F_ROWS, columns), dtype=torch.float32, device=dev)
+    if dmax == 0:
+        return out
+    slot_frame = torch.arange(columns, device=dev) // (columns // f)
+    first = _frame_firsts(fb, dev)[slot_frame]
+    base = slot_frame * dmax - 1
+    flat = cs.reshape(F_ROWS, f * dmax)
+
+    def prefix(ends):  # the scan just before local position ``ends``
+        local = ends - first
+        return torch.where(local > 0, flat[:, (base + local).clamp(min=0)], out)
+
+    return prefix(fb.seg_end) - prefix(fb.seg_start)
+
+
+def rows_from_depth(seg: torch.Tensor, fb: FrameBins) -> torch.Tensor:
+    """(9, F*N) per depth slot -> per row column: a permutation store."""
+    out = torch.empty_like(seg)
+    out[:, fb.depth_order] = seg
+    return out
+
+
+def dup_grads_to_rows_cumsum(d_feat: torch.Tensor, fb: FrameBins, columns: int) -> torch.Tensor:
+    """The cumsum route of dup_grads_to_rows, with its output (9, F*N): the
+    counterpart of the JAX package's _dup_grads_to_rows.  Depth order
+    (dups_to_depth_order), a per-frame scan (cumsum_frames: kernel K4 on
+    the card), segment differences (segment_sums), back to row order
+    (rows_from_depth).  Every sum is in a fixed order: bit-equal from call
+    to call on the card."""
+    cs = cumsum_frames(dups_to_depth_order(d_feat, fb))
+    return rows_from_depth(segment_sums(cs, fb, columns), fb)
+
+
+def reduce_dup_grads(d_feat: torch.Tensor, fb: FrameBins, columns: int,
+                     reduction: str = "index_add") -> torch.Tensor:
+    """(9, D) duplicate gradients -> (9, F*N) by the route ``reduction``."""
+    if reduction == "index_add":
+        return dup_grads_to_rows(d_feat, fb, columns)
+    if reduction == "cumsum":
+        return dup_grads_to_rows_cumsum(d_feat, fb, columns)
+    raise ValueError(f"reduction {reduction!r} is not one of {REDUCTIONS}")
+
+
 def train_launch_inputs(rows9, comps_frames, width: int, height: int, truth_tiles,
                         backgrounds, tile: int, max_dup: int):
     """Bin F frames whose rows (9, F*N) are given and gather their
@@ -614,14 +753,14 @@ def train_launch_inputs(rows9, comps_frames, width: int, height: int, truth_tile
 
 
 def _train_core(rows9, comps_frames, width, height, truth_tiles, backgrounds,
-                tile: int, max_dup: int):
-    """Bin, gather, composite and reduce F frames whose rows (9, F*N) are
-    given.  Returns (loss_sum, d_rows9 (9, F*N), res (F, T, P, 4),
-    num_dup)."""
+                tile: int, max_dup: int, reduction: str = "index_add"):
+    """Bin, gather, composite and reduce (by the route ``reduction``) F
+    frames whose rows (9, F*N) are given.  Returns (loss_sum, d_rows9
+    (9, F*N), res (F, T, P, 4), num_dup)."""
     fb, args = train_launch_inputs(rows9, comps_frames, width, height, truth_tiles,
                                    backgrounds, tile, max_dup)
     res, d_feat = composite_train(*args)
-    d_rows9 = dup_grads_to_rows(d_feat, fb, rows9.shape[1])
+    d_rows9 = reduce_dup_grads(d_feat, fb, rows9.shape[1], reduction)
     res = res.reshape(len(comps_frames), args[-1], tile * tile, 4)
     loss_sum = torch.square(res[..., 0:3]).mean(dim=(1, 2, 3)).sum()
     return loss_sum, d_rows9, res, fb.num_dup
@@ -629,19 +768,20 @@ def _train_core(rows9, comps_frames, width, height, truth_tiles, backgrounds,
 
 def render_train_grads_rows(comps: SplatComponents, width: int, height: int,
                             truth_tiles, backgrounds, *, tile: int = 32,
-                            max_dup: int = 2**18):
+                            max_dup: int = 2**18, reduction: str = "index_add"):
     """Fused training core from pre-projected splats: every field of
     ``comps`` is (F, M).  Returns (loss_sum, d_rows (F, 9, M), res
     (F, T, P, 4), num_dup, num_work): loss_sum is the sum over frames of the
     mean squared residual, d_rows the gradients of the rows [mx, my, ca,
     cb, cc, cr, cg, cb2, opacity], num_dup the most duplicates any frame
     generated (> max_dup: the deepest were dropped), and num_work -1 (there
-    is no work list)."""
+    is no work list).  ``reduction`` picks the route of the duplicate
+    gradients' reduction, "index_add" or "cumsum"."""
     f, m = comps.mx.shape
     frames = [SplatComponents(*(x[i].detach() for x in comps)) for i in range(f)]
     rows9 = torch.cat([_rows(c) for c in frames], dim=1)
     loss_sum, d_rows9, res, num_dup = _train_core(
-        rows9, frames, width, height, truth_tiles, backgrounds, tile, max_dup)
+        rows9, frames, width, height, truth_tiles, backgrounds, tile, max_dup, reduction)
     return loss_sum, d_rows9.reshape(F_ROWS, f, m).transpose(0, 1), res, num_dup, -1
 
 
@@ -653,8 +793,12 @@ def render_train_grads_batch(
     backgrounds,  # (F, 3)
     sh_degree: int,
     *, tile: int = 32, max_dup: int = 2**18, aa: bool = False,
+    reduction: str = "index_add",
 ):
     """Fused training core for F frames in one compositor launch.
+    ``reduction`` picks the route of the duplicate gradients' reduction:
+    "index_add" (one index_add_) or "cumsum" (the JAX package's per-frame
+    scan route, deterministic on the card).
 
     Returns (loss_sum, grads, var_loc, res, num_dup, num_work):
       loss_sum = sum over frames of the per-frame mean squared residual;
@@ -674,7 +818,8 @@ def render_train_grads_batch(
         comps, rows9 = project_frames(*leaves, active, views, proj_views, cam_posns,
                                       tan_fovxs, tan_fovys, width, height, sh_degree, aa)
     loss_sum, d_rows9, res, num_dup = _train_core(
-        rows9.detach(), comps, width, height, truth_tiles, backgrounds, tile, max_dup)
+        rows9.detach(), comps, width, height, truth_tiles, backgrounds, tile, max_dup,
+        reduction)
     d_means_b, *grads = torch.autograd.grad(rows9, leaves, d_rows9)
     var_loc = torch.sqrt(torch.sum(torch.square(d_means_b), dim=-1)).sum(0)
     return loss_sum, (d_means_b.sum(0), *grads), var_loc, res, num_dup, -1
@@ -685,6 +830,7 @@ def render_train_grads(
     view, proj_view, cam_pos, tan_fovx, tan_fovy,
     width: int, height: int, truth_tiles, background, sh_degree: int,
     *, tile: int = 32, max_dup: int = 2**18, aa: bool = False,
+    reduction: str = "index_add",
 ):
     """Fused training core for one frame: (loss_mean, grads, res (T, P, 4)),
     truth_tiles (T, P, 3).  render_train_grads_batch with F = 1."""
@@ -692,6 +838,6 @@ def render_train_grads(
         means, shs, scales, opacities, rotations, active,
         [view], [proj_view], [cam_pos], [tan_fovx], [tan_fovy], width, height,
         torch.as_tensor(truth_tiles)[None], torch.as_tensor(background)[None], sh_degree,
-        tile=tile, max_dup=max_dup, aa=aa,
+        tile=tile, max_dup=max_dup, aa=aa, reduction=reduction,
     )
     return loss, grads, res[0]

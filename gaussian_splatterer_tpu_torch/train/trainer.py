@@ -16,7 +16,10 @@ Two step kinds, as in the JAX package:
   * fused (renderer "tiled", resolution a multiple of the tile): the
     frame-batched training core ops.raster_tiled.render_train_grads_batch,
     ``frame_group`` frames per launch of the CUDA kernel composite_train,
-    against pre-tiled truths;
+    against pre-tiled truths; ``reduction`` (a fused option, and a
+    Trainer argument) picks how the duplicate gradients reach their
+    splats: "index_add" (the default) or "cumsum" (the JAX package's
+    per-frame scan route, kernel cumsum_frames, deterministic);
   * frame by frame, ``torch.autograd.grad`` of a differentiable renderer:
     renderer "tiled" at a resolution that is not a multiple of the tile
     (render_tiled, whose compositor's backward is the CUDA kernel
@@ -42,7 +45,9 @@ import torch
 from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
 from gaussian_splatterer_tpu_torch.models.camera import Camera
 from gaussian_splatterer_tpu_torch.models.splats import SplatModel
-from gaussian_splatterer_tpu_torch.ops.raster_tiled import image_to_tiles, render_train_grads_batch
+from gaussian_splatterer_tpu_torch.ops.raster_tiled import (
+    REDUCTIONS, image_to_tiles, render_train_grads_batch,
+)
 from gaussian_splatterer_tpu_torch.train.densify import DensifyParams, densify
 
 
@@ -175,7 +180,9 @@ def make_train_step(
     311-314); with ``fused=True`` pre-tiled to (2F, T, P, 3) with
     ops.raster_tiled.image_to_tiles.  The fused step composites
     ``frame_group`` frames per kernel launch, snapped down to a divisor of
-    2F.  The model's parameters are updated in place."""
+    2F; ``fused_opts`` are render_train_grads_batch's keywords (tile,
+    max_dup, aa, reduction).  The model's parameters are updated in
+    place."""
     fkw = dict(fused_opts or {})
     if not fused:
         render = render_fn if render_fn is not None else _default_render(renderer, row_chunk)
@@ -247,7 +254,8 @@ class Trainer:
     height) -> (H, W, 3)`` image (numpy or tensor): the path tracer
     (rt.RtxHost, whose images already lie on its device) or a surrogate
     such as renders of a teacher model.  The model's device is the training
-    device.
+    device.  ``reduction`` is the fused step's route for the duplicate
+    gradients, "index_add" or "cumsum" (ops.raster_tiled.REDUCTIONS).
     """
 
     def __init__(
@@ -259,7 +267,10 @@ class Trainer:
         row_chunk: int = 32,
         render_fn: Optional[RenderFn] = None,
         devices: Optional[Sequence] = None,
+        reduction: str = "index_add",
     ):
+        if reduction not in REDUCTIONS:
+            raise ValueError(f"reduction {reduction!r} is not one of {REDUCTIONS}")
         n_dev = len(devices) if devices is not None else int(runtime.train_devices or 0)
         if n_dev > 1:
             raise NotImplementedError(
@@ -270,6 +281,7 @@ class Trainer:
         self.model = model
         self.renderer = renderer
         self.row_chunk = row_chunk
+        self.reduction = reduction
         self._user_render = render_fn is not None
         self._render_fn = render_fn
         self.truths: Optional[torch.Tensor] = None  # (2F, H, W, 3) or (2F, T, P, 3)
@@ -296,7 +308,8 @@ class Trainer:
             # the bare fallback would bin with render_tiled's own defaults
             # (tile 16, max_dup 2^19, no AA) on the non-fused tiled step
             render_fn=self._render_fn,
-            fused=self._fused, fused_opts=fused_kw_from_runtime(runtime),
+            fused=self._fused,
+            fused_opts=dict(fused_kw_from_runtime(runtime), reduction=self.reduction),
             frame_group=runtime.frame_group,
         )
 
