@@ -38,7 +38,9 @@ Phases:
   9. kernel against plain on the random soup of the JAX package's tests,
      on 2^16 bounce rays leaving the north-star mushroom's surface and on
      one batch of its primary rays as a capture launches it (8 samples of
-     a 1024^2 frame, 8,388,608 rays); a 32^2 render with the kernel against
+     a 1024^2 frame, 8,388,608 rays); on that batch, the split over
+     triangles (the first 1024, 8192 and 65536 rays) and a second launch
+     bit-equal to the first launch; a 32^2 render with the kernel against
      one with the plain intersector, same seed;
  10. main path: the CLI's new -> train -> render --mode rtx on the north
      star (the procedural mushroom, 1024^2, 8-camera rig, 32 samples,
@@ -47,7 +49,11 @@ Phases:
  11. times: seconds per 32-sample 1024^2 capture frame at the north-star
      and the close-up camera with the device's busy share, and the kernel,
      its plain twin and the FP32 product alone on one batch of primary rays
-     (the kernel also on one 1024^2 frame of them);
+     (the kernel also on one 1024^2 frame of them); the kernel alone at
+     2^10, 2^13, 2^16 and 2^20 bounce rays and on the batch, per call and
+     on the device, beside its bound at both counts of operations a pair;
+     what the reject and the split buy, each on its own; the instructions
+     a pair of its loop over triangles in the SASS (cuobjdump);
   non-fused tiled training (kernel composite_bwd, the compositor's backward):
  12. kernel against plain on the gate scene (seeded uniform gradients, tile
      16 and 32), two launches bit-equal; render_tiled gradients through the
@@ -79,7 +85,8 @@ Phases:
  17. each probe's run(), as ``python -m
      gaussian_splatterer_tpu_torch.scripts.<name>`` runs it: K8's forms at
      the reference's shape (memory-bound) and register-resident, with the
-     SM clock and power, K7 at the bench scale, K6 on the (16, 4096) table;
+     SM clock and power, K7 at the bench scale (with the L2 sector bytes of
+     random ids and the rate they imply), K6 on the (16, 4096) table;
      each kernel against its plain twin (K6 and K7 exactly); then K1-K5's
      times from this run with their shares of the bound at the published
      67 TFLOP/s and at K8's measured FP32 rate.
@@ -142,8 +149,17 @@ K3_OPS_COMPOSITED = K1_OPS_COMPOSITED + 47  # + pass 2: transmittance, d_alpha, 
 K3_OPS_PIXEL = 20  # residual (9), g_t (5), g_ctot (5), g_t T_final
 # K5, per (ray, triangle) pair: four dot products of length 10 (4 products
 # and 36 FMAs, an FMA two operations) and the epilogue (guard 3, division,
-# 3 products, u + v, 5 tests, the running minimum 2)
+# 3 products, u + v, 5 tests, the running minimum 2): the first port's count,
+# every pair through the epilogue
 K5_OPS_PAIR = 76 + 15
+# the FP32 work every pair still does in csrc/mt_intersect.cu: the four dot
+# products (76) and the reject's arithmetic (the clamp's test, the margin's
+# product, the two tests); its sign flips and the clamp's select are the
+# kernel's own bookkeeping, not the function's, and are not counted.  Only
+# warps with a surviving pair run the epilogue.  The bound the summary
+# reports uses this count
+K5_OPS_PAIR_MIN = 76 + 4
+K5_SWEEP = (1 << 10, 1 << 13, 1 << 16, 1 << 20)  # phase 11's launch sizes below the batch
 K5_MASK_SHARE = 0.9999  # hit masks, and winners where both hit: a guard within rounding may flip
 K5_TIE_BARY_ATOL = 1e-4  # a tie's winner holds the hit point in float64, to float32 rounding
 K5_T_RTOL, K5_UV_ATOL = 1e-5, 1e-5  # FMA chains vs the product's own summation order
@@ -907,6 +923,13 @@ def compare_hits(label: str, o, d, tris, k, p) -> float:
     return max(uv_err, t_err)
 
 
+def k5_slices(dev, r: int, t_real: int) -> int:
+    """The slices over triangles K5's wrapper chooses for ``r`` rays."""
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+
+    return tr.slice_plan(r, t_real, tr.mt_slots(dev), tr.K5_RAYS_PER_BLOCK)[0]
+
+
 def tracer_gate(dev) -> float:
     """Phase 9.  Returns the largest kernel-vs-plain error."""
     from gaussian_splatterer_tpu_torch.io.obj import TriangleMesh
@@ -943,7 +966,22 @@ def tracer_gate(dev) -> float:
         p = tr.intersect_reference(o, d, h._tris, h.tri_chunk)
         torch.cuda.synchronize()
         worst = max(worst, compare_hits(label, o, d, h._tris, k, p))
-    del o, d, k, p, pairs
+    # the split over triangles (a launch of a few thousand rays, as a late
+    # bounce makes) against the unsplit launch, and a second launch, on the
+    # primary batch: bit for bit
+    tris, tc = host._tris, host.tri_chunk
+    again = tr.intersect(o, d, tris, tc)
+    same = all(torch.equal(a, b) for a, b in zip(k, again))
+    for n in (1024, 8192, 65536):
+        part = tr.intersect(o[:n], d[:n], tris, tc)
+        same = same and all(torch.equal(a, b[:n]) for a, b in zip(part, k))
+    splits = [k5_slices(dev, n, tris["tri40"].shape[0]) for n in (1024, 8192, 65536)]
+    print(f"  split vs unsplit: intersect(o[:n]) equals intersect(o)[:n] bit for bit at n = "
+          f"1024, 8192, 65536 (slices {splits}), and a second launch equals the first: {same}",
+          flush=True)
+    if not same:
+        raise SystemExit("phase 9 failed: the split or a second launch changed a hit")
+    del o, d, k, p, pairs, again, part
 
     # the same 32^2 render, one generator seed, through either intersector
     host.load_texture_diffuse(mushroom_texture())
@@ -1098,16 +1136,20 @@ def tracer_times(dev, card, launches: int, gate_err: float) -> dict:
     lib_ms = cuda_ms(lambda: [torch.matmul(r10[s:s + n_pix], tris["feat10"], out=prod)
                               for s in range(0, r, n_pix)], warmup=1, reps=3)
     del prod, r10
-    # every (ray, real triangle) pair; rays in (24 B) and out (16 B), the
-    # triangle table (160 B) and its valid flag (1 B) once
-    b_ms, b_by = bound_ms(K5_OPS_PAIR * r * t_real, 40 * r + 161 * t_pad, "mt_intersect")
+    b_ms, b_by = k5_bound(r, t_real, K5_OPS_PAIR_MIN, "mt_intersect")
+    b_old, _ = k5_bound(r, t_real, K5_OPS_PAIR)
     print(f"  mt_intersect per launch on a batch of primary rays ({host.sample_batch} samples "
           f"of {NS_RES}^2 = {r} rays x {t_pad} triangles, {t_real} real): kernel {k5_ms:.3f} "
           f"ms  plain {plain_ms:.3f} ms  torch.matmul of the (R, 10) x (10, {4 * t_pad}) "
           f"product alone, {r // n_pix} calls of {n_pix} rays, {lib_ms:.3f} ms  bound "
-          f"{b_ms:.4f} ms ({b_by}, {K5_OPS_PAIR} operations a pair)  kernel at "
-          f"{b_ms / k5_ms:.3f} of the bound; the kernel on one frame ({n_pix} rays) "
-          f"{k5_frame_ms:.3f} ms  [{card}]", flush=True)
+          f"{b_ms:.4f} ms ({b_by}, {K5_OPS_PAIR_MIN} operations a pair), share "
+          f"{b_ms / k5_ms:.3f}; at the first port's {K5_OPS_PAIR} a pair {b_old:.4f} ms, share "
+          f"{b_old / k5_ms:.3f}; the kernel on one frame ({n_pix} rays) {k5_frame_ms:.3f} ms  "
+          f"[{card}]", flush=True)
+    k5_sweep(dev, card, host, o, d)
+    k5_forms(card, host, o, d)
+    del o, d
+    k5_sass(card)
     return {
         "name": "mt_intersect",
         "route": "cuda",
@@ -1121,6 +1163,213 @@ def tracer_times(dev, card, launches: int, gate_err: float) -> dict:
         "bound_by": b_by,
         "library_ms": lib_ms,  # the product alone: no PyTorch call finds a first hit
     }
+
+
+def k5_bound(r: int, t_real: int, ops_pair: int, name: str | None = None):
+    """K5's bound: every (ray, real triangle) pair at ``ops_pair``
+    operations; rays in (24 B) and out (16 B), the triangle table (160 B and
+    its index or valid flag) once."""
+    return bound_ms(ops_pair * r * t_real, 40 * r + 164 * t_real, name)
+
+
+def k5_sweep(dev, card, host, o, d) -> None:
+    """K5 alone at each launch size of K5_SWEEP (bounce rays leaving the
+    mushroom's surface, as the capture's bounces launch it: without the
+    reject) and on the primary batch (o, d): the time of one call by CUDA
+    events, which holds the wrapper's host work, beside the device time of
+    the kernels and the profiler's reading of it, and the bound under both
+    counts of operations."""
+    import inspect
+
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+
+    tris, tc = host._tris, host.tri_chunk
+    t_real = int(tris["valid"].sum())
+    split = "reject" in inspect.signature(tr.intersect).parameters
+    print(f"  mt_intersect by launch size (call: CUDA events around one call, median of "
+          f"{REPS}; device: CUDA events around 10 calls queued behind a spin kernel, so no "
+          f"host time between them, median of 5; bound at {K5_OPS_PAIR_MIN} / {K5_OPS_PAIR} "
+          f"operations a pair):")
+    for r in (*K5_SWEEP, o.shape[0]):
+        if r == o.shape[0]:
+            ro, rd, label, kw = o, d, "primary batch", {}
+        else:
+            ro, rd = (x.to(dev) for x in surface_rays(host.mesh, r, seed=7))
+            label, kw = "bounce rays", ({"reject": False} if split else {})
+        call_ms = cuda_ms(lambda: tr.intersect(ro, rd, tris, tc, **kw))
+        dev_ms = queued_ms(lambda: tr.intersect(ro, rd, tris, tc, **kw))
+        _, wall_ms, by_name = device_busy_ms(
+            lambda: [tr.intersect(ro, rd, tris, tc, **kw) for _ in range(10)])
+        prof_ms = sum(ms for name, (ms, _) in by_name.items()
+                      if "mt_intersect" in name or "merge_slices" in name) / 10 or float("nan")
+        b_min, _ = k5_bound(r, t_real, K5_OPS_PAIR_MIN)
+        b_old, _ = k5_bound(r, t_real, K5_OPS_PAIR)
+        slices = k5_slices(dev, r, t_real) if split else 1
+        print(f"    R = {r} ({label}), {slices} slices: call {call_ms:.4f} ms, device "
+              f"{dev_ms:.4f} ms (the profiler's kernel time {prof_ms:.4f} ms, host clock "
+              f"{wall_ms / 10:.4f} ms a launch under it); bound {b_min:.5f} / {b_old:.5f} ms; "
+              f"device share {b_min / dev_ms:.3f} / {b_old / dev_ms:.3f}  [{card}]", flush=True)
+    # the clock beside a window of primary batches back to back
+    from gaussian_splatterer_tpu_torch.scripts.peak_probe import sample_clocks
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def window():
+        start.record()
+        for _ in range(40):
+            tr.intersect(o, d, tris, tc)
+        end.record()
+        torch.cuda.synchronize()
+
+    clocks = sample_clocks(window)
+    print(f"    40 primary batches back to back: {start.elapsed_time(end) / 40:.4f} ms a launch; "
+          f"nvidia-smi ({clocks['samples']} samples): SM clock {clocks['sm_clock_mhz']} MHz "
+          f"(min {clocks.get('sm_clock_min_mhz', 'not measured')}), {clocks['power_w']} W of "
+          f"{clocks['power_limit_w']} W  [{card}]", flush=True)
+
+
+def queued_ms(fn, n: int = 10, reps: int = 5) -> float:
+    """Device milliseconds of one fn(): n calls enqueued behind a spin kernel
+    of ~10 ms, so that the host has queued them all before the device starts
+    the first, with CUDA events around the n calls; median of ``reps``."""
+    times = []
+    for i in range(reps + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def k5_one_slice(o, d, tris):
+    """One launch of K5 over all triangles in one slice, whatever the
+    launch's size: the kernel's C entry point called as the wrapper calls
+    it for a launch that slice_plan does not split.  Counted nowhere."""
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+
+    r, t_real = o.shape[0], tris["tri40"].shape[0]
+    out = [torch.empty((r,), dtype=dt, device=o.device) for dt in (
+        torch.float32, torch.int32, torch.float32, torch.float32)]
+    err = tr._mt_lib().mt_intersect(
+        o.data_ptr(), d.data_ptr(), r, tris["tri40"].data_ptr(), tris["tri_ids"].data_ptr(),
+        t_real, 0, 1, t_real, *(x.data_ptr() for x in out), None, None, None, None,
+        torch.cuda.current_stream(o.device).cuda_stream)
+    if err != 0:
+        raise SystemExit(f"phase 11 failed: mt_intersect in one slice: cudaError_t {err}")
+    return out
+
+
+def k5_forms(card, host, o, d) -> None:
+    """What the reject and the split buy, each on its own: the reject on
+    and off on the primary batch and on 2^20 bounce rays; the split (as
+    slice_plan chooses it) against one slice on 2^13 bounce rays, where
+    the hits must be bit-equal.  Every form gives the same hits (the
+    tests)."""
+    import inspect
+
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+
+    if "reject" not in inspect.signature(tr.intersect).parameters:
+        return
+    tris, tc = host._tris, host.tri_chunk
+    on, off = (cuda_ms(lambda: tr.intersect(o, d, tris, tc, reject=rej)) for rej in (True, False))
+    print(f"  mt_intersect on the primary batch: reject on {on:.3f} ms, off {off:.3f} ms  "
+          f"[{card}]")
+    ro, rd = (x.to(o.device) for x in surface_rays(host.mesh, 1 << 20, seed=7))
+    on, off = (queued_ms(lambda: tr.intersect(ro, rd, tris, tc, reject=rej))
+               for rej in (True, False))
+    print(f"  mt_intersect on 2^20 bounce rays (device): reject on {on:.4f} ms, off {off:.4f} "
+          f"ms (the capture's bounces run with it off)  [{card}]", flush=True)
+    ro, rd = ro[:1 << 13], rd[:1 << 13]
+    if not all(torch.equal(a, b) for a, b in zip(tr.intersect(ro, rd, tris, tc, reject=False),
+                                                 k5_one_slice(ro, rd, tris))):
+        raise SystemExit("phase 11 failed: the split changed a hit")
+    auto = queued_ms(lambda: tr.intersect(ro, rd, tris, tc, reject=False))
+    one = queued_ms(lambda: k5_one_slice(ro, rd, tris))
+    print(f"  mt_intersect on 2^13 bounce rays (device, reject off): split into "
+          f"{k5_slices(o.device, 1 << 13, tris['tri40'].shape[0])} slices {auto:.4f} ms, one "
+          f"slice {one:.4f} ms, hits bit-equal  [{card}]", flush=True)
+
+
+def sass_loop_counts(sass: str) -> list[dict]:
+    """The innermost loop over triangles of each intersector kernel in
+    ``cuobjdump -sass`` output: its instructions by kind and per (ray,
+    triangle) pair.  A triangle is read as ten 16-byte shared-memory loads
+    (LDS.128) in both ports of K5, so the loop's pairs are its LDS.128 / 10
+    times the rays a thread holds (K5_RAYS_PER_THREAD for the kernel
+    templated on the reject, 1 for the first port)."""
+    import re
+
+    out, name, ins = [], None, []
+
+    def close():
+        if name is None or "mt_intersect_kernel" not in name:
+            return
+        m = re.search(r"mt_intersect_kernelILb(\d)E", name)
+        rt, reject = 1, False
+        if m:
+            from gaussian_splatterer_tpu_torch.rt.tracer import K5_RAYS_PER_THREAD
+
+            rt, reject = K5_RAYS_PER_THREAD, bool(int(m.group(1)))
+        spans = []  # loops (a backward branch's span) that read a triangle
+        for addr, op, text in ins:
+            tgt = re.search(r"0x([0-9a-f]+)", text) if op.startswith("BRA") else None
+            if tgt is None or int(tgt.group(1), 16) > addr:
+                continue
+            lo = int(tgt.group(1), 16)
+            body = [x for x in ins if lo <= x[0] <= addr]
+            if sum(x[1] == "LDS.128" for x in body) >= 10:
+                spans.append((lo, addr, body))
+        # the innermost such loops (a compiler's unrolled body and its
+        # remainder), of which the one that reads the most triangles
+        inner = [s for s in spans if not any(o is not s and s[0] <= o[0] and o[1] <= s[1]
+                                             for o in spans)]
+        if not inner:
+            return
+        best = max(inner, key=lambda s: sum(x[1] == "LDS.128" for x in s[2]))[2]
+        kinds: dict[str, int] = {}
+        for _, op, _ in best:
+            key = op.split(".")[0]
+            kinds[key] = kinds.get(key, 0) + 1
+        pairs = sum(x[1] == "LDS.128" for x in best) // 10 * rt
+        out.append({"rt": rt, "reject": reject, "instructions": len(best), "pairs": pairs,
+                    "per_pair": len(best) / pairs, "kinds": kinds})
+
+    for line in sass.splitlines():
+        if "Function :" in line:
+            close()
+            name, ins = line.split("Function :")[1].strip(), []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*);",
+                     line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    close()
+    return out
+
+
+def k5_sass(card) -> None:
+    """Instructions per (ray, triangle) pair in the SASS of the built
+    intersector, by cuobjdump from the CUDA toolkit beside nvcc."""
+    from gaussian_splatterer_tpu_torch.ops import cuda_build
+
+    tool = Path(cuda_build.find_nvcc()).parent / "cuobjdump"
+    lib = cuda_build.build_info["mt_intersect"]["path"]
+    proc = subprocess.run([str(tool), "-sass", lib], capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        print(f"  SASS: cuobjdump failed: {proc.stderr.strip()[:200]}")
+        return
+    for c in sass_loop_counts(proc.stdout):
+        kinds = " ".join(f"{k} {n}" for k, n in sorted(c["kinds"].items(), key=lambda kv: -kv[1]))
+        print(f"  SASS of the loop over triangles, RT {c['rt']}, reject {c['reject']}: "
+              f"{c['instructions']} instructions for {c['pairs']} pairs, {c['per_pair']:.2f} a "
+              f"pair (static; the reject's skipped epilogue included): {kinds}  [{card}]",
+              flush=True)
 
 
 def frame_bwd_args(model, cams, i, width, height, truth, bg, tile, max_dup):
@@ -1772,7 +2021,14 @@ def device_busy_ms(fn) -> tuple[float, float, dict]:
     return busy_us / 1e3, wall_ms, by_name
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", action="append", choices=("k5", "k7"),
+                    help="run phases 1-2 and then only phase 11 (k5: capture frames, the "
+                         "intersector's times, launch sizes and SASS) or phase 17's gather "
+                         "probe (k7); for timing two trees of the repository in one call, "
+                         "this script copied into each")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU",
               file=sys.stderr)
@@ -1810,6 +2066,17 @@ def main() -> int:
         info = cuda_build.build_info[name]
         print(f"{name}: {info['seconds']:.2f} s -> {info['path']}")
         print(info["ptxas"])
+
+    if args.only:
+        if "k5" in args.only:
+            tracer_times(dev, card, 0, 0.0)
+        if "k7" in args.only:
+            from gaussian_splatterer_tpu_torch.scripts import gather_probe as gp
+
+            phase(f"17. gather at the bench scale (K7) ({card})")
+            gp.report(gp.run(dev), card)
+        print(card)
+        return 0
 
     fwd = serve_phases(dev, card)
     gate_err = train_gate(dev)

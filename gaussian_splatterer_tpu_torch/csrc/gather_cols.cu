@@ -8,13 +8,19 @@
 // counterpart of "resident in VMEM"; the kernel reads them from device
 // memory and lets L2 keep them.
 //
-// What bounds it: bytes, the indices in, the table once and the output out:
-// about 0.031 ms for 9 rows, 2^19 columns and 2^21 indices at 3.35 TB/s.
+// What bounds it.  DRAM bytes: the indices in, the table once and the
+// output out, about 0.031 ms for 9 rows, 2^19 columns and 2^21 indices at
+// 3.35 TB/s.  And, on random indices, L2 sectors: the rows lie 2 MB apart,
+// so every (row, index) reads its own 32-byte sector, 32 B x 9 x 2^21 =
+// 604 MB of L2 traffic, six times the DRAM bytes.
 // What the design does about it: one thread per (index, group of kRows
 // rows) reads its index once, coalesced, and writes kRows outputs, each
 // coalesced across the warp; only the table reads are scattered, and they
-// hit L2.  An index outside [0, cols) writes NaN instead of reading out of
-// bounds.
+// hit L2.  Nothing here lowers the sector count.  Two other forms were
+// timed on the H100 and were no faster than this one: one thread per four
+// indices (an int4) with every row in the thread, and L2 evict_last loads
+// of the table with streaming stores (PERF.md §6).  An index outside
+// [0, cols) writes NaN instead of reading out of bounds.
 
 #include <cuda_runtime.h>
 

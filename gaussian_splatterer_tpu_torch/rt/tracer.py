@@ -42,6 +42,7 @@ the number of samples traced as one batch of rays.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -171,37 +172,177 @@ def intersect_component(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk:
     return best
 
 
-def intersect(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk: int):
+def _chain_nums(r10: torch.Tensor, rows: torch.Tensor):
+    """(R, n) det, u_num, v_num, t_num of every (ray, tri40 row) pair, each
+    a chain over the ten features in feature order, element by element, so
+    that a pair's value does not depend on the other pairs."""
+    nums = []
+    for q in range(4):
+        w = rows[:, 10 * q:10 * q + 10]
+        acc = r10[:, 0:1] * w[None, :, 0]
+        for k in range(1, 10):
+            acc = acc + r10[:, k:k + 1] * w[None, :, k]
+        nums.append(acc)
+    return nums
+
+
+def first_hit_rows(o: torch.Tensor, d: torch.Tensor, tri40: torch.Tensor,
+                   tri_ids: torch.Tensor):
+    """Plain first hit of each ray over the rows of a ``tri40`` table (or a
+    contiguous slice of it) in row order, with the contract of
+    intersect_reference; ``idx`` is the row's ``tri_ids`` entry."""
+    r = o.shape[0]
+    if tri40.shape[0] == 0 or r == 0:
+        return _miss(r, o.device)
+    det, u_num, v_num, t_num = _chain_nums(_ray_features(o, d), tri40)
+    inv = _guarded_inverse(det)
+    u, v, t = u_num * inv, v_num * inv, t_num * inv
+    hit = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > RAY_TMIN)
+    t = torch.where(hit, t, torch.full_like(t, math.inf))
+    bt, j, bu, bv = _first_min(t, u, v, 0)
+    idx = torch.where(torch.isfinite(bt), tri_ids.to(o.device)[j.long()],
+                      torch.zeros_like(j))
+    return (bt, idx, torch.where(torch.isfinite(bt), bu, torch.zeros_like(bu)),
+            torch.where(torch.isfinite(bt), bv, torch.zeros_like(bv)))
+
+
+def merge_slices(parts):
+    """The slices' first minima (t, idx, u, v), folded in slice order with a
+    strict <: the first minimum over all of them (the kernel's
+    merge_slices_kernel)."""
+    best = parts[0]
+    for cand in parts[1:]:
+        best = _fold(best, cand)
+    return best
+
+
+def _even_slices(t_real: int, slices: int) -> tuple[int, int]:
+    """(slices, triangles a slice) for about ``slices`` contiguous slices of
+    ``t_real`` triangles, none empty, as the kernel cuts them."""
+    if t_real == 0:
+        return 1, 0
+    per = -(-t_real // slices)
+    return -(-t_real // per), per
+
+
+def intersect_split_reference(o: torch.Tensor, d: torch.Tensor, tris: dict, slices: int):
+    """Plain twin of K5's split: the real triangles cut into ``slices``
+    contiguous slices as the kernel cuts them, a first hit per slice,
+    merged in slice order.  Equal bit for bit to ``slices`` = 1."""
+    tri40, tri_ids = tris["tri40"], tris["tri_ids"]
+    slices, per = _even_slices(tri40.shape[0], slices)
+    return merge_slices([first_hit_rows(o, d, tri40[s * per:(s + 1) * per],
+                                        tri_ids[s * per:(s + 1) * per])
+                         for s in range(slices)])
+
+
+REJECT_SIGN_MARGIN = 2.0 ** -60  # |u_num| past |den| 2^-60: u cannot round to -0.0
+
+
+def reject_pairs(det, u_num, v_num) -> torch.Tensor:
+    """K5's conservative reject of a lane, in float32 as the kernel computes
+    it: True where u_num or v_num has the strict opposite sign of the
+    clamped det, by a margin past |den| 2^-60, so that the exact epilogue
+    provably refuses the pair (csrc/mt_intersect.cu, the header's proof)."""
+    den = torch.where(det.abs() < DET_EPS, torch.full_like(det, DET_EPS), det)
+    m = den.abs() * torch.tensor(REJECT_SIGN_MARGIN, dtype=torch.float32)
+    sign_bits = den.view(torch.int32) & torch.tensor(-2**31, dtype=torch.int32)
+    u1, v1 = ((x.view(torch.int32) ^ sign_bits).view(torch.float32) for x in (u_num, v_num))
+    return (u1 <= -m) | (v1 <= -m)
+
+
+def accept_pairs(det, u_num, v_num, t_num, best_t) -> torch.Tensor:
+    """The exact epilogue: True where the pair is a hit nearer than
+    ``best_t``."""
+    inv = _guarded_inverse(det)
+    u, v, t = u_num * inv, v_num * inv, t_num * inv
+    return (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > RAY_TMIN) \
+        & (t < torch.as_tensor(best_t, dtype=torch.float32))
+
+
+K5_RAYS_PER_THREAD = 4  # csrc/mt_intersect.cu's kRT: rays a thread holds in registers
+K5_RAYS_PER_BLOCK = 512 * K5_RAYS_PER_THREAD  # its kThreads x kRT: rays a block takes at a time
+K5_WAVES = 2  # a launch with fewer ray tiles than this many waves of blocks is split
+K5_MIN_SLICE_TRIS = 8  # the fewest triangles a slice walks
+K5_MAX_SCRATCH = 1 << 22  # rays x slices of the split's scratch (64 MiB)
+
+
+@functools.lru_cache(maxsize=4096)
+def slice_plan(r: int, t_real: int, slots: int, rays_per_block: int) -> tuple[int, int]:
+    """(slices, triangles a slice) of K5's split over triangles.  ``slots``
+    is the number of blocks the card runs at once.  A launch whose ray
+    tiles fill K5_WAVES waves of them takes one slice; a smaller one takes
+    the fewest slices whose blocks come within 5% of the best fill of their
+    last wave (work a block: 1 / slices; time: the waves), each of at least
+    K5_MIN_SLICE_TRIS triangles and within K5_MAX_SCRATCH.  No slice is
+    empty."""
+    tiles = max(1, -(-r // rays_per_block))
+    s = 1
+    if tiles < K5_WAVES * slots:
+        s_max = max(1, min(t_real // K5_MIN_SLICE_TRIS, K5_MAX_SCRATCH // max(r, 1)))
+        cost = [-(-tiles * k // slots) / k for k in range(1, s_max + 1)]
+        s = next(k for k, c in enumerate(cost, 1) if c <= 1.05 * min(cost))
+    return _even_slices(t_real, s)
+
+
+_mt_slots: dict[int, int] = {}
+
+
+def mt_slots(device: torch.device) -> int:
+    """Blocks of K5 that the card runs at once (csrc/mt_intersect.cu's
+    mt_intersect_slots), read once a device."""
+    with torch.cuda.device(device):
+        i = torch.cuda.current_device()
+        if i not in _mt_slots:
+            _mt_slots[i] = _mt_lib().mt_intersect_slots()
+    return _mt_slots[i]
+
+
+def intersect(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk: int, *,
+              reject: bool = True):
     """First hit of each ray: the CUDA kernel K5 (csrc/mt_intersect.cu) for
-    CUDA tensors, intersect_reference for CPU tensors (same contract)."""
+    CUDA tensors, intersect_reference for CPU tensors (same contract).
+
+    ``reject`` turns on the kernel's conservative reject before the
+    reciprocal, which never changes a hit: it pays on coherent rays and
+    costs scattered ones.  The split over triangles is chosen by slice_plan
+    from the rays and the card's SMs, the ring from the table's size."""
     global mt_intersect_launches
     if o.device.type == "cpu":
         return intersect_reference(o, d, tris, tri_chunk)
     if o.device.type != "cuda":
         raise ValueError(f"intersect: unsupported device {o.device}")
-    feat, valid = tris["feat10"], tris["valid"]
-    r, n_tris = o.shape[0], valid.shape[0]
+    tri40, tri_ids = tris["tri40"], tris["tri_ids"]
+    r, t_real = o.shape[0], tri40.shape[0]
     for name, x in (("o", o), ("d", d)):
         if x.dtype != torch.float32 or tuple(x.shape) != (r, 3) or not x.is_contiguous() \
                 or x.device != o.device:
             raise ValueError(f"intersect: {name} must be contiguous ({r}, 3) float32 on {o.device}")
-    if feat.device != o.device or valid.device != o.device or valid.dtype != torch.bool \
-            or tuple(feat.shape) != (10, 4 * n_tris) or n_tris % tri_chunk or r >= 2**31 \
-            or 4 * n_tris >= 2**31:
+    if tri40.device != o.device or tri_ids.device != o.device or tri40.dtype != torch.float32 \
+            or tri_ids.dtype != torch.int32 or tuple(tri40.shape) != (t_real, 40) \
+            or tuple(tri_ids.shape) != (t_real,) or not tri40.is_contiguous() \
+            or not tri_ids.is_contiguous() or r >= 2**31 or 40 * t_real >= 2**31:
         raise ValueError("intersect: scene tables not laid out by scene_tables on the rays' "
                          "device, or too many rays or triangles")
     out_t, out_i, out_u, out_v = (torch.empty((r,), dtype=dt, device=o.device) for dt in (
         torch.float32, torch.int32, torch.float32, torch.float32))
     if r == 0:
         return out_t, out_i, out_u, out_v
-    lib = _mt_lib()
+    slices, slice_len = slice_plan(r, t_real, mt_slots(o.device), K5_RAYS_PER_BLOCK)
+    scratch = [None] * 4
+    if slices > 1:
+        scratch = [torch.empty((slices, r), dtype=dt, device=o.device) for dt in (
+            torch.float32, torch.int32, torch.float32, torch.float32)]
     with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream(o.device).cuda_stream
-        err = lib.mt_intersect(o.data_ptr(), d.data_ptr(), r, feat.data_ptr(),
-                               valid.data_ptr(), n_tris, tri_chunk, out_t.data_ptr(),
-                               out_i.data_ptr(), out_u.data_ptr(), out_v.data_ptr(), stream)
+        err = _mt_lib().mt_intersect(
+            o.data_ptr(), d.data_ptr(), r, tri40.data_ptr(), tri_ids.data_ptr(), t_real,
+            int(reject), slices, slice_len,
+            out_t.data_ptr(), out_i.data_ptr(), out_u.data_ptr(), out_v.data_ptr(),
+            *(x.data_ptr() if x is not None else None for x in scratch),
+            torch.cuda.current_stream(o.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"mt_intersect kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"mt_intersect: shared-memory request refused or launch failed "
+                           f"({slices} slices of {slice_len} triangles): cudaError_t {err}")
     mt_intersect_launches += 1
     return out_t, out_i, out_u, out_v
 
@@ -209,12 +350,11 @@ def intersect(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk: int):
 def _mt_lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("mt_intersect")
     fn = lib.mt_intersect
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-    ]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, i, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
+    lib.mt_intersect_slots.argtypes = []
+    lib.mt_intersect_slots.restype = ctypes.c_int
     return lib
 
 
@@ -417,6 +557,10 @@ def render_rtx_sums(tris, texture, cam_location, inv_proj_view, width: int, heig
     tex_cm = texture.permute(2, 0, 1).contiguous()
     bg = torch.as_tensor(background, dtype=torch.float32, device=dev)
     eye = torch.as_tensor(np.asarray(cam_location, np.float32), device=dev)
+    # scattered bounce rays seldom let a whole warp take K5's reject, which
+    # then only costs them (PERF.md §6): the bounces run without it
+    bounce_hits = (functools.partial(intersect, reject=False) if intersector is intersect
+                   else intersector)
     n_pix = width * height
     color_acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
     orb_acc = torch.zeros((n_pix,), dtype=torch.bool, device=dev)
@@ -433,7 +577,7 @@ def render_rtx_sums(tris, texture, cam_location, inv_proj_view, width: int, heig
                                        roulette_from=roulette_from, bounce_i=0,
                                        intersector=intersector)
         color = _bounce_phase(tris, tex_cm, bg, env, tri_chunk, state, bounces, generator,
-                              roulette_from, intersector)
+                              roulette_from, bounce_hits)
         # roulette estimates may exceed 1 by design: clipping them would
         # bring back the bias the boost avoids
         color = torch.clamp(color, min=0.0) if roulette_from else torch.clamp(color, 0.0, 1.0)
@@ -492,9 +636,11 @@ def scene_tables(mesh: TriangleMesh, tri_chunk: int, accel_min: int) -> dict:
     ax..e2z, valid: corner a and the two edges, component by component;
     attr9 (9, T): the corners' uv and the unit normal; feat10 (10, 4 T): per
     chunk the column blocks [det | u_num | v_num | t_num], each linear in
-    the ray features [d, o x d, o, 1], read by both intersectors; with the
-    Morton order also the per-chunk AABBs bb_* and geo10 (10, T), kept for
-    chunk skipping (not used yet)."""
+    the ray features [d, o x d, o, 1], read by the plain intersector; tri40
+    (T_real, 40) the same columns triangle by triangle for the real
+    triangles only, and tri_ids (T_real,) int32 their indices, read by K5;
+    with the Morton order also the per-chunk AABBs bb_* and geo10 (10, T),
+    kept for chunk skipping (not used yet)."""
     t = mesh.num_triangles
     tc = max(tri_chunk, _round_up(t, tri_chunk))
     v, tri, tri_uv = mesh.vertices, mesh.triangles, mesh.tri_uv
@@ -533,6 +679,11 @@ def scene_tables(mesh: TriangleMesh, tri_chunk: int, accel_min: int) -> dict:
     ncb = tc // tri_chunk
     out["feat10"] = np.ascontiguousarray(
         featq.reshape(4, ncb, tri_chunk, 10).transpose(3, 1, 0, 2).reshape(10, 4 * tc))
+    # K5's table: the real triangles only, in index order, each row the same
+    # columns [det | u_num | v_num | t_num] x 10 features, and their indices
+    real = np.nonzero(valid)[0]
+    out["tri40"] = np.ascontiguousarray(featq[:, real].transpose(1, 0, 2).reshape(-1, 40))
+    out["tri_ids"] = real.astype(np.int32)
     if use_accel:
         corners = np.stack([a, a + e1, a + e2])  # (3, tc, 3)
         mn = np.where(valid[None, :, None], corners, np.float32(np.inf)).min(0)

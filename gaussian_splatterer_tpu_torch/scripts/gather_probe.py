@@ -88,6 +88,13 @@ def gather_bytes(rows: int, cols: int, n_ids: int) -> int:
     return 4 * n_ids + 4 * rows * cols + 4 * rows * n_ids
 
 
+def l2_sector_bytes(rows: int, n_ids: int) -> int:
+    """L2 traffic of the table reads on random indices: one 32-byte sector
+    for every (row, index), since the rows lie far apart and neighbouring
+    indices rarely share a sector.  Not part of the bound."""
+    return 32 * rows * n_ids
+
+
 def probe_inputs(device, rows: int = PADDED_ROWS, cols: int = COLS, n_ids: int = IDS,
                  seed: int = 0):
     """(table (rows, cols) float32, random ids, the same ids sorted), made
@@ -133,10 +140,15 @@ def run(device, reps: int = 20) -> dict:
 
 def report(out: dict, name: str) -> None:
     for c in out["cases"]:
+        l2 = ""
+        if c["order"] == "random":
+            sectors = l2_sector_bytes(c["rows"], c["ids"])
+            l2 = (f"  L2 sectors {sectors / 1e6:.1f} MB, {sectors / c['kernel_ms'] / 1e9:.3f} "
+                  f"TB/s at the kernel's time")
         print(f"{c['rows']} x {c['cols']} table, {c['ids']} {c['order']} ids: kernel "
               f"{c['kernel_ms']:.4f} ms  index_select {c['index_select_ms']:.4f} ms  "
               f"(N, K)[ids] {c['rows_major_ms']:.4f} ms  bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']})  [{name}]")
+              f"({c['bound_by']}){l2}  [{name}]")
     print("context (plain PyTorch): " + "  ".join(
         f"{k} {v:.4f}" for k, v in out["context"].items()) + f"  [{name}]")
 

@@ -26,7 +26,7 @@ Two step kinds, as in the JAX package:
     composite_bwd), renderer "oracle", or a caller's ``render_fn``.  The
     Trainer passes its runtime-configured renderer, so this step bins with
     the runtime's tile_px, max_dup and mip_antialias.
-A multi-device trainer (ROADMAP A6) raises when it is made.
+A multi-device trainer (ROADMAP A-7) raises at its first step.
 
 The step updates the model's parameters in place (the JAX step returns a
 new model); densify returns a new model.
@@ -271,11 +271,10 @@ class Trainer:
     ):
         if reduction not in REDUCTIONS:
             raise ValueError(f"reduction {reduction!r} is not one of {REDUCTIONS}")
-        n_dev = len(devices) if devices is not None else int(runtime.train_devices or 0)
-        if n_dev > 1:
-            raise NotImplementedError(
-                "multi-device training (train_devices / devices > 1) is not ported "
-                "yet (ROADMAP A6)")
+        # more than one device is refused at the first step, so that a
+        # project saved with train_devices > 1 still opens, renders and
+        # prints its info
+        self._n_dev = len(devices) if devices is not None else int(runtime.train_devices or 0)
         self.project = project
         self.runtime = runtime
         self.model = model
@@ -374,6 +373,10 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def train(self, densify_now: bool = False) -> TrainMetrics:
+        if self._n_dev > 1:
+            raise NotImplementedError(
+                "multi-device training (train_devices / devices > 1) is not ported "
+                "yet (ROADMAP A-7)")
         if self.truths is None:
             raise RuntimeError("Can't run training iteration, no truth data available!")
         p, runtime = self.project, self.runtime

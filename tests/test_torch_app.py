@@ -328,6 +328,36 @@ def test_jax_project_trains_and_renders_in_the_port(tmp_path, capsys):
                       "16x16", "--samples", "2", "--device", "cpu"]) == 0
 
 
+def test_project_saved_for_several_devices_opens_and_renders(tmp_path, capsys):
+    """A project whose runtime.json asks for train_devices 2 (what the JAX
+    CLI's ``train --devices 2`` persists) opens in the port's CLI: ``info``
+    and ``render --mode splats`` work on the CPU, and ``train`` raises
+    NotImplementedError naming ROADMAP A-7 at its first step."""
+    from gaussian_splatterer_tpu_torch.app import cli as tcli
+
+    obj, png = _tiny_scene(tmp_path)
+    proj = str(tmp_path / "proj")
+    flags = ["--resolution", "32", "--capacity", "64", "--device", "cpu"]
+    assert tcli.main(["new", proj, "--obj", obj, "--texture", png, "--init-field", "model",
+                      *flags]) == 0
+    _set_rig(proj)
+    rt_path = os.path.join(proj, "runtime.json")
+    runtime = tcfg.RuntimeConfig.load(rt_path)
+    runtime.train_devices = 2
+    runtime.save(rt_path)
+    capsys.readouterr()
+    assert tcli.main(["info", proj, "--device", "cpu"]) == 0
+    info = json.loads(capsys.readouterr().out)
+    assert info["splats"] >= 2 and info["iterations"] == 0
+    out_png = str(tmp_path / "splats.png")
+    assert tcli.main(["render", proj, out_png, "--mode", "splats", "--size", "32x32",
+                      "--device", "cpu"]) == 0
+    assert timage.load_png(out_png).shape == (32, 32, 3)
+    with pytest.raises(NotImplementedError, match="A-7"):
+        tcli.main(["train", proj, "--steps", "1", "--device", "cpu"])
+    assert tcfg.RuntimeConfig.load(rt_path).train_devices == 2
+
+
 def test_port_imports_no_jax_flax_or_pillow():
     code = (
         "import importlib, pkgutil, sys\n"

@@ -206,6 +206,32 @@ def test_gather_kernels_equal_plain(cuda_device, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 9, 16, 17])
+@pytest.mark.parametrize("d", [8192, 8193, 8195])
+def test_gather_cols_kernel_edges(cuda_device, rows, d):
+    """K7 at the row-group edges (1 row; 9 = 8 + 1; 16 = 8 + 8; 17), d not
+    a multiple of the block or of 4, ids starting off a 16-byte boundary
+    (ids[1:]): equal to tab[:, ids]; indices outside [0, N) give NaN."""
+    tab, ids, _ = gp.probe_inputs(cuda_device, rows, 4096, d + 1, seed=rows)
+    for idx in (ids[:d], ids[1:]):
+        assert torch.equal(gp.gather_cols(tab, idx), gp.gather_cols_reference(tab, idx))
+    bad = ids[:d].clone()
+    bad[::7] = 4096
+    bad[3::11] = -1
+    out = gp.gather_cols(tab, bad)
+    oob = (bad < 0) | (bad >= 4096)
+    assert torch.isnan(out[:, oob]).all()
+    assert torch.equal(out[:, ~oob], gp.gather_cols_reference(tab, bad[~oob]))
+
+
+def test_l2_sector_bytes_at_the_bench_scale():
+    """32 B a (row, random index): 604 MB for 9 rows and 2^21 ids, six times
+    the bound's DRAM bytes."""
+    assert gp.l2_sector_bytes(9, 1 << 21) == 603_979_776
+    assert gp.l2_sector_bytes(9, 1 << 21) / gp.gather_bytes(9, 1 << 19, 1 << 21) > 5.8
+
+
+@pytest.mark.cuda
 def test_smem_gather_refused_request_raises(cuda_device):
     """16 rows of 4096 in one block ask for 256 KiB: the card refuses, the
     wrapper raises, and a later launch still runs."""

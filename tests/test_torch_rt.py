@@ -151,6 +151,157 @@ def test_scene_tables_match_jax(accel_min):
                                       err_msg=key)
 
 
+@pytest.mark.parametrize("accel_min", [1, 10**9])
+def test_tri40_matches_feat10_and_jax(accel_min):
+    """K5's table: one row per real triangle, in index order, holding that
+    triangle's feat10 columns [det | u_num | v_num | t_num] x 10 features;
+    tri_ids the real triangles' indices.  Held against the JAX package's
+    tables at the shapes of test_scene_tables_match_jax: its feat10 and
+    valid on the brute-force route; on the Morton route, which builds no
+    feat10, the port's (held equal to JAX's there) and the det weights
+    e2 x e1 from JAX's own edge tables."""
+    port, jax_host = hosts(icosphere_like(6), None, 16, accel_min=accel_min, mt_kernel=True)
+    jt = {k: np.asarray(v) for k, v in jax_host._tris.items()}
+    feat = jt["feat10"] if "feat10" in jt else port._tris["feat10"].numpy()
+    valid = jt.get("validf", jt["valid"]).reshape(-1) > 0
+    tc, n = 16, valid.size
+    real = np.nonzero(valid)[0]
+    assert 0 < real.size < n  # 72 triangles padded to 80
+    np.testing.assert_array_equal(port._tris["tri_ids"].numpy(), real)
+    assert port._tris["tri_ids"].dtype == torch.int32
+    tri40 = port._tris["tri40"].numpy()
+    assert tri40.shape == (real.size, 40) and tri40.flags["C_CONTIGUOUS"]
+    for row, i in enumerate(real):
+        ck, j = divmod(int(i), tc)
+        cols = [ck * 4 * tc + q * tc + j for q in range(4)]
+        want = np.concatenate([feat[:, c] for c in cols])
+        np.testing.assert_array_equal(tri40[row], want)
+    e1, e2 = (np.stack([jt[f"{e}{c}"][real] for c in "xyz"], 1) for e in ("e1", "e2"))
+    np.testing.assert_array_equal(tri40[:, 0:3], np.cross(e2, e1))
+    assert not tri40[:, 3:10].any()  # det weighs the direction alone
+
+
+def _tie_soup(rng):
+    """24 triangles: the last 12 repeat the first 12 exactly, so a ray that
+    hits one hits its twin at the same t: an exact tie across any split."""
+    base = random_soup(12, rng)
+    verts = np.concatenate([base.vertices, base.vertices])
+    tris = np.arange(72, dtype=np.int32).reshape(24, 3)
+    return TriangleMesh(verts, tris, np.concatenate([base.tri_uv, base.tri_uv]))
+
+
+@pytest.mark.parametrize("scene", ["soup", "ties"])
+def test_split_merge_equals_unsplit_bit_for_bit(scene):
+    """The plain twin of K5's split: first hits over S contiguous slices of
+    the real triangles, merged in slice order with a strict <, equal bit
+    for bit to the unsplit first hit for S in {1, 2, 3, 7}, exact ties
+    across slice boundaries included (they go to the lowest index); and the
+    same hits as intersect_reference to float32 rounding."""
+    rng = np.random.default_rng(8)
+    mesh = random_soup(40, rng) if scene == "soup" else _tie_soup(rng)
+    host = RtxHost(tri_chunk=16, device="cpu")
+    host.load_model(mesh, accel_min=10**9)
+    r = 512
+    o = torch.from_numpy(rng.uniform(-4, 4, (r, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(r, 3)).astype(np.float32)), dim=1)
+    whole = tr.first_hit_rows(o, d, host._tris["tri40"], host._tris["tri_ids"])
+    hits = torch.isfinite(whole[0])
+    assert int(hits.sum()) >= 20
+    for s in (1, 2, 3, 7):
+        got = tr.intersect_split_reference(o, d, host._tris, s)
+        for a, b in zip(got, whole):
+            assert a.dtype == b.dtype and torch.equal(a, b), s
+    if scene == "ties":
+        assert (whole[1][hits] < 12).all()
+    assert_hits_match(whole, tr.intersect_reference(o, d, host._tris, 16), idx_share=0.99)
+
+
+def _reject_and_accept(det, u_num, v_num, t_num, best_t):
+    args = [torch.tensor(np.asarray(x, np.float32)) for x in (det, u_num, v_num, t_num, best_t)]
+    return tr.reject_pairs(*args[:3]), tr.accept_pairs(*args)
+
+
+def test_reject_never_refuses_an_accepted_pair_on_edges():
+    """Crafted pairs at every edge of the epilogue: u_num so small that
+    u_num x inv underflows to -0.0 (which passes u >= 0), |det| at and
+    around 1e-12 on either side of zero (clamped to +1e-12), t at 1e-3,
+    u + v at 1, t equal to best_t and one step either side."""
+    f32 = np.float32
+    eps = f32(1e-12)
+    dets = [eps, -eps, np.nextafter(eps, f32(0)), -np.nextafter(eps, f32(0)),
+            np.nextafter(eps, f32(1)), -np.nextafter(eps, f32(1)), f32(5e-13), f32(-5e-13),
+            f32(0.0), f32(-0.0), f32(1.0), f32(-3.5), f32(1e30), f32(-1e30), f32(2e-7)]
+    cases = []
+    for det in dets:
+        den = eps if abs(det) < eps else det
+        for uf, vf in ((0.25, 0.25), (0.5, 0.5), (1.0, 0.0), (0.0, 1.0), (0.0, 0.0),
+                       (-1e-30, 0.5), (1e-30, 0.5), (-1e-45, 0.3), (0.6, 0.4)):
+            for tf in (1e-3, 2.0, 0.5e-3):
+                u_num, v_num, t_num = (f32(x) * f32(den) for x in (uf, vf, tf))
+                for du in (-1, 0, 1):  # a step either side of each edge
+                    un = np.nextafter(u_num, f32(np.inf) if du > 0 else f32(-np.inf)) \
+                        if du else u_num
+                    for tn in (t_num, np.nextafter(t_num, f32(np.inf)),
+                               np.nextafter(t_num, f32(-np.inf))):
+                        cases.append((det, un, v_num, tn))
+    # u_num x inv underflowing to -0.0: den 1e30, u_num -1e-20 (u = -1e-50)
+    cases += [(f32(1e30), f32(-1e-20), f32(3e29), f32(5e30)),
+              (f32(-1e30), f32(1e-20), f32(-3e29), f32(-5e30)),
+              (f32(1e20), f32(-1e-30), f32(3e19), f32(5e20))]
+    det, u_num, v_num, t_num = (np.array(c, np.float32) for c in zip(*cases))
+    # best_t: none yet, the pair's own t, and a step either side of it
+    inv = np.float32(1) / np.where(np.abs(det) < eps, eps, det)
+    t_own = t_num * inv
+    n_acc = 0
+    for best in (np.full_like(t_own, np.inf), t_own, np.nextafter(t_own, f32(np.inf)),
+                 np.nextafter(t_own, f32(-np.inf)), np.full_like(t_own, 1e-3)):
+        rej, acc = _reject_and_accept(det, u_num, v_num, t_num, best)
+        assert not bool((rej & acc).any())
+        n_acc += int(acc.sum())
+    assert n_acc > 100
+    # the underflow cases are accepted (u = -0.0) and not rejected
+    rej, acc = _reject_and_accept(det[-3:], u_num[-3:], v_num[-3:], t_num[-3:],
+                                  np.full(3, np.inf, np.float32))
+    assert acc.all() and not rej.any()
+
+
+def test_reject_never_refuses_an_accepted_pair_at_random():
+    """10^5 random pairs over 17 decades of |det|, numerators around the
+    edges of the barycentric and t tests, and best_t from none to near:
+    the reject refuses most pairs and never one the epilogue accepts."""
+    rng = np.random.default_rng(12)
+    n = 100_000
+    det = (rng.choice([-1.0, 1.0], n) * 10.0 ** rng.uniform(-14, 3, n)).astype(np.float32)
+    det[rng.uniform(size=n) < 0.02] = 0.0
+    den = np.where(np.abs(det) < 1e-12, np.float32(1e-12), det)
+    u_num = (rng.uniform(-1.0, 1.5, n) * den).astype(np.float32)
+    v_num = (rng.uniform(-1.0, 1.5, n) * den).astype(np.float32)
+    t_num = (rng.uniform(-2e-3, 4.0, n) * den).astype(np.float32)
+    best = np.where(rng.uniform(size=n) < 0.5, np.inf, rng.uniform(1e-3, 4.0, n)).astype(np.float32)
+    rej, acc = _reject_and_accept(det, u_num, v_num, t_num, best)
+    assert not bool((rej & acc).any())
+    assert int(acc.sum()) > 1000 and float(rej.float().mean()) > 0.5
+
+
+def test_slice_plan():
+    """The split over triangles: one slice when the ray tiles fill two waves
+    of blocks; else the fewest slices whose blocks come within 5% of the
+    best fill of their last wave, each of at least 8 triangles, none empty
+    (the mushroom's 960 triangles, 132 blocks at once, 2048 rays a block)."""
+    assert tr.slice_plan(8_388_608, 960, 132, 2048) == (1, 960)
+    assert tr.slice_plan(1 << 20, 960, 132, 2048) == (1, 960)
+    assert tr.slice_plan(1 << 16, 960, 132, 2048) == (4, 240)  # 128 blocks: one wave
+    assert tr.slice_plan(1 << 13, 960, 132, 2048) == (32, 30)  # 128 blocks
+    assert tr.slice_plan(1 << 10, 960, 132, 2048) == (107, 9)
+    assert tr.slice_plan(5, 0, 132, 2048) == (1, 0)
+    for r in (1, 100, 3000, 50_000, 300_000):
+        for t in (1, 7, 9, 100, 961, 5000):
+            s, per = tr.slice_plan(r, t, 132, 1024)
+            assert per >= min(t, 8) and (s - 1) * per < t <= s * per
+            assert s == 1 or s * r <= tr.K5_MAX_SCRATCH
+
+
 def test_intersect_reference_matches_jax_mxu_forms():
     """K5's plain twin against the Pallas kernel it replaces (interpret
     mode) and the XLA form, on tests/test_rt.py's random soup."""
@@ -413,11 +564,13 @@ def _kernel_vs_plain(host, o, d):
 
 
 @pytest.mark.cuda
-def test_mt_kernel_matches_plain_on_soup(cuda_device):  # noqa: F811
+@pytest.mark.parametrize("r", [1 << 10, 1 << 16])
+def test_mt_kernel_matches_plain_on_soup(cuda_device, r):  # noqa: F811
+    """1000 triangles (160 KB: resident in shared memory); 2^10 rays split
+    over about a hundred slices of triangles, 2^16 over a few."""
     rng = np.random.default_rng(3)
     host = RtxHost(device=cuda_device)
     host.load_model(random_soup(1000, rng))
-    r = 1 << 16
     o = torch.from_numpy(rng.uniform(-4, 4, (r, 3)).astype(np.float32)).to(cuda_device)
     d = torch.nn.functional.normalize(torch.from_numpy(
         rng.normal(size=(r, 3)).astype(np.float32)), dim=1).to(cuda_device)
@@ -425,15 +578,112 @@ def test_mt_kernel_matches_plain_on_soup(cuda_device):  # noqa: F811
 
 
 @pytest.mark.cuda
-def test_mt_kernel_matches_plain_on_mushroom(cuda_device):  # noqa: F811
+@pytest.mark.parametrize("r", [1 << 10, 1 << 16])
+def test_mt_kernel_matches_plain_on_mushroom(cuda_device, r):  # noqa: F811
     """Bounce rays leaving the north-star mushroom's surface (chip_smoke's
     mesh), the cancellation case of t_num."""
     smoke = _load_chip_smoke()
     mesh = smoke.mushroom_mesh(32, 16)
     host = RtxHost(device=cuda_device)
     host.load_model(mesh)
-    o, d = smoke.surface_rays(mesh, 1 << 16, seed=4)
-    assert _kernel_vs_plain(host, o.to(cuda_device), d.to(cuda_device)) > 1000
+    o, d = smoke.surface_rays(mesh, r, seed=4)
+    assert _kernel_vs_plain(host, o.to(cuda_device), d.to(cuda_device)) > r // 64
+
+
+def _mushroom_rays(cuda_device, r, seed=4):
+    smoke = _load_chip_smoke()
+    mesh = smoke.mushroom_mesh(32, 16)
+    host = RtxHost(device=cuda_device)
+    host.load_model(mesh)
+    o, d = smoke.surface_rays(mesh, r, seed=seed)
+    return host, o.to(cuda_device), d.to(cuda_device)
+
+
+def _assert_same_hits(a, b):
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_mt_kernel_split_equals_unsplit(cuda_device):  # noqa: F811
+    """intersect(o[:k]) is intersect(o)[:k] bit for bit: launches of 1 to
+    2^15 rays take the split over triangles into slice_plan's slices (from
+    over a hundred down to a few) and the merge, 2^20 the unsplit launch;
+    two launches are bit-equal."""
+    host, o, d = _mushroom_rays(cuda_device, 1 << 20)
+    tris, tc = host._tris, host.tri_chunk
+    slots, t_real = tr.mt_slots(o.device), tris["tri40"].shape[0]
+    assert tr.slice_plan(o.shape[0], t_real, slots, tr.K5_RAYS_PER_BLOCK)[0] == 1
+    whole = tr.intersect(o, d, tris, tc)
+    splits = set()
+    for k in (1, 100, 1024, 5000, 8192, 1 << 15):
+        splits.add(tr.slice_plan(k, t_real, slots, tr.K5_RAYS_PER_BLOCK)[0])
+        _assert_same_hits(tr.intersect(o[:k], d[:k], tris, tc), [x[:k] for x in whole])
+    assert len(splits) >= 3 and min(splits) > 1
+    _assert_same_hits(tr.intersect(o, d, tris, tc), whole)
+
+
+@pytest.mark.cuda
+def test_mt_kernel_forms_agree(cuda_device):  # noqa: F811
+    """Both forms of the kernel give the same hits bit for bit: with and
+    without the reject, on bounce rays and on coherent rays (one point
+    seeing the mesh), split and unsplit."""
+    host, o, d = _mushroom_rays(cuda_device, 1 << 19, seed=9)
+    tris, tc = host._tris, host.tri_chunk
+    eye = torch.tensor([0.3, 0.4, 3.0], device=cuda_device).expand(o.shape[0], 3).contiguous()
+    aim = torch.nn.functional.normalize(o - eye, dim=1)
+    for ro, rd in ((o, d), (eye, aim)):
+        ref = tr.intersect(ro, rd, tris, tc)
+        for k in (ro.shape[0], 777):
+            _assert_same_hits(tr.intersect(ro[:k], rd[:k], tris, tc, reject=False),
+                              [x[:k] for x in ref])
+
+
+@pytest.mark.cuda
+def test_mt_kernel_ring_path_matches_plain(cuda_device):  # noqa: F811
+    """2000 triangles (320 KB) do not fit in a block's shared memory, and a
+    launch of two full waves of ray tiles takes them in one slice: they
+    stream through the two-stage ring, and the hits match the plain twin.
+    A small launch of the same rays splits them into slices that fit, and
+    equals the ring's hits bit for bit."""
+    rng = np.random.default_rng(6)
+    host = RtxHost(device=cuda_device)
+    host.load_model(random_soup(2000, rng))
+    t_real = host._tris["tri40"].shape[0]
+    optin = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    assert 160 * t_real > optin
+    slots = tr.mt_slots(torch.device(cuda_device))
+    r = tr.K5_WAVES * slots * tr.K5_RAYS_PER_BLOCK
+    assert tr.slice_plan(r, t_real, slots, tr.K5_RAYS_PER_BLOCK) == (1, t_real)
+    o = torch.from_numpy(rng.uniform(-4, 4, (r, 3)).astype(np.float32)).to(cuda_device)
+    d = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(r, 3)).astype(np.float32)), dim=1).to(cuda_device)
+    assert _kernel_vs_plain(host, o, d) > r // 10
+    s, per = tr.slice_plan(500, t_real, slots, tr.K5_RAYS_PER_BLOCK)
+    assert s > 1 and 160 * per < optin
+    _assert_same_hits(tr.intersect(o[:500], d[:500], host._tris, host.tri_chunk),
+                      [x[:500] for x in tr.intersect(o, d, host._tris, host.tri_chunk)])
+
+
+def test_sass_loop_counts_reads_the_innermost_loop():
+    """chip_smoke's SASS reader on a made-up listing: the kernel with the
+    reject, whose loop over triangles the compiler unrolled twice (20
+    LDS.128) beside its remainder (10): the unrolled body counts, at 2
+    triangles x 4 rays."""
+    body = "".join(f"        /*{0x100 + 16 * i:04x}*/                   {op} ;\n" for i, op in
+                   enumerate(["LDS.128 R4, [R2]"] * 20 + ["FFMA R1, R2, R3, R1"] * 80
+                             + ["@P0 BRA 0x100"]))
+    rem_at = 0x100 + 16 * 101
+    rem = "".join(f"        /*{rem_at + 16 * i:04x}*/                   {op} ;\n" for i, op in
+                  enumerate(["LDS.128 R4, [R2]"] * 10 + ["FFMA R1, R2, R3, R1"] * 40
+                            + [f"@!P1 BRA 0x{rem_at:x}"]))
+    outer = f"        /*{rem_at + 16 * 51:04x}*/                   BRA 0x80 ;\n"
+    sass = ("\tFunction : _ZN12_GLOBAL__N_119mt_intersect_kernelILb1EEvPKfS1_i\n"
+            + body + rem + outer + "\tFunction : _Z5otherv\n" + body)
+    (c,) = _load_chip_smoke().sass_loop_counts(sass)
+    assert (c["rt"], c["reject"], c["pairs"], c["instructions"]) == (4, True, 8, 101)
+    assert c["kinds"] == {"LDS": 20, "FFMA": 80, "BRA": 1}
+    assert c["per_pair"] == 101 / 8
 
 
 def test_plain_render_is_counted_nowhere():

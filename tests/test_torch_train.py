@@ -534,7 +534,8 @@ def test_from_numpy_copies_the_arrays():
 
 
 def test_unported_training_paths_raise():
-    """More than one device needs the parallel modules: it raises instead of
+    """More than one device needs the parallel modules: the Trainer is made
+    (a project saved so still opens), and its first step raises instead of
     training another way.  A tiled step that cannot be fused (40 x 40 at
     tile 16) trains on the serve path's backward."""
     student = SplatModel.from_numpy(*random_splats(8, 1, cap=16)[:5], count=8, device="cpu")
@@ -543,7 +544,10 @@ def test_unported_training_paths_raise():
     unfused.capture_truths(StubRtx(3))
     assert not unfused._fused
     assert np.isfinite(float(unfused.train().loss))
-    with pytest.raises(NotImplementedError, match="A6"):
-        Trainer(_rig(), _runtime(train_devices=2), student, renderer="tiled")
+    multi = Trainer(_rig(), _runtime(train_devices=2), student, renderer="tiled")
+    iterations = multi.project.iterations
+    with pytest.raises(NotImplementedError, match="A-7"):
+        multi.train()
+    assert multi.project.iterations == iterations
     trainer = Trainer(_rig(), _runtime(), student, renderer="tiled")
     assert not trainer.calibrate_work_cap()
