@@ -33,7 +33,10 @@ Phases:
      kernel launch), truths rendered by the serve path from a perturbed
      teacher; then kernel against plain on one launch of the trained model;
   8. times: per-layer step times, steps/s, the bench headline (fwd+bwd
-     ms/frame) and the device's busy share of a step;
+     ms/frame) and the device's busy share of a step; the kernel against
+     its bound at all pairs visited and at those inside the footprint box
+     (the summary's), its registers and spills, blocks an SM, and the SASS
+     instructions a pair of both passes' loops and SHFL a duplicate;
   tracer path (kernel mt_intersect):
   9. kernel against plain on the random soup of the JAX package's tests,
      on 2^16 bounce rays leaving the north-star mushroom's surface and on
@@ -86,7 +89,8 @@ Phases:
      gaussian_splatterer_tpu_torch.scripts.<name>`` runs it: K8's forms at
      the reference's shape (memory-bound) and register-resident, with the
      SM clock and power, K7 at the bench scale (with the L2 sector bytes of
-     random ids and the rate they imply), K6 on the (16, 4096) table;
+     random ids and the rate they imply), K6 on the (16, 4096) table with
+     its rows a block;
      each kernel against its plain twin (K6 and K7 exactly); then K1-K5's
      times from this run with their shares of the bound at the published
      67 TFLOP/s and at K8's measured FP32 rate.
@@ -97,11 +101,18 @@ second share at K8's measured rate) and its bytes (each input read once,
 each output written once) over 3.35 TB/s.  The operations are counted from
 the (pixel, duplicate) pairs that these inputs evaluate before their pixel
 terminates, which the plain version counts, times the operations per pair
-of the kernel's source (an expf counts as one operation).  The tracer
+of the kernel's source (an expf counts as one operation); K3's summary
+counts its Gaussians only at the pairs inside the duplicate's exact
+footprint box (``pairs_box``), the work left once a pixel is shown to lie
+outside it.  The tracer
 kernel's operations are every (ray, real triangle) pair of the launch
 times its operations per pair, an FMA counted as two.  K2's bytes are the
 rows in, their gradients out, the ranges, and the forward output and its
 gradient in.  K4's bytes are its input read and its output written once.
+
+``--only k3|k5|k6|k7`` runs phases 1-2 and then only phases 6-8, 11, or
+phase 17's K6 or K7 cases: copied into a second tree, it times both trees
+in one call.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel summary.
@@ -266,10 +277,15 @@ def k1_bound(args, stats, name=None) -> tuple[float, str]:
     return bound_ms(ops, nbytes, name)
 
 
-def k3_bound(args, stats, name=None) -> tuple[float, str]:
+def k3_bound(args, stats, name=None, pairs: str = "pairs_box") -> tuple[float, str]:
+    """K3's bound, its Gaussians counted at stats[pairs]: "pairs", every
+    pair visited before its pixel terminated, or "pairs_box" (the summary's),
+    those inside the duplicate's exact footprint box, the work that is left
+    once a pixel is shown to lie outside the footprint (less work: a smaller
+    share)."""
     feat, tile_start, _, truth, bg, *_ = args
     pixels = truth.shape[0] * truth.shape[1]
-    ops = (K3_OPS_VISITED * stats["pairs"] + K3_OPS_COMPOSITED * stats["composited"]
+    ops = (K3_OPS_VISITED * stats[pairs] + K3_OPS_COMPOSITED * stats["composited"]
            + K3_OPS_PIXEL * pixels)
     # feat in, d_feat out, ranges, truth in, residual out, backgrounds
     nbytes = 2 * 4 * feat.numel() + 8 * tile_start.numel() + (12 + 16) * pixels + 4 * bg.numel()
@@ -663,7 +679,8 @@ def train_main(dev, card):
           f"max|res| {r_max:.3e} (<= {MAIN_MAX_ATOL}) mean {r_mean:.3e} (<= {MAIN_MEAN_ATOL})  "
           f"max|d_feat| {d_max:.3e}, over the row's largest: max {rel_max:.3e} "
           f"(<= {MAIN_MAX_ATOL}) mean {rel_mean:.3e} (<= {MAIN_MEAN_ATOL})  finite {finite}  "
-          f"pairs visited {k3_stats['pairs']} composited {k3_stats['composited']}")
+          f"pairs visited {k3_stats['pairs']}, inside the footprint box "
+          f"{k3_stats.get('pairs_box')}, composited {k3_stats['composited']}")
     if not (finite and r_max <= MAIN_MAX_ATOL and r_mean <= MAIN_MEAN_ATOL
             and rel_max <= MAIN_MAX_ATOL and rel_mean <= MAIN_MEAN_ATOL):
         raise SystemExit("phase 7 failed: kernel vs plain at full size")
@@ -717,12 +734,18 @@ def train_main(dev, card):
     print(f"  train steps/s {1e3 / step['whole step']:.3f}  [{card}]")
 
     plain_ms = cuda_ms(lambda: rt.composite_train_reference(*args), warmup=0, reps=2)
-    b_ms, b_by = k3_bound(args, k3_stats, "composite_train")
     k3_ms = group["composite_train kernel"]
-    print(f"  composite_train per launch ({TRAIN_GROUP} frames): kernel {k3_ms:.3f} ms  plain "
-          f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by}, {k3_stats['pairs']} pairs visited, "
-          f"{k3_stats['composited']} composited)  kernel at {b_ms / k3_ms:.3f} of the bound  "
-          f"[{card}]")
+    b_all, by_all = k3_bound(args, k3_stats, pairs="pairs")
+    if "pairs_box" in k3_stats:
+        b_ms, b_by = k3_bound(args, k3_stats, "composite_train")
+    else:  # a tree whose plain twin does not count them
+        b_ms, b_by = k3_bound(args, k3_stats, "composite_train", pairs="pairs")
+    print(f"  composite_train per launch ({TRAIN_GROUP} frames): kernel {k3_ms:.4f} ms  plain "
+          f"{plain_ms:.3f} ms  bound at all {k3_stats['pairs']} pairs visited {b_all:.4f} ms "
+          f"({by_all}, share {b_all / k3_ms:.4f}); at the {k3_stats.get('pairs_box')} inside the "
+          f"footprint box {b_ms:.4f} ms ({b_by}, share {b_ms / k3_ms:.4f}); "
+          f"{k3_stats['composited']} composited  [{card}]")
+    k3_build_facts(card)
 
     # the bench headline: render_train_grads_batch, 8 bench frames, uniform truths
     b_arrays = [torch.from_numpy(a).to(dev) for a in arrays]
@@ -1296,6 +1319,49 @@ def k5_forms(card, host, o, d) -> None:
           f"slice {one:.4f} ms, hits bit-equal  [{card}]", flush=True)
 
 
+def sass_functions(sass: str) -> list[tuple[str, list]]:
+    """(name, [(address, opcode, operands)]) of each function in
+    ``cuobjdump -sass`` output."""
+    import re
+
+    out: list = []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            out.append((line.split("Function :")[1].strip(), []))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*);",
+                     line)
+        if m and out:
+            out[-1][1].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return out
+
+
+def sass_inner_loops(ins: list, holds) -> list[list]:
+    """Bodies of the innermost loops (a backward branch's span) among the
+    loops of ``ins`` whose body satisfies ``holds``, in address order."""
+    import re
+
+    spans = []
+    for addr, op, text in ins:
+        tgt = re.search(r"0x([0-9a-f]+)", text) if op.startswith("BRA") else None
+        if tgt is None or int(tgt.group(1), 16) > addr:
+            continue
+        lo = int(tgt.group(1), 16)
+        body = [x for x in ins if lo <= x[0] <= addr]
+        if holds(body):
+            spans.append((lo, addr, body))
+    return [s[2] for s in sorted(spans) if not any(
+        o is not s and s[0] <= o[0] and o[1] <= s[1] for o in spans)]
+
+
+def sass_kinds(body: list) -> dict[str, int]:
+    kinds: dict[str, int] = {}
+    for _, op, _ in body:
+        key = op.split(".")[0]
+        kinds[key] = kinds.get(key, 0) + 1
+    return kinds
+
+
 def sass_loop_counts(sass: str) -> list[dict]:
     """The innermost loop over triangles of each intersector kernel in
     ``cuobjdump -sass`` output: its instructions by kind and per (ray,
@@ -1305,70 +1371,122 @@ def sass_loop_counts(sass: str) -> list[dict]:
     templated on the reject, 1 for the first port)."""
     import re
 
-    out, name, ins = [], None, []
-
-    def close():
-        if name is None or "mt_intersect_kernel" not in name:
-            return
+    out = []
+    for name, ins in sass_functions(sass):
+        if "mt_intersect_kernel" not in name:
+            continue
         m = re.search(r"mt_intersect_kernelILb(\d)E", name)
         rt, reject = 1, False
         if m:
             from gaussian_splatterer_tpu_torch.rt.tracer import K5_RAYS_PER_THREAD
 
             rt, reject = K5_RAYS_PER_THREAD, bool(int(m.group(1)))
-        spans = []  # loops (a backward branch's span) that read a triangle
-        for addr, op, text in ins:
-            tgt = re.search(r"0x([0-9a-f]+)", text) if op.startswith("BRA") else None
-            if tgt is None or int(tgt.group(1), 16) > addr:
-                continue
-            lo = int(tgt.group(1), 16)
-            body = [x for x in ins if lo <= x[0] <= addr]
-            if sum(x[1] == "LDS.128" for x in body) >= 10:
-                spans.append((lo, addr, body))
-        # the innermost such loops (a compiler's unrolled body and its
-        # remainder), of which the one that reads the most triangles
-        inner = [s for s in spans if not any(o is not s and s[0] <= o[0] and o[1] <= s[1]
-                                             for o in spans)]
-        if not inner:
-            return
-        best = max(inner, key=lambda s: sum(x[1] == "LDS.128" for x in s[2]))[2]
-        kinds: dict[str, int] = {}
-        for _, op, _ in best:
-            key = op.split(".")[0]
-            kinds[key] = kinds.get(key, 0) + 1
-        pairs = sum(x[1] == "LDS.128" for x in best) // 10 * rt
-        out.append({"rt": rt, "reject": reject, "instructions": len(best), "pairs": pairs,
-                    "per_pair": len(best) / pairs, "kinds": kinds})
 
-    for line in sass.splitlines():
-        if "Function :" in line:
-            close()
-            name, ins = line.split("Function :")[1].strip(), []
+        def lds(body):
+            return sum(x[1] == "LDS.128" for x in body)
+
+        # the innermost loops that read a triangle (a compiler's unrolled
+        # body and its remainder), of which the one that reads the most
+        inner = sass_inner_loops(ins, lambda body: lds(body) >= 10)
+        if not inner:
             continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*);",
-                     line)
-        if m:
-            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
-    close()
+        best = max(inner, key=lds)
+        pairs = lds(best) // 10 * rt
+        out.append({"rt": rt, "reject": reject, "instructions": len(best), "pairs": pairs,
+                    "per_pair": len(best) / pairs, "kinds": sass_kinds(best)})
     return out
+
+
+def k3_sass_counts(sass: str) -> list[dict]:
+    """The loops over duplicates of each train compositor kernel (K3, PPT
+    pixels a thread: composite_train_kernel<PPT>) in ``cuobjdump -sass``
+    output: the innermost loops that evaluate a Gaussian (an expf is one
+    MUFU.EX2), pass 1's without shuffles and pass 2's with the warp
+    reduction's SHFL.  For each: its instructions, the pairs one trip
+    evaluates (its MUFU.EX2), instructions a pair, and SHFL a duplicate
+    (SHFL x PPT / pairs).  Static counts: every branch's instructions."""
+    import re
+
+    out = []
+    for name, ins in sass_functions(sass):
+        m = re.search(r"composite_train_kernelILi(\d+)E", name)
+        if not m:
+            continue
+        ppt = int(m.group(1))
+        for body in sass_inner_loops(ins, lambda b: any(x[1] == "MUFU.EX2" for x in b)):
+            pairs = sum(x[1] == "MUFU.EX2" for x in body)
+            shfl = sum(x[1].startswith("SHFL") for x in body)
+            out.append({"ppt": ppt, "pass": 2 if shfl else 1, "instructions": len(body),
+                        "pairs": pairs, "per_pair": len(body) / pairs,
+                        "shfl_per_dup": shfl * ppt / pairs, "kinds": sass_kinds(body)})
+    return out
+
+
+def cuobjdump_sass(name: str) -> str | None:
+    """``cuobjdump -sass`` of the built library of kernel source ``name``
+    (cuobjdump from the CUDA toolkit beside nvcc), or None if it failed."""
+    from gaussian_splatterer_tpu_torch.ops import cuda_build
+
+    tool = Path(cuda_build.find_nvcc()).parent / "cuobjdump"
+    lib = cuda_build.build_info[name]["path"]
+    proc = subprocess.run([str(tool), "-sass", lib], capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        print(f"  SASS: cuobjdump failed: {proc.stderr.strip()[:200]}")
+        return None
+    return proc.stdout
 
 
 def k5_sass(card) -> None:
     """Instructions per (ray, triangle) pair in the SASS of the built
-    intersector, by cuobjdump from the CUDA toolkit beside nvcc."""
-    from gaussian_splatterer_tpu_torch.ops import cuda_build
-
-    tool = Path(cuda_build.find_nvcc()).parent / "cuobjdump"
-    lib = cuda_build.build_info["mt_intersect"]["path"]
-    proc = subprocess.run([str(tool), "-sass", lib], capture_output=True, text=True, timeout=120)
-    if proc.returncode != 0:
-        print(f"  SASS: cuobjdump failed: {proc.stderr.strip()[:200]}")
-        return
-    for c in sass_loop_counts(proc.stdout):
+    intersector."""
+    sass = cuobjdump_sass("mt_intersect")
+    for c in sass_loop_counts(sass) if sass is not None else []:
         kinds = " ".join(f"{k} {n}" for k, n in sorted(c["kinds"].items(), key=lambda kv: -kv[1]))
         print(f"  SASS of the loop over triangles, RT {c['rt']}, reject {c['reject']}: "
               f"{c['instructions']} instructions for {c['pairs']} pairs, {c['per_pair']:.2f} a "
               f"pair (static; the reject's skipped epilogue included): {kinds}  [{card}]",
+              flush=True)
+
+
+def ptxas_lines(log: str, kernel: str) -> list[str]:
+    """'<entry>: N registers, spill stores/loads' for each entry function
+    of ``log`` (nvcc -Xptxas -v) whose name holds ``kernel``."""
+    import re
+
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name and kernel in name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers; {spill}")
+    return out
+
+
+def k3_build_facts(card) -> None:
+    """Phase 8: K3's registers and spills (phase 2's ptxas lines), the blocks
+    of the tile-32 kernel an SM holds, and the SASS of both passes' loops."""
+    from gaussian_splatterer_tpu_torch.ops import cuda_build
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+
+    for line in ptxas_lines(cuda_build.build_info["composite_train"]["ptxas"],
+                            "composite_train_kernel"):
+        print(f"  ptxas: {line}")
+    try:
+        per_sm = rt._train_lib().composite_train_blocks_per_sm()
+    except AttributeError:  # a tree whose kernel does not export it
+        per_sm = "not exported"
+    print(f"  composite_train_kernel<4> (tile 32, 256 threads): {per_sm} blocks an SM "
+          f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)  [{card}]")
+    sass = cuobjdump_sass("composite_train")
+    for c in k3_sass_counts(sass) if sass is not None else []:
+        kinds = " ".join(f"{k} {n}" for k, n in sorted(c["kinds"].items(), key=lambda kv: -kv[1]))
+        print(f"  SASS of pass {c['pass']}'s loop over duplicates, {c['ppt']} pixels a thread: "
+              f"{c['instructions']} instructions for {c['pairs']} pairs, {c['per_pair']:.2f} a "
+              f"pair, {c['shfl_per_dup']:.2f} SHFL a duplicate (static, every branch): {kinds}",
               flush=True)
 
 
@@ -1905,10 +2023,7 @@ def probe_phase(dev, card, earlier: list) -> list:
     gather = gp.run(dev)
     k7_launches = gp.gather_cols_launches
     gp.report(gather, card)
-    sp.smem_gather_launches = 0
-    smem = sp.run(dev)
-    k6_launches = sp.smem_gather_launches
-    sp.report(smem, card)
+    smem, k6_launches, tab6, ids6 = k6_phase(dev, card)
     print(f"  launches in the probes' runs: peak_fma {k8_launches}, gather_cols {k7_launches}, "
           f"smem_gather {k6_launches}")
 
@@ -1932,14 +2047,7 @@ def probe_phase(dev, card, earlier: list) -> list:
         for idx in (ids, ids_sorted):
             if not torch.equal(gp.gather_cols(tab, idx), gp.gather_cols_reference(tab, idx)):
                 raise SystemExit(f"phase 17 failed: gather_cols at {rows} rows")
-    tab6, ids6, _ = gp.probe_inputs(dev, sp.ROWS, sp.COLS, sp.BENCH_IDS, seed=1)
-    for d in (sp.PROBE_IDS, sp.BENCH_IDS):
-        flat = ids6[:d].contiguous()
-        for idx in (flat, flat.view(-1, 128)):
-            if not torch.equal(sp.smem_gather(tab6, idx), sp.smem_gather_reference(tab6, idx)):
-                raise SystemExit(f"phase 17 failed: smem_gather at D = {d}")
-    print("  gather_cols (9 and 16 rows, random and sorted ids) and smem_gather (16 rows in "
-          "two blocks of 8, D = 8192 and 2^21, both index layouts) equal their plain twins")
+    print("  gather_cols (9 and 16 rows, random and sorted ids) equals its plain twin")
 
     rate = pp.fp32_rate(peak)
     w = peak["window"]
@@ -1993,6 +2101,31 @@ def probe_phase(dev, card, earlier: list) -> list:
     }]
 
 
+def k6_phase(dev, card):
+    """Phase 17's K6 cases: the probe's run() (times at D = 8192 and 2^21
+    beside gather_cols, index_select and the bound), the rows a block, and
+    the kernel against its plain twin at both D in both index layouts.
+    Returns (run()'s result, the launches in it, the table, the ids)."""
+    from gaussian_splatterer_tpu_torch.scripts import gather_probe as gp
+    from gaussian_splatterer_tpu_torch.scripts import smem_gather_probe as sp
+
+    sp.smem_gather_launches = 0
+    smem = sp.run(dev)
+    launches = sp.smem_gather_launches
+    sp.report(smem, card)
+    rows = sp.split_rows(sp.ROWS, sp.COLS, sp._lib().smem_gather_max_bytes(dev.index or 0))
+    tab6, ids6, _ = gp.probe_inputs(dev, sp.ROWS, sp.COLS, sp.BENCH_IDS, seed=1)
+    for d in (sp.PROBE_IDS, sp.BENCH_IDS):
+        flat = ids6[:d].contiguous()
+        for idx in (flat, flat.view(-1, 128)):
+            if not torch.equal(sp.smem_gather(tab6, idx), sp.smem_gather_reference(tab6, idx)):
+                raise SystemExit(f"phase 17 failed: smem_gather at D = {d}")
+    print(f"  smem_gather: {rows} rows a block ({sp.ROWS} rows of {sp.COLS} in "
+          f"{-(-sp.ROWS // rows)} row groups); equals its plain twin at D = {sp.PROBE_IDS} and "
+          f"2^21, both index layouts  [{card}]")
+    return smem, launches, tab6, ids6
+
+
 def device_busy_ms(fn) -> tuple[float, float, dict]:
     """(milliseconds in which the device ran a kernel or a copy, wall
     milliseconds, {name: [device ms, count]} of the kernels and copies) of
@@ -2023,11 +2156,13 @@ def device_busy_ms(fn) -> tuple[float, float, dict]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", action="append", choices=("k5", "k7"),
-                    help="run phases 1-2 and then only phase 11 (k5: capture frames, the "
-                         "intersector's times, launch sizes and SASS) or phase 17's gather "
-                         "probe (k7); for timing two trees of the repository in one call, "
-                         "this script copied into each")
+    ap.add_argument("--only", action="append", choices=("k3", "k5", "k6", "k7"),
+                    help="run phases 1-2 and then only phases 6-8 (k3: the train gate, the "
+                         "fused train cell, the compositor's times, bounds, registers and "
+                         "SASS), phase 11 (k5: capture frames, the intersector's times, launch "
+                         "sizes and SASS) or phase 17's gather probes (k6: from shared memory, "
+                         "k7: at the bench scale); for timing two trees of the repository in "
+                         "one call, this script copied into each")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU",
@@ -2068,8 +2203,14 @@ def main(argv=None) -> int:
         print(info["ptxas"])
 
     if args.only:
+        if "k3" in args.only:
+            train_gate(dev)
+            train_main(dev, card)
         if "k5" in args.only:
             tracer_times(dev, card, 0, 0.0)
+        if "k6" in args.only:
+            phase(f"17. gather from shared memory (K6) ({card})")
+            k6_phase(dev, card)
         if "k7" in args.only:
             from gaussian_splatterer_tpu_torch.scripts import gather_probe as gp
 

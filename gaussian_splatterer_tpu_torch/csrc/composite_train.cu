@@ -10,7 +10,7 @@
 // work list: one thread block per (frame, tile), walking its own
 // [tile_start, tile_end) range of depth-ordered duplicates twice.
 //
-// Per pixel (the tile's pixels are spread over the block's threads):
+// Per pixel:
 //   pass 1   K1's forward loop exactly (csrc/composite_fwd.cu): same
 //            operations in the same order, the same skip and stop rules;
 //            gives C (rgb) and T_final.
@@ -34,27 +34,73 @@
 //
 // What bounds it: per (pixel, duplicate) pair visited before the pixel
 // terminates, two evaluations of the Gaussian (one expf each) and about 90
-// FP32 operations in all; the bytes (36 per duplicate in, 36 out, 28 per
-// pixel) are few beside that.  What the design does about it:
-//   * each thread owns PPT pixels of its tile, so one shared-memory read of
-//     a duplicate's features feeds PPT pixels, and a tile of 32 x 32 needs
-//     256 threads of up to 255 registers instead of 1024 threads capped at
-//     64 (the pass-2 state does not fit 64 without spills);
+// FP32 operations in all (an FMA counted as two); the bytes (36 per
+// duplicate in, 36 out, 28 per pixel) are few beside that.  The work that
+// needs doing is the pairs inside a duplicate's footprint; the rest of a
+// tile's pixels need only be shown to lie outside it.  What the design does:
+//   * compact warp patches: the block has min(tile^2, 256) threads, PPT
+//     pixels each, pixel p = warp 32 PPT + 32 k + lane, so a warp owns
+//     32 PPT / tile whole rows of the tile (4 rows of 32 at tile 32, 2 of
+//     16 at tile 16, 4 of 8 at tile 8), its truth loads and residual stores
+//     run along a row, and at tile 32 its four pixels share one column (dx
+//     and its products are computed once a duplicate);
+//   * the footprint skip: when a duplicate is staged, one thread computes
+//     its footprint box (below) and a mask of the warps whose patch meets
+//     it; a warp outside the box skips the duplicate in both passes, with
+//     no evaluation and no reduction.  The skip is warp-uniform;
+//   * the pixel reduction of pass 2 is a reduce-scatter butterfly over the
+//     nine rows: at xor distance 16 a lane keeps five rows (or four) and
+//     sends the others to its partner, at 8 three, at 4 two, at 2 one,
+//     and a last xor 1 sums the pair; 5 + 3 + 2 + 1 + 1 = 12 shuffles a
+//     duplicate a warp, where nine separate xor reductions take 45; then
+//     nine lanes each hold one row's warp sum (reduced_row) and store it;
+//   * FMA where no decision depends on it: gc, d_power's products and the
+//     nine sums contract; acc, g_s = g_ctot - acc (which cancels), 1/(1 -
+//     alpha) (which amplifies by up to 100) and d_alpha stay rounded op by
+//     op, like every operation of both passes' skip and stop decisions;
 //   * early exit: pass 1 leaves its range once __syncthreads_count says
 //     every pixel terminated, and pass 2 stops at the last duplicate any
 //     pixel of the tile reached;
-//   * the reduction over pixels: each thread sums its PPT pixels, a warp
-//     sums by xor shuffles (skipped when no lane of the warp kept the
-//     duplicate), and one partial per warp goes to shared memory; the
-//     partials are added in warp order and stored straight to d_feat.  A
-//     duplicate belongs to exactly one (frame, tile) block, so no atomics,
-//     and the sum order is fixed: the kernel is deterministic.
+//   * occupancy: 256 threads and four blocks an SM (__launch_bounds__(256,
+//     4): at most 64 registers, a few bytes spilled), 32 warps to hide the
+//     barriers, and pass 2 staged in batches of 64 duplicates, two barriers
+//     a batch.  Faster, measured, than three blocks (80 registers, no
+//     spills) or two, and than batches of 32 (PERF.md).
 //
-// Numerics: every operation is rounded on its own (__fmul_rn and friends,
-// no FMA contraction) in the order the plain PyTorch version
-// (composite_train_reference) evaluates it, with the full-precision expf,
-// so the two take the same skip and stop decisions and differ only in the
-// order of the pixel sums.
+// Sum order: a pixel's terms in duplicate order; a thread's PPT pixels in
+// k order; the warp's lanes by the fixed butterfly (each pair adds the
+// same two values, so both hold the same sum); the warps in warp order,
+// skipped warps adding 0.  A duplicate belongs to exactly one (frame,
+// tile) block: no atomics, and the kernel is deterministic.
+//
+// The footprint box.  With Q = a dx^2 + 2 b dx dy + c dy^2 the exact
+// power is -Q/2 (power = -0.5 (a dx^2 + c dy^2) - b dx dy), and a pixel can
+// reach alpha >= 1/255 only where Q <= 2 L, L = ln(op / kAlphaMin), an
+// ellipse within |dx| <= sqrt(2 L c / (a c - b^2)), |dy| <= sqrt(2 L a /
+// (a c - b^2)) for a positive-definite conic.  The box is computed in
+// double from the float inputs, with these margins (u = 2^-24):
+//   (1) the computed power.  Its six float operations give -2 power_hat
+//       >= (1 - u) (Q - 5.0001 u A), A = a dx^2 + c dy^2 >= |2 b dx dy|
+//       (a, c > 0 and the three terms of A rounded as non-negatives), so
+//       -2 power_hat >= (1 - u) Q_d with Q_d = (1 - d)(a dx^2 + c dy^2) + 2
+//       b dx dy, d = 2^-18 > 5.0001 u: the box is Q_d's, from a (1 - d),
+//       c (1 - d).  Subnormal products add under 2^-120 here;
+//   (2) expf (2 ulp) and alpha's product: alpha_hat <= op e^power_hat
+//       (1 + 2^-20), so alpha_hat < kAlphaMin wherever -power_hat > L +
+//       2^-20; the threshold is Lm = max((L + d)(1 + d), 2^-40), and (1)
+//       gives -power_hat >= (1 - u) Lm > L + 2^-20 outside the box;
+//   (3) dx and dy are rounded (|dx_hat| >= |dx| (1 - u)), det' = a'c' - b^2
+//       is rounded in double (relative error below 2^-23 once det' > 2^-30
+//       a'c', and a conic below that never skips), so the half-extents are
+//       widened by (1 + 2^-16), plus 2^-40 |centre| for the double
+//       subtraction, and the box's edges rounded outward to float.
+// Lm < 0 means op e^0 (1 + 2^-20) < kAlphaMin, and op <= 0 that alpha <=
+// 0: no pixel reaches the threshold and the box is empty.  A conic that is
+// not positive definite, and any input that is NaN or infinite, gives the
+// whole plane: it never skips.  A NaN edge compares false and never skips.
+// So a skipped pair is one both passes' per-pixel rules skip, and every
+// result, every decision, lim and stop included, is the one without it.
+// ops/raster_tiled.py::footprint_box is the plain twin of this arithmetic.
 
 #include <cuda_runtime.h>
 
@@ -65,18 +111,33 @@ constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
 constexpr int kMaxThreads = 256;
+constexpr int kMinBlocks = 4;  // blocks an SM: at most 64 registers a thread
 constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kBatch2 = 32;  // duplicates per staged batch of pass 2
+constexpr int kBatch2 = 64;  // duplicates per staged batch of pass 2
 constexpr unsigned kFull = 0xffffffffu;
+// the footprint box's margins (the header's proof)
+constexpr double kShrink = 0x1p-18;
+constexpr double kWiden = 0x1p-16;
+constexpr double kAbs = 0x1p-40;
+constexpr double kDetMin = 0x1p-30;
+constexpr double kLMin = 0x1p-40;
 
 struct Splat {
   float mx, my, ca, cb, cc, r, g, b, op;
 };
 
-__device__ __forceinline__ Splat load_splat(const float* stage, int stride, int i) {
-  return Splat{stage[0 * stride + i], stage[1 * stride + i], stage[2 * stride + i],
-               stage[3 * stride + i], stage[4 * stride + i], stage[5 * stride + i],
-               stage[6 * stride + i], stage[7 * stride + i], stage[8 * stride + i]};
+// A staged duplicate: three float4, (mx, my, a, b), (c, r, g, b),
+// (op, warp mask as bits, -, -).
+__device__ __forceinline__ Splat load_splat(const float4* st, unsigned& mask) {
+  const float4 q0 = st[0], q1 = st[1], q2 = st[2];
+  mask = __float_as_uint(q2.y);
+  return Splat{q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};
+}
+
+__device__ __forceinline__ void store_splat(float4* st, const float (&v)[kRows], unsigned mask) {
+  st[0] = make_float4(v[0], v[1], v[2], v[3]);
+  st[1] = make_float4(v[4], v[5], v[6], v[7]);
+  st[2] = make_float4(v[8], __uint_as_float(mask), 0.0f, 0.0f);
 }
 
 // power = -0.5 (a dx^2 + c dy^2) - b dx dy, in K1's order of operations
@@ -86,9 +147,104 @@ __device__ __forceinline__ float gauss_power(const Splat& s, float dx, float dy)
   return __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(s.cb, dx), dy));
 }
 
-// PPT pixels per thread: pixel p = threadIdx.x + k * blockDim.x, k < PPT
+struct Box {
+  float xlo, xhi, ylo, yhi;
+};
+
+// The footprint box of a duplicate (the header's proof); double operations
+// rounded one by one, as the plain twin does them.
+__device__ Box footprint(float mx, float my, float a, float b, float c, float op) {
+  const float inf = __int_as_float(0x7f800000);
+  const Box whole{-inf, inf, -inf, inf};
+  const Box none{inf, -inf, inf, -inf};
+  if (!(isfinite(mx) && isfinite(my) && isfinite(a) && isfinite(b) && isfinite(c) &&
+        isfinite(op))) {
+    return whole;
+  }
+  if (!(op > 0.0f)) return none;  // alpha <= 0
+  const double l = __dsub_rn(log(static_cast<double>(op)), log(static_cast<double>(kAlphaMin)));
+  double lm = __dmul_rn(__dadd_rn(l, kShrink), 1.0 + kShrink);
+  if (lm < 0.0) return none;
+  lm = fmax(lm, kLMin);
+  const double a1 = __dmul_rn(a, 1.0 - kShrink);
+  const double c1 = __dmul_rn(c, 1.0 - kShrink);
+  const double ac = __dmul_rn(a1, c1);
+  const double det = __dsub_rn(ac, __dmul_rn(b, b));
+  if (!(a1 > 0.0 && det > __dmul_rn(ac, kDetMin))) return whole;
+  const double t = __dmul_rn(2.0, lm);
+  const double ex = __dsqrt_rn(__ddiv_rn(__dmul_rn(t, c1), det));
+  const double ey = __dsqrt_rn(__ddiv_rn(__dmul_rn(t, a1), det));
+  const double exw = __dadd_rn(__dmul_rn(ex, 1.0 + kWiden), __dmul_rn(fabs(mx), kAbs));
+  const double eyw = __dadd_rn(__dmul_rn(ey, 1.0 + kWiden), __dmul_rn(fabs(my), kAbs));
+  return Box{__double2float_rd(__dsub_rn(mx, exw)), __double2float_ru(__dadd_rn(mx, exw)),
+             __double2float_rd(__dsub_rn(my, eyw)), __double2float_ru(__dadd_rn(my, eyw))};
+}
+
+// Bit w: warp w's patch, columns [x0, x1] and rows [y0 + w rows_w, y0 +
+// (w + 1) rows_w - 1], meets the box.  A NaN edge compares false: kept.
+__device__ __forceinline__ unsigned warp_mask(const Box& bx, float x0, float x1, float y0,
+                                              int rows_w, int nwarps) {
+  if (x1 < bx.xlo || x0 > bx.xhi) return 0u;
+  unsigned m = 0u;
+  for (int w = 0; w < nwarps; ++w) {
+    const float lo = y0 + static_cast<float>(w * rows_w);
+    const float hi = lo + static_cast<float>(rows_w - 1);
+    if (!(hi < bx.ylo || lo > bx.yhi)) m |= 1u << w;
+  }
+  return m;
+}
+
+__device__ __forceinline__ void stage_dup(float4* st, const float* __restrict__ feat,
+                                          long long num_dup, int j, float x0, float x1,
+                                          float y0, int rows_w, int nwarps) {
+  float v[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) v[r] = feat[r * num_dup + j];
+  const Box bx = footprint(v[0], v[1], v[2], v[3], v[4], v[8]);
+  store_splat(st, v, warp_mask(bx, x0, x1, y0, rows_w, nwarps));
+}
+
+// One step of the reduce-scatter: a lane of `bit` clear keeps v[0, N) and
+// sends v[N, 2N); a lane of `bit` set keeps v[N, 2N) and sends v[0, N);
+// slots past LEN are 0.  out[i] = kept + partner's sent.
+template <int N, int LEN>
+__device__ __forceinline__ void scatter_step(const float (&v)[LEN], float (&out)[N], int lane,
+                                             int bit) {
+  const bool up = lane & bit;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float lo = v[i];
+    const float hi = N + i < LEN ? v[N + i] : 0.0f;
+    out[i] = (up ? hi : lo) + __shfl_xor_sync(kFull, up ? lo : hi, bit);
+  }
+}
+
+// The row whose warp sum lane `lane` stores after warp_reduce9 (below), or
+// -1: the slot a lane keeps at each step, read back from its lane bits.
+__device__ __forceinline__ int reduced_row(int lane) {
+  const int b1 = (lane >> 1) & 1, b2 = (lane >> 2) & 1, b3 = (lane >> 3) & 1;
+  const int b4 = (lane >> 4) & 1;
+  const int s2 = b2 ? 2 + b1 : b1;  // slot of b[] (3)
+  const int s1 = b3 ? 3 + s2 : s2;  // slot of a[] (5)
+  const int row = b4 ? 5 + s1 : s1;
+  return ((lane & 1) == 0 && s2 < 3 && s1 < 5 && row < kRows) ? row : -1;
+}
+
+// The warp's sums of the nine rows of g; the lane whose reduced_row is r >=
+// 0 returns row r's.
+__device__ __forceinline__ float warp_reduce9(const float (&g)[kRows], int lane) {
+  float a[5], b[3], c[2], d[1];
+  scatter_step<5, 9>(g, a, lane, 16);
+  scatter_step<3, 5>(a, b, lane, 8);
+  scatter_step<2, 3>(b, c, lane, 4);
+  scatter_step<1, 2>(c, d, lane, 2);
+  return d[0] + __shfl_xor_sync(kFull, d[0], 1);
+}
+
+// PPT pixels per thread: pixel p = warp * 32 PPT + 32 k + lane, k < PPT;
+// PPT == 4 only at tile 32, so pixel k of a thread is row k of its patch.
 template <int PPT>
-__global__ void __launch_bounds__(kMaxThreads) composite_train_kernel(
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks) composite_train_kernel(
     const float* __restrict__ feat,  // (9, num_dup) rows, contiguous
     long long num_dup,
     const int* __restrict__ tile_start,  // (F*T,) into feat's columns
@@ -98,7 +254,7 @@ __global__ void __launch_bounds__(kMaxThreads) composite_train_kernel(
     float4* __restrict__ res,  // out (F*T, tile*tile) of (r, g, b, T_final)
     float* __restrict__ d_feat,  // out (9, num_dup), zeroed by the caller
     int tile, int tx_tiles, int tiles_frame) {
-  __shared__ float stage[kRows * kMaxThreads];
+  __shared__ float4 stage[3 * kMaxThreads];
   __shared__ float part[kMaxWarps * kBatch2 * kRows];
   __shared__ int s_lim;
   const int nthr = blockDim.x;
@@ -114,44 +270,46 @@ __global__ void __launch_bounds__(kMaxThreads) composite_train_kernel(
   const int oy = (t / tx_tiles) * tile;
   const int start = tile_start[blk];
   const int end = tile_end[blk];
+  const int rows_w = 32 * PPT / tile;  // whole rows of the tile a warp owns
+  const float x0 = static_cast<float>(ox);
+  const float x1 = static_cast<float>(ox + tile - 1);
+  const float y0 = static_cast<float>(oy);
+  const unsigned my_bit = 1u << warp;
+  const int my_row = reduced_row(lane);
 
-  float px[PPT], py[PPT];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    const int p = tid + k * nthr;
-    px[k] = static_cast<float>(ox + p % tile);
-    py[k] = static_cast<float>(oy + p / tile);
-  }
+  const int p0 = warp * 32 * PPT + lane;
+  const float px = static_cast<float>(ox + p0 % tile);
+  const float py0 = static_cast<float>(oy + p0 / tile);  // pixel k: py0 + k
 
   // ---- pass 1: forward composite (K1's loop) ----
   float T[PPT], cr[PPT], cg[PPT], cb[PPT];
-  bool done[PPT];
+  unsigned done = 0u;  // bit k: pixel k terminated
+  constexpr unsigned kAll = (1u << PPT) - 1u;
   int lim = start;  // one past the last duplicate any of my pixels reached
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     T[k] = 1.0f;
     cr[k] = cg[k] = cb[k] = 0.0f;
-    done[k] = false;
   }
   bool all_done = false;
   for (int base = start; base < end; base += nthr) {
     // also the barrier that keeps the previous batch's readers ahead of
     // this batch's writers
     if (__syncthreads_count(all_done) == nthr) break;
-    const int j = base + tid;
-    if (j < end) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) stage[r * nthr + tid] = feat[r * num_dup + j];
+    if (base + tid < end) {
+      stage_dup(stage + 3 * tid, feat, num_dup, base + tid, x0, x1, y0, rows_w, nwarps);
     }
     __syncthreads();
     const int n = min(nthr, end - base);
     for (int i = 0; i < n && !all_done; ++i) {
-      const Splat s = load_splat(stage, nthr, i);
+      unsigned mask;
+      const Splat s = load_splat(stage + 3 * i, mask);
+      if (!(mask & my_bit)) continue;
+      const float dx = __fsub_rn(px, s.mx);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        if (done[k]) continue;
-        const float dx = __fsub_rn(px[k], s.mx);
-        const float dy = __fsub_rn(py[k], s.my);
+        if (done & (1u << k)) continue;
+        const float dy = __fsub_rn(py0 + static_cast<float>(k), s.my);
         const float power = gauss_power(s, dx, dy);
         if (!(power <= 0.0f)) continue;
         float alpha = __fmul_rn(s.op, expf(power));
@@ -159,7 +317,7 @@ __global__ void __launch_bounds__(kMaxThreads) composite_train_kernel(
         if (!(alpha >= kAlphaMin)) continue;
         const float test_t = __fmul_rn(T[k], __fsub_rn(1.0f, alpha));
         if (test_t < kTEps) {
-          done[k] = true;
+          done |= 1u << k;
           lim = max(lim, base + i);
           continue;
         }
@@ -169,15 +327,10 @@ __global__ void __launch_bounds__(kMaxThreads) composite_train_kernel(
         cb[k] = __fadd_rn(cb[k], __fmul_rn(w, s.b));
         T[k] = test_t;
       }
-      all_done = true;
-#pragma unroll
-      for (int k = 0; k < PPT; ++k) all_done = all_done && done[k];
+      all_done = done == kAll;
     }
   }
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    if (!done[k]) lim = end;
-  }
+  if (done != kAll) lim = end;
 
   // ---- residual ----
   const float bg_r = bg[3 * frame + 0];
@@ -186,7 +339,7 @@ __global__ void __launch_bounds__(kMaxThreads) composite_train_kernel(
   float rr[PPT], rg[PPT], rb[PPT], g_ctot[PPT], gtn[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const long long pix = static_cast<long long>(blk) * p_count + tid + k * nthr;
+    const long long pix = static_cast<long long>(blk) * p_count + p0 + 32 * k;
     const float* tr = truth + 3 * pix;
     rr[k] = __fsub_rn(tr[0], __fadd_rn(cr[k], __fmul_rn(T[k], bg_r)));
     rg[k] = __fsub_rn(tr[1], __fadd_rn(cg[k], __fmul_rn(T[k], bg_g)));
@@ -211,28 +364,30 @@ __global__ void __launch_bounds__(kMaxThreads) composite_train_kernel(
   for (int k = 0; k < PPT; ++k) {
     T[k] = 1.0f;
     acc[k] = 0.0f;
-    done[k] = false;
   }
+  done = 0u;
   for (int base = start; base < stop; base += kBatch2) {
     const int n = min(kBatch2, stop - base);
     __syncthreads();  // the previous batch's partials are consumed
-    for (int q = tid; q < kRows * n; q += nthr) {
-      const int r = q / n;
-      const int i = q - r * n;
-      stage[r * kBatch2 + i] = feat[r * num_dup + base + i];
-    }
+    if (tid < n) stage_dup(stage + 3 * tid, feat, num_dup, base + tid, x0, x1, y0, rows_w, nwarps);
     __syncthreads();
     for (int i = 0; i < n; ++i) {
-      const Splat s = load_splat(stage, kBatch2, i);
+      unsigned mask;
+      const Splat s = load_splat(stage + 3 * i, mask);
+      float* slot = part + (warp * kBatch2 + i) * kRows;
+      if (!(mask & my_bit)) {
+        if (my_row >= 0) slot[my_row] = 0.0f;
+        continue;
+      }
       float g[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) g[r] = 0.0f;
       bool kept = false;
+      const float dx = __fsub_rn(px, s.mx);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        if (done[k]) continue;
-        const float dx = __fsub_rn(px[k], s.mx);
-        const float dy = __fsub_rn(py[k], s.my);
+        if (done & (1u << k)) continue;
+        const float dy = __fsub_rn(py0 + static_cast<float>(k), s.my);
         const float power = gauss_power(s, dx, dy);
         if (!(power <= 0.0f)) continue;
         const float expp = expf(power);
@@ -242,48 +397,36 @@ __global__ void __launch_bounds__(kMaxThreads) composite_train_kernel(
         const float t_k = T[k];
         const float test_t = __fmul_rn(t_k, __fsub_rn(1.0f, alpha));
         if (test_t < kTEps) {
-          done[k] = true;
+          done |= 1u << k;
           continue;
         }
         kept = true;
         const float w = __fmul_rn(alpha, t_k);
-        const float gc = __fadd_rn(__fadd_rn(__fmul_rn(rr[k], s.r), __fmul_rn(rg[k], s.g)),
-                                   __fmul_rn(rb[k], s.b));
+        const float gc = fmaf(rb[k], s.b, fmaf(rg[k], s.g, rr[k] * s.r));
         acc[k] = __fadd_rn(acc[k], __fmul_rn(w, gc));
         const float g_s = __fsub_rn(g_ctot[k], acc[k]);
         const float inv = __frcp_rn(__fsub_rn(1.0f, alpha));
         float d_alpha = __fsub_rn(__fmul_rn(gc, t_k), __fmul_rn(__fadd_rn(g_s, gtn[k]), inv));
         if (!(alpha_raw < kAlphaMax)) d_alpha = 0.0f;
-        const float d_power = __fmul_rn(d_alpha, alpha_raw);
-        g[0] = __fadd_rn(g[0], __fmul_rn(d_power, __fadd_rn(__fmul_rn(s.ca, dx),
-                                                             __fmul_rn(s.cb, dy))));
-        g[1] = __fadd_rn(g[1], __fmul_rn(d_power, __fadd_rn(__fmul_rn(s.cc, dy),
-                                                             __fmul_rn(s.cb, dx))));
-        g[2] = __fadd_rn(g[2], __fmul_rn(__fmul_rn(d_power, dx), dx));
-        g[3] = __fadd_rn(g[3], __fmul_rn(__fmul_rn(d_power, dx), dy));
-        g[4] = __fadd_rn(g[4], __fmul_rn(__fmul_rn(d_power, dy), dy));
-        g[5] = __fadd_rn(g[5], __fmul_rn(rr[k], w));
-        g[6] = __fadd_rn(g[6], __fmul_rn(rg[k], w));
-        g[7] = __fadd_rn(g[7], __fmul_rn(rb[k], w));
-        g[8] = __fadd_rn(g[8], __fmul_rn(d_alpha, expp));
+        const float d_power = d_alpha * alpha_raw;
+        const float pdx = d_power * dx;
+        const float pdy = d_power * dy;
+        g[0] = fmaf(s.cb, pdy, fmaf(s.ca, pdx, g[0]));
+        g[1] = fmaf(s.cb, pdx, fmaf(s.cc, pdy, g[1]));
+        g[2] = fmaf(pdx, dx, g[2]);
+        g[3] = fmaf(pdx, dy, g[3]);
+        g[4] = fmaf(pdy, dy, g[4]);
+        g[5] = fmaf(rr[k], w, g[5]);
+        g[6] = fmaf(rg[k], w, g[6]);
+        g[7] = fmaf(rb[k], w, g[7]);
+        g[8] = fmaf(d_alpha, expp, g[8]);
         T[k] = test_t;
       }
-      float* slot = part + (warp * kBatch2 + i) * kRows;
       if (__any_sync(kFull, kept)) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          float v = g[r];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-          g[r] = v;
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) slot[r] = g[r];
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) slot[r] = 0.0f;
+        const float v = warp_reduce9(g, lane);
+        if (my_row >= 0) slot[my_row] = v;
+      } else if (my_row >= 0) {
+        slot[my_row] = 0.0f;
       }
     }
     __syncthreads();
@@ -328,4 +471,16 @@ extern "C" int composite_train(const float* feat, long long num_dup,
         tiles_frame);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the tile-32 kernel an SM holds, or -1 on error: registers and
+// shared memory decide it (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int composite_train_blocks_per_sm() {
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, composite_train_kernel<4>,
+                                                    kMaxThreads, 0) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return per_sm;
 }

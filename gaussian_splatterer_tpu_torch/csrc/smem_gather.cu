@@ -6,19 +6,35 @@
 // resident in VMEM and a dynamic gather along its lanes, for indices laid
 // out as (D/128, 128) or as (D,).  Both layouts are one kernel here: the
 // indices are read flat, and the wrapper gives the output the indices'
-// shape.
+// shape.  An index outside [0, cols) writes NaN.
 //
-// What bounds it: bytes (indices in, the table once, output out), like the
-// device-memory gather of gather_cols.cu; the question the probe answers is
-// whether a gather from a resident table beats that one on this card.  The
-// trouble: the reference's (16, 4096) float32 table is 256 KiB, and a block
-// holds at most 227 KB of shared memory (anything above 48 KB only after
-// cudaFuncSetAttribute).  What the design does about it: the rows are split
-// over blockIdx.y, rows_per_block rows a block (8 rows of 4096 are 128 KiB);
-// one block per SM stages its rows once, coalesced, and then walks a
-// grid-stride share of the indices, reading the table from shared memory.
-// A request the card refuses returns its error: the launch never runs
-// short.  An index outside [0, cols) writes NaN.
+// The table does not fit one block: the reference's (16, 4096) float32
+// table is 256 KiB, a block holds at most 227 KB of shared memory (above
+// 48 KB only after cudaFuncSetAttribute).  So the rows are split over
+// blockIdx.y, rows_per_block rows a block (8 rows of 4096 are 128 KiB, one
+// block an SM), and every row group walks the same grid-stride share of the
+// indices.  A request the card refuses returns its error: the launch never
+// runs short.
+//
+// What bounds it, at D = 2^21 on the reference's table: the 134 MB of
+// output written (the ids' 8 MB and the table's 256 KiB are small beside
+// it), 40 us at 3.35 TB/s; then the shared-memory reads, one (row, id) a
+// lane at random banks, about 3.5 wavefronts a warp load (the largest of
+// 32 random draws over 32 banks), 16 x 2^21 / 32 x 3.5 wavefronts over 132
+// SMs, about 14 us of the SMs at 1.98 GHz.  What the design does about it:
+//   * four ids a thread: the ids are read as one int4 (when the pointer is
+//     16-byte aligned and D % 4 == 0; else one id a thread), each row's
+//     four outputs leave as one 16-byte streaming store (__stcs: the output
+//     is never read back here), and the next group's ids are loaded before
+//     this group's stores, so two groups are in flight a thread;
+//   * a thread's first ids are loaded before the block stages its rows, so
+//     they arrive while the staging loop runs.  Staging is not what bounds
+//     the kernel: a copy by cp.async.bulk on an mbarrier, overlapped with
+//     the first loads, measured no faster (PERF.md);
+//   * the row groups of one id range run side by side (every block is
+//     resident at once), so the second group's read of the ids hits L2.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -26,6 +42,13 @@ namespace {
 
 constexpr int kThreads = 1024;
 
+__device__ __forceinline__ float pick(const float* row, int id, int cols) {
+  return static_cast<unsigned>(id) < static_cast<unsigned>(cols) ? row[id]
+                                                                  : __int_as_float(0x7fc00000);
+}
+
+// VEC: four ids a thread (ids 16-byte aligned, d % 4 == 0); else one.
+template <bool VEC>
 __global__ void __launch_bounds__(kThreads) smem_gather_kernel(
     const float* __restrict__ tab, int cols, const int* __restrict__ ids,
     float* __restrict__ out, long long d, int rows, int rows_per_block) {
@@ -33,16 +56,68 @@ __global__ void __launch_bounds__(kThreads) smem_gather_kernel(
   const int r0 = blockIdx.y * rows_per_block;
   const int nr = min(rows_per_block, rows - r0);
   const float* src = tab + static_cast<long long>(r0) * cols;
-  for (int i = threadIdx.x; i < nr * cols; i += kThreads) stage[i] = src[i];
-  __syncthreads();
-  for (long long j = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; j < d;
-       j += static_cast<long long>(gridDim.x) * kThreads) {
-    const int id = ids[j];
-    const bool ok = id >= 0 && id < cols;
-    for (int r = 0; r < nr; ++r) {
-      out[(r0 + r) * d + j] = ok ? stage[r * cols + id] : __int_as_float(0x7fc00000);
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  float* dst = out + static_cast<long long>(r0) * d;
+  if (VEC) {
+    const int4* ids4 = reinterpret_cast<const int4*>(ids);
+    const long long n4 = d >> 2;
+    int4 cur = g < n4 ? __ldg(ids4 + g) : make_int4(0, 0, 0, 0);
+    for (int i = threadIdx.x; i < nr * cols; i += kThreads) stage[i] = src[i];
+    __syncthreads();
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (; g < n4; g += stride) {
+      const long long gn = g + stride;
+      const int4 nxt = gn < n4 ? __ldg(ids4 + gn) : make_int4(0, 0, 0, 0);
+#pragma unroll 4
+      for (int r = 0; r < nr; ++r) {
+        const float* row = stage + r * cols;
+        __stcs(dst4 + r * n4 + g, make_float4(pick(row, cur.x, cols), pick(row, cur.y, cols),
+                                              pick(row, cur.z, cols), pick(row, cur.w, cols)));
+      }
+      cur = nxt;
+    }
+  } else {
+    int cur = g < d ? __ldg(ids + g) : 0;
+    for (int i = threadIdx.x; i < nr * cols; i += kThreads) stage[i] = src[i];
+    __syncthreads();
+    for (; g < d; g += stride) {
+      const long long gn = g + stride;
+      const int nxt = gn < d ? __ldg(ids + gn) : 0;
+#pragma unroll 4
+      for (int r = 0; r < nr; ++r) __stcs(dst + r * d + g, pick(stage + r * cols, cur, cols));
+      cur = nxt;
     }
   }
+}
+
+template <bool VEC>
+int launch(const float* tab, int cols, const int* ids, float* out, long long d, int rows,
+           int rows_per_block, size_t smem, cudaStream_t stream) {
+  auto kernel = smem_gather_kernel<VEC>;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  }
+  if (err == cudaSuccess && per_sm == 0) err = cudaErrorInvalidConfiguration;
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused request must not fail a later launch
+    return static_cast<int>(err);
+  }
+  const int groups = (rows + rows_per_block - 1) / rows_per_block;
+  const long long items = VEC ? d / 4 : d;
+  const long long want = (items + kThreads - 1) / kThreads;
+  const long long fit = static_cast<long long>(sms) * per_sm / groups;
+  const long long gx = want < fit ? want : (fit > 0 ? fit : 1);
+  kernel<<<dim3(static_cast<unsigned>(gx), groups), kThreads, smem, stream>>>(
+      tab, cols, ids, out, d, rows, rows_per_block);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -58,25 +133,20 @@ extern "C" int smem_gather_max_bytes(int device) {
 }
 
 // Plain C entry point (loaded with ctypes).  tab (rows, cols) float32, ids
-// (d,) int32 and out (rows, d) float32, contiguous; blocks_x blocks per row
-// group.  Returns the cudaError_t of the shared-memory request or of the
-// launch (0 on success); does not synchronise.
+// (d,) int32 and out (rows, d) float32, contiguous; rows_per_block rows a
+// block.  The grid fills the card: the blocks an SM holds times its SMs,
+// shared among the row groups.  Returns the cudaError_t of the
+// shared-memory request or of the launch (0 on success); does not
+// synchronise.
 extern "C" int smem_gather(const float* tab, int cols, const int* ids, float* out, long long d,
-                           int rows, int rows_per_block, int blocks_x, void* stream) {
+                           int rows, int rows_per_block, void* stream) {
   if (d <= 0 || rows <= 0) return 0;
-  if (rows_per_block <= 0 || blocks_x <= 0 || cols <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (rows_per_block <= 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * static_cast<size_t>(rows_per_block) * cols;
   if (smem > (1u << 30)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      smem_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // a refused request must not fail a later launch
-    return static_cast<int>(err);
-  }
-  const dim3 grid(blocks_x, (rows + rows_per_block - 1) / rows_per_block);
-  smem_gather_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      tab, cols, ids, out, d, rows, rows_per_block);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = (reinterpret_cast<uintptr_t>(ids) & 15) == 0 && (d & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? launch<true>(tab, cols, ids, out, d, rows, rows_per_block, smem, s)
+             : launch<false>(tab, cols, ids, out, d, rows, rows_per_block, smem, s);
 }

@@ -144,6 +144,7 @@ def _forward_replay(feat, s: _Steps, stats):
     rgb = torch.zeros((n, p_count, 3), dtype=torch.float32, device=feat.device)
     alive = torch.ones((n, p_count), dtype=torch.bool, device=feat.device)
     pairs = torch.zeros((), dtype=torch.int64, device=feat.device)
+    pairs_box = torch.zeros((), dtype=torch.int64, device=feat.device)
     kept = torch.zeros((), dtype=torch.int64, device=feat.device)
     for k, m in enumerate(s.running):
         f = feat[:, s.start[:m] + k][:, :, None]  # (9, m, 1)
@@ -151,6 +152,7 @@ def _forward_replay(feat, s: _Steps, stats):
         t_m = trans[:m]
         if stats is not None:
             pairs += alive[:m].sum()
+            pairs_box += (alive[:m] & in_footprint(f, s.px[:m], s.py[:m])).sum()
         contrib = (power <= 0.0) & (alpha >= ALPHA_MIN) & alive[:m]
         test_t = t_m * (1.0 - alpha)
         stop = contrib & (test_t < T_EPS)
@@ -162,7 +164,7 @@ def _forward_replay(feat, s: _Steps, stats):
         trans[:m] = torch.where(use, test_t, t_m)
         alive[:m] &= ~stop
     if stats is not None:
-        stats.update(pairs=int(pairs), composited=int(kept))
+        stats.update(pairs=int(pairs), pairs_box=int(pairs_box), composited=int(kept))
     return rgb, trans
 
 
@@ -175,7 +177,8 @@ def _backward_replay(feat, s: _Steps, g, g_ctot, gtn, stats):
     decisions; for a kept duplicate with t_k = T before it and w = alpha t_k,
     d_alpha = g.c t_k - (g . S_k + g_t T_final) / (1 - alpha), where S_k =
     C_total - sum_{j<=k} w_j c_j, zero where alpha_raw >= 0.99 (the clamp).
-    ``stats`` receives ``pairs`` and ``composited`` as from _forward_replay."""
+    ``stats`` receives ``pairs``, ``pairs_box`` and ``composited`` as from
+    _forward_replay."""
     rr, rg, rb = g.unbind(-1)
     d_feat = torch.zeros_like(feat)
     trans = torch.ones_like(gtn)
@@ -183,6 +186,7 @@ def _backward_replay(feat, s: _Steps, g, g_ctot, gtn, stats):
     alive = torch.ones(gtn.shape, dtype=torch.bool, device=feat.device)
     zero = torch.zeros((), dtype=torch.float32, device=feat.device)
     pairs = torch.zeros((), dtype=torch.int64, device=feat.device)
+    pairs_box = torch.zeros((), dtype=torch.int64, device=feat.device)
     kept = torch.zeros((), dtype=torch.int64, device=feat.device)
     for k, m in enumerate(s.running):
         cols = s.start[:m] + k
@@ -191,6 +195,7 @@ def _backward_replay(feat, s: _Steps, g, g_ctot, gtn, stats):
         t_m = trans[:m]
         if stats is not None:
             pairs += alive[:m].sum()
+            pairs_box += (alive[:m] & in_footprint(f, s.px[:m], s.py[:m])).sum()
         contrib = (power <= 0.0) & (alpha >= ALPHA_MIN) & alive[:m]
         test_t = t_m * (1.0 - alpha)
         stop = contrib & (test_t < T_EPS)
@@ -220,7 +225,7 @@ def _backward_replay(feat, s: _Steps, g, g_ctot, gtn, stats):
         trans[:m] = torch.where(use, test_t, t_m)
         alive[:m] &= ~stop
     if stats is not None:
-        stats.update(pairs=int(pairs), composited=int(kept))
+        stats.update(pairs=int(pairs), pairs_box=int(pairs_box), composited=int(kept))
     return d_feat
 
 
@@ -237,8 +242,9 @@ def composite_fwd_reference(feat: torch.Tensor, tile_start: torch.Tensor,
     It steps through duplicate position k of all tiles at once, in the
     kernel's order of operations, one rounding per operation.  A ``stats``
     dict receives the work the kernel does: ``pairs``, the (pixel,
-    duplicate) pairs visited before their pixel terminated, and
-    ``composited``, those of them that were composited."""
+    duplicate) pairs visited before their pixel terminated, ``pairs_box``,
+    those of them whose pixel lies inside the duplicate's exact footprint
+    box (in_footprint), and ``composited``, those that were composited."""
     _check_composite_args(feat, tile_start, tile_end, tile)
     num_tiles, p_count = tile_start.shape[0], tile * tile
     s = _steps(tile_start, tile_end, tile, tx_tiles, max(num_tiles, 1))
@@ -309,8 +315,8 @@ def composite_bwd_reference(feat: torch.Tensor, tile_start: torch.Tensor,
     sums over its tile's pixels of gin-weighted gradients of the nine rows.
     The forward is replayed in the kernel's order of operations, so every
     skip and stop decision is the forward's; C_total and T_final come from
-    ``out``.  ``stats`` receives ``pairs`` and ``composited`` as from
-    composite_fwd_reference."""
+    ``out``.  ``stats`` receives ``pairs``, ``pairs_box`` and ``composited``
+    as from composite_fwd_reference."""
     _check_bwd_args(feat, tile_start, tile_end, out, gin, tile)
     s = _steps(tile_start, tile_end, tile, tx_tiles, max(tile_start.shape[0], 1))
     g, fwd = gin[s.order], out[s.order]
@@ -489,6 +495,83 @@ def _check_train_args(feat, tile_start, tile_end, truth, bg, tile, tiles_frame):
         raise ValueError("truth and bg must be on the features' device")
 
 
+# Margins of the footprint box (csrc/composite_train.cu's header proves them)
+FOOT_SHRINK = 2.0**-18  # the conic's shrink and the threshold's widening
+FOOT_WIDEN = 2.0**-16  # relative widening of the half-extents
+FOOT_ABS = 2.0**-40  # absolute widening, a share of |centre|
+FOOT_DET_MIN = 2.0**-30  # a determinant below this share of a c never skips
+FOOT_L_MIN = 2.0**-40  # floor of the threshold
+_ALPHA_MIN_F32 = float(torch.tensor(ALPHA_MIN, dtype=torch.float32))  # the kernels' kAlphaMin
+
+
+def _round_f32(x: torch.Tensor, down: bool) -> torch.Tensor:
+    """float64 -> float32 rounded toward -inf (down) or +inf."""
+    y = x.float()
+    off = y.double() > x if down else y.double() < x
+    return torch.where(off, torch.nextafter(y, torch.full_like(y, -math.inf if down else math.inf)),
+                       y)
+
+
+def footprint_box(feat: torch.Tensor):
+    """Plain twin of composite_train's footprint box, in the kernel's float64
+    operations: (xlo, xhi, ylo, yhi), (D,) float32 each, outside which no
+    pixel of the duplicate reaches alpha >= 1/255 by the kernels' float32
+    arithmetic (the margins cover its rounding).  Empty (xlo = +inf) when
+    no pixel does (op <= 0, or op below the threshold); the whole plane when
+    a value is not finite or the conic is not positive definite."""
+    rows = (F_MX, F_MY, F_CA, F_CB, F_CC, F_OP)
+    finite = torch.isfinite(feat[list(rows)]).all(0)
+    mx, my, a, b, c, op = feat[list(rows)].double().unbind(0)
+    lm = (torch.log(op) - math.log(_ALPHA_MIN_F32) + FOOT_SHRINK) * (1.0 + FOOT_SHRINK)
+    empty = ~(op > 0) | (lm < 0)
+    lm = lm.clamp(min=FOOT_L_MIN)
+    a1, c1 = a * (1.0 - FOOT_SHRINK), c * (1.0 - FOOT_SHRINK)
+    ac = a1 * c1
+    det = ac - b * b
+    pd = (a1 > 0) & (det > ac * FOOT_DET_MIN)
+    t = 2.0 * lm
+    exw = torch.sqrt(t * c1 / det) * (1.0 + FOOT_WIDEN) + mx.abs() * FOOT_ABS
+    eyw = torch.sqrt(t * a1 / det) * (1.0 + FOOT_WIDEN) + my.abs() * FOOT_ABS
+    box = [_round_f32(mx - exw, True), _round_f32(mx + exw, False),
+           _round_f32(my - eyw, True), _round_f32(my + eyw, False)]
+    inf = torch.full_like(box[0], math.inf)
+    out = []
+    for i, edge in enumerate(box):
+        lo = i % 2 == 0
+        edge = torch.where(finite & empty, inf if lo else -inf, edge)
+        out.append(torch.where(~finite | (~empty & ~pd), -inf if lo else inf, edge))
+    return tuple(out)
+
+
+def footprint_skips(box, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    """The footprint predicate: True where pixel (px, py) lies outside the
+    box (footprint_box's, broadcast against the pixels), so that the pair
+    may be skipped.  A NaN edge compares false and never skips.
+    composite_train skips a duplicate for a warp whose whole patch of rows
+    lies outside it."""
+    xlo, xhi, ylo, yhi = box
+    return (px < xlo) | (px > xhi) | (py < ylo) | (py > yhi)
+
+
+def in_footprint(f: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    """(pixel, duplicate) pairs inside the duplicate's exact footprint box,
+    no margin, in float64: |dx| <= sqrt(2 L c / (a c - b^2)) and likewise
+    dy, L = ln(op / (1/255)); none where op <= 0 or L < 0, else all where
+    a value is not finite or the conic is not positive definite.  ``f`` (9,
+    m, 1) rows of m duplicates, px, py (m, P) their pixels.  The work count
+    ``pairs_box`` of the replays' ``stats``."""
+    rows = (F_MX, F_MY, F_CA, F_CB, F_CC, F_OP)
+    finite = torch.isfinite(f[list(rows)]).all(0)
+    mx, my, a, b, c, op = f[list(rows)].double().unbind(0)
+    lsq = 2.0 * (torch.log(op) - math.log(_ALPHA_MIN_F32))
+    det = a * c - b * b
+    empty = finite & ((op <= 0) | (lsq < 0))
+    whole = ~finite | ~((a > 0) & (det > 0))
+    inside = ((px.double() - mx).abs() <= torch.sqrt(lsq * c / det)) & (
+        (py.double() - my).abs() <= torch.sqrt(lsq * a / det))
+    return ~empty & (whole | inside)
+
+
 def composite_train_reference(feat, tile_start, tile_end, truth, bg, tile: int,
                               tx_tiles: int, tiles_frame: int,
                               stats: Optional[dict] = None):
@@ -504,9 +587,11 @@ def composite_train_reference(feat, tile_start, tile_end, truth, bg, tile: int,
 
     Like composite_fwd_reference it steps through duplicate position k of
     all blocks at once, in the kernel's order of operations; only the sums
-    over pixels are taken in another order.  ``stats`` receives ``pairs``
-    and ``composited`` as from composite_fwd_reference; each of the
-    kernel's two passes visits those pairs once."""
+    over pixels are taken in another order.  ``stats`` receives ``pairs``,
+    ``pairs_box`` and ``composited`` as from composite_fwd_reference; each
+    of the kernel's two passes visits those pairs once, and evaluates the
+    Gaussian for the pairs of warps whose patch meets the footprint box
+    (footprint_box), at least ``pairs_box``."""
     _check_train_args(feat, tile_start, tile_end, truth, bg, tile, tiles_frame)
     num_blocks, p_count = tile_start.shape[0], tile * tile
     s = _steps(tile_start, tile_end, tile, tx_tiles, tiles_frame)
@@ -565,6 +650,8 @@ def _train_lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    lib.composite_train_blocks_per_sm.argtypes = []
+    lib.composite_train_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 

@@ -1,0 +1,245 @@
+"""Design variants of the train compositor (csrc/composite_train.cu, K3) and
+the shared-memory gather (csrc/smem_gather.cu, K6), each with one part of
+its design taken out, timed beside the shipped kernel on one card.
+
+    python -m gaussian_splatterer_tpu_torch.scripts.redesign_variants
+
+A variant is the shipped source with the edits of K3_VARIANTS or
+K6_VARIANTS, built by nvcc into build/variants/ and called through the
+shipped wrapper (its library swapped in for the call), so every variant
+takes the same inputs and checks: K3 on one launch of chip_smoke.py's
+fused train cell (phase 7: the bench scene trained for TRAIN_STEPS steps,
+8 frames at 1024^2), held against the plain twin at phase 7's full-size
+gate; K6 on the (16, 4096) table at D = 2^21, at 8 and 4 rows a block,
+equal to its plain twin.  Times are CUDA-event medians of 20 launches in
+ROUNDS rounds, the variants in alternating orders.  Needs a card and nvcc;
+the last line is one JSON object of the results.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import random
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from gaussian_splatterer_tpu_torch.ops import cuda_build
+from gaussian_splatterer_tpu_torch.scripts.common import card, cuda_ms, require_cuda
+
+ROOT = Path(__file__).resolve().parents[2]
+OUT_DIR = ROOT / "build" / "variants"
+ROUNDS = 4
+
+_REDUCE9 = """  float a[5], b[3], c[2], d[1];
+  scatter_step<5, 9>(g, a, lane, 16);
+  scatter_step<3, 5>(a, b, lane, 8);
+  scatter_step<2, 3>(b, c, lane, 4);
+  scatter_step<1, 2>(c, d, lane, 2);
+  return d[0] + __shfl_xor_sync(kFull, d[0], 1);
+"""
+_REDUCE45 = """  const int row = reduced_row(lane);
+  float out = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    float v = g[r];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+    if (r == row) out = v;
+  }
+  return out;
+"""
+_KFULL = "constexpr unsigned kFull = 0xffffffffu;\n"
+# (old, new) edits of the shipped source; each must apply
+K3_VARIANTS = {
+    "shipped": [],
+    "no footprint skip": [("store_splat(st, v, warp_mask(bx, x0, x1, y0, rows_w, nwarps));",
+                           "(void)bx;\n  store_splat(st, v, 0xffffffffu);")],
+    "45-shuffle reduction": [(_REDUCE9, _REDUCE45)],
+    "no FMA": [("fmaf(", "mad_rn("),
+               (_KFULL, _KFULL + "__device__ __forceinline__ float mad_rn(float a, float b, "
+                                 "float c) { return __fadd_rn(__fmul_rn(a, b), c); }\n")],
+    "3 blocks an SM": [("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 3;")],
+    "2 blocks an SM": [("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 2;")],
+    "5 blocks an SM": [("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 5;")],
+    "pass-2 batches of 32": [("constexpr int kBatch2 = 64;", "constexpr int kBatch2 = 32;")],
+    "3 blocks an SM, pass-2 batches of 32": [
+        ("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 3;"),
+        ("constexpr int kBatch2 = 64;", "constexpr int kBatch2 = 32;")],
+    "row skip": [  # a warp also skips the rows of its patch outside the box's y-range
+        ("float mx, my, ca, cb, cc, r, g, b, op;", "float mx, my, ca, cb, cc, r, g, b, op, ylo, yhi;"),
+        ("q1.x, q1.y, q1.z, q1.w, q2.x};", "q1.x, q1.y, q1.z, q1.w, q2.x, q2.z, q2.w};"),
+        ("  store_splat(st, v, warp_mask(bx, x0, x1, y0, rows_w, nwarps));\n",
+         "  store_splat(st, v, warp_mask(bx, x0, x1, y0, rows_w, nwarps));\n"
+         "  st[2].z = bx.ylo;\n  st[2].w = bx.yhi;\n"),
+        ("        if (done & (1u << k)) continue;\n",
+         "        if (done & (1u << k)) continue;\n"
+         "        if (py0 + static_cast<float>(k) < s.ylo || py0 + static_cast<float>(k) > s.yhi) "
+         "continue;\n")],
+}
+# the block's rows brought in by the copy engine (one cp.async.bulk on an
+# mbarrier) in place of the staging loop; only for a 16-byte aligned table
+# whose rows are 16-byte multiples, as the probe's is
+_BULK_STAGE = """
+__device__ __forceinline__ void bulk_stage(float* stage, const float* src, int n) {
+  __shared__ __align__(8) uint64_t bar;
+  const uint32_t b = static_cast<uint32_t>(__cvta_generic_to_shared(&bar));
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(b) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(b), "r"(4u * n) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+        :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(stage))), "l"(src), "r"(4u * n),
+           "r"(b) : "memory");
+  }
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {  // a copy that never lands traps
+    asm volatile("{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0; "
+                 "selp.u32 %0, 1, 0, p; }" : "=r"(done) : "r"(b) : "memory");
+    if (tries == (1u << 27)) __trap();
+  }
+}
+"""
+_STAGE_LOOP = """    for (int i = threadIdx.x; i < nr * cols; i += kThreads) stage[i] = src[i];
+    __syncthreads();
+"""
+K6_VARIANTS = {
+    "shipped": [],
+    "512 threads": [("constexpr int kThreads = 1024;", "constexpr int kThreads = 512;")],
+    "rows staged by cp.async.bulk": [
+        ("constexpr int kThreads = 1024;\n", "constexpr int kThreads = 1024;\n" + _BULK_STAGE),
+        ("extern __shared__ float stage[];", "extern __shared__ __align__(16) float stage[];"),
+        (_STAGE_LOOP, "    bulk_stage(stage, src, nr * cols);\n")],
+    "one id a thread": [("const bool vec = (", "const bool vec = false && (")],
+    "write-back stores": [("__stcs(dst4", "__stwb(dst4"), ("__stcs(dst", "__stwb(dst")],
+}
+
+
+def variant_source(kernel: str, edits) -> str:
+    src = (cuda_build.CSRC_DIR / f"{kernel}.cu").read_text()
+    for old, new in edits:
+        if old not in src:
+            raise RuntimeError(f"{kernel}: the variant edit {old[:40]!r} no longer applies")
+        src = src.replace(old, new)
+    return src
+
+
+def build_variants(kernel: str, variants: dict) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """{variant: (library, ptxas log)}, one nvcc per variant, started together."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for i, (name, edits) in enumerate(variants.items()):
+        src = OUT_DIR / f"{kernel}_v{i}.cu"
+        src.write_text(variant_source(kernel, edits))
+        lib = src.with_suffix(".so")
+        jobs[name] = (lib, subprocess.Popen(
+            [cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    out = {}
+    for name, (lib, proc) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the {kernel} variant {name!r}:\n{err}")
+        out[name] = (ctypes.CDLL(str(lib)), err)
+    return out
+
+
+def timed(kernel: str, libs: dict, fn) -> dict[str, list[float]]:
+    """fn() with each variant's library swapped in for ``kernel``: ROUNDS
+    medians, the variants in alternating orders."""
+    times: dict[str, list[float]] = {name: [] for name in libs}
+    for i in range(ROUNDS):
+        order = list(libs) if i % 2 == 0 else list(libs)[::-1]
+        for name in order:
+            cuda_build._loaded[kernel] = libs[name][0]
+            times[name].append(cuda_ms(fn))
+    cuda_build._loaded.pop(kernel)
+    return times
+
+
+def k3_variants(dev, name: str) -> dict:
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.train import CameraBatch, auto_train
+
+    smoke = _chip_smoke()
+    trainer, rtx, _ = smoke.fused_cell(dev)
+    auto_train(trainer, rtx, smoke.TRAIN_STEPS, rng=random.Random(0))
+    group, res = smoke.TRAIN_GROUP, smoke.TRAIN_RES
+    cams = CameraBatch(*(x[:group] for x in trainer.truth_cams.twice()))
+    args = smoke.launch_args(trainer.model, cams, res, res, trainer.truths[:group],
+                             torch.ones((group, 3), device=dev), smoke.TRAIN_TILE,
+                             trainer.runtime.max_dup)
+    libs = build_variants("composite_train", K3_VARIANTS)
+    out = {}
+    for v, (lib, log) in libs.items():
+        cuda_build._loaded["composite_train"] = lib
+        got = rt.composite_train(*args)
+        torch.cuda.synchronize()
+        finite, r_max, r_mean, _, rel_max, rel_mean = smoke.compare_train(args, got)
+        ok = (finite and r_max <= smoke.MAIN_MAX_ATOL and r_mean <= smoke.MAIN_MEAN_ATOL
+              and rel_max <= smoke.MAIN_MAX_ATOL and rel_mean <= smoke.MAIN_MEAN_ATOL)
+        out[v] = {"gate": ok, "max_res": r_max, "max_rel_d_feat": rel_max,
+                  "blocks_per_sm": rt._train_lib().composite_train_blocks_per_sm(),
+                  "ptxas": smoke.ptxas_lines(log, "composite_train_kernel")}
+    cuda_build._loaded.pop("composite_train")
+    for v, ms in timed("composite_train", libs, lambda: rt.composite_train(*args)).items():
+        out[v]["ms"] = ms
+        print(f"K3 {v}: {' / '.join(f'{t:.4f}' for t in ms)} ms a launch ({group} frames, "
+              f"{args[0].shape[1]} duplicates); {out[v]['blocks_per_sm']} blocks an SM; "
+              f"gate {out[v]['gate']} (max|res| {out[v]['max_res']:.3e}, d_feat "
+              f"{out[v]['max_rel_d_feat']:.3e}); {'; '.join(out[v]['ptxas'])}  [{name}]",
+              flush=True)
+    return out
+
+
+def k6_variants(dev, name: str) -> dict:
+    from gaussian_splatterer_tpu_torch.scripts import gather_probe as gp
+    from gaussian_splatterer_tpu_torch.scripts import smem_gather_probe as sp
+
+    tab, ids, _ = gp.probe_inputs(dev, sp.ROWS, sp.COLS, sp.BENCH_IDS, seed=1)
+    ref = sp.smem_gather_reference(tab, ids)
+    libs = build_variants("smem_gather", K6_VARIANTS)
+    out = {}
+    for rows in (8, 4):
+        for v, (lib, _) in libs.items():
+            cuda_build._loaded["smem_gather"] = lib
+            if not torch.equal(sp.smem_gather(tab, ids, rows), ref):
+                raise SystemExit(f"K6 variant {v!r} at {rows} rows a block differs from plain")
+        for v, ms in timed("smem_gather", libs, lambda: sp.smem_gather(tab, ids, rows)).items():
+            out[f"{v}, {rows} rows a block"] = ms
+            print(f"K6 {v}, {rows} rows a block: {' / '.join(f'{t:.4f}' for t in ms)} ms at "
+                  f"D = 2^21, equal to plain  [{name}]", flush=True)
+    lib_ms = cuda_ms(lambda: torch.index_select(tab, 1, ids))
+    print(f"index_select: {lib_ms:.4f} ms  [{name}]")
+    return dict(out, index_select=lib_ms)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.parse_args(argv)
+    dev = require_cuda()
+    name = card()
+    out = {"card": name, "k6": k6_variants(dev, name), "k3": k3_variants(dev, name)}
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -77,13 +77,10 @@ def smem_gather(tab: torch.Tensor, ids: torch.Tensor,
     lib = _lib()
     index = tab.device.index if tab.device.index is not None else torch.cuda.current_device()
     r = rows_per_block or split_rows(rows, cols, lib.smem_gather_max_bytes(index))
-    groups = math.ceil(rows / r)
-    sms = torch.cuda.get_device_properties(tab.device).multi_processor_count
-    blocks_x = max(1, min(math.ceil(ids.numel() / 1024), sms // groups))
     with torch.cuda.device(tab.device):
         stream = torch.cuda.current_stream(tab.device).cuda_stream
         err = lib.smem_gather(tab.data_ptr(), cols, ids.data_ptr(), out.data_ptr(), ids.numel(),
-                              rows, r, blocks_x, stream)
+                              rows, r, stream)
     if err != 0:
         raise RuntimeError(f"smem_gather: {r} rows of {cols} columns a block "
                            f"({4 * r * cols} B of shared memory) refused or launch failed: "
@@ -96,7 +93,7 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("smem_gather")
     fn = lib.smem_gather
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.smem_gather_max_bytes.argtypes = [ctypes.c_int]
     lib.smem_gather_max_bytes.restype = ctypes.c_int

@@ -224,6 +224,28 @@ def test_gather_cols_kernel_edges(cuda_device, rows, d):
     assert torch.equal(out[:, ~oob], gp.gather_cols_reference(tab, bad[~oob]))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_block", [4, 8])
+@pytest.mark.parametrize("d", [8192, 8193, 8195])
+def test_smem_gather_kernel_edges(cuda_device, rows_per_block, d):
+    """K6 at 4 and 8 rows a block, d % 4 in {0, 1, 3}, ids starting off a
+    16-byte boundary (ids[1:], the one-id-a-thread path), tables of 4096
+    and 4095 columns: equal to tab[:, ids]; indices outside [0, cols) give
+    NaN."""
+    for cols in (4096, 4095):
+        tab, ids, _ = gp.probe_inputs(cuda_device, 16, cols, d + 1, seed=d)
+        for idx in (ids[:d], ids[1:]):
+            assert torch.equal(sp.smem_gather(tab, idx, rows_per_block),
+                               sp.smem_gather_reference(tab, idx))
+        bad = ids[:d].clone()
+        bad[::7] = cols
+        bad[3::11] = -1
+        out = sp.smem_gather(tab, bad, rows_per_block)
+        oob = (bad < 0) | (bad >= cols)
+        assert torch.isnan(out[:, oob]).all()
+        assert torch.equal(out[:, ~oob], sp.smem_gather_reference(tab, bad[~oob]))
+
+
 def test_l2_sector_bytes_at_the_bench_scale():
     """32 B a (row, random index): 604 MB for 9 rows and 2^21 ids, six times
     the bound's DRAM bytes."""
