@@ -23,6 +23,9 @@ Phases:
   4. main path: the CLI renders the 50k-splat bench scene at 1024^2 and
      2048^2 and a 262,144-splat scene at 2048^2 from a project directory;
   5. times: median of REPS runs after WARMUP warm-ups per scene and size;
+     the kernel against its bound at all pairs visited and at those inside
+     the footprint box (the summary's), its registers and spills, blocks
+     an SM and the SASS instructions a pair of its loop;
   training path (kernel composite_train):
   6. gate scene of the JAX package's bench grad gate (150 splats, 128^2,
      2 frames, seed 11, uniform truths from seed 3, black background,
@@ -68,7 +71,9 @@ Phases:
      no K3); kernel against plain on one frame of the trained model; the
      CLI's new --resolution 1000 -> train --steps 2 on the mushroom;
  14. times: per-frame layers, the step, steps/s, the device's busy share,
-     and K2 against its plain twin and its bound on one 1000^2 frame;
+     and K2 against its plain twin and its bound at both counts on one
+     1000^2 frame, its registers, blocks an SM, SASS a pair and SHFL a
+     duplicate;
   the cumsum reduction route (kernel cumsum_frames, K4):
  15. K4 against plain at the JAX test's shapes and at D = 1000 and 100 (no
      multiple-of-128 divisor), two launches bit-equal; at full size on one
@@ -102,17 +107,18 @@ each output written once) over 3.35 TB/s.  The operations are counted from
 the (pixel, duplicate) pairs that these inputs evaluate before their pixel
 terminates, which the plain version counts, times the operations per pair
 of the kernel's source (an expf counts as one operation); K3's summary
-counts its Gaussians only at the pairs inside the duplicate's exact
-footprint box (``pairs_box``), the work left once a pixel is shown to lie
-outside it.  The tracer
+counts its Gaussians, and K1's and K2's, only at the pairs inside the
+duplicate's exact footprint box (``pairs_box``), the work left once a pixel
+is shown to lie outside it.  The tracer
 kernel's operations are every (ray, real triangle) pair of the launch
 times its operations per pair, an FMA counted as two.  K2's bytes are the
 rows in, their gradients out, the ranges, and the forward output and its
 gradient in.  K4's bytes are its input read and its output written once.
 
-``--only k3|k5|k6|k7`` runs phases 1-2 and then only phases 6-8, 11, or
-phase 17's K6 or K7 cases: copied into a second tree, it times both trees
-in one call.
+``--only k1|k2|k3|k5|k6|k7`` runs phases 1-2 and then only phases 3-5
+(without the CLI's renders; K1 timed alone), phase 12 and K2 on one 1000^2
+frame of the untrained bench scene, phases 6-8, 11, or phase 17's K6 or K7
+cases: copied into a second tree, it times both trees in one call.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel summary.
@@ -270,9 +276,10 @@ def bound_ms(ops: float, nbytes: float, name: str | None = None,
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def k1_bound(args, stats, name=None) -> tuple[float, str]:
+def k1_bound(args, stats, name=None, pairs: str = "pairs_box") -> tuple[float, str]:
+    """K1's bound, its Gaussians counted at stats[pairs], as k3_bound's."""
     feat, tile_start, _, tile, _ = args
-    ops = K1_OPS_VISITED * stats["pairs"] + K1_OPS_COMPOSITED * stats["composited"]
+    ops = K1_OPS_VISITED * stats[pairs] + K1_OPS_COMPOSITED * stats["composited"]
     nbytes = 4 * feat.numel() + 8 * tile_start.numel() + 16 * tile_start.numel() * tile * tile
     return bound_ms(ops, nbytes, name)
 
@@ -282,7 +289,7 @@ def k3_bound(args, stats, name=None, pairs: str = "pairs_box") -> tuple[float, s
     pair visited before its pixel terminated, or "pairs_box" (the summary's),
     those inside the duplicate's exact footprint box, the work that is left
     once a pixel is shown to lie outside the footprint (less work: a smaller
-    share)."""
+    share).  K1's and K2's bounds count the same way."""
     feat, tile_start, _, truth, bg, *_ = args
     pixels = truth.shape[0] * truth.shape[1]
     ops = (K3_OPS_VISITED * stats[pairs] + K3_OPS_COMPOSITED * stats["composited"]
@@ -292,14 +299,26 @@ def k3_bound(args, stats, name=None, pairs: str = "pairs_box") -> tuple[float, s
     return bound_ms(ops, nbytes, name)
 
 
-def k2_bound(args, stats, name=None) -> tuple[float, str]:
+def k2_bound(args, stats, name=None, pairs: str = "pairs_box") -> tuple[float, str]:
+    """K2's bound, its Gaussians counted at stats[pairs], as k3_bound's."""
     feat, tile_start, _, out, *_ = args
     pixels = out.shape[0] * out.shape[1]
-    ops = (K2_OPS_VISITED * stats["pairs"] + K2_OPS_COMPOSITED * stats["composited"]
+    ops = (K2_OPS_VISITED * stats[pairs] + K2_OPS_COMPOSITED * stats["composited"]
            + K2_OPS_PIXEL * pixels)
     # feat in, d_feat out, ranges, the forward output and its gradient in
     nbytes = 2 * 4 * feat.numel() + 8 * tile_start.numel() + 2 * 16 * pixels
     return bound_ms(ops, nbytes, name)
+
+
+def bounds_line(bound, args, stats, ms: float) -> str:
+    """A kernel's bound at both counts of its Gaussians (k1_bound, k2_bound
+    or k3_bound) beside its time ``ms``."""
+    b_all, by_all = bound(args, stats, pairs="pairs")
+    b_box, by_box = bound(args, stats)
+    return (f"bound at all {stats['pairs']} pairs visited {b_all:.4f} ms ({by_all}, share "
+            f"{b_all / ms:.4f}); at the {stats['pairs_box']} inside the footprint box "
+            f"{b_box:.4f} ms ({by_box}, share {b_box / ms:.4f}); {stats['composited']} "
+            f"composited")
 
 
 def compare_bwd(args, d_k, stats=None):
@@ -386,9 +405,11 @@ class Cell:
         return bin_splats(self.comps, self.size, self.size, self.tile, self.max_dup)
 
     @torch.no_grad()
-    def times(self) -> dict[str, float]:
+    def times(self, kernel_only: bool = False) -> dict[str, float]:
         from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
 
+        if kernel_only:
+            return {"composite_kernel": cuda_ms(lambda: rt.composite_fwd(*self.composite_args))}
         return {
             "projection": cuda_ms(self.project),
             "binning": cuda_ms(self.bin),
@@ -415,11 +436,49 @@ class TeacherRtx:
                                      tile=self.tile, max_dup=self.max_dup)
 
 
-def serve_phases(dev, card) -> dict:
-    """Phases 3-5.  Returns the kernel summary entry of composite_fwd."""
-    from gaussian_splatterer_tpu_torch.app import cli
+def serve_projects(dev) -> tuple[Path, dict[str, str]]:
+    """Phase 4's projects: each of SCENES saved by a Session at the serve
+    runtime.  Returns (their directory under build/, {label: project})."""
     from gaussian_splatterer_tpu_torch.app.session import Session
     from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
+    from gaussian_splatterer_tpu_torch.models.splats import SplatModel
+
+    (HERE / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=HERE / "build"))
+    projects = {}
+    for label, n, cap, _ in SCENES:
+        runtime = RuntimeConfig(render_resolution_x=1024, render_resolution_y=1024,
+                                splats_capacity=cap, sh_degree=1, sh_coeffs=4,
+                                max_dup=2**24)
+        session = Session(project=Project.app_default(), runtime=runtime, device=dev)
+        session.model = SplatModel.from_numpy(*build_scene(n, cap, seed=0), count=n,
+                                              device=dev, sh_degree=1)
+        session.save_project(str(work / label))
+        projects[label] = str(work / label)
+        print(f"{label}: wrote project with {n} splats (capacity {cap}) to {work / label}")
+    return work, projects
+
+
+def serve_cells(dev, projects: dict[str, str] | None = None) -> dict:
+    """{(label, size): Cell} of every serve scene at each of its sizes, its
+    project (serve_projects', written if not given) opened as the CLI's
+    render opens it."""
+    from gaussian_splatterer_tpu_torch.app import cli
+
+    if projects is None:
+        projects = serve_projects(dev)[1]
+    return {(label, size): Cell(cli._make_session(
+                argparse.Namespace(project=projects[label], device=dev.type), require=True),
+                size)
+            for label, _, _, sizes in SCENES for size in sizes}
+
+
+def serve_phases(dev, card, only: bool = False) -> dict:
+    """Phases 3-5.  Returns the kernel summary entry of composite_fwd.
+    ``only`` (``--only k1``): phase 4 writes the projects and holds the
+    kernel against plain on their cells without the CLI's renders, and
+    phase 5 times the kernel alone."""
+    from gaussian_splatterer_tpu_torch.app import cli
     from gaussian_splatterer_tpu_torch.io.image import load_png
     from gaussian_splatterer_tpu_torch.models.camera import Camera
     from gaussian_splatterer_tpu_torch.models.splats import SplatModel
@@ -455,23 +514,13 @@ def serve_phases(dev, card) -> dict:
             raise SystemExit("phase 3 failed")
         max_err = max(max_err, err_plain)
 
-    phase("4. serve main path: gsplat-torch render --mode splats")
-    (HERE / "build").mkdir(exist_ok=True)
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=HERE / "build"))
-    projects = {}
-    for label, n, cap, _ in SCENES:
-        runtime = RuntimeConfig(render_resolution_x=1024, render_resolution_y=1024,
-                                splats_capacity=cap, sh_degree=1, sh_coeffs=4,
-                                max_dup=2**24)
-        session = Session(project=Project.app_default(), runtime=runtime, device=dev)
-        session.model = SplatModel.from_numpy(*build_scene(n, cap, seed=0), count=n,
-                                              device=dev, sh_degree=1)
-        session.save_project(str(work / label))
-        projects[label] = str(work / label)
-        print(f"{label}: wrote project with {n} splats (capacity {cap}) to {work / label}")
+    phase("4. serve main path: gsplat-torch render --mode splats"
+          + (" (--only k1: the projects and the kernel against plain on their cells)"
+             if only else ""))
+    work, projects = serve_projects(dev)
     runs = [(label, size) for label, _, _, sizes in SCENES for size in sizes]
     rt.composite_fwd_launches = 0
-    for label, size in runs:
+    for label, size in [] if only else runs:
         out_png = str(work / f"{label}_{size}.png")
         t0 = time.perf_counter()
         cli.main(["render", projects[label], out_png, "--mode", "splats",
@@ -479,31 +528,31 @@ def serve_phases(dev, card) -> dict:
         print(f"  {label} {size}^2: CLI render + PNG write {time.perf_counter() - t0:.3f} s "
               "(host clock, first call)")
     launches = rt.composite_fwd_launches
-    print(f"composite_fwd launches in the serve main path: {launches}")
-    if launches < len(runs):
-        raise SystemExit("phase 4 failed: the main path did not launch the kernel")
+    if not only:
+        print(f"composite_fwd launches in the serve main path: {launches}")
+        if launches < len(runs):
+            raise SystemExit("phase 4 failed: the main path did not launch the kernel")
 
-    main_max_err, cells = 0.0, {}
-    for label, size in runs:
-        img = load_png(str(work / f"{label}_{size}.png"))
-        share = float((img.max(axis=2) > 0).mean())
-        session = cli._make_session(
-            argparse.Namespace(project=projects[label], device="cuda"), require=True)
-        cell = Cell(session, size)
-        cells[(label, size)] = cell
-        print(f"  {label} {size}^2: png {img.shape}, non-background share {share:.3f}, "
-              f"num_dup {cell.bins.num_dup} (max_dup {session.runtime.max_dup})")
-        if img.shape != (size, size, 3) or share < 0.05:
-            raise SystemExit("phase 4 failed: PNG check")
+    main_max_err, cells = 0.0, serve_cells(dev, projects)
+    for (label, size), cell in cells.items():
+        session = cell.session
+        if not only:
+            img = load_png(str(work / f"{label}_{size}.png"))
+            share = float((img.max(axis=2) > 0).mean())
+            print(f"  {label} {size}^2: png {img.shape}, non-background share {share:.3f}, "
+                  f"num_dup {cell.bins.num_dup} (max_dup {session.runtime.max_dup})")
+            if img.shape != (size, size, 3) or share < 0.05:
+                raise SystemExit("phase 4 failed: PNG check")
         if not 0 < cell.bins.num_dup <= session.runtime.max_dup:
             raise SystemExit("phase 4 failed: num_dup out of range")
         with torch.no_grad():
             diff = (rt.composite_fwd(*cell.composite_args)
                     - rt.composite_fwd_reference(*cell.composite_args, stats=cell.stats)).abs()
         d_max, d_mean = float(diff.max()), float(diff.mean())
-        print(f"  {label} {size}^2 kernel vs plain on the same binning: max {d_max:.3e} "
-              f"(<= {MAIN_MAX_ATOL})  mean {d_mean:.3e} (<= {MAIN_MEAN_ATOL})  "
-              f"pairs visited {cell.stats['pairs']} composited {cell.stats['composited']}")
+        print(f"  {label} {size}^2 kernel vs plain on the same binning ({cell.feat.shape[1]} "
+              f"duplicates): max {d_max:.3e} (<= {MAIN_MAX_ATOL})  mean {d_mean:.3e} "
+              f"(<= {MAIN_MEAN_ATOL})  pairs visited {cell.stats['pairs']}, inside the "
+              f"footprint box {cell.stats['pairs_box']}, composited {cell.stats['composited']}")
         if d_max > MAIN_MAX_ATOL or d_mean > MAIN_MEAN_ATOL:
             raise SystemExit("phase 4 failed: kernel vs plain at full size")
         main_max_err = max(main_max_err, d_max)
@@ -511,14 +560,16 @@ def serve_phases(dev, card) -> dict:
     phase(f"5. serve times (CUDA events, median of {REPS} after {WARMUP} warm-ups; {card})")
     times = {}
     for (label, size), cell in cells.items():
-        t = cell.times()
+        t = cell.times(kernel_only=only)
         times[(label, size)] = t
-        b_ms, b_by = k1_bound(cell.composite_args, cell.stats)
         print(f"  {label} {size}^2 tile {cell.tile}: " + "  ".join(
-            f"{k} {v:.3f} ms" for k, v in t.items())
-            + f"  kernel bound {b_ms:.4f} ms ({b_by})  [{card}]", flush=True)
+            f"{k} {v:.4f} ms" for k, v in t.items()) + f"  [{card}]")
+        line = bounds_line(k1_bound, cell.composite_args, cell.stats, t["composite_kernel"])
+        print(f"    composite_fwd {line}  [{card}]", flush=True)
+    compositor_build_facts(card, "composite_fwd")
 
-    head = cells[("bench50k", 1024)]
+    head_key = (SCENES[0][0], SCENES[0][3][0])  # the bench scene at 1024^2
+    head = cells[head_key]
     b_ms, b_by = k1_bound(head.composite_args, head.stats, "composite_fwd")
     print("(composite_fwd ms / plain_ms / bound: the 50k-splat bench scene at 1024^2, tile 32)")
     return {
@@ -528,8 +579,8 @@ def serve_phases(dev, card) -> dict:
         "replaces": "gaussian_splatterer_tpu/ops/raster_tiled.py:340",
         "launches": launches,
         "max_abs_err": max(max_err, main_max_err),
-        "ms": times[("bench50k", 1024)]["composite_kernel"],
-        "plain_ms": times[("bench50k", 1024)]["composite_plain"],
+        "ms": times[head_key]["composite_kernel"],
+        "plain_ms": times[head_key].get("composite_plain"),
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,  # no PyTorch call composites splats
@@ -598,6 +649,16 @@ def train_gate(dev) -> float:
     return max(r_max, d_max)
 
 
+def teacher_arrays(arrays, n: int):
+    """The training cells' teacher: the scene's SH perturbed (seed 1) and its
+    opacities scaled by 0.7."""
+    t_arrays = [a.copy() for a in arrays]
+    rng = np.random.default_rng(1)
+    t_arrays[1][:n] += rng.normal(0, 0.2, t_arrays[1][:n].shape).astype(np.float32)
+    t_arrays[3][:n] *= np.float32(0.7)
+    return t_arrays
+
+
 def fused_cell(dev, reduction: str = "index_add"):
     """The fused train cell of phases 7 and 16: the bench scene (50k splats)
     at 1024^2, tile 32, frame_group 8, on the app's 16-camera rig, truths
@@ -609,10 +670,7 @@ def fused_cell(dev, reduction: str = "index_add"):
 
     n, cap, res, tile = TRAIN_SPLATS, TRAIN_CAPACITY, TRAIN_RES, TRAIN_TILE
     arrays = build_scene(n, cap, seed=0)
-    t_arrays = [a.copy() for a in arrays]
-    rng = np.random.default_rng(1)
-    t_arrays[1][:n] += rng.normal(0, 0.2, t_arrays[1][:n].shape).astype(np.float32)
-    t_arrays[3][:n] *= np.float32(0.7)
+    t_arrays = teacher_arrays(arrays, n)
     runtime = RuntimeConfig(render_resolution_x=res, render_resolution_y=res,
                             splats_capacity=cap, sh_degree=1, sh_coeffs=4, tile_px=tile,
                             frame_group=TRAIN_GROUP)
@@ -735,17 +793,10 @@ def train_main(dev, card):
 
     plain_ms = cuda_ms(lambda: rt.composite_train_reference(*args), warmup=0, reps=2)
     k3_ms = group["composite_train kernel"]
-    b_all, by_all = k3_bound(args, k3_stats, pairs="pairs")
-    if "pairs_box" in k3_stats:
-        b_ms, b_by = k3_bound(args, k3_stats, "composite_train")
-    else:  # a tree whose plain twin does not count them
-        b_ms, b_by = k3_bound(args, k3_stats, "composite_train", pairs="pairs")
+    b_ms, b_by = k3_bound(args, k3_stats, "composite_train")
     print(f"  composite_train per launch ({TRAIN_GROUP} frames): kernel {k3_ms:.4f} ms  plain "
-          f"{plain_ms:.3f} ms  bound at all {k3_stats['pairs']} pairs visited {b_all:.4f} ms "
-          f"({by_all}, share {b_all / k3_ms:.4f}); at the {k3_stats.get('pairs_box')} inside the "
-          f"footprint box {b_ms:.4f} ms ({b_by}, share {b_ms / k3_ms:.4f}); "
-          f"{k3_stats['composited']} composited  [{card}]")
-    k3_build_facts(card)
+          f"{plain_ms:.3f} ms  {bounds_line(k3_bound, args, k3_stats, k3_ms)}  [{card}]")
+    compositor_build_facts(card, "composite_train")
 
     # the bench headline: render_train_grads_batch, 8 bench frames, uniform truths
     b_arrays = [torch.from_numpy(a).to(dev) for a in arrays]
@@ -1397,22 +1448,24 @@ def sass_loop_counts(sass: str) -> list[dict]:
     return out
 
 
-def k3_sass_counts(sass: str) -> list[dict]:
-    """The loops over duplicates of each train compositor kernel (K3, PPT
-    pixels a thread: composite_train_kernel<PPT>) in ``cuobjdump -sass``
-    output: the innermost loops that evaluate a Gaussian (an expf is one
-    MUFU.EX2), pass 1's without shuffles and pass 2's with the warp
-    reduction's SHFL.  For each: its instructions, the pairs one trip
-    evaluates (its MUFU.EX2), instructions a pair, and SHFL a duplicate
-    (SHFL x PPT / pairs).  Static counts: every branch's instructions."""
+def compositor_sass_counts(sass: str, name: str) -> list[dict]:
+    """The loops over duplicates of compositor ``name``'s kernels (K1
+    composite_fwd, K2 composite_bwd, K3 composite_train; PPT pixels a
+    thread: <name>_kernel<PPT>, 1 for an untemplated kernel) in ``cuobjdump
+    -sass`` output: the innermost loops that evaluate a Gaussian (an expf is
+    one MUFU.EX2), K3's pass 1 and K1's loop without shuffles, K3's pass 2
+    and K2's loop with the warp reduction's SHFL.  For each: its
+    instructions, the pairs one trip evaluates (its MUFU.EX2), instructions
+    a pair, and SHFL a duplicate (SHFL x PPT / pairs).  Static counts: every
+    branch's instructions."""
     import re
 
     out = []
-    for name, ins in sass_functions(sass):
-        m = re.search(r"composite_train_kernelILi(\d+)E", name)
+    for fname, ins in sass_functions(sass):
+        m = re.search(rf"{name}_kernel(?:ILi(\d+)E)?", fname)
         if not m:
             continue
-        ppt = int(m.group(1))
+        ppt = int(m.group(1) or 1)
         for body in sass_inner_loops(ins, lambda b: any(x[1] == "MUFU.EX2" for x in b)):
             pairs = sum(x[1] == "MUFU.EX2" for x in body)
             shfl = sum(x[1].startswith("SHFL") for x in body)
@@ -1466,25 +1519,26 @@ def ptxas_lines(log: str, kernel: str) -> list[str]:
     return out
 
 
-def k3_build_facts(card) -> None:
-    """Phase 8: K3's registers and spills (phase 2's ptxas lines), the blocks
-    of the tile-32 kernel an SM holds, and the SASS of both passes' loops."""
+def compositor_build_facts(card, name: str) -> None:
+    """Phases 5, 8 and 14: compositor ``name``'s registers and spills (phase
+    2's ptxas lines), the blocks of its tile-32 kernel an SM holds (its
+    exported <name>_blocks_per_sm), and the SASS of its loops over
+    duplicates (compositor_sass_counts)."""
     from gaussian_splatterer_tpu_torch.ops import cuda_build
-    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
 
-    for line in ptxas_lines(cuda_build.build_info["composite_train"]["ptxas"],
-                            "composite_train_kernel"):
+    for line in ptxas_lines(cuda_build.build_info[name]["ptxas"], f"{name}_kernel"):
         print(f"  ptxas: {line}")
     try:
-        per_sm = rt._train_lib().composite_train_blocks_per_sm()
+        per_sm = getattr(cuda_build.load_library(name), f"{name}_blocks_per_sm")()
     except AttributeError:  # a tree whose kernel does not export it
         per_sm = "not exported"
-    print(f"  composite_train_kernel<4> (tile 32, 256 threads): {per_sm} blocks an SM "
+    print(f"  {name}: the tile-32 kernel holds {per_sm} blocks an SM "
           f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)  [{card}]")
-    sass = cuobjdump_sass("composite_train")
-    for c in k3_sass_counts(sass) if sass is not None else []:
+    sass = cuobjdump_sass(name)
+    for c in compositor_sass_counts(sass, name) if sass is not None else []:
         kinds = " ".join(f"{k} {n}" for k, n in sorted(c["kinds"].items(), key=lambda kv: -kv[1]))
-        print(f"  SASS of pass {c['pass']}'s loop over duplicates, {c['ppt']} pixels a thread: "
+        what = "with the warp reduction" if c["shfl_per_dup"] else "without shuffles"
+        print(f"  SASS of {name}'s loop over duplicates {what}, {c['ppt']} pixels a thread: "
               f"{c['instructions']} instructions for {c['pairs']} pairs, {c['per_pair']:.2f} a "
               f"pair, {c['shfl_per_dup']:.2f} SHFL a duplicate (static, every branch): {kinds}",
               flush=True)
@@ -1651,10 +1705,7 @@ def nonfused_main(dev, card) -> dict:
     phase(f"13. non-fused train main path: Trainer(renderer='tiled') + auto_train, {n} splats, "
           f"{res}^2 (not a multiple of tile {tile}), 16-camera rig")
     arrays = build_scene(n, cap, seed=0)
-    t_arrays = [a.copy() for a in arrays]
-    rng = np.random.default_rng(1)
-    t_arrays[1][:n] += rng.normal(0, 0.2, t_arrays[1][:n].shape).astype(np.float32)
-    t_arrays[3][:n] *= np.float32(0.7)
+    t_arrays = teacher_arrays(arrays, n)
     runtime = RuntimeConfig(render_resolution_x=res, render_resolution_y=res,
                             splats_capacity=cap, sh_degree=1, sh_coeffs=4, tile_px=tile)
     project = Project.app_default()
@@ -1707,8 +1758,8 @@ def nonfused_main(dev, card) -> dict:
     finite, d_max, rel_max, rel_mean = compare_bwd(args, d_k, k2_stats)
     print(f"kernel vs plain, one frame ({args[0].shape[1]} duplicates): max|d_feat| {d_max:.3e}, "
           f"over the row's largest: max {rel_max:.3e} (<= {MAIN_MAX_ATOL}) mean {rel_mean:.3e} "
-          f"(<= {MAIN_MEAN_ATOL})  finite {finite}  pairs visited {k2_stats['pairs']} "
-          f"composited {k2_stats['composited']}")
+          f"(<= {MAIN_MEAN_ATOL})  finite {finite}  pairs visited {k2_stats['pairs']}, inside "
+          f"the footprint box {k2_stats['pairs_box']}, composited {k2_stats['composited']}")
     if not (finite and rel_max <= MAIN_MAX_ATOL and rel_mean <= MAIN_MEAN_ATOL):
         raise SystemExit("phase 13 failed: kernel vs plain at full size")
     nonfused_cli(dev.type)
@@ -1770,10 +1821,9 @@ def nonfused_main(dev, card) -> dict:
     plain_ms = cuda_ms(lambda: rt.composite_bwd_reference(*args), warmup=0, reps=2)
     b_ms, b_by = k2_bound(args, k2_stats, "composite_bwd")
     k2_ms = frame["composite_bwd kernel"]
-    print(f"  composite_bwd per launch (one {res}^2 frame): kernel {k2_ms:.3f} ms  plain "
-          f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by}, {k2_stats['pairs']} pairs visited, "
-          f"{k2_stats['composited']} composited)  kernel at {b_ms / k2_ms:.3f} of the bound  "
-          f"[{card}]")
+    print(f"  composite_bwd per launch (one {res}^2 frame): kernel {k2_ms:.4f} ms  plain "
+          f"{plain_ms:.3f} ms  {bounds_line(k2_bound, args, k2_stats, k2_ms)}  [{card}]")
+    compositor_build_facts(card, "composite_bwd")
     return {
         "name": "composite_bwd",
         "route": "cuda",
@@ -1787,6 +1837,54 @@ def nonfused_main(dev, card) -> dict:
         "bound_by": b_by,
         "library_ms": None,  # no PyTorch call computes the compositor's VJP
     }
+
+def k2_frame(dev):
+    """One NF_RES^2 frame of the bench scene as the non-fused step renders
+    it, for K2 alone (``--only k2`` and the design variants): the untrained
+    bench model at bench camera 0, its truth rendered from phase 13's
+    teacher, a white background.  Returns frame_bwd_args of it."""
+    from gaussian_splatterer_tpu_torch.config import RuntimeConfig
+    from gaussian_splatterer_tpu_torch.models.splats import SplatModel
+    from gaussian_splatterer_tpu_torch.train import CameraBatch
+
+    n, cap, res, tile = TRAIN_SPLATS, TRAIN_CAPACITY, NF_RES, TRAIN_TILE
+    arrays = build_scene(n, cap, seed=0)
+    runtime = RuntimeConfig(render_resolution_x=res, render_resolution_y=res,
+                            splats_capacity=cap, sh_degree=1, sh_coeffs=4, tile_px=tile)
+    teacher = TeacherRtx(SplatModel.from_numpy(*teacher_arrays(arrays, n), count=n, device=dev,
+                                               sh_degree=1), tile, runtime.max_dup)
+    cam = bench_cameras(1)[0]
+    truth = teacher.render(cam, (1.0, 1.0, 1.0), 1, res, res)
+    model = SplatModel.from_numpy(*arrays, count=n, device=dev, sh_degree=1)
+    cams = CameraBatch.from_cameras([cam], res, res, device=dev)
+    return frame_bwd_args(model, cams, 0, res, res, truth, torch.ones(3, device=dev), tile,
+                          runtime.max_dup)
+
+
+def k2_alone(dev, card) -> None:
+    """``--only k2``: K2 on k2_frame against plain at phase 13's full-size
+    gate, two launches bit-equal, its time, its bound at both counts and its
+    build facts."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+
+    phase(f"14. composite_bwd on one {NF_RES}^2 frame of the bench scene (--only k2; CUDA "
+          f"events, median of {REPS} after {WARMUP} warm-ups; {card})")
+    args = k2_frame(dev)
+    stats: dict = {}
+    d_k, d_k2 = rt.composite_bwd(*args), rt.composite_bwd(*args)
+    torch.cuda.synchronize()
+    finite, d_max, rel_max, rel_mean = compare_bwd(args, d_k, stats)
+    same = bool(torch.equal(d_k, d_k2))
+    print(f"kernel vs plain ({args[0].shape[1]} duplicates): max|d_feat| {d_max:.3e}, over the "
+          f"row's largest: max {rel_max:.3e} (<= {MAIN_MAX_ATOL}) mean {rel_mean:.3e} "
+          f"(<= {MAIN_MEAN_ATOL})  two launches bit-equal {same}  finite {finite}")
+    if not (finite and same and rel_max <= MAIN_MAX_ATOL and rel_mean <= MAIN_MEAN_ATOL):
+        raise SystemExit("composite_bwd failed against plain at full size")
+    k2_ms = cuda_ms(lambda: rt.composite_bwd(*args))
+    print(f"  composite_bwd per launch: kernel {k2_ms:.4f} ms  "
+          f"{bounds_line(k2_bound, args, stats, k2_ms)}  [{card}]")
+    compositor_build_facts(card, "composite_bwd")
+
 
 def cumsum_gate(dev, group) -> float:
     """Phase 15.  ``group``: (d_feat, FrameBins, columns) of one launch of
@@ -2156,13 +2254,16 @@ def device_busy_ms(fn) -> tuple[float, float, dict]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", action="append", choices=("k3", "k5", "k6", "k7"),
-                    help="run phases 1-2 and then only phases 6-8 (k3: the train gate, the "
-                         "fused train cell, the compositor's times, bounds, registers and "
-                         "SASS), phase 11 (k5: capture frames, the intersector's times, launch "
-                         "sizes and SASS) or phase 17's gather probes (k6: from shared memory, "
-                         "k7: at the bench scale); for timing two trees of the repository in "
-                         "one call, this script copied into each")
+    ap.add_argument("--only", action="append", choices=("k1", "k2", "k3", "k5", "k6", "k7"),
+                    help="run phases 1-2 and then only phases 3-5 (k1: the serve gate, the "
+                         "kernel against plain on the three serve cells, its times, bounds, "
+                         "registers and SASS), phase 12 and K2 on one 1000^2 frame (k2), "
+                         "phases 6-8 (k3: the train gate, the fused train cell, the "
+                         "compositor's times, bounds, registers and SASS), phase 11 (k5: "
+                         "capture frames, the intersector's times, launch sizes and SASS) or "
+                         "phase 17's gather probes (k6: from shared memory, k7: at the bench "
+                         "scale); for timing two trees of the repository in one call, this "
+                         "script copied into each")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU",
@@ -2203,6 +2304,11 @@ def main(argv=None) -> int:
         print(info["ptxas"])
 
     if args.only:
+        if "k1" in args.only:
+            serve_phases(dev, card, only=True)
+        if "k2" in args.only:
+            bwd_gate(dev)
+            k2_alone(dev, card)
         if "k3" in args.only:
             train_gate(dev)
             train_main(dev, card)

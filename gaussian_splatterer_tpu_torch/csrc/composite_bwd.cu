@@ -35,57 +35,50 @@
 //
 // What bounds it: per (pixel, duplicate) pair visited before the pixel
 // terminates, one evaluation of the Gaussian (one expf) and, for a kept
-// pair, about 55 FP32 operations; the bytes (36 per duplicate in, 36 out,
-// 32 per pixel in) are few beside that.  What the design does about it:
-//   * K3's thread layout: each thread owns PPT pixels of its tile, so one
-//     shared-memory read of a duplicate feeds PPT pixels; a 32 x 32 tile
-//     runs on 256 threads of up to 255 registers;
-//   * duplicates are staged through shared memory kBatch at a time, and
-//     the block leaves its range once __syncthreads_count says every pixel
-//     terminated (the forward's early exit, replayed);
-//   * the sums over pixels: each thread sums its PPT pixels, a warp by xor
-//     shuffles (skipped when no lane kept the duplicate), one partial per
-//     warp to shared memory, added in warp order and stored straight to
-//     d_feat.  The order is fixed: the kernel is deterministic.
+// pair, about 47 FP32 operations more; the bytes (36 per duplicate in, 36
+// out, 32 per pixel in) are few beside that.  The work that needs doing is
+// the pairs inside a duplicate's footprint.  The design is K3's pass 2
+// (composite_train.cu), with (gin, out) in place of the residual:
+//   * compact warp patches (composite_common.cuh): min(tile^2, 256)
+//     threads, PPT pixels each, a warp owning whole rows of the tile, so
+//     its gin and out loads run along a row, and at tile 32 a thread's four
+//     pixels share one column (dx is computed once a duplicate);
+//   * the footprint skip: a duplicate is staged with its footprint box's
+//     mask of warps (composite_common.cuh, under the proof there); a warp
+//     outside the box skips it, writes a 0 partial and runs no shuffle;
+//   * the nine pixel sums of a warp by warp_reduce9's reduce-scatter, 12
+//     shuffles a duplicate (45 for nine separate xor reductions);
+//   * FMA where no decision depends on it: gc, d_power's products and the
+//     nine sums contract; acc, g_s = g_ctot - acc (which cancels), 1/(1 -
+//     alpha) (which amplifies by up to 100) and d_alpha stay rounded op by
+//     op, like every operation of the skip and stop decisions;
+//   * early exit: the block leaves its range once __syncthreads_count says
+//     every pixel terminated (the forward's early exit, replayed);
+//   * occupancy: 256 threads and three blocks an SM (__launch_bounds__(256,
+//     3): 76 registers, no spills), duplicates staged in batches of 64,
+//     three barriers a batch.  Faster, measured, than four blocks (64
+//     registers, 44 bytes spilled), two or five, and than batches of 32 or
+//     128 (PERF.md).
 //
-// Numerics: every operation is rounded on its own (__fmul_rn and friends,
-// no FMA contraction) in the order of the plain PyTorch version
-// (composite_bwd_reference), which differs only in the order of the pixel
-// sums.
+// Sum order: a pixel's terms in duplicate order; a thread's PPT pixels in
+// k order; the warp's lanes by the fixed butterfly; the warps in warp
+// order, skipped warps adding 0.  The kernel is deterministic.  It differs
+// from the plain PyTorch version (composite_bwd_reference) only in the
+// order of the pixel sums and in the FMA contractions above.
 
-#include <cuda_runtime.h>
+#include "composite_common.cuh"
 
 namespace {
 
-constexpr int kRows = 9;  // mx, my, conic a, b, c, r, g, b, opacity
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
 constexpr int kMaxThreads = 256;
+constexpr int kMinBlocks = 3;  // blocks an SM: at most 80 registers a thread
 constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kBatch = 32;  // duplicates per staged batch
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBatch = 64;  // duplicates per staged batch
 
-struct Splat {
-  float mx, my, ca, cb, cc, r, g, b, op;
-};
-
-__device__ __forceinline__ Splat load_splat(const float* stage, int i) {
-  return Splat{stage[0 * kBatch + i], stage[1 * kBatch + i], stage[2 * kBatch + i],
-               stage[3 * kBatch + i], stage[4 * kBatch + i], stage[5 * kBatch + i],
-               stage[6 * kBatch + i], stage[7 * kBatch + i], stage[8 * kBatch + i]};
-}
-
-// power = -0.5 (a dx^2 + c dy^2) - b dx dy, in K1's order of operations
-__device__ __forceinline__ float gauss_power(const Splat& s, float dx, float dy) {
-  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(s.ca, dx), dx),
-                               __fmul_rn(__fmul_rn(s.cc, dy), dy));
-  return __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(s.cb, dx), dy));
-}
-
-// PPT pixels per thread: pixel p = threadIdx.x + k * blockDim.x, k < PPT
+// PPT pixels per thread: pixel p = warp * 32 PPT + 32 k + lane, k < PPT;
+// PPT == 4 only at tile 32, so pixel k of a thread is row k of its patch.
 template <int PPT>
-__global__ void __launch_bounds__(kMaxThreads) composite_bwd_kernel(
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks) composite_bwd_kernel(
     const float* __restrict__ feat,  // (9, num_dup) rows, contiguous
     long long num_dup,
     const int* __restrict__ tile_start,  // (T,) into feat's columns
@@ -94,7 +87,7 @@ __global__ void __launch_bounds__(kMaxThreads) composite_bwd_kernel(
     const float4* __restrict__ gin,  // (T, tile*tile) of (d r, d g, d b, d T_final)
     float* __restrict__ d_feat,  // out (9, num_dup), zeroed by the caller
     int tile, int tx_tiles) {
-  __shared__ float stage[kRows * kBatch];
+  __shared__ float4 stage[3 * kBatch];
   __shared__ float part[kMaxWarps * kBatch * kRows];
   const int nthr = blockDim.x;
   const int tid = threadIdx.x;
@@ -107,16 +100,22 @@ __global__ void __launch_bounds__(kMaxThreads) composite_bwd_kernel(
   if (start >= end) return;  // the whole block leaves: no barrier is pending
   const int ox = (t % tx_tiles) * tile;
   const int oy = (t / tx_tiles) * tile;
+  const int rows_w = 32 * PPT / tile;  // whole rows of the tile a warp owns
+  const float x0 = static_cast<float>(ox);
+  const float x1 = static_cast<float>(ox + tile - 1);
+  const float y0 = static_cast<float>(oy);
+  const unsigned my_bit = 1u << warp;
+  const int my_row = reduced_row(lane);
 
-  float px[PPT], py[PPT], gr[PPT], gg[PPT], gb[PPT], g_ctot[PPT], gtn[PPT];
+  const int p0 = warp * 32 * PPT + lane;
+  const float px = static_cast<float>(ox + p0 % tile);
+  const float py0 = static_cast<float>(oy + p0 / tile);  // pixel k: py0 + k
+
+  float gr[PPT], gg[PPT], gb[PPT], g_ctot[PPT], gtn[PPT];
   float T[PPT], acc[PPT];  // acc: running sum of w gc over kept duplicates
-  bool done[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int p = tid + k * nthr;
-    px[k] = static_cast<float>(ox + p % tile);
-    py[k] = static_cast<float>(oy + p / tile);
-    const long long pix = static_cast<long long>(t) * (tile * tile) + p;
+    const long long pix = static_cast<long long>(t) * (tile * tile) + p0 + 32 * k;
     const float4 g = gin[pix];
     const float4 o = fwd[pix];
     gr[k] = g.x;
@@ -127,8 +126,9 @@ __global__ void __launch_bounds__(kMaxThreads) composite_bwd_kernel(
     gtn[k] = __fmul_rn(g.w, o.w);
     T[k] = 1.0f;
     acc[k] = 0.0f;
-    done[k] = false;
   }
+  unsigned done = 0u;  // bit k: pixel k terminated
+  constexpr unsigned kAll = (1u << PPT) - 1u;
 
   bool all_done = false;
   for (int base = start; base < end; base += kBatch) {
@@ -136,23 +136,27 @@ __global__ void __launch_bounds__(kMaxThreads) composite_bwd_kernel(
     // reads ahead of this batch's writes
     if (__syncthreads_count(all_done) == nthr) break;
     const int n = min(kBatch, end - base);
-    for (int q = tid; q < kRows * n; q += nthr) {
-      const int r = q / n;
-      const int i = q - r * n;
-      stage[r * kBatch + i] = feat[r * num_dup + base + i];
+    for (int q = tid; q < n; q += nthr) {
+      stage_dup(stage + 3 * q, feat, num_dup, base + q, x0, x1, y0, rows_w, nwarps);
     }
     __syncthreads();
     for (int i = 0; i < n; ++i) {
-      const Splat s = load_splat(stage, i);
+      unsigned mask;
+      const Splat s = load_splat(stage + 3 * i, mask);
+      float* slot = part + (warp * kBatch + i) * kRows;
+      if (!(mask & my_bit)) {
+        if (my_row >= 0) slot[my_row] = 0.0f;
+        continue;
+      }
       float g[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) g[r] = 0.0f;
       bool kept = false;
+      const float dx = __fsub_rn(px, s.mx);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
-        if (done[k]) continue;
-        const float dx = __fsub_rn(px[k], s.mx);
-        const float dy = __fsub_rn(py[k], s.my);
+        if (done & (1u << k)) continue;
+        const float dy = __fsub_rn(py0 + static_cast<float>(k), s.my);
         const float power = gauss_power(s, dx, dy);
         if (!(power <= 0.0f)) continue;
         const float expp = expf(power);
@@ -162,48 +166,36 @@ __global__ void __launch_bounds__(kMaxThreads) composite_bwd_kernel(
         const float t_k = T[k];
         const float test_t = __fmul_rn(t_k, __fsub_rn(1.0f, alpha));
         if (test_t < kTEps) {
-          done[k] = true;
+          done |= 1u << k;
           continue;
         }
         kept = true;
         const float w = __fmul_rn(alpha, t_k);
-        const float gc = __fadd_rn(__fadd_rn(__fmul_rn(gr[k], s.r), __fmul_rn(gg[k], s.g)),
-                                   __fmul_rn(gb[k], s.b));
+        const float gc = fmaf(gb[k], s.b, fmaf(gg[k], s.g, gr[k] * s.r));
         acc[k] = __fadd_rn(acc[k], __fmul_rn(w, gc));
         const float g_s = __fsub_rn(g_ctot[k], acc[k]);
         const float inv = __frcp_rn(__fsub_rn(1.0f, alpha));
         float d_alpha = __fsub_rn(__fmul_rn(gc, t_k), __fmul_rn(__fadd_rn(g_s, gtn[k]), inv));
         if (!(alpha_raw < kAlphaMax)) d_alpha = 0.0f;
-        const float d_power = __fmul_rn(d_alpha, alpha_raw);
-        g[0] = __fadd_rn(g[0], __fmul_rn(d_power, __fadd_rn(__fmul_rn(s.ca, dx),
-                                                             __fmul_rn(s.cb, dy))));
-        g[1] = __fadd_rn(g[1], __fmul_rn(d_power, __fadd_rn(__fmul_rn(s.cc, dy),
-                                                             __fmul_rn(s.cb, dx))));
-        g[2] = __fadd_rn(g[2], __fmul_rn(__fmul_rn(d_power, dx), dx));
-        g[3] = __fadd_rn(g[3], __fmul_rn(__fmul_rn(d_power, dx), dy));
-        g[4] = __fadd_rn(g[4], __fmul_rn(__fmul_rn(d_power, dy), dy));
-        g[5] = __fadd_rn(g[5], __fmul_rn(gr[k], w));
-        g[6] = __fadd_rn(g[6], __fmul_rn(gg[k], w));
-        g[7] = __fadd_rn(g[7], __fmul_rn(gb[k], w));
-        g[8] = __fadd_rn(g[8], __fmul_rn(d_alpha, expp));
+        const float d_power = d_alpha * alpha_raw;
+        const float pdx = d_power * dx;
+        const float pdy = d_power * dy;
+        g[0] = fmaf(s.cb, pdy, fmaf(s.ca, pdx, g[0]));
+        g[1] = fmaf(s.cb, pdx, fmaf(s.cc, pdy, g[1]));
+        g[2] = fmaf(pdx, dx, g[2]);
+        g[3] = fmaf(pdx, dy, g[3]);
+        g[4] = fmaf(pdy, dy, g[4]);
+        g[5] = fmaf(gr[k], w, g[5]);
+        g[6] = fmaf(gg[k], w, g[6]);
+        g[7] = fmaf(gb[k], w, g[7]);
+        g[8] = fmaf(d_alpha, expp, g[8]);
         T[k] = test_t;
       }
-      float* slot = part + (warp * kBatch + i) * kRows;
       if (__any_sync(kFull, kept)) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          float v = g[r];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-          g[r] = v;
-        }
-        if (lane == 0) {
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) slot[r] = g[r];
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) slot[r] = 0.0f;
+        const float v = warp_reduce9(g, lane);
+        if (my_row >= 0) slot[my_row] = v;
+      } else if (my_row >= 0) {
+        slot[my_row] = 0.0f;
       }
     }
     __syncthreads();
@@ -217,9 +209,7 @@ __global__ void __launch_bounds__(kMaxThreads) composite_bwd_kernel(
       if (r == 3) sum = -sum;
       d_feat[r * num_dup + base + i] = sum;
     }
-    all_done = true;
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) all_done = all_done && done[k];
+    all_done = done == kAll;
   }
 }
 
@@ -248,4 +238,16 @@ extern "C" int composite_bwd(const float* feat, long long num_dup,
         feat, num_dup, tile_start, tile_end, fwd4, gin4, d_feat, tile, tx_tiles);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the tile-32 kernel an SM holds, or -1 on error: registers and
+// shared memory decide it (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int composite_bwd_blocks_per_sm() {
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, composite_bwd_kernel<4>,
+                                                    kMaxThreads, 0) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return per_sm;
 }

@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point.  At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/torch_kernels/`` at the root of the checkout, named by a hash of its
-source and flags (a changed source builds anew, an unchanged one is reused
-across processes), and loaded with ``ctypes``.  No PyTorch header is
-compiled, which keeps a build to seconds.
+source, the local headers it includes (``#include "x.cuh"``, as the three
+compositors include ``composite_common.cuh``) and the flags (a changed
+source or header builds anew, an unchanged one is reused across
+processes), and loaded with ``ctypes``.  No PyTorch header is compiled,
+which keeps a build to seconds.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -55,9 +58,32 @@ def find_nvcc() -> str:
     )
 
 
+_LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"[ \t]*$', re.M)
+_PRAGMA_ONCE = re.compile(r"^[ \t]*#[ \t]*pragma[ \t]+once[ \t]*\n", re.M)
+
+
+def source_text(src: Path) -> str:
+    """What nvcc compiles from ``src``: its text with each local header
+    (``#include "x"``, found beside the including file) inlined once, in
+    place of its first include, recursively."""
+    seen: set[Path] = set()
+
+    def expand(path: Path) -> str:
+        def include(m):
+            header = (path.parent / m.group(1)).resolve()
+            if header in seen:
+                return ""
+            seen.add(header)
+            return _PRAGMA_ONCE.sub("", expand(header))
+
+        return _LOCAL_INCLUDE.sub(include, path.read_text())
+
+    return expand(Path(src))
+
+
 def _lib_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = source_text(CSRC_DIR / f"{name}.cu")
+    digest = hashlib.sha256((text + " ".join(NVCC_FLAGS)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

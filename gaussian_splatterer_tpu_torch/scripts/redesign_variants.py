@@ -1,19 +1,25 @@
-"""Design variants of the train compositor (csrc/composite_train.cu, K3) and
-the shared-memory gather (csrc/smem_gather.cu, K6), each with one part of
-its design taken out, timed beside the shipped kernel on one card.
+"""Design variants of the compositors (csrc/composite_fwd.cu K1,
+csrc/composite_bwd.cu K2, csrc/composite_train.cu K3) and the shared-memory
+gather (csrc/smem_gather.cu K6), each with one part of its design taken
+out, timed beside the shipped kernel on one card.
 
-    python -m gaussian_splatterer_tpu_torch.scripts.redesign_variants
+    python -m gaussian_splatterer_tpu_torch.scripts.redesign_variants [--only k1|k2|k3|k6]
 
-A variant is the shipped source with the edits of K3_VARIANTS or
-K6_VARIANTS, built by nvcc into build/variants/ and called through the
-shipped wrapper (its library swapped in for the call), so every variant
-takes the same inputs and checks: K3 on one launch of chip_smoke.py's
-fused train cell (phase 7: the bench scene trained for TRAIN_STEPS steps,
-8 frames at 1024^2), held against the plain twin at phase 7's full-size
-gate; K6 on the (16, 4096) table at D = 2^21, at 8 and 4 rows a block,
-equal to its plain twin.  Times are CUDA-event medians of 20 launches in
-ROUNDS rounds, the variants in alternating orders.  Needs a card and nvcc;
-the last line is one JSON object of the results.
+A variant is the shipped source, its local headers inlined
+(composite_common.cuh for the compositors), with the edits of K1_VARIANTS,
+K2_VARIANTS, K3_VARIANTS or K6_VARIANTS, built by nvcc into build/variants/
+and called through the shipped wrapper (its library swapped in for the
+call), so every variant takes the same inputs and checks: K1 on the three
+serve cells of chip_smoke.py's phase 4 (50k splats at 1024^2 and 2048^2,
+262,144 at 2048^2), equal to its plain twin; K2 on chip_smoke.k2_frame (one
+1000^2 frame of the bench scene), held against the plain twin at phase
+13's full-size gate; K3 on one launch of chip_smoke.py's fused train cell
+(phase 7: the bench scene trained for TRAIN_STEPS steps, 8 frames at
+1024^2), held against the plain twin at phase 7's full-size gate; K6 on the
+(16, 4096) table at D = 2^21, at 8 and 4 rows a block, equal to its plain
+twin.  Times are CUDA-event medians of 20 launches in ROUNDS rounds, the
+variants in alternating orders.  Needs a card and nvcc; the last line is
+one JSON object of the results.
 """
 
 from __future__ import annotations
@@ -55,18 +61,48 @@ _REDUCE45 = """  const int row = reduced_row(lane);
   return out;
 """
 _KFULL = "constexpr unsigned kFull = 0xffffffffu;\n"
-# (old, new) edits of the shipped source; each must apply
+_NO_SKIP = [("store_splat(st, v, warp_mask(bx, x0, x1, y0, rows_w, nwarps));",
+             "(void)bx;\n  store_splat(st, v, 0xffffffffu);")]
+_NO_FMA = [("fmaf(", "mad_rn("),
+           (_KFULL, _KFULL + "__device__ __forceinline__ float mad_rn(float a, float b, "
+                             "float c) { return __fadd_rn(__fmul_rn(a, b), c); }\n")]
+
+
+def _blocks(n: int, shipped: int = 4):
+    return [(f"constexpr int kMinBlocks = {shipped};", f"constexpr int kMinBlocks = {n};")]
+
+
+# (old, new) edits of the shipped source, its headers inlined; each must apply
+K1_VARIANTS = {
+    "shipped": [],
+    "no footprint skip": _NO_SKIP,
+    "2 blocks an SM": _blocks(2),
+    "3 blocks an SM": _blocks(3),
+    "5 blocks an SM": _blocks(5),
+    "8 blocks an SM": _blocks(8),
+    "batches of 32": [("constexpr int kBatch = 256;", "constexpr int kBatch = 32;")],
+    "batches of 64": [("constexpr int kBatch = 256;", "constexpr int kBatch = 64;")],
+    "batches of 128": [("constexpr int kBatch = 256;", "constexpr int kBatch = 128;")],
+}
+K2_VARIANTS = {
+    "shipped": [],
+    "no footprint skip": _NO_SKIP,
+    "45-shuffle reduction": [(_REDUCE9, _REDUCE45)],
+    "no FMA": _NO_FMA,
+    "2 blocks an SM": _blocks(2, 3),
+    "4 blocks an SM": _blocks(4, 3),
+    "5 blocks an SM": _blocks(5, 3),
+    "batches of 32": [("constexpr int kBatch = 64;", "constexpr int kBatch = 32;")],
+    "batches of 128": [("constexpr int kBatch = 64;", "constexpr int kBatch = 128;")],
+}
 K3_VARIANTS = {
     "shipped": [],
-    "no footprint skip": [("store_splat(st, v, warp_mask(bx, x0, x1, y0, rows_w, nwarps));",
-                           "(void)bx;\n  store_splat(st, v, 0xffffffffu);")],
+    "no footprint skip": _NO_SKIP,
     "45-shuffle reduction": [(_REDUCE9, _REDUCE45)],
-    "no FMA": [("fmaf(", "mad_rn("),
-               (_KFULL, _KFULL + "__device__ __forceinline__ float mad_rn(float a, float b, "
-                                 "float c) { return __fadd_rn(__fmul_rn(a, b), c); }\n")],
-    "3 blocks an SM": [("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 3;")],
-    "2 blocks an SM": [("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 2;")],
-    "5 blocks an SM": [("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 5;")],
+    "no FMA": _NO_FMA,
+    "3 blocks an SM": _blocks(3),
+    "2 blocks an SM": _blocks(2),
+    "5 blocks an SM": _blocks(5),
     "pass-2 batches of 32": [("constexpr int kBatch2 = 64;", "constexpr int kBatch2 = 32;")],
     "3 blocks an SM, pass-2 batches of 32": [
         ("constexpr int kMinBlocks = 4;", "constexpr int kMinBlocks = 3;"),
@@ -125,8 +161,15 @@ K6_VARIANTS = {
 }
 
 
+# the variants of each kernel source
+VARIANTS = {"composite_fwd": K1_VARIANTS, "composite_bwd": K2_VARIANTS,
+            "composite_train": K3_VARIANTS, "smem_gather": K6_VARIANTS}
+
+
 def variant_source(kernel: str, edits) -> str:
-    src = (cuda_build.CSRC_DIR / f"{kernel}.cu").read_text()
+    """The text of csrc/<kernel>.cu, its local headers inlined, with
+    ``edits`` applied; raises if an edit no longer applies."""
+    src = cuda_build.source_text(cuda_build.CSRC_DIR / f"{kernel}.cu")
     for old, new in edits:
         if old not in src:
             raise RuntimeError(f"{kernel}: the variant edit {old[:40]!r} no longer applies")
@@ -202,6 +245,58 @@ def k3_variants(dev, name: str) -> dict:
     return out
 
 
+def k1_variants(dev, name: str) -> dict:
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+
+    smoke = _chip_smoke()
+    cells = smoke.serve_cells(dev)
+    libs = build_variants("composite_fwd", K1_VARIANTS)
+    out = {}
+    for (label, size), cell in cells.items():
+        ref = rt.composite_fwd_reference(*cell.composite_args)
+        for v, (lib, log) in libs.items():
+            cuda_build._loaded["composite_fwd"] = lib
+            if not torch.equal(rt.composite_fwd(*cell.composite_args), ref):
+                raise SystemExit(f"K1 variant {v!r} differs from plain at {label} {size}^2")
+            out.setdefault(v, {"blocks_per_sm": lib.composite_fwd_blocks_per_sm(),
+                               "ptxas": smoke.ptxas_lines(log, "composite_fwd_kernel")})
+        cuda_build._loaded.pop("composite_fwd")
+        for v, ms in timed("composite_fwd", libs,
+                           lambda: rt.composite_fwd(*cell.composite_args)).items():
+            out[v][f"{label} {size}"] = ms
+            print(f"K1 {v}, {label} {size}^2: {' / '.join(f'{t:.4f}' for t in ms)} ms; "
+                  f"{out[v]['blocks_per_sm']} blocks an SM; equal to plain; "
+                  f"{'; '.join(out[v]['ptxas'])}  [{name}]", flush=True)
+    return out
+
+
+def k2_variants(dev, name: str) -> dict:
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+
+    smoke = _chip_smoke()
+    args = smoke.k2_frame(dev)
+    libs = build_variants("composite_bwd", K2_VARIANTS)
+    out = {}
+    for v, (lib, log) in libs.items():
+        cuda_build._loaded["composite_bwd"] = lib
+        d_k = rt.composite_bwd(*args)
+        torch.cuda.synchronize()
+        finite, _, rel_max, rel_mean = smoke.compare_bwd(args, d_k)
+        ok = finite and rel_max <= smoke.MAIN_MAX_ATOL and rel_mean <= smoke.MAIN_MEAN_ATOL
+        out[v] = {"gate": ok, "max_rel_d_feat": rel_max,
+                  "blocks_per_sm": lib.composite_bwd_blocks_per_sm(),
+                  "ptxas": smoke.ptxas_lines(log, "composite_bwd_kernel")}
+    cuda_build._loaded.pop("composite_bwd")
+    for v, ms in timed("composite_bwd", libs, lambda: rt.composite_bwd(*args)).items():
+        out[v]["ms"] = ms
+        print(f"K2 {v}: {' / '.join(f'{t:.4f}' for t in ms)} ms a launch (one "
+              f"{smoke.NF_RES}^2 frame, {args[0].shape[1]} duplicates); "
+              f"{out[v]['blocks_per_sm']} blocks an SM; gate {out[v]['gate']} (d_feat "
+              f"{out[v]['max_rel_d_feat']:.3e}); {'; '.join(out[v]['ptxas'])}  [{name}]",
+              flush=True)
+    return out
+
+
 def k6_variants(dev, name: str) -> dict:
     from gaussian_splatterer_tpu_torch.scripts import gather_probe as gp
     from gaussian_splatterer_tpu_torch.scripts import smem_gather_probe as sp
@@ -231,12 +326,19 @@ def _chip_smoke():
     return mod
 
 
+RUNS = {"k1": k1_variants, "k2": k2_variants, "k3": k3_variants, "k6": k6_variants}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.parse_args(argv)
+    ap.add_argument("--only", action="append", choices=tuple(RUNS),
+                    help="the kernels whose variants to run (default: all)")
+    args = ap.parse_args(argv)
     dev = require_cuda()
     name = card()
-    out = {"card": name, "k6": k6_variants(dev, name), "k3": k3_variants(dev, name)}
+    out = {"card": name}
+    for key in args.only or RUNS:
+        out[key] = RUNS[key](dev, name)
     print(json.dumps(out))
     return 0
 

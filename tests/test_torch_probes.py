@@ -14,6 +14,7 @@ from torch_parity import cuda_device  # noqa: F401
 
 from gaussian_splatterer_tpu_torch.scripts import gather_probe as gp
 from gaussian_splatterer_tpu_torch.scripts import peak_probe as pp
+from gaussian_splatterer_tpu_torch.scripts import redesign_variants as rv
 from gaussian_splatterer_tpu_torch.scripts import smem_gather_probe as sp
 from gaussian_splatterer_tpu_torch.scripts.common import bound_ms
 
@@ -176,6 +177,19 @@ def test_probes_need_a_card(probe, monkeypatch):
 
 # -- the kernels (need a card) ------------------------------------------------------
 
+
+
+@pytest.mark.parametrize("kernel", sorted(rv.VARIANTS))
+def test_every_design_variant_applies(kernel):
+    """Each edit of each design variant (K1, K2, K3 and K6) applies to the
+    shipped source, its headers inlined; every variant but "shipped" changes
+    it; an edit that does not apply raises."""
+    shipped = rv.variant_source(kernel, [])
+    assert "#include \"" not in shipped
+    for name, edits in rv.VARIANTS[kernel].items():
+        assert (rv.variant_source(kernel, edits) == shipped) == (not edits), name
+    with pytest.raises(RuntimeError, match="no longer applies"):
+        rv.variant_source(kernel, [("no such text", "")])
 
 @pytest.mark.cuda
 def test_peak_kernel_matches_plain(cuda_device):

@@ -9,11 +9,17 @@ The CUDA kernel's tests (marker ``cuda``) need a card and skip here.  The
 JAX package is imported inside the tests that use it, so that the file also
 imports on a machine with a card and no JAX."""
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
-from torch_parity import H, W, camera_args, cuda_device, random_splats, to_jax, to_torch  # noqa: F401
+from torch_parity import (  # noqa: F401
+    SYNTHETIC_SCENES, H, W, camera_args, cuda_device, random_splats, synthetic_frame, to_jax,
+    to_torch,
+)
 
+from gaussian_splatterer_tpu_torch.ops import cuda_build
 from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
 from gaussian_splatterer_tpu_torch.ops.binning import bin_splats
 from gaussian_splatterer_tpu_torch.ops.raster_reference import render_oracle as t_oracle
@@ -161,6 +167,24 @@ def test_tile_image_roundtrip():
     assert torch.equal(rt.tiles_to_image(tiles, 48, 32, 16), img)
 
 
+def test_lib_path_hashes_the_included_header(tmp_path, monkeypatch):
+    """A kernel's library is named by a hash of what nvcc compiles, its local
+    headers included: an edit of composite_common.cuh renames the three
+    compositors' libraries (so a stale one is never reused) and no other."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC_DIR, csrc)
+    shipped = {name: cuda_build._lib_path(name) for name in cuda_build.KERNELS}
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    assert {name: cuda_build._lib_path(name) for name in cuda_build.KERNELS} == shipped
+    header = csrc / "composite_common.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    moved = {name for name in cuda_build.KERNELS if cuda_build._lib_path(name) != shipped[name]}
+    assert moved == {"composite_fwd", "composite_bwd", "composite_train"}
+    text = cuda_build.source_text(csrc / "composite_fwd.cu")
+    assert text.count("// edited") == 1 and '#include "composite_common.cuh"' not in text
+    assert "#pragma once" not in text
+
+
 # -- CUDA kernel (needs a card) ------------------------------------------------
 
 
@@ -194,3 +218,17 @@ def test_kernel_empty_tiles_and_overflow(cuda_device):
         ref = rt.render_tiled(*to_torch(arrays), *cam, W, H, torch.zeros(3), 1,
                               tile=16, max_dup=64)
     assert float((img.cpu() - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", SYNTHETIC_SCENES)
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_kernel_edge_scenes_equal_plain(cuda_device, scene, tile):
+    """The footprint skip's edges on the card (splats under 2 px, one wider
+    than the tile, opacities at 1/255, conics at a c = b^2): the image
+    equals the plain version's bit for bit, and two launches are bit-equal."""
+    args = synthetic_frame(scene, tile, cuda_device)
+    out, out2 = rt.composite_fwd(*args), rt.composite_fwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+    assert torch.equal(out, rt.composite_fwd_reference(*args))

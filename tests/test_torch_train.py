@@ -19,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import (  # noqa: F401
-    W, H, camera_stack, cuda_device, jax_model, model_arrays, random_splats, random_truths,
-    to_jax, to_torch,
+    AMIN, SYNTHETIC_SCENES, W, H, camera_stack, conic, cuda_device, jax_model, model_arrays,
+    random_splats, random_truths, synthetic_frame, synthetic_launch, to_jax, to_torch,
 )
 
 from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
@@ -237,14 +237,6 @@ def test_composite_train_rejects_bad_arguments():
 
 FOOTPRINT_CASES = ("random", "opacity_edge", "determinant_edge", "box_edge", "huge_and_tiny",
                    "nonfinite")
-AMIN = np.float32(1.0 / 255.0)  # the kernels' alpha threshold
-
-
-def _conic(sx, sy, theta):
-    """Conic (a, b, c) of a Gaussian with axis scales sx, sy rotated by theta."""
-    cs, sn = np.cos(theta), np.sin(theta)
-    ia, ib = 1.0 / sx**2, 1.0 / sy**2
-    return cs * cs * ia + sn * sn * ib, cs * sn * (ia - ib), sn * sn * ia + cs * cs * ib
 
 
 def _rows(mx, my, a, b, c, op):
@@ -261,7 +253,7 @@ def _footprint_case(case):
     rng = np.random.default_rng(17)
     if case == "random":  # 10^5 pairs, half within 2% of the ellipse's edge
         m, n = 1000, 100
-        a, b, c = _conic(np.exp(rng.uniform(np.log(0.3), np.log(30), m)),
+        a, b, c = conic(np.exp(rng.uniform(np.log(0.3), np.log(30), m)),
                          np.exp(rng.uniform(np.log(0.3), np.log(30), m)),
                          rng.uniform(0, np.pi, m))
         op = np.where(rng.uniform(size=m) < 0.1, rng.uniform(0, 0.01, m), rng.uniform(0, 1, m))
@@ -291,7 +283,7 @@ def _footprint_case(case):
         return feat, torch.from_numpy(5 + g[:, 0]), torch.from_numpy(5 + g[:, 1])
     if case == "box_edge":  # pixels on each widened edge, one float outside, at its tangent
         m = 200
-        a, b, c = _conic(rng.uniform(0.5, 8, m), rng.uniform(0.5, 8, m), rng.uniform(0, np.pi, m))
+        a, b, c = conic(rng.uniform(0.5, 8, m), rng.uniform(0.5, 8, m), rng.uniform(0, np.pi, m))
         feat = _rows(rng.uniform(0, 64, m), rng.uniform(0, 64, m), a, b, c, rng.uniform(0.02, 1, m))
         xlo, xhi, ylo, yhi = rt.footprint_box(feat)
         f = feat.double()
@@ -361,16 +353,29 @@ def test_footprint_never_skips_a_reachable_pair(case):
         assert torch.isinf(xlo).all() and (xlo < 0).all() and not skips.any()
 
 
-@pytest.mark.parametrize("scene", ["tiny", "whole_tile", "op_edge", "degenerate"])
-def test_pairs_box_is_a_per_pixel_count(scene):
-    """stats["pairs_box"] of composite_train_reference (the work count of
-    K3's bound) equals a per-pixel count of the visited pairs inside the
-    exact footprint box, tile by tile and pixel by pixel, and is at most
-    ``pairs``."""
-    args = _synthetic_launch(scene, 8)
-    feat, ts, te, _, _, tile, tx, tiles_frame = args
+@pytest.mark.parametrize("replay", ["composite_fwd_reference", "composite_bwd_reference",
+                                    "composite_train_reference"])
+@pytest.mark.parametrize("scene", SYNTHETIC_SCENES)
+def test_pairs_box_is_a_per_pixel_count(scene, replay):
+    """stats["pairs_box"] of each plain replay (the work count of K1's, K2's
+    and K3's bounds) equals a per-pixel count of the visited pairs inside
+    the exact footprint box, tile by tile and pixel by pixel, and is at most
+    ``pairs``.  K3's on synthetic_launch's two frames, K1's and K2's on the
+    same scene as one frame (synthetic_frame)."""
+    if replay == "composite_train_reference":
+        args = synthetic_launch(scene, 8)
+        feat, ts, te, _, _, tile, tx, tiles_frame = args
+    else:
+        args = synthetic_frame(scene, 8)
+        feat, ts, te, tile, tx = args
+        tiles_frame = ts.shape[0]
+        if replay == "composite_bwd_reference":
+            out = rt.composite_fwd_reference(*args)
+            gin = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, tuple(out.shape))
+                                   .astype(np.float32))
+            args = (feat, ts, te, out, gin, tile, tx)
     stats = {}
-    rt.composite_train_reference(*args, stats=stats)
+    getattr(rt, replay)(*args, stats=stats)
     pairs = box = 0
     pix = torch.arange(tile * tile)
     for blk in range(ts.shape[0]):
@@ -401,49 +406,12 @@ def test_pairs_box_is_a_per_pixel_count(scene):
     assert 0 < box < pairs
 
 
-def _synthetic_launch(scene, tile, device="cpu", n=48, seed=5):
-    """composite_train's arguments for two frames of 2 x 2 tiles of
-    ``tile`` px, ``n`` depth-ordered duplicates a tile, made with numpy from
-    ``seed``: ``tiny`` splats under 2 px across; ``whole_tile`` a first
-    splat far wider than the tile; ``op_edge`` opacities at and one float
-    either side of 1/255, centred on pixels; ``degenerate`` conics with a c
-    - b^2 at 0 or one float either side (in float32), beside ordinary ones."""
-    rng = np.random.default_rng(seed)
-    blocks, tx, tiles_frame = 8, 2, 4
-    feat = np.zeros((9, blocks * n), np.float32)
-    for blk in range(blocks):
-        t = blk % tiles_frame
-        ox, oy = (t % tx) * tile, (t // tx) * tile
-        sx, sy = rng.uniform(0.8, tile / 2, n), rng.uniform(0.8, tile / 2, n)
-        if scene == "tiny":
-            sx, sy = rng.uniform(0.15, 0.6, n), rng.uniform(0.15, 0.6, n)
-        a, b, c = _conic(sx, sy, rng.uniform(0, np.pi, n))
-        mx, my = ox + rng.uniform(-3, tile + 3, n), oy + rng.uniform(-3, tile + 3, n)
-        op = rng.uniform(0.1, 1.0, n)
-        if scene == "whole_tile":
-            mx[0], my[0], a[0], b[0], c[0], op[0] = ox + tile / 2, oy + tile / 2, 1e-4, 0, 1e-4, 0.5
-        elif scene == "op_edge":
-            k = n // 2
-            mx[:k], my[:k] = ox + rng.integers(0, tile, k), oy + rng.integers(0, tile, k)
-            op[:k] = rng.choice([np.nextafter(AMIN, 0), AMIN, np.nextafter(AMIN, 1)], k)
-        elif scene == "degenerate":
-            k = n // 2
-            b32 = np.sqrt(a[:k].astype(np.float32) * c[:k].astype(np.float32))
-            b[:k] = np.nextafter(b32, rng.choice([-1.0, 1.0], k) * np.inf)
-            b[:k:3] = b32[::3]
-        cols = slice(blk * n, (blk + 1) * n)
-        feat[:, cols] = np.stack([mx, my, a, b, c, *rng.uniform(0, 1, (3, n)), op])
-    ts = torch.arange(blocks, dtype=torch.int32) * n
-    truth = torch.from_numpy(rng.uniform(0, 1, (blocks, tile * tile, 3)).astype(np.float32))
-    bg = torch.from_numpy(rng.uniform(0, 1, (2, 3)).astype(np.float32))
-    return tuple(x.to(device) for x in (torch.from_numpy(feat), ts, ts + n, truth, bg)) + (
-        tile, tx, tiles_frame)
-
-
 def test_k3_sass_and_ptxas_readers():
     """chip_smoke's readers on made-up listings: K3's two loops over
     duplicates (pass 1: 4 expf of PPT 4 pixels; pass 2 with 12 SHFL) inside
-    the outer loop over batches, and the ptxas register and spill line of
+    the outer loop over batches; in one listing with K1's loop (no SHFL), an
+    untemplated K1 (one pixel a thread) and K2's loop (12 SHFL), each
+    compositor's own loops only; and the ptxas register and spill line of
     each entry function."""
     import importlib.util
     import os
@@ -462,10 +430,28 @@ def test_k3_sass_and_ptxas_readers():
     sass = ("\tFunction : _ZN12_GLOBAL__N_122composite_train_kernelILi4EEvPKfx\n"
             + listing(0x100, ["S2R R0, SR_TID.X"]) + listing(0x110, p1)
             + listing(0x200, p2) + listing(0x200 + 16 * len(p2), ["BRA 0x100"]))
-    (c1, c2) = smoke.k3_sass_counts(sass)
+    (c1, c2) = smoke.compositor_sass_counts(sass, "composite_train")
     assert (c1["pass"], c1["pairs"], c1["instructions"], c1["shfl_per_dup"]) == (1, 4, 10, 0)
     assert (c2["pass"], c2["pairs"], c2["instructions"], c2["shfl_per_dup"]) == (2, 4, 17, 12)
     assert c2["kinds"] == {"MUFU": 4, "SHFL": 12, "BRA": 1} and c1["per_pair"] == 10 / 4
+
+    def function(name, loop):
+        end = 0x100 + 16 * len(loop)
+        return (f"\tFunction : _ZN12_GLOBAL__N_1{name}\n" + listing(0x100, loop)
+                + listing(end, ["BRA 0x100"]))
+
+    k2 = ["MUFU.EX2 R1, R2", "FFMA R1, R2, R3, R4"] + ["SHFL.BFLY PT, R1, R2, 0x1f"] * 12 + [
+        "@P1 BRA 0x100"]
+    k1 = ["MUFU.EX2 R1, R2", "FMUL R1, R2, R3"] * 4 + ["@P0 BRA 0x100"]
+    both = (function("20composite_fwd_kernelILi4EEvPKfx", k1)
+            + function("20composite_fwd_kernelEPKfx", ["MUFU.EX2 R1, R2", "@P0 BRA 0x100"])
+            + sass + function("20composite_bwd_kernelILi1EEvPKfx", k2))
+    (f4, f1) = smoke.compositor_sass_counts(both, "composite_fwd")
+    assert (f4["ppt"], f4["pass"], f4["pairs"], f4["instructions"]) == (4, 1, 4, 9)
+    assert (f1["ppt"], f1["pairs"], f1["per_pair"], f1["shfl_per_dup"]) == (1, 1, 2, 0)
+    (b1,) = smoke.compositor_sass_counts(both, "composite_bwd")
+    assert (b1["ppt"], b1["pass"], b1["pairs"], b1["shfl_per_dup"]) == (1, 2, 1, 12)
+    assert [c["pass"] for c in smoke.compositor_sass_counts(both, "composite_train")] == [1, 2]
     log = ("ptxas info    : Compiling entry function '_Z3fooILi4EEv' for 'sm_90a'\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
            "ptxas info    : Used 80 registers, used 1 barriers, 21520 bytes smem\n"
@@ -512,13 +498,13 @@ def test_train_kernel_matches_plain_version(cuda_device, tile):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scene", ["tiny", "whole_tile", "op_edge", "degenerate"])
+@pytest.mark.parametrize("scene", SYNTHETIC_SCENES)
 @pytest.mark.parametrize("tile", [8, 16, 32])
 def test_train_kernel_edge_scenes_match_plain(cuda_device, scene, tile):
     """The footprint skip's edges on the card (splats under 2 px, one wider
     than the tile, opacities at 1/255, conics at a c = b^2), at the
     tolerances of test_train_kernel_matches_plain_version."""
-    args = _synthetic_launch(scene, tile, cuda_device)
+    args = synthetic_launch(scene, tile, cuda_device)
     res_k, d_k = rt.composite_train(*args)
     torch.cuda.synchronize()
     res_p, d_p = rt.composite_train_reference(*args)

@@ -59,6 +59,67 @@ def random_truths(frames, seed, width=W, height=H):
             rng.uniform(0, 1, (frames, 3)).astype(np.float32))
 
 
+# the edge scenes of synthetic_launch: the footprint skip's edges
+SYNTHETIC_SCENES = ("tiny", "whole_tile", "op_edge", "degenerate")
+AMIN = np.float32(1.0 / 255.0)  # the kernels' alpha threshold
+
+
+def conic(sx, sy, theta):
+    """Conic (a, b, c) of a Gaussian with axis scales sx, sy rotated by theta."""
+    cs, sn = np.cos(theta), np.sin(theta)
+    ia, ib = 1.0 / sx**2, 1.0 / sy**2
+    return cs * cs * ia + sn * sn * ib, cs * sn * (ia - ib), sn * sn * ia + cs * cs * ib
+
+
+def synthetic_launch(scene, tile, device="cpu", n=48, seed=5):
+    """composite_train's arguments for two frames of 2 x 2 tiles of
+    ``tile`` px, ``n`` depth-ordered duplicates a tile, made with numpy from
+    ``seed``: ``tiny`` splats under 2 px across; ``whole_tile`` a first
+    splat far wider than the tile; ``op_edge`` opacities at and one float
+    either side of 1/255, centred on pixels; ``degenerate`` conics with a c
+    - b^2 at 0 or one float either side (in float32), beside ordinary ones."""
+    rng = np.random.default_rng(seed)
+    blocks, tx, tiles_frame = 8, 2, 4
+    feat = np.zeros((9, blocks * n), np.float32)
+    for blk in range(blocks):
+        t = blk % tiles_frame
+        ox, oy = (t % tx) * tile, (t // tx) * tile
+        sx, sy = rng.uniform(0.8, tile / 2, n), rng.uniform(0.8, tile / 2, n)
+        if scene == "tiny":
+            sx, sy = rng.uniform(0.15, 0.6, n), rng.uniform(0.15, 0.6, n)
+        a, b, c = conic(sx, sy, rng.uniform(0, np.pi, n))
+        mx, my = ox + rng.uniform(-3, tile + 3, n), oy + rng.uniform(-3, tile + 3, n)
+        op = rng.uniform(0.1, 1.0, n)
+        if scene == "whole_tile":
+            mx[0], my[0], a[0], b[0], c[0], op[0] = ox + tile / 2, oy + tile / 2, 1e-4, 0, 1e-4, 0.5
+        elif scene == "op_edge":
+            k = n // 2
+            mx[:k], my[:k] = ox + rng.integers(0, tile, k), oy + rng.integers(0, tile, k)
+            op[:k] = rng.choice([np.nextafter(AMIN, 0), AMIN, np.nextafter(AMIN, 1)], k)
+        elif scene == "degenerate":
+            k = n // 2
+            b32 = np.sqrt(a[:k].astype(np.float32) * c[:k].astype(np.float32))
+            b[:k] = np.nextafter(b32, rng.choice([-1.0, 1.0], k) * np.inf)
+            b[:k:3] = b32[::3]
+        cols = slice(blk * n, (blk + 1) * n)
+        feat[:, cols] = np.stack([mx, my, a, b, c, *rng.uniform(0, 1, (3, n)), op])
+    ts = torch.arange(blocks, dtype=torch.int32) * n
+    truth = torch.from_numpy(rng.uniform(0, 1, (blocks, tile * tile, 3)).astype(np.float32))
+    bg = torch.from_numpy(rng.uniform(0, 1, (2, 3)).astype(np.float32))
+    return tuple(x.to(device) for x in (torch.from_numpy(feat), ts, ts + n, truth, bg)) + (
+        tile, tx, tiles_frame)
+
+
+def synthetic_frame(scene, tile, device="cpu"):
+    """composite_fwd's arguments (feat, tile_start, tile_end, tile, tx_tiles)
+    of synthetic_launch's two frames laid out as one frame of 2 x 4 tiles:
+    the second frame's four tiles sit two tile rows lower, their duplicates
+    moved down with them."""
+    feat, ts, te, _, _, tile, tx, tiles_frame = synthetic_launch(scene, tile)
+    feat[1, int(ts[tiles_frame]):] += 2 * tile
+    return feat.to(device), ts.to(device), te.to(device), tile, tx
+
+
 def to_jax(arrays):
     import jax.numpy as jnp
 
