@@ -88,7 +88,9 @@ Phases:
      whether the small-scene 2e-4 holds is printed); two cumsum-route
      steps bit-equal (the index_add route's printed);
      per-layer times of both routes, the whole step on each, K4 against
-     its bound and torch.cumsum;
+     its bound and torch.cumsum (K4, its plain twin and torch.cumsum also
+     as the device time of one call queued behind a spin kernel, which
+     leaves out the host's time between launches: the summary's K4 times);
   the probes (kernels peak_fma K8, gather_cols K7, smem_gather K6):
  17. each probe's run(), as ``python -m
      gaussian_splatterer_tpu_torch.scripts.<name>`` runs it: K8's forms at
@@ -115,10 +117,12 @@ times its operations per pair, an FMA counted as two.  K2's bytes are the
 rows in, their gradients out, the ranges, and the forward output and its
 gradient in.  K4's bytes are its input read and its output written once.
 
-``--only k1|k2|k3|k5|k6|k7`` runs phases 1-2 and then only phases 3-5
+``--only k1|k2|k3|k4|k5|k6|k7`` runs phases 1-2 and then only phases 3-5
 (without the CLI's renders; K1 timed alone), phase 12 and K2 on one 1000^2
-frame of the untrained bench scene, phases 6-8, 11, or phase 17's K6 or K7
-cases: copied into a second tree, it times both trees in one call.
+frame of the untrained bench scene, phases 6-8, phase 15's gate shapes and
+K4 alone on a synthetic (9, 8, 202,689) group (k4_input), phase 11, or
+phase 17's K6 or K7 cases: copied into a second tree, it times both trees
+in one call.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit, and the one before that the kernel summary.
@@ -127,6 +131,7 @@ card's name and power limit, and the one before that the kernel summary.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import random
 import statistics
@@ -209,6 +214,7 @@ K2_OPS_PIXEL = 6  # g . C_total (5), g_t T_final
 # its reduction by a float32 bound (route_gate); ROUTE_ATOL is printed.
 K4_RTOL, K4_ATOL = 2e-5, 2e-3
 K4_GATE_SHAPES = ((9, 3, 512), (9, 1, 384), (2, 2, 1024), (9, 2, 96), (9, 2, 1000), (9, 2, 100))
+K4_D = 202_689  # the group's largest kept count on phase 7's cell (--only k4's input)
 ROUTE_ATOL = 2e-4
 # (operations, bytes) of each kernel's summary bound, for phase 17's second share
 BOUND_PARTS: dict[str, tuple[float, float]] = {}
@@ -1886,13 +1892,12 @@ def k2_alone(dev, card) -> None:
     compositor_build_facts(card, "composite_bwd")
 
 
-def cumsum_gate(dev, group) -> float:
-    """Phase 15.  ``group``: (d_feat, FrameBins, columns) of one launch of
-    the phase-7 model.  Returns the largest |kernel - plain| difference."""
+def k4_gate_shapes(dev) -> float:
+    """Phase 15's first part: K4 against plain at the JAX test's shapes and
+    D = 1000, 100 (no multiple-of-128 divisor), two launches bit-equal.
+    Returns the largest |kernel - plain| difference."""
     from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
 
-    phase("15. per-frame scan cumsum_frames (K4) vs plain; full size on one group of the "
-          "trained bench model's duplicate gradients vs float64")
     rng = np.random.default_rng(7)  # the JAX test's inputs: normal x 100
     worst = 0.0
     for shape in K4_GATE_SHAPES:
@@ -1907,8 +1912,16 @@ def cumsum_gate(dev, group) -> float:
         if not ok:
             raise SystemExit(f"phase 15 failed: K4 at {shape}")
         worst = max(worst, err)
-    d_feat, fb, _ = group
-    x = rt.dups_to_depth_order(d_feat, fb)
+    return worst
+
+
+def k4_full_size(x, label: str) -> float:
+    """Phase 15's full-size rule on the scan input ``x``: K4 against a
+    float64 scan no worse than max(twice torch.cumsum's error, one ulp of the
+    largest prefix), two launches bit-equal, finite.  Returns
+    max|kernel - torch.cumsum|."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+
     y, y2 = rt.cumsum_frames(x), rt.cumsum_frames(x)
     lib = torch.cumsum(x, dim=2)
     ref64 = torch.cumsum(x.double(), dim=2)
@@ -1918,14 +1931,89 @@ def cumsum_gate(dev, group) -> float:
     floor = float(torch.finfo(torch.float32).eps * ref64.abs().max())  # one ulp of the largest
     same = torch.equal(y, y2)
     finite = bool(torch.isfinite(y).all())
-    print(f"  full size {tuple(x.shape)} ({x.numel() * 4 / 1e6:.1f} MB, D % 128 = "
-          f"{x.shape[2] % 128}): max|kernel - float64| {err_k:.3e}, max|torch.cumsum - "
-          f"float64| {err_lib:.3e} (kernel <= max(2 x that, {floor:.3e}))  max|kernel - "
-          f"torch.cumsum| {float((y - lib).abs().max()):.3e}  two launches bit-equal {same}  "
-          f"finite {finite}")
+    lib_diff = float((y - lib).abs().max())
+    print(f"  {label} {tuple(x.shape)} ({x.numel() * 4 / 1e6:.1f} MB, D % 128 = "
+          f"{x.shape[2] % 128}): max|kernel - float64| {err_k:.3e} ({err_k / floor:.3f} ulp of "
+          f"the largest prefix), max|torch.cumsum - float64| {err_lib:.3e} (kernel <= max(2 x "
+          f"that, {floor:.3e}))  max|kernel - torch.cumsum| {lib_diff:.3e}  two launches "
+          f"bit-equal {same}  finite {finite}")
     if not (finite and same and err_k <= max(2 * err_lib, floor)):
-        raise SystemExit("phase 15 failed: K4 at full size")
-    return max(worst, float((y - lib).abs().max()))
+        raise SystemExit(f"phase 15 failed: K4 at {label}")
+    return lib_diff
+
+
+def cumsum_gate(dev, group) -> float:
+    """Phase 15.  ``group``: (d_feat, FrameBins, columns) of one launch of
+    the phase-7 model.  Returns the largest |kernel - plain| difference."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+
+    phase("15. per-frame scan cumsum_frames (K4) vs plain; full size on one group of the "
+          "trained bench model's duplicate gradients vs float64")
+    worst = k4_gate_shapes(dev)
+    d_feat, fb, _ = group
+    x = rt.dups_to_depth_order(d_feat, fb)
+    return max(worst, k4_full_size(x, "full size"))
+
+
+def k4_input(dev, seed: int = 0):
+    """A (9, 8, K4_D) scan input shaped like the route's on phase 7's cell:
+    each frame's kept count drawn from ``seed`` (one frame at D, the group's
+    largest), normal x 1e-3 below it and a zero tail."""
+    rng = np.random.default_rng(seed)
+    k, f, d = 9, TRAIN_GROUP, K4_D
+    counts = rng.integers(d // 2, d + 1, size=f)
+    counts[int(np.argmax(counts))] = d
+    x = (rng.standard_normal((k, f, d), dtype=np.float32) * np.float32(1e-3))
+    x[:, np.arange(d)[None, :] >= counts[:, None]] = 0.0
+    return torch.from_numpy(x).to(dev), counts
+
+
+def k4_times(x, card, label: str) -> dict:
+    """K4's, its plain twin's and torch.cumsum's times on ``x``: CUDA events
+    around one call (host time between launches included, as phase 16's
+    layers are timed) and the device time of one call queued behind a spin
+    kernel (queued_ms), beside the bound; printed, and returned as
+    {"ms", "event_ms", "plain_ms", "library_ms", "copy_ms", "bound_ms",
+    "bound_by"}: x.clone() moves the same bytes, a floor the card reaches."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+
+    with torch.no_grad():
+        out = {
+            "event_ms": cuda_ms(lambda: rt.cumsum_frames(x)),
+            "ms": queued_ms(lambda: rt.cumsum_frames(x)),
+            "plain_ms": queued_ms(lambda: rt.cumsum_frames_reference(x)),
+            "library_ms": queued_ms(lambda: torch.cumsum(x, dim=2)),
+            "copy_ms": queued_ms(lambda: x.clone()),
+        }
+    b_ms, b_by = bound_ms(x.numel(), 2 * 4 * x.numel(), "cumsum_frames")  # one add an element
+    out.update(bound_ms=b_ms, bound_by=b_by)
+    blocks = getattr(rt._cumsum_lib(), "cumsum_frames_blocks_per_sm", None)
+    if blocks is not None:
+        blocks.argtypes, blocks.restype = [], ctypes.c_int
+    print(f"  cumsum_frames per launch {tuple(x.shape)} ({label}): kernel {out['ms']:.4f} ms on "
+          f"the device (queued; {out['event_ms']:.4f} ms by events around one call)  plain "
+          f"{out['plain_ms']:.4f} ms  torch.cumsum {out['library_ms']:.4f} ms  a copy of x "
+          f"(x.clone(), the same bytes) {out['copy_ms']:.4f} ms  bound "
+          f"{b_ms:.4f} ms ({b_by})  kernel at {b_ms / out['ms']:.3f} of the bound; "
+          f"{blocks() if blocks else 'not exported'} blocks an SM  [{card}]")
+    return out
+
+
+def k4_alone(dev, card) -> None:
+    """``--only k4``: phase 15's gate shapes, then K4 alone at full size on
+    k4_input against the full-size rule, two launches bit-equal, its times
+    beside the bound and torch.cumsum, and its registers."""
+    from gaussian_splatterer_tpu_torch.ops import cuda_build
+
+    phase(f"15. per-frame scan cumsum_frames (K4) vs plain; full size on a synthetic group "
+          f"(--only k4; {card})")
+    k4_gate_shapes(dev)
+    x, counts = k4_input(dev)
+    print(f"  synthetic input: kept counts {counts.tolist()} of D = {K4_D}, normal x 1e-3")
+    k4_full_size(x, "full size")
+    k4_times(x, card, "synthetic")
+    for line in ptxas_lines(cuda_build.build_info["cumsum_frames"]["ptxas"], ""):
+        print(f"  {line}")
 
 
 def step_grads(trainer, reduction: str):
@@ -2067,8 +2155,6 @@ def cumsum_cell(dev, card, gate_err: float) -> dict:
             "cumsum route": cuda_ms(lambda: rt.dup_grads_to_rows_cumsum(d_feat, fb, columns)),
             "index_add_ route": cuda_ms(lambda: rt.dup_grads_to_rows(d_feat, fb, columns)),
         }
-        k4_plain = cuda_ms(lambda: rt.cumsum_frames_reference(x))
-        k4_lib = cuda_ms(lambda: torch.cumsum(x, dim=2))
     print(f"  reduction of one group ({TRAIN_GROUP} frames, {d_feat.shape[1]} duplicates, scan "
           f"{tuple(x.shape)}): " + "  ".join(f"{k} {v:.4f} ms" for k, v in layers.items())
           + f"  [{card}]")
@@ -2084,11 +2170,7 @@ def cumsum_cell(dev, card, gate_err: float) -> dict:
     print("  whole step (32 frames, median of 5 after 1; in turns index_add, cumsum, cumsum, "
           "index_add): " + "  ".join(f"{k} {' / '.join(f'{t:.3f}' for t in v)} ms"
                                      for k, v in whole.items()) + f"  [{card}]")
-    k4_ms = layers["K4 cumsum_frames"]
-    b_ms, b_by = bound_ms(x.numel(), 2 * 4 * x.numel(), "cumsum_frames")  # one add an element
-    print(f"  cumsum_frames per launch {tuple(x.shape)}: kernel {k4_ms:.4f} ms  plain "
-          f"{k4_plain:.4f} ms  torch.cumsum {k4_lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
-          f"kernel at {b_ms / k4_ms:.3f} of the bound  [{card}]")
+    t = k4_times(x, card, "one group of the trained model")
     return {
         "name": "cumsum_frames",
         "route": "cuda",
@@ -2096,11 +2178,11 @@ def cumsum_cell(dev, card, gate_err: float) -> dict:
         "replaces": "gaussian_splatterer_tpu/ops/raster_tiled.py:1077",
         "launches": launches,
         "max_abs_err": gate_err,
-        "ms": k4_ms,
-        "plain_ms": k4_plain,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": k4_lib,  # torch.cumsum(x, dim=2)
+        "ms": t["ms"],  # device time of one call (queued_ms)
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],  # torch.cumsum(x, dim=2)
     }
 
 
@@ -2254,12 +2336,13 @@ def device_busy_ms(fn) -> tuple[float, float, dict]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", action="append", choices=("k1", "k2", "k3", "k5", "k6", "k7"),
+    ap.add_argument("--only", action="append", choices=("k1", "k2", "k3", "k4", "k5", "k6", "k7"),
                     help="run phases 1-2 and then only phases 3-5 (k1: the serve gate, the "
                          "kernel against plain on the three serve cells, its times, bounds, "
                          "registers and SASS), phase 12 and K2 on one 1000^2 frame (k2), "
                          "phases 6-8 (k3: the train gate, the fused train cell, the "
-                         "compositor's times, bounds, registers and SASS), phase 11 (k5: "
+                         "compositor's times, bounds, registers and SASS), phase 15's gate "
+                         "shapes and K4 alone on a synthetic full-size group (k4), phase 11 (k5: "
                          "capture frames, the intersector's times, launch sizes and SASS) or "
                          "phase 17's gather probes (k6: from shared memory, k7: at the bench "
                          "scale); for timing two trees of the repository in one call, this "
@@ -2312,6 +2395,8 @@ def main(argv=None) -> int:
         if "k3" in args.only:
             train_gate(dev)
             train_main(dev, card)
+        if "k4" in args.only:
+            k4_alone(dev, card)
         if "k5" in args.only:
             tracer_times(dev, card, 0, 0.0)
         if "k6" in args.only:

@@ -702,7 +702,8 @@ def cumsum_frames_reference(x: torch.Tensor) -> torch.Tensor:
 
 def cumsum_frames(x: torch.Tensor) -> torch.Tensor:
     """Per-frame inclusive scan of a (K, F, D) float32 array along D (the
-    JAX package's cumsum_frames): the CUDA kernel for CUDA tensors, any D,
+    JAX package's cumsum_frames): the CUDA kernel for CUDA tensors (one
+    pass, each element read once, in an order fixed by the shapes), any D,
     bit-equal from launch to launch; the plain version for CPU tensors."""
     global cumsum_frames_launches
     if x.device.type == "cpu":
@@ -717,8 +718,10 @@ def cumsum_frames(x: torch.Tensor) -> torch.Tensor:
         return y
     lib = _cumsum_lib()
     k, f, d = x.shape
-    scratch = torch.empty((k * f * math.ceil(d / lib.cumsum_frames_chunk()),),
-                          dtype=torch.float32, device=x.device)
+    # the ticket counter, then one status word per (row, chunk); zeroed by
+    # the C entry on the launch's stream
+    scratch = torch.empty((k * f * math.ceil(d / lib.cumsum_frames_chunk()) + 1,),
+                          dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.cumsum_frames(x.data_ptr(), y.data_ptr(), scratch.data_ptr(), k * f, d,

@@ -1,13 +1,16 @@
 """Design variants of the compositors (csrc/composite_fwd.cu K1,
-csrc/composite_bwd.cu K2, csrc/composite_train.cu K3) and the shared-memory
-gather (csrc/smem_gather.cu K6), each with one part of its design taken
-out, timed beside the shipped kernel on one card.
+csrc/composite_bwd.cu K2, csrc/composite_train.cu K3), the per-frame scan
+(csrc/cumsum_frames.cu K4) and the shared-memory gather (csrc/smem_gather.cu
+K6), each with one part of its design taken out or changed, timed beside
+the shipped kernel on one card.
 
-    python -m gaussian_splatterer_tpu_torch.scripts.redesign_variants [--only k1|k2|k3|k6]
+    python -m gaussian_splatterer_tpu_torch.scripts.redesign_variants [--only k1|k2|k3|k4|k6]
 
 A variant is the shipped source, its local headers inlined
 (composite_common.cuh for the compositors), with the edits of K1_VARIANTS,
-K2_VARIANTS, K3_VARIANTS or K6_VARIANTS, built by nvcc into build/variants/
+K2_VARIANTS, K3_VARIANTS, K4_VARIANTS or K6_VARIANTS, or a whole source of
+its own (K4's earlier three-pass design, variants/cumsum_frames_three_pass.cu),
+built by nvcc into build/variants/
 and called through the shipped wrapper (its library swapped in for the
 call), so every variant takes the same inputs and checks: K1 on the three
 serve cells of chip_smoke.py's phase 4 (50k splats at 1024^2 and 2048^2,
@@ -15,11 +18,13 @@ serve cells of chip_smoke.py's phase 4 (50k splats at 1024^2 and 2048^2,
 1000^2 frame of the bench scene), held against the plain twin at phase
 13's full-size gate; K3 on one launch of chip_smoke.py's fused train cell
 (phase 7: the bench scene trained for TRAIN_STEPS steps, 8 frames at
-1024^2), held against the plain twin at phase 7's full-size gate; K6 on the
-(16, 4096) table at D = 2^21, at 8 and 4 rows a block, equal to its plain
-twin.  Times are CUDA-event medians of 20 launches in ROUNDS rounds, the
-variants in alternating orders.  Needs a card and nvcc; the last line is
-one JSON object of the results.
+1024^2), held against the plain twin at phase 7's full-size gate; K4 on
+chip_smoke.k4_input (a synthetic (9, 8, 202,689) group), held to phase 15's
+gate shapes and its full-size rule, launches bit-equal; K6 on the (16, 4096)
+table at D = 2^21, at 8 and 4 rows a block, equal to its plain twin.  Times
+are CUDA-event medians of 20 launches (K4: the device time of one call,
+chip_smoke.queued_ms) in ROUNDS rounds, the variants in alternating orders.
+Needs a card and nvcc; the last line is one JSON object of the results.
 """
 
 from __future__ import annotations
@@ -161,14 +166,53 @@ K6_VARIANTS = {
 }
 
 
+def _kchunk(n: int):
+    return [("constexpr int kChunk = 8192;", f"constexpr int kChunk = {n};")]
+
+
+_FLOAT4_LOADS = [("constexpr bool kBulkLoad = true;", "constexpr bool kBulkLoad = false;")]
+_K4_PREFIX = """  if (warp == 0) {
+    const Acc p = exclusive_prefix(status, c, lane);
+    if (lane == 0) s_prefix = p;
+  }
+"""
+K4_VARIANTS = {
+    "shipped": [],
+    "chunks of 16384": _kchunk(16384),
+    "chunks of 4096": _kchunk(4096),
+    "float4 loads": _FLOAT4_LOADS,
+    "chunks of 16384, float4 loads": _kchunk(16384) + _FLOAT4_LOADS,
+    "float totals": [("using Acc = double;", "using Acc = float;")],
+    # each chunk waits on its predecessor's inclusive prefix and publishes its own
+    "chained prefix": [
+        ("  __shared__ Acc s_prefix;\n", "  __shared__ Acc s_prefix, s_total;\n"),
+        ("    publish(status + c, total);\n", "    s_total = total;\n"),
+        ("    const Acc p = exclusive_prefix(status, c, lane);\n",
+         "    const Acc p = c > 0 ? wait_total(status + c - 1) : Acc(0);\n"
+         "    if (lane == 0) publish(status + c, p + s_total);\n")],
+    "three passes": Path(__file__).resolve().parent / "variants" / "cumsum_frames_three_pass.cu",
+    "512 threads": [("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")],
+    "scan steps unrolled 8": [("#pragma unroll 4\n  for (int k = 0; k < kSteps; ++k) {",
+                               "#pragma unroll 8\n  for (int k = 0; k < kSteps; ++k) {")],
+    "write-back stores": [("__stcs(", "__stwb(")],
+    "prefix before the scan": [  # warp 0 waits on its predecessors first
+        ("  // 4. each warp's segment", _K4_PREFIX + "  // 4. each warp's segment"),
+        ("  // 5. the chunk's exclusive prefix from its predecessors' totals\n" + _K4_PREFIX, "")],
+}
+
+
 # the variants of each kernel source
 VARIANTS = {"composite_fwd": K1_VARIANTS, "composite_bwd": K2_VARIANTS,
-            "composite_train": K3_VARIANTS, "smem_gather": K6_VARIANTS}
+            "composite_train": K3_VARIANTS, "cumsum_frames": K4_VARIANTS,
+            "smem_gather": K6_VARIANTS}
 
 
 def variant_source(kernel: str, edits) -> str:
     """The text of csrc/<kernel>.cu, its local headers inlined, with
-    ``edits`` applied; raises if an edit no longer applies."""
+    ``edits`` applied, or the text of ``edits`` where it is a source file of
+    its own; raises if an edit no longer applies."""
+    if isinstance(edits, Path):
+        return cuda_build.source_text(edits)
     src = cuda_build.source_text(cuda_build.CSRC_DIR / f"{kernel}.cu")
     for old, new in edits:
         if old not in src:
@@ -197,15 +241,15 @@ def build_variants(kernel: str, variants: dict) -> dict[str, tuple[ctypes.CDLL, 
     return out
 
 
-def timed(kernel: str, libs: dict, fn) -> dict[str, list[float]]:
-    """fn() with each variant's library swapped in for ``kernel``: ROUNDS
-    medians, the variants in alternating orders."""
+def timed(kernel: str, libs: dict, fn, clock=cuda_ms) -> dict[str, list[float]]:
+    """clock(fn) with each variant's library swapped in for ``kernel``:
+    ROUNDS medians, the variants in alternating orders."""
     times: dict[str, list[float]] = {name: [] for name in libs}
     for i in range(ROUNDS):
         order = list(libs) if i % 2 == 0 else list(libs)[::-1]
         for name in order:
             cuda_build._loaded[kernel] = libs[name][0]
-            times[name].append(cuda_ms(fn))
+            times[name].append(clock(fn))
     cuda_build._loaded.pop(kernel)
     return times
 
@@ -319,6 +363,32 @@ def k6_variants(dev, name: str) -> dict:
     return dict(out, index_select=lib_ms)
 
 
+def k4_variants(dev, name: str) -> dict:
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+
+    smoke = _chip_smoke()
+    x, _ = smoke.k4_input(dev)
+    libs = build_variants("cumsum_frames", K4_VARIANTS)
+    out = {}
+    for v, (lib, log) in libs.items():  # every variant passes the gates before it is timed
+        cuda_build._loaded["cumsum_frames"] = lib
+        print(f"K4 {v}: chunks of {lib.cumsum_frames_chunk()}; "
+              f"{'; '.join(smoke.ptxas_lines(log, '')) or 'no ptxas lines'}  [{name}]")
+        smoke.k4_gate_shapes(dev)
+        smoke.k4_full_size(x, f"{v}, full size")
+        out[v] = {"chunk": lib.cumsum_frames_chunk(), "ptxas": smoke.ptxas_lines(log, "")}
+    cuda_build._loaded.pop("cumsum_frames")
+    with torch.no_grad():
+        for v, ms in timed("cumsum_frames", libs, lambda: rt.cumsum_frames(x),
+                           smoke.queued_ms).items():
+            out[v]["ms"] = ms
+            print(f"K4 {v}: {' / '.join(f'{t:.4f}' for t in ms)} ms a call on the device "
+                  f"(queued) at {tuple(x.shape)}  [{name}]", flush=True)
+        lib_ms = smoke.queued_ms(lambda: torch.cumsum(x, dim=2))
+    print(f"torch.cumsum: {lib_ms:.4f} ms  [{name}]")
+    return dict(out, **{"torch.cumsum": lib_ms})
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
@@ -326,7 +396,8 @@ def _chip_smoke():
     return mod
 
 
-RUNS = {"k1": k1_variants, "k2": k2_variants, "k3": k3_variants, "k6": k6_variants}
+RUNS = {"k1": k1_variants, "k2": k2_variants, "k3": k3_variants, "k4": k4_variants,
+        "k6": k6_variants}
 
 
 def main(argv=None) -> int:

@@ -11,9 +11,16 @@ largest value (the segment differences subtract two running prefixes, so
 summation-order noise lands as absolute error of the prefix's size:
 tests/test_raster_tiled.py:872-884).
 
+The kernel's order of addition is held here through design_order_scan, a
+torch twin of csrc/cumsum_frames.cu's sums (the chunk totals in float64, the
+fixed-order prefix of the totals, the float32 in-chunk scan); on the card
+the kernel equals it bit for bit.
+
 The CUDA kernel's tests (marker ``cuda``) need a card and skip here."""
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,6 +41,14 @@ from gaussian_splatterer_tpu_torch.train import Trainer
 LOSS_RTOL, ROUTE_ATOL = 1e-5, 2e-4
 GRAD_NAMES = ("means", "shs", "scales", "opacities", "rotations")
 SCAN_SHAPES = [(9, 3, 512), (9, 1, 384), (2, 2, 1024), (9, 2, 96), (9, 2, 1000)]
+
+
+def _kernel_constant(name: str) -> int:
+    src = (Path(rt.__file__).resolve().parents[1] / "csrc" / "cumsum_frames.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+K4_CHUNK, K4_WARPS = _kernel_constant("kChunk"), _kernel_constant("kThreads") // 32
 
 
 def assert_within(a, b, err_msg=""):
@@ -66,6 +81,76 @@ def jax_tiles(imgs, tile):
 # -- the scan --------------------------------------------------------------------
 
 
+def _xor_tree(t):
+    """The xor-shuffle sum of 32 lanes on the last axis: lane 0's bits,
+    which are every lane's."""
+    lanes = torch.arange(32, device=t.device)
+    for off in (16, 8, 4, 2, 1):
+        t = t + t[..., lanes ^ off]
+    return t[..., 0]
+
+
+def design_order_scan(x, chunk=K4_CHUNK, warps=K4_WARPS):
+    """K4's order of addition: each row cut into chunks of ``chunk``, each
+    chunk into ``warps`` segments scanned in warp-strided steps of 32.
+    Chunk totals: each lane down its column in float64, an xor tree over the
+    lanes, the warps in sequence (their running sum is each warp's offset);
+    a total is published with its lowest mantissa bit set (the ready flag).
+    A chunk's prefix: its predecessors' published totals 32 at a time, each
+    group by an xor tree, the groups in sequence.  The in-chunk scan in
+    float32: per step a shuffle scan of 32 lanes plus the warp's carry of the
+    earlier steps.  y = hi + (lo + scan), hi + lo the float64 base (prefix
+    + the warp's offset) split into two floats.  Reads zeros past D."""
+    k, f, d = x.shape
+    rows, chunks = k * f, -(-d // chunk)
+    steps = chunk // warps // 32
+    xp = torch.zeros((rows, chunks * chunk), dtype=torch.float32, device=x.device)
+    xp[:, :d] = x.reshape(rows, d)
+    v = xp.view(rows, chunks, warps, steps, 32)
+    col = torch.zeros((rows, chunks, warps, 32), dtype=torch.float64, device=x.device)
+    for s in range(steps):
+        col = col + v[:, :, :, s].double()
+    col = _xor_tree(col)
+    offset = torch.zeros_like(col)
+    total = torch.zeros((rows, chunks), dtype=torch.float64, device=x.device)
+    for w in range(warps):
+        offset[..., w] = total
+        total = total + col[..., w]
+    published = (total.view(torch.int64) | 1).view(torch.float64)
+    prefix = torch.zeros_like(total)
+    for c in range(1, chunks):
+        p = torch.zeros((rows,), dtype=torch.float64, device=x.device)
+        for g in range(0, c, 32):
+            group = torch.zeros((rows, 32), dtype=torch.float64, device=x.device)
+            group[:, :min(32, c - g)] = published[:, g:min(c, g + 32)]
+            p = p + _xor_tree(group)
+        prefix[:, c] = p
+    scan = torch.empty_like(v)
+    carry = torch.zeros((rows, chunks, warps, 1), dtype=torch.float32, device=x.device)
+    for s in range(steps):
+        t = v[:, :, :, s]
+        for off in (1, 2, 4, 8, 16):
+            t = torch.cat([t[..., :off], t[..., off:] + t[..., :-off]], dim=-1)
+        scan[:, :, :, s] = carry + t
+        carry = carry + t[..., 31:]
+    base = prefix[..., None] + offset
+    hi = base.float()
+    lo = (base - hi.double()).float()
+    y = hi[..., None, None] + (lo[..., None, None] + scan)
+    return y.reshape(rows, chunks * chunk)[:, :d].reshape(k, f, d)
+
+
+def assert_full_size_rule(y, x):
+    """chip_smoke.py phase 15's full-size rule: y against a float64 scan no
+    worse than max(twice torch.cumsum's error on the same device, one ulp of
+    the largest prefix)."""
+    ref64 = torch.cumsum(x.double(), dim=2)
+    err = float((y.double() - ref64).abs().max())
+    err_lib = float((torch.cumsum(x, dim=2).double() - ref64).abs().max())
+    floor = float(torch.finfo(torch.float32).eps * ref64.abs().max())
+    assert err <= max(2 * err_lib, floor), (err, err_lib, floor)
+
+
 @pytest.mark.parametrize("shape", SCAN_SHAPES)
 def test_cumsum_frames_matches_jax(monkeypatch, shape):
     """The JAX test's four shapes and D = 1000 (no multiple-of-128 divisor)."""
@@ -78,6 +163,30 @@ def test_cumsum_frames_matches_jax(monkeypatch, shape):
     ref = np.asarray(j_cumsum(jnp.asarray(x), interpret=True))
     assert got.shape == shape
     np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-3)
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+def test_design_order_matches_jax(monkeypatch, shape):
+    """K4's order of addition against JAX's Pallas scan (interpret mode) at
+    the JAX test's shapes, within its tolerance."""
+    import jax.numpy as jnp
+    from gaussian_splatterer_tpu.ops.raster_tiled import cumsum_frames as j_cumsum
+
+    monkeypatch.setenv("GSPLAT_PALLAS_CUMSUM", "1")
+    x = scan_input(shape)
+    got = design_order_scan(torch.from_numpy(x))
+    ref = np.asarray(j_cumsum(jnp.asarray(x), interpret=True))
+    assert got.shape == shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-3)
+
+
+@pytest.mark.parametrize("shape,chunk", [((2, 3, 70_001), K4_CHUNK), ((1, 2, 256 * 70 + 5), 256)])
+def test_design_order_within_the_full_size_rule(shape, chunk):
+    """K4's order of addition against a float64 scan under phase 15's
+    full-size rule: at the kernel's chunk (9 chunks a row) and at chunks of
+    256 (71 a row, so a prefix sums three groups of 32 totals)."""
+    x = torch.from_numpy(scan_input(shape))
+    assert_full_size_rule(design_order_scan(x, chunk=chunk), x)
 
 
 def test_cumsum_frames_on_cpu_is_the_plain_twin():
@@ -304,9 +413,18 @@ def test_reduction_is_checked():
 # -- CUDA kernel (needs a card) ---------------------------------------------------
 
 
+# the kernel's edge shapes: D a chunk and either side of it, D % 4 in {0, 1,
+# 2, 3} over several chunks (rows off the 16-byte grid), the fused step's
+# group, more blocks than the card holds at once, and one row of 2^22
+CUDA_SCAN_SHAPES = SCAN_SHAPES + [
+    (9, 2, 100), (3, 2, 1), (9, 8, 2049), (2, 3, 70_001),
+    (3, 2, K4_CHUNK - 1), (3, 2, K4_CHUNK), (3, 2, K4_CHUNK + 1),
+    (5, 3, 20_000), (5, 3, 20_001), (5, 3, 20_002), (5, 3, 20_003),
+    (9, 8, 202_689), (9, 64, 4096), (9, 64, 20_000), (1, 1, 2**22)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SCAN_SHAPES + [(9, 2, 100), (3, 2, 1), (9, 8, 2049),
-                                                 (2, 3, 70_001)])
+@pytest.mark.parametrize("shape", CUDA_SCAN_SHAPES)
 def test_cumsum_kernel_matches_plain_and_repeats(cuda_device, shape):
     """Any D, ragged chunks included: two launches bit-equal; against a
     float64 scan no worse than twice the plain twin's error (or one ulp of
@@ -325,6 +443,49 @@ def test_cumsum_kernel_matches_plain_and_repeats(cuda_device, shape):
     assert err_k <= max(2 * err_p, float(torch.finfo(torch.float32).eps * ref64.abs().max()))
     if shape[2] <= 1024:
         np.testing.assert_allclose(y1.cpu().numpy(), plain.cpu().numpy(), rtol=2e-5, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 2, 1), (9, 2, 1000), (5, 3, 20_001), (2, 3, 70_001),
+                                   (9, 8, 202_689), (1, 1, 2**18 + 3)])
+def test_cumsum_kernel_follows_the_design_order(cuda_device, shape):
+    """The kernel's sums are design_order_scan's, in its order: equal bit
+    for bit (float32 and float64 adds only, nothing contracted)."""
+    x = torch.from_numpy(scan_input(shape)).to(cuda_device)
+    y = rt.cumsum_frames(x)
+    assert torch.equal(y, design_order_scan(x))
+
+
+@pytest.mark.cuda
+def test_cumsum_kernel_launches_bit_equal_back_to_back(cuda_device):
+    """50 launches queued back to back, then 50 on a stream of their own:
+    every output equal to the first bit for bit."""
+    x = torch.from_numpy(scan_input((9, 8, 30_001))).to(cuda_device)
+    before = rt.cumsum_frames_launches
+    ys = [rt.cumsum_frames(x) for _ in range(50)]
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        ys += [rt.cumsum_frames(x) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert rt.cumsum_frames_launches == before + 100
+    assert all(torch.equal(y, ys[0]) for y in ys[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4096, 30_001])
+def test_cumsum_kernel_on_an_input_off_the_16_byte_grid(cuda_device, d):
+    """A contiguous input whose data_ptr is 4 bytes past the 16-byte grid
+    (its rows' alignment differs from y's): the same bits as on an aligned
+    copy, and the full-size rule."""
+    k, f = 3, 2
+    x = torch.from_numpy(scan_input((k, f, d))).to(cuda_device)
+    off = torch.empty(k * f * d + 1, device=cuda_device)[1:].view(k, f, d)
+    off.copy_(x)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    y = rt.cumsum_frames(off)
+    assert torch.equal(y, rt.cumsum_frames(x))
+    assert_full_size_rule(y, x)
 
 
 @pytest.mark.cuda

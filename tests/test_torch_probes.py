@@ -7,6 +7,9 @@ y * x + 0.3`` kk times; ``exp(-y) * 0.5`` 16 times.
 The kernels' tests (marker ``cuda``) hold each against its plain twin on a
 card and skip here."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -181,13 +184,19 @@ def test_probes_need_a_card(probe, monkeypatch):
 
 @pytest.mark.parametrize("kernel", sorted(rv.VARIANTS))
 def test_every_design_variant_applies(kernel):
-    """Each edit of each design variant (K1, K2, K3 and K6) applies to the
-    shipped source, its headers inlined; every variant but "shipped" changes
-    it; an edit that does not apply raises."""
+    """Each edit of each design variant (K1, K2, K3, K4 and K6) applies to
+    the shipped source, its headers inlined; every variant but "shipped"
+    changes it; a variant that is a source of its own (K4's three passes)
+    has the shipped C entry points; an edit that does not apply raises."""
     shipped = rv.variant_source(kernel, [])
     assert "#include \"" not in shipped
+    entries = set(re.findall(r'extern "C" int (\w+)\(', shipped))
     for name, edits in rv.VARIANTS[kernel].items():
-        assert (rv.variant_source(kernel, edits) == shipped) == (not edits), name
+        src = rv.variant_source(kernel, edits)
+        assert (src == shipped) == (not edits), name
+        if isinstance(edits, Path):
+            assert {f"{kernel}_chunk", kernel} <= set(re.findall(r'extern "C" int (\w+)\(', src))
+            assert {f"{kernel}_chunk", kernel} <= entries
     with pytest.raises(RuntimeError, match="no longer applies"):
         rv.variant_source(kernel, [("no such text", "")])
 
