@@ -36,7 +36,13 @@ Phases:
      kernel launch), truths rendered by the serve path from a perturbed
      teacher; then kernel against plain on one launch of the trained model;
   8. times: per-layer step times, steps/s, the bench headline (fwd+bwd
-     ms/frame) and the device's busy share of a step; the kernel against
+     ms/frame) and the device's busy share of a step; per group the
+     batched front end (one frame-batched projection forward and
+     backward, bin_splats_batch) beside the frame-by-frame one (a call a
+     frame, bin_frames): layer times, and for one group forward and
+     backward its time, device busy time, device ops, host syncs and peak
+     memory; render_train_grads_batch must sync the host once a group;
+     the kernel against
      its bound at all pairs visited and at those inside the footprint box
      (the summary's), its registers and spills, blocks an SM, and the SASS
      instructions a pair of both passes' loops and SHFL a duplicate;
@@ -117,6 +123,10 @@ times its operations per pair, an FMA counted as two.  K2's bytes are the
 rows in, their gradients out, the ranges, and the forward output and its
 gradient in.  K4's bytes are its input read and its output written once.
 
+``--only step`` runs phases 1-2, 7-8 and 16 (the fused step on both
+reduction routes, for quick rounds on the card) and ends with the same
+last line as the full run.
+
 ``--only k1|k2|k3|k4|k5|k6|k7`` runs phases 1-2 and then only phases 3-5
 (without the CLI's renders; K1 timed alone), phase 12 and K2 on one 1000^2
 frame of the untrained bench scene, phases 6-8, phase 15's gate shapes and
@@ -139,6 +149,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from functools import partial
 from pathlib import Path
 
@@ -365,8 +376,9 @@ def render_args(model, cam, w, h, train_fov, bg, dev):
 
 
 def launch_args(model, cams, width, height, truth_tiles, bgs, tile, max_dup):
-    """Projection, binning and gather of one fused-step group: the
-    arguments of its composite_train launch."""
+    """Projection (one frame-batched call), binning (one pass) and gather
+    of one fused-step group: the arguments of its composite_train
+    launch."""
     from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
 
     with torch.no_grad():
@@ -690,6 +702,74 @@ def fused_cell(dev, reduction: str = "index_add"):
     return trainer, rtx, arrays
 
 
+def host_syncs(fn) -> int:
+    """The calls that make the host wait for the device (a copy to or from
+    the host, a synchronize) in one fn(), as
+    torch.cuda.set_sync_debug_mode("warn") reports them."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def peak_mib(fn) -> tuple[float, float]:
+    """(the device memory allocated before one fn(), its peak during it), MiB."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return before / 2**20, torch.cuda.max_memory_allocated() / 2**20
+
+
+def project_frames_loop(leaves, active, cams, tans, res: int, sh_degree: int):
+    """The fused step's projection frame by frame, as before it was
+    batched: one project_splat_components call a frame with the tangents as
+    host floats (``tans``, (F, 2)), the frames' components in a list and
+    their rows concatenated.  Phase 8 times it beside project_frames."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.ops.transforms import (
+        SplatComponents, project_splat_components,
+    )
+
+    comps, rows = [], []
+    for i, (tx, ty) in enumerate(tans):
+        c = project_splat_components(leaves[0][i], *leaves[1:], active, cams.view[i],
+                                     cams.proj_view[i], cams.cam_pos[i], tx, ty, res, res,
+                                     sh_degree, 1.0)
+        comps.append(SplatComponents(*(x.detach() for x in c)))
+        rows.append(rt._rows(c))
+    return comps, torch.cat(rows, dim=1)
+
+
+def group_step(leaves, active, cams, tans, truth_g, bgs, res: int, tile: int, max_dup: int,
+               batched: bool):
+    """One fused-step group forward and backward (index_add_ route) with the
+    batched front end (project_frames, bin_splats_batch) or the frame-by-
+    frame one (project_frames_loop, bin_frames); gather, K3, the reduction
+    and the backward through the projection are the same."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.ops.binning import bin_frames, bin_splats_batch
+
+    with torch.enable_grad():
+        if batched:
+            comps, rows9 = rt.project_frames(*leaves, active, *cams, res, res, 1)
+        else:
+            comps, rows9 = project_frames_loop(leaves, active, cams, tans, res, 1)
+    fb = (bin_splats_batch if batched else bin_frames)(comps, res, res, tile, max_dup)
+    tx = -(-res // tile)
+    f, tiles = len(tans), tx * tx
+    _, d_feat = rt.composite_train(rt.gather_rows(rows9.detach(), fb), fb.tile_start,
+                                   fb.tile_end, truth_g.reshape(f * tiles, tile * tile, 3),
+                                   bgs, tile, tx, tiles)
+    return torch.autograd.grad(rows9, leaves, rt.dup_grads_to_rows(d_feat, fb, rows9.shape[1]))
+
+
 def train_main(dev, card):
     """Phases 7 and 8.  Returns (the kernel summary entry of
     composite_train, the duplicate gradients of one launch of the trained
@@ -750,17 +830,26 @@ def train_main(dev, card):
         raise SystemExit("phase 7 failed: kernel vs plain at full size")
 
     phase(f"8. train times (CUDA events, median; {card})")
+    from gaussian_splatterer_tpu_torch.ops.binning import bin_frames, bin_splats_batch
+
     reps = 10
     leaves = [m.means.detach().expand(TRAIN_GROUP, -1, -1).clone()] + [
         p.detach() for p in params[1:]]
     for x in leaves:
         x.requires_grad_(True)
+    active = m.active_mask()
+    tans = torch.stack([cams.tan_fovx, cams.tan_fovy], 1).tolist()
 
     def project_fn():
         with torch.enable_grad():
-            return rt.project_frames(*leaves, m.active_mask(), *cams, res, res, 1)
+            return rt.project_frames(*leaves, active, *cams, res, res, 1)
+
+    def project_loop():
+        with torch.enable_grad():
+            return project_frames_loop(leaves, active, cams, tans, res, 1)
 
     comps, rows9 = project_fn()
+    comps_loop = project_loop()[0]
     fb, _ = rt.train_launch_inputs(rows9.detach(), comps, res, res, truth_g, bgs, tile,
                                    runtime.max_dup)
     _, d_feat = out_k
@@ -773,10 +862,13 @@ def train_main(dev, card):
     zero_grads = [torch.zeros_like(p) for p in params]
     var = trainer.last_metrics.var_loc
     avg = trainer.last_metrics.avg_grad_loc
-    group = {  # one group of TRAIN_GROUP frames
+    group = {  # one group of TRAIN_GROUP frames; "frame by frame": the unbatched forms
         "projection forward": cuda_ms(project_fn, reps=reps),
-        "binning": cuda_ms(lambda: rt.bin_frames(comps, res, res, tile, runtime.max_dup),
+        "projection forward, frame by frame": cuda_ms(project_loop, reps=reps),
+        "binning": cuda_ms(lambda: bin_splats_batch(comps, res, res, tile, runtime.max_dup),
                            reps=reps),
+        "binning, frame by frame": cuda_ms(
+            lambda: bin_frames(comps_loop, res, res, tile, runtime.max_dup), reps=reps),
         "gather": cuda_ms(lambda: rt.gather_rows(rows9.detach(), fb), reps=reps),
         "composite_train kernel": cuda_ms(lambda: rt.composite_train(*args), reps=reps),
         "reduction": cuda_ms(lambda: rt.dup_grads_to_rows(d_feat, fb, rows9.shape[1]),
@@ -784,8 +876,11 @@ def train_main(dev, card):
         "projection backward": cuda_ms(
             lambda: torch.autograd.grad(graph["rows"], leaves, d_rows9), reps=reps,
             setup=lambda: graph.update(rows=project_fn()[1])),
+        "projection backward, frame by frame": cuda_ms(
+            lambda: torch.autograd.grad(graph["rows"], leaves, d_rows9), reps=reps,
+            setup=lambda: graph.update(rows=project_loop()[1])),
     }
-    step = {k: v * groups for k, v in group.items()}
+    step = {k: v * groups for k, v in group.items() if "frame by frame" not in k}
     step["sgd"] = cuda_ms(lambda: _apply_sgd(m, zero_grads, lrs), reps=reps)
     step["densify"] = cuda_ms(lambda: densify(m, var, avg, dp), reps=reps)
     step["whole step"] = cuda_ms(
@@ -796,6 +891,45 @@ def train_main(dev, card):
     print(f"  per step of {frames} frames ({groups} groups): " + "  ".join(
         f"{k} {v:.3f} ms" for k, v in step.items()) + f"  [{card}]")
     print(f"  train steps/s {1e3 / step['whole step']:.3f}  [{card}]")
+
+    # the front end's device ops, batched against frame by frame
+    def device_ops(fn) -> int:
+        return sum(c for _, c in device_busy_ms(fn)[2].values())
+
+    for label, proj, binner in (
+            ("batched", project_fn,
+             lambda: bin_splats_batch(comps, res, res, tile, runtime.max_dup)),
+            ("frame by frame", project_loop,
+             lambda: bin_frames(comps_loop, res, res, tile, runtime.max_dup))):
+        fwd, binned = device_ops(proj), device_ops(binner)
+        both = device_ops(lambda: torch.autograd.grad(proj()[1], leaves, d_rows9))
+        print(f"  device ops of one group, {label} (torch.profiler): projection forward {fwd}  "
+              f"binning {binned}  projection forward and backward {both}  [{card}]")
+
+    # one group forward and backward, batched front end against frame by frame
+    for label, batched in (("batched", True), ("frame by frame", False)):
+        def one_group(batched=batched):
+            return group_step(leaves, active, cams, tans, truth_g, bgs, res, tile,
+                              runtime.max_dup, batched)
+
+        g_ms = cuda_ms(one_group, reps=reps)
+        busy, _, by_name = device_busy_ms(one_group)
+        before, peak = peak_mib(one_group)
+        print(f"  one group ({TRAIN_GROUP} frames) forward and backward, {label} front end: "
+              f"{g_ms:.3f} ms  device busy {busy:.3f} ms (share {busy / g_ms:.3f})  device ops "
+              f"{sum(c for _, c in by_name.values())}  host syncs {host_syncs(one_group)}  "
+              f"peak memory {peak:.1f} MiB ({peak - before:.1f} above the {before:.1f} "
+              f"allocated before)  [{card}]")
+    group_syncs, cumsum_syncs = (host_syncs(lambda red=red: rt.render_train_grads_batch(
+        *params, active, *cams, res, res, truth_g, bgs, 1, tile=tile, max_dup=runtime.max_dup,
+        reduction=red)) for red in ("index_add", "cumsum"))
+    step_syncs = host_syncs(
+        lambda: trainer._step(trainer.model, trainer.truths, trainer.truth_cams, lrs))
+    print(f"  host syncs: render_train_grads_batch on one group {group_syncs} (the F duplicate "
+          f"counts; at most 1), on the cumsum route {cumsum_syncs}; the whole step "
+          f"{step_syncs}  [{card}]")
+    if group_syncs != 1:
+        raise SystemExit("phase 8 failed: the batched front end synced other than once a group")
 
     plain_ms = cuda_ms(lambda: rt.composite_train_reference(*args), warmup=0, reps=2)
     k3_ms = group["composite_train kernel"]
@@ -817,11 +951,12 @@ def train_main(dev, card):
     print(f"  fwd+bwd ms/frame (render_train_grads_batch, {n} splats, {res}^2, F = "
           f"{TRAIN_GROUP}, tile {tile}): {headline:.3f}  [{card}]")
 
-    busy_ms, profiled_ms, _ = device_busy_ms(
+    busy_ms, profiled_ms, step_ops = device_busy_ms(
         lambda: trainer._step(trainer.model, trainer.truths, trainer.truth_cams, lrs))
     print(f"  device busy time of a step (torch.profiler): {busy_ms:.3f} ms, busy share "
           f"{busy_ms / step['whole step']:.3f} of the {step['whole step']:.3f} ms step "
-          f"({busy_ms / profiled_ms:.3f} of the {profiled_ms:.3f} ms profiled step)  [{card}]")
+          f"({busy_ms / profiled_ms:.3f} of the {profiled_ms:.3f} ms profiled step), device ops "
+          f"{sum(c for _, c in step_ops.values())}  [{card}]")
     if busy_ms <= 0.0:
         raise SystemExit("phase 8 failed: the profiler recorded no device time")
     return {
@@ -2074,8 +2209,9 @@ def route_gate(d_feat, fb, columns: int, x, cs) -> None:
         raise SystemExit("phase 16 failed: the cumsum route's reduction past its float32 bound")
 
 
-def cumsum_cell(dev, card, gate_err: float) -> dict:
-    """Phase 16.  Returns the kernel summary entry of cumsum_frames."""
+def cumsum_cell(dev, card, gate_err: float | None = None) -> dict:
+    """Phase 16.  Returns the kernel summary entry of cumsum_frames, with
+    phase 15's ``gate_err`` as its error."""
     from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
     from gaussian_splatterer_tpu_torch.train import (
         CameraBatch, LearningRates, auto_train, make_train_step,
@@ -2336,8 +2472,12 @@ def device_busy_ms(fn) -> tuple[float, float, dict]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", action="append", choices=("k1", "k2", "k3", "k4", "k5", "k6", "k7"),
-                    help="run phases 1-2 and then only phases 3-5 (k1: the serve gate, the "
+    ap.add_argument("--only", action="append",
+                    choices=("step", "k1", "k2", "k3", "k4", "k5", "k6", "k7"),
+                    help="run phases 1-2 and then only phases 7-8 and 16 (step: the fused "
+                         "step's cell on both reduction routes, its layers and the batched "
+                         "front end against the frame-by-frame one), phases 3-5 (k1: the "
+                         "serve gate, the "
                          "kernel against plain on the three serve cells, its times, bounds, "
                          "registers and SASS), phase 12 and K2 on one 1000^2 frame (k2), "
                          "phases 6-8 (k3: the train gate, the fused train cell, the "
@@ -2386,7 +2526,17 @@ def main(argv=None) -> int:
         print(f"{name}: {info['seconds']:.2f} s -> {info['path']}")
         print(info["ptxas"])
 
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if args.only == ["step"]:
+        train_main(dev, card)
+        cumsum_cell(dev, card)
+        print(card)
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
     if args.only:
+        if "step" in args.only:
+            raise SystemExit("chip_smoke: --only step runs alone")
         if "k1" in args.only:
             serve_phases(dev, card, only=True)
         if "k2" in args.only:
@@ -2428,9 +2578,7 @@ def main(argv=None) -> int:
 
     print(json.dumps({"kernels": [fwd, train, k5, bwd, k4, *probes]}))
     print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": device}))
     return 0
 
 

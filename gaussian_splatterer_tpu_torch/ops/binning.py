@@ -1,6 +1,6 @@
 """Tile binning: screen-space splats -> per-tile depth-ordered duplicate lists
-(counterpart of gaussian_splatterer_tpu.ops.binning's ``tile_aabb`` and
-``bin_splats``).
+(counterpart of gaussian_splatterer_tpu.ops.binning's ``tile_aabb``,
+``bin_splats`` and ``bin_splats_batch``).
 
   1. depth-sort the splats (stable; invalid splats last, ties keep index
      order as JAX's stable argsort does),
@@ -21,8 +21,14 @@ and ``num_dup`` reports the true total, so a caller can tell it overflowed.
 The TPU work list (``make_window_worklist``, chunk blocking) has no
 counterpart: the CUDA compositor walks each tile's range itself.
 
+A frame group (the fused training step's F frames) is binned in one pass
+by ``bin_splats_batch``: one batched depth sort, one stable sort of the
+group's duplicates by (frame, tile), one binary search.  ``bin_frames``
+is the same result built frame by frame from ``bin_splats``.
+
 Plain PyTorch integer bookkeeping; runs on any device.  One host sync reads
-the duplicate count, which sizes the buffers.
+the duplicate counts (a frame's, or the group's F at once), which size the
+buffers.
 """
 
 from __future__ import annotations
@@ -140,3 +146,62 @@ def bin_frames(comps_frames: Sequence[SplatComponents], width: int, height: int,
     return FrameBins(cat["gather"], cat["start"], cat["end"], max(b.num_dup for b in frames),
                      tuple(b.gather_idx.shape[0] for b in frames), cat["pos"],
                      cat["seg_start"], cat["seg_end"], cat["order"])
+
+
+def bin_splats_batch(comps: SplatComponents, width: int, height: int, tile: int,
+                     max_dup: int) -> FrameBins:
+    """Bin a frame group in one pass: every field of ``comps`` is (F, N).
+    Returns what ``bin_frames`` returns for the F frames (each frame cut at
+    its own ``max_dup``, compact and frame-major), with one host sync for
+    the group: the F duplicate totals."""
+    dev = comps.mx.device
+    f, n = comps.mx.shape
+    tx_tiles = -(-width // tile)
+    ty_tiles = -(-height // tile)
+    num_tiles = tx_tiles * ty_tiles
+
+    # 1. per-frame depth order (a batched stable sort: invalid splats last)
+    key = torch.where(comps.valid, comps.depth, torch.full_like(comps.depth, float("inf")))
+    order = torch.sort(key, dim=-1, stable=True).indices  # (F, N) local splat ids
+
+    def take(x):
+        return torch.gather(x, 1, order)
+
+    x0, y0, x1, y1 = tile_aabb(take(comps.mx), take(comps.my), take(comps.rx), take(comps.ry),
+                               tile, tx_tiles, ty_tiles)
+    spans_x = torch.clamp(x1 - x0, min=0)
+    ntiles = torch.where(take(comps.valid), spans_x * torch.clamp(y1 - y0, min=0), 0)
+    offs = torch.cumsum(ntiles, dim=-1)  # (F, N) inclusive per frame, int64
+    starts = offs - ntiles
+    totals = offs[:, -1] if n else torch.zeros(f, dtype=torch.int64, device=dev)
+    totals_host = totals.tolist()  # the group's one host sync
+    frame_dups = tuple(min(t, max_dup) for t in totals_host)
+    d_count = sum(frame_dups)
+    if d_count >= 2**31:
+        raise ValueError(f"{d_count} duplicates in one frame group exceed int32 tile ranges")
+
+    # 2. the kept duplicates, frame-major and in depth order within a frame
+    kept = torch.clamp(totals, max=max_dup)[:, None]  # (F, 1), on the device
+    first = torch.cumsum(kept, 0) - kept  # (F, 1) first kept duplicate of each frame
+    seg_start = torch.clamp(starts, max=kept)
+    seg_end = torch.clamp(offs, max=kept)
+    slot = torch.repeat_interleave(torch.arange(f * n, device=dev),
+                                   (seg_end - seg_start).reshape(-1), output_size=d_count)
+    frame = slot // n
+    local = torch.arange(d_count, device=dev) - (first + starts).reshape(-1)[slot]
+    width_of = torch.clamp(spans_x.reshape(-1)[slot], min=1)
+    tid = ((y0.reshape(-1)[slot] + local // width_of) * tx_tiles + x0.reshape(-1)[slot]
+           + local % width_of + frame * num_tiles)
+
+    # 3. one stable sort by (frame, tile): depth order survives in each
+    tid_sorted, presort_pos = torch.sort(tid, stable=True)
+    depth_order = (order + torch.arange(f, device=dev)[:, None] * n).reshape(-1)
+    gather_idx = depth_order[slot[presort_pos]]
+
+    # 4. per-(frame, tile) ranges
+    tids = torch.arange(f * num_tiles, device=dev, dtype=tid_sorted.dtype)
+    tile_start = torch.searchsorted(tid_sorted, tids, side="left").to(torch.int32)
+    tile_end = torch.searchsorted(tid_sorted, tids, side="right").to(torch.int32)
+    return FrameBins(gather_idx, tile_start, tile_end, max(totals_host, default=0), frame_dups,
+                     presort_pos, (seg_start + first).reshape(-1),
+                     (seg_end + first).reshape(-1), depth_order)

@@ -22,8 +22,10 @@ pixel, without that duplicate, once T would fall below 1e-4.
 Training half (counterpart of render_train_grads_rows / _batch / and
 render_train_grads):
 
-  project_frames: the nine feature rows of F frames under autograd
-    -> bin_frames (binning.py: each frame binned, ranges concatenated)
+  project_frames: one frame-batched projection of F frames, the nine
+    feature rows (9, F*N) under autograd
+    -> bin_splats_batch (binning.py: the F frames binned in one pass, one
+       host sync for their duplicate counts)
     -> gather of the rows per duplicate
     -> composite_train: per (frame, tile), forward composite, signed
        residual truth - (C + T_final * bg) and backward replay into
@@ -57,7 +59,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from gaussian_splatterer_tpu_torch.ops import cuda_build
-from gaussian_splatterer_tpu_torch.ops.binning import FrameBins, bin_frames, bin_splats
+from gaussian_splatterer_tpu_torch.ops.binning import FrameBins, bin_splats, bin_splats_batch
 from gaussian_splatterer_tpu_torch.ops.transforms import (
     ALPHA_MAX,
     ALPHA_MIN,
@@ -413,7 +415,8 @@ def tiles_to_image(img_tiles: torch.Tensor, width: int, height: int, tile: int) 
 
 
 def _rows(c: SplatComponents) -> torch.Tensor:
-    """(9, N) feature rows [mx, my, conic a, b, c, r, g, b, opacity]."""
+    """(9, N) feature rows [mx, my, conic a, b, c, r, g, b, opacity]; (9, F,
+    N) for (F, N) components."""
     return torch.stack([c.mx, c.my, c.ca, c.cb, c.cc, c.cr, c.cg, c.cb2, c.opacity])
 
 
@@ -658,21 +661,19 @@ def _train_lib() -> ctypes.CDLL:
 def project_frames(means_b, shs, scales, opacities, rotations, active,
                    views, proj_views, cam_posns, tan_fovxs, tan_fovys,
                    width: int, height: int, sh_degree: int, aa: bool = False):
-    """Project F frames.  ``means_b`` is (F, N, 3), one copy of the means
-    per frame, so that a backward through the rows gives per-frame location
-    gradients.  Returns (the per-frame SplatComponents, detached, for
-    binning; rows (9, F*N), frame-stacked, in the autograd graph of the
+    """Project F frames in one frame-batched call (the JAX package's vmapped
+    projection).  ``means_b`` is (F, N, 3), one copy of the means per frame,
+    so that a backward through the rows gives per-frame location gradients;
+    the camera arrays are (F, ...) stacks, tensors or numpy arrays.
+    Returns (the SplatComponents, every field (F, N), detached, for
+    binning; rows (9, F*N), column f * N + i, in the autograd graph of the
     inputs)."""
-    comps, rows = [], []
-    for i in range(means_b.shape[0]):
-        c = project_splat_components(
-            means_b[i], shs, scales, opacities, rotations, active,
-            views[i], proj_views[i], cam_posns[i], float(tan_fovxs[i]), float(tan_fovys[i]),
-            width, height, sh_degree, 1.0, aa=aa,
-        )
-        comps.append(SplatComponents(*(x.detach() for x in c)))
-        rows.append(_rows(c))
-    return comps, torch.cat(rows, dim=1)
+    c = project_splat_components(
+        means_b, shs, scales, opacities, rotations, active,
+        views, proj_views, cam_posns, tan_fovxs, tan_fovys,
+        width, height, sh_degree, 1.0, aa=aa,
+    )
+    return SplatComponents(*(x.detach() for x in c)), _rows(c).reshape(F_ROWS, -1)
 
 
 def gather_rows(rows9: torch.Tensor, fb: FrameBins) -> torch.Tensor:
@@ -820,14 +821,15 @@ def reduce_dup_grads(d_feat: torch.Tensor, fb: FrameBins, columns: int,
     raise ValueError(f"reduction {reduction!r} is not one of {REDUCTIONS}")
 
 
-def train_launch_inputs(rows9, comps_frames, width: int, height: int, truth_tiles,
+def train_launch_inputs(rows9, comps: SplatComponents, width: int, height: int, truth_tiles,
                         backgrounds, tile: int, max_dup: int):
-    """Bin F frames whose rows (9, F*N) are given and gather their
-    duplicates.  Returns (the FrameBins, the arguments of one
-    composite_train launch over all F x T (frame, tile) blocks)."""
+    """Bin F frames (``comps``: every field (F, N)) whose rows (9, F*N) are
+    given, in one pass, and gather their duplicates.  Returns (the
+    FrameBins, the arguments of one composite_train launch over all F x T
+    (frame, tile) blocks)."""
     if tile not in TILE_SIZES:
         raise ValueError(f"tile {tile} not supported (one of {TILE_SIZES})")
-    f = len(comps_frames)
+    f = comps.mx.shape[0]
     tx_tiles = -(-width // tile)
     num_tiles = tx_tiles * -(-height // tile)
     dev = rows9.device
@@ -836,22 +838,22 @@ def train_launch_inputs(rows9, comps_frames, width: int, height: int, truth_tile
         raise ValueError(f"truth_tiles must be ({f}, {num_tiles}, {tile * tile}, 3), "
                          f"got {tuple(truth.shape)}")
     bg = torch.as_tensor(backgrounds, dtype=torch.float32, device=dev).reshape(f, 3)
-    fb = bin_frames(comps_frames, width, height, tile, max_dup)
+    fb = bin_splats_batch(comps, width, height, tile, max_dup)
     return fb, (gather_rows(rows9, fb), fb.tile_start, fb.tile_end,
                 truth.reshape(f * num_tiles, tile * tile, 3).contiguous(), bg.contiguous(),
                 tile, tx_tiles, num_tiles)
 
 
-def _train_core(rows9, comps_frames, width, height, truth_tiles, backgrounds,
+def _train_core(rows9, comps, width, height, truth_tiles, backgrounds,
                 tile: int, max_dup: int, reduction: str = "index_add"):
     """Bin, gather, composite and reduce (by the route ``reduction``) F
-    frames whose rows (9, F*N) are given.  Returns (loss_sum, d_rows9
-    (9, F*N), res (F, T, P, 4), num_dup)."""
-    fb, args = train_launch_inputs(rows9, comps_frames, width, height, truth_tiles,
+    frames (``comps``: every field (F, N)) whose rows (9, F*N) are given.
+    Returns (loss_sum, d_rows9 (9, F*N), res (F, T, P, 4), num_dup)."""
+    fb, args = train_launch_inputs(rows9, comps, width, height, truth_tiles,
                                    backgrounds, tile, max_dup)
     res, d_feat = composite_train(*args)
     d_rows9 = reduce_dup_grads(d_feat, fb, rows9.shape[1], reduction)
-    res = res.reshape(len(comps_frames), args[-1], tile * tile, 4)
+    res = res.reshape(comps.mx.shape[0], args[-1], tile * tile, 4)
     loss_sum = torch.square(res[..., 0:3]).mean(dim=(1, 2, 3)).sum()
     return loss_sum, d_rows9, res, fb.num_dup
 
@@ -868,10 +870,10 @@ def render_train_grads_rows(comps: SplatComponents, width: int, height: int,
     is no work list).  ``reduction`` picks the route of the duplicate
     gradients' reduction, "index_add" or "cumsum"."""
     f, m = comps.mx.shape
-    frames = [SplatComponents(*(x[i].detach() for x in comps)) for i in range(f)]
-    rows9 = torch.cat([_rows(c) for c in frames], dim=1)
+    comps = SplatComponents(*(x.detach() for x in comps))
     loss_sum, d_rows9, res, num_dup = _train_core(
-        rows9, frames, width, height, truth_tiles, backgrounds, tile, max_dup, reduction)
+        _rows(comps).reshape(F_ROWS, f * m), comps, width, height, truth_tiles, backgrounds,
+        tile, max_dup, reduction)
     return loss_sum, d_rows9.reshape(F_ROWS, f, m).transpose(0, 1), res, num_dup, -1
 
 
@@ -885,7 +887,9 @@ def render_train_grads_batch(
     *, tile: int = 32, max_dup: int = 2**18, aa: bool = False,
     reduction: str = "index_add",
 ):
-    """Fused training core for F frames in one compositor launch.
+    """Fused training core for F frames: one frame-batched projection
+    (forward and backward), one binning pass with one host sync (the F
+    duplicate counts), one compositor launch and one reduction.
     ``reduction`` picks the route of the duplicate gradients' reduction:
     "index_add" (one index_add_) or "cumsum" (the JAX package's per-frame
     scan route, deterministic on the card).
@@ -926,7 +930,8 @@ def render_train_grads(
     truth_tiles (T, P, 3).  render_train_grads_batch with F = 1."""
     loss, grads, _var, res, _nd, _nw = render_train_grads_batch(
         means, shs, scales, opacities, rotations, active,
-        [view], [proj_view], [cam_pos], [tan_fovx], [tan_fovy], width, height,
+        *(torch.as_tensor(x, dtype=torch.float32)[None]
+          for x in (view, proj_view, cam_pos, tan_fovx, tan_fovy)), width, height,
         torch.as_tensor(truth_tiles)[None], torch.as_tensor(background)[None], sh_degree,
         tile=tile, max_dup=max_dup, aa=aa, reduction=reduction,
     )

@@ -8,7 +8,10 @@ cull at view-space depth 0.2.  The arithmetic is written in the same order
 as the JAX package, operation for operation, so the two agree to float32
 rounding.
 
-Plain PyTorch on (N,) component vectors; runs on any device.
+Plain PyTorch on (N,) component vectors, or (F, N) for F cameras at once
+(project_splat_components with a leading frame axis: the counterpart of
+the JAX package's ``jax.vmap(project_splat_components)``); runs on any
+device.
 """
 
 from __future__ import annotations
@@ -79,7 +82,8 @@ class ProjectedSplats(NamedTuple):
 
 
 class SplatComponents(NamedTuple):
-    """Screen-space splats as flat (N,) component vectors."""
+    """Screen-space splats as flat (N,) component vectors, or (F, N) for a
+    frame-batched projection."""
 
     mx: torch.Tensor  # pixel x
     my: torch.Tensor  # pixel y
@@ -99,7 +103,9 @@ class SplatComponents(NamedTuple):
 
 def _sh_to_rgb_channels(shs, dx, dy, dz, sh_degree: int):
     """Component-wise SH evaluation; shs (N, K, 3), unit view dirs as (N,)
-    vectors.  Returns (r, g, b), each (N,), clamped at zero after +0.5."""
+    or (F, N) vectors (the (N,) coefficients broadcast over the frames).
+    Returns (r, g, b), each of the directions' shape, clamped at zero
+    after +0.5."""
     out = []
     for ch in range(3):
         c = SH_C0 * shs[:, 0, ch]
@@ -159,8 +165,8 @@ def project_splat_components(
     view,
     proj_view,
     cam_pos,
-    tan_fovx: float,
-    tan_fovy: float,
+    tan_fovx,
+    tan_fovy,
     width: int,
     height: int,
     sh_degree: int,
@@ -169,28 +175,45 @@ def project_splat_components(
 ) -> SplatComponents:
     """The per-splat 'preprocess' stage: 3D gaussians -> 2D screen splats.
 
-    ``view``, ``proj_view`` (4, 4) and ``cam_pos`` (3,) may be numpy arrays
-    or tensors; they are moved to the splats' device.  ``aa=True`` scales
-    opacity by sqrt(det(cov2d) / det(cov2d + dilation)) (mip-splatting), so
-    sub-pixel splats fade instead of aliasing."""
+    One camera: ``view``, ``proj_view`` (4, 4) and ``cam_pos`` (3,), numpy
+    arrays or tensors, moved to the splats' device, and scalar tangents;
+    every field is (N,).  F cameras (the frame-batched form): ``view`` and
+    ``proj_view`` (F, 4, 4), ``cam_pos`` (F, 3), ``tan_fovx`` and
+    ``tan_fovy`` (F,); ``means`` is (N, 3) or (F, N, 3) (one copy a frame,
+    for per-frame location gradients), the other splat arrays stay (N, ...)
+    and broadcast; every field is (F, N).  ``aa=True`` scales opacity by
+    sqrt(det(cov2d) / det(cov2d + dilation)) (mip-splatting), so sub-pixel
+    splats fade instead of aliasing."""
     dev = means.device
     f32 = torch.float32
-    x = means[:, 0].to(f32)
-    y = means[:, 1].to(f32)
-    z = means[:, 2].to(f32)
+    x = means[..., 0].to(f32)
+    y = means[..., 1].to(f32)
+    z = means[..., 2].to(f32)
     v = _as_f32(view, dev)
     pvm = _as_f32(proj_view, dev)
     cam = _as_f32(cam_pos, dev)
+    if v.dim() == 3:
+        # F cameras: every matrix entry v[..., i, j] and camera coordinate
+        # becomes an (F, 1) column that broadcasts against the (N,) or
+        # (F, N) splat vectors.  The tangents become (F, 1) float32
+        # tensors, so the focal lengths and the clamp limits below are
+        # float32 products, as in JAX's vmapped call, where they are traced
+        # float32 values.  (One camera keeps its scalar tangents: a Python
+        # float is multiplied in double and rounded once, as JAX does with
+        # a Python float.)
+        v, pvm, cam = v[:, None], pvm[:, None], cam[:, None]
+        tan_fovx = _as_f32(tan_fovx, dev).reshape(-1, 1)
+        tan_fovy = _as_f32(tan_fovy, dev).reshape(-1, 1)
 
     # view transform (rows of the 4x4 applied to [x, y, z, 1])
-    pv_x = v[0, 0] * x + v[0, 1] * y + v[0, 2] * z + v[0, 3]
-    pv_y = v[1, 0] * x + v[1, 1] * y + v[1, 2] * z + v[1, 3]
-    depth = v[2, 0] * x + v[2, 1] * y + v[2, 2] * z + v[2, 3]
+    pv_x = v[..., 0, 0] * x + v[..., 0, 1] * y + v[..., 0, 2] * z + v[..., 0, 3]
+    pv_y = v[..., 1, 0] * x + v[..., 1, 1] * y + v[..., 1, 2] * z + v[..., 1, 3]
+    depth = v[..., 2, 0] * x + v[..., 2, 1] * y + v[..., 2, 2] * z + v[..., 2, 3]
     in_front = depth > NEAR_CULL_Z
 
-    ph_x = pvm[0, 0] * x + pvm[0, 1] * y + pvm[0, 2] * z + pvm[0, 3]
-    ph_y = pvm[1, 0] * x + pvm[1, 1] * y + pvm[1, 2] * z + pvm[1, 3]
-    ph_w = pvm[3, 0] * x + pvm[3, 1] * y + pvm[3, 2] * z + pvm[3, 3]
+    ph_x = pvm[..., 0, 0] * x + pvm[..., 0, 1] * y + pvm[..., 0, 2] * z + pvm[..., 0, 3]
+    ph_y = pvm[..., 1, 0] * x + pvm[..., 1, 1] * y + pvm[..., 1, 2] * z + pvm[..., 1, 3]
+    ph_w = pvm[..., 3, 0] * x + pvm[..., 3, 1] * y + pvm[..., 3, 2] * z + pvm[..., 3, 3]
     p_w = 1.0 / (ph_w + 1e-7)
 
     # quaternion -> rotation matrix components (normalised, see quat_to_rotmat)
@@ -233,12 +256,12 @@ def project_splat_components(
     j12 = -focal_y * ty / (tzs * tzs)
 
     # A = J @ W with W = view[:3, :3] (the -lookAt sign squares away)
-    a00 = j00 * v[0, 0] + j02 * v[2, 0]
-    a01 = j00 * v[0, 1] + j02 * v[2, 1]
-    a02 = j00 * v[0, 2] + j02 * v[2, 2]
-    a10 = j11 * v[1, 0] + j12 * v[2, 0]
-    a11 = j11 * v[1, 1] + j12 * v[2, 1]
-    a12 = j11 * v[1, 2] + j12 * v[2, 2]
+    a00 = j00 * v[..., 0, 0] + j02 * v[..., 2, 0]
+    a01 = j00 * v[..., 0, 1] + j02 * v[..., 2, 1]
+    a02 = j00 * v[..., 0, 2] + j02 * v[..., 2, 2]
+    a10 = j11 * v[..., 1, 0] + j12 * v[..., 2, 0]
+    a11 = j11 * v[..., 1, 1] + j12 * v[..., 2, 1]
+    a12 = j11 * v[..., 1, 2] + j12 * v[..., 2, 2]
 
     # cov2d = A Sigma A^T
     t0 = c00 * a00 + c01 * a01 + c02 * a02
@@ -291,13 +314,16 @@ def project_splat_components(
     on_screen = (px + rx >= 0) & (px - rx < width) & (py + ry >= 0) & (py - ry < height)
     valid = active.to(dev) & in_front & det_ok & on_screen & (rx > 0) & (ry > 0)
 
-    dx = x - cam[0]
-    dy = y - cam[1]
-    dz = z - cam[2]
+    dx = x - cam[..., 0]
+    dy = y - cam[..., 1]
+    dz = z - cam[..., 2]
     dn = 1.0 / torch.clamp(_safe_sqrt(dx * dx + dy * dy + dz * dz), min=1e-12)
     cr, cg, cb2 = _sh_to_rgb_channels(shs.to(f32), dx * dn, dy * dn, dz * dn, sh_degree)
 
     zero = torch.zeros_like(radius)
+    # colours at SH degree 0 and opacities without aa are (N,): broadcast
+    # them to the frames' (F, N)
+    cr, cg, cb2, opacities = (c.expand_as(depth) for c in (cr, cg, cb2, opacities))
     return SplatComponents(
         mx=px, my=py, ca=ca, cb=cb, cc=cc, cr=cr, cg=cg, cb2=cb2,
         opacity=opacities, depth=depth,

@@ -52,15 +52,15 @@ from gaussian_splatterer_tpu_torch.train.densify import DensifyParams, densify
 
 
 class CameraBatch(NamedTuple):
-    """Stacked per-frame camera data.  The matrices live on the model's
-    device; the FOV tangents stay on the host, where the projection reads
-    them as scalars."""
+    """Stacked per-frame camera data, all on the model's device: the fused
+    step's frame-batched projection reads a group's tangents as an (F,)
+    tensor there, so no group uploads them."""
 
     view: torch.Tensor  # (F, 4, 4)
     proj_view: torch.Tensor  # (F, 4, 4)
     cam_pos: torch.Tensor  # (F, 3)
-    tan_fovx: torch.Tensor  # (F,) on the CPU
-    tan_fovy: torch.Tensor  # (F,) on the CPU
+    tan_fovx: torch.Tensor  # (F,)
+    tan_fovy: torch.Tensor  # (F,)
 
     @classmethod
     def from_cameras(cls, cameras: Sequence[Camera], width: int, height: int, *,
@@ -74,8 +74,8 @@ class CameraBatch(NamedTuple):
             view=stack([c.get_view() for c in cameras]),
             proj_view=stack([c.get_proj_view(width / height) for c in cameras]),
             cam_pos=stack([c.location for c in cameras]),
-            tan_fovx=torch.from_numpy(tans[:, 0].copy()),
-            tan_fovy=torch.from_numpy(tans[:, 1].copy()),
+            tan_fovx=torch.from_numpy(tans[:, 0].copy()).to(device),
+            tan_fovy=torch.from_numpy(tans[:, 1].copy()).to(device),
         )
 
     @property
@@ -216,12 +216,12 @@ def make_train_step(
             var = var / samples
         else:
             avg = gsum
+            tans = torch.stack([cams2.tan_fovx, cams2.tan_fovy], 1).tolist()
             for i in range(2 * f):
                 leaves = [p.detach().clone().requires_grad_(True) for p in _params(model)]
                 with torch.enable_grad():
                     img = render(*leaves, active, cams2.view[i], cams2.proj_view[i],
-                                 cams2.cam_pos[i], float(cams2.tan_fovx[i]),
-                                 float(cams2.tan_fovy[i]), width, height, bgs[i],
+                                 cams2.cam_pos[i], *tans[i], width, height, bgs[i],
                                  sh_degree, 1.0)
                 residual = (truths[i] - img).detach()  # signed diff = -dL/dpixel of L2/2
                 g = torch.autograd.grad(img, leaves, residual)

@@ -34,7 +34,7 @@ from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
 from gaussian_splatterer_tpu_torch.models.camera import Camera
 from gaussian_splatterer_tpu_torch.models.splats import SplatModel
 from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
-from gaussian_splatterer_tpu_torch.ops.binning import bin_frames, bin_splats
+from gaussian_splatterer_tpu_torch.ops.binning import bin_frames, bin_splats, bin_splats_batch
 from gaussian_splatterer_tpu_torch.ops.transforms import SplatComponents, project_splat_components
 from gaussian_splatterer_tpu_torch.train import Trainer
 
@@ -68,6 +68,12 @@ def project_stack(arrays, cams, width=W, height=H):
                                        float(txs[i]), float(tys[i]), width, height, 1)
               for i in range(len(views))]
     return SplatComponents(*(torch.stack(xs) for xs in zip(*frames)))
+
+
+def project_batch(arrays, cams, width=W, height=H):
+    """The batched twin of project_stack: the F frames in one frame-batched
+    call, every field (F, N)."""
+    return project_splat_components(*to_torch(arrays), *to_torch(cams), width, height, 1)
 
 
 def jax_tiles(imgs, tile):
@@ -209,21 +215,28 @@ def test_cumsum_frames_rejects_bad_arguments():
 # -- the binning fields ---------------------------------------------------------
 
 
+@pytest.mark.parametrize("binner", ["bin_frames", "bin_splats_batch"])
 @pytest.mark.parametrize("max_dup", [2**12, 100])
-def test_frame_bins_fields_match_jax(max_dup):
+def test_frame_bins_fields_match_jax(max_dup, binner):
     """Per frame, for the kept duplicates: the depth position of each
     tile-sorted duplicate (JAX presort_pos), each depth slot's range (JAX's
     gated seg_start_g / seg_end_g), the depth inverse (inv_depth_flat) and
-    the gather; at 100 the frames overflow and drop their deepest."""
-    from gaussian_splatterer_tpu.ops.binning import bin_splats_batch
+    the gather; at 100 the frames overflow and drop their deepest.  Both
+    of the port's binners: frame by frame (bin_frames) and in one pass
+    (bin_splats_batch)."""
+    from gaussian_splatterer_tpu.ops.binning import bin_splats_batch as j_bin_batch
     from gaussian_splatterer_tpu.ops.transforms import SplatComponents as JComps
 
     f, n, tile = 2, 40, 16
-    comps = project_stack(random_splats(n, 21), camera_stack(f))
-    frames = [SplatComponents(*(x[i] for x in comps)) for i in range(f)]
-    fb = bin_frames(frames, W, H, tile, max_dup)
-    jb = bin_splats_batch(JComps(*to_jax([x.numpy() for x in comps])), W, H, tile, max_dup,
-                          min(128, max_dup))
+    if binner == "bin_frames":
+        comps = project_stack(random_splats(n, 21), camera_stack(f))
+        fb = bin_frames([SplatComponents(*(x[i] for x in comps)) for i in range(f)], W, H,
+                        tile, max_dup)
+    else:
+        comps = project_batch(random_splats(n, 21), camera_stack(f))
+        fb = bin_splats_batch(comps, W, H, tile, max_dup)
+    jb = j_bin_batch(JComps(*to_jax([x.numpy() for x in comps])), W, H, tile, max_dup,
+                     min(128, max_dup))
     assert fb.num_dup == int(np.max(np.asarray(jb.num_dup)))
     assert (fb.num_dup > max_dup) == (max_dup == 100)
     off = 0

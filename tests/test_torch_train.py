@@ -1,4 +1,5 @@
-"""PyTorch port vs JAX package: the training slice (fused train core,
+"""PyTorch port vs JAX package: the training slice (the frame-batched
+projection and binning of the fused step's front end, fused train core,
 densify, train step, Trainer and auto_train).
 
 On the CPU the port's fused compositor is its plain PyTorch version
@@ -8,12 +9,17 @@ train_mm_bf16 default rounds them to bf16).  Tolerances: loss rtol 1e-5,
 residuals atol 1e-5, gradients atol 5e-5 of the largest magnitude of
 their row or parameter (tests/test_raster_tiled.py's tolerance).  The two
 sides differ only in summation order: sequential transmittance products
-and pixel sums here, triangular-matmul cumsums there.
+and pixel sums here, triangular-matmul cumsums there.  The frame-batched
+projection is held to JAX's vmapped one at the single-camera test's rtol
+1e-5, atol 1e-6, with ``valid`` equal; to the port's own per-frame calls
+exactly, given the same float32 tangents; the batched binning to the
+frame-by-frame one (bin_frames) field for field, exactly.
 
 The CUDA kernel's tests (marker ``cuda``) need a card and skip here."""
 
 import math
 import random
+import warnings
 
 import numpy as np
 import pytest
@@ -27,7 +33,7 @@ from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
 from gaussian_splatterer_tpu_torch.models.camera import Camera
 from gaussian_splatterer_tpu_torch.models.splats import SplatModel
 from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
-from gaussian_splatterer_tpu_torch.ops.binning import bin_frames, bin_splats
+from gaussian_splatterer_tpu_torch.ops.binning import bin_frames, bin_splats, bin_splats_batch
 from gaussian_splatterer_tpu_torch.ops.raster_reference import render_oracle
 from gaussian_splatterer_tpu_torch.ops.transforms import (
     SH_C0, SplatComponents, project_splat_components,
@@ -53,13 +59,34 @@ def jax_res(res8):
     return np.asarray(res8)[..., 0:4, :].swapaxes(-1, -2)
 
 
-def project_stack(arrays, cams, width=W, height=H):
-    """Port projection of each frame, fields stacked to (F, N)."""
+def project_stack(arrays, cams, width=W, height=H, sh_degree=1, scale_mod=1.0, aa=False,
+                  tangent=float):
+    """Port projection of each frame in its own call, fields stacked to (F,
+    N); ``tangent`` makes the call's tangents from the numpy float32 ones
+    (``float``: a Python double, as the serve path passes them)."""
     views, pvs, poss, txs, tys = cams
     frames = [project_splat_components(*to_torch(arrays), views[i], pvs[i], poss[i],
-                                       float(txs[i]), float(tys[i]), width, height, 1)
+                                       tangent(txs[i]), tangent(tys[i]), width, height,
+                                       sh_degree, scale_mod, aa=aa)
               for i in range(len(views))]
     return SplatComponents(*(torch.stack(xs) for xs in zip(*frames)))
+
+
+def project_batch(arrays, cams, width=W, height=H, sh_degree=1, scale_mod=1.0, aa=False):
+    """The batched twin of project_stack: the F frames in one frame-batched
+    call, every field (F, N)."""
+    return project_splat_components(*to_torch(arrays), *to_torch(cams), width, height,
+                                    sh_degree, scale_mod, aa=aa)
+
+
+def jax_project_batch(arrays, cams, sh_degree, scale_mod=1.0, aa=False):
+    """``jax.vmap(project_splat_components)`` over the F cameras."""
+    import jax
+    from gaussian_splatterer_tpu.ops.transforms import project_splat_components as j_project
+
+    args = to_jax(arrays)
+    return jax.vmap(lambda v, pv, pos, tx, ty: j_project(
+        *args, v, pv, pos, tx, ty, W, H, sh_degree, scale_mod, aa=aa))(*to_jax(cams))
 
 
 def jax_tiles(imgs, tile):
@@ -68,6 +95,152 @@ def jax_tiles(imgs, tile):
     from gaussian_splatterer_tpu.ops.raster_tiled import image_to_tiles_cm
 
     return jax.vmap(lambda im: image_to_tiles_cm(im, tile))(jnp.asarray(imgs))
+
+
+# -- the frame-batched front end: projection and binning ---------------------
+
+PROJ_FIELDS = ("mx", "my", "ca", "cb", "cc", "cr", "cg", "cb2", "opacity", "depth", "radius",
+               "rx", "ry")
+
+
+def _projection_case(sh_degree, frames=3, n=200):
+    arrays = random_splats(n, 10 + sh_degree, cap=n + 8, sh_coeffs=(sh_degree + 1) ** 2)
+    return arrays, camera_stack(frames)
+
+
+@pytest.mark.parametrize("sh_degree", [0, 1, 2, 3])
+@pytest.mark.parametrize("aa", [False, True])
+def test_batched_projection_matches_jax(sh_degree, aa):
+    """F = 3 cameras in one call against JAX's vmapped projection: every
+    field (F, N), ``valid`` equal, the rest at test_projection_matches_jax's
+    rtol 1e-5, atol 1e-6 on the valid splats."""
+    arrays, cams = _projection_case(sh_degree)
+    t = project_batch(arrays, cams, sh_degree=sh_degree, scale_mod=0.8, aa=aa)
+    j = jax_project_batch(arrays, cams, sh_degree, 0.8, aa)
+    valid = np.asarray(j.valid)
+    assert valid.shape == (3, 208)
+    np.testing.assert_array_equal(t.valid.numpy(), valid)
+    assert valid.sum(axis=1).min() > 50
+    for name in PROJ_FIELDS:
+        assert getattr(t, name).shape == (3, 208), name
+        np.testing.assert_allclose(getattr(t, name).numpy()[valid],
+                                   np.asarray(getattr(j, name))[valid],
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("sh_degree", [0, 3])
+@pytest.mark.parametrize("aa", [False, True])
+def test_batched_projection_matches_per_frame(sh_degree, aa):
+    """The batched call against F unbatched calls.  Given the frame's
+    float32 tangents as tensors, each call does the same float32 operations
+    on each element: every field exactly equal.  Given them as Python
+    floats (the serve path's form), the focal lengths and clamp limits are
+    computed in double and rounded once, so they may sit one float32 ulp
+    from the batched call's float32 products; the conic inverts a 2 x 2
+    matrix built from them: within 16 eps of each field's largest value,
+    ``valid`` equal.  Means given once (N, 3) or once a frame (F, N, 3)
+    project alike."""
+    arrays, cams = _projection_case(sh_degree)
+    batched = project_batch(arrays, cams, sh_degree=sh_degree, aa=aa)
+    same = project_stack(arrays, cams, sh_degree=sh_degree, aa=aa, tangent=torch.tensor)
+    double = project_stack(arrays, cams, sh_degree=sh_degree, aa=aa)
+    means_b = torch.from_numpy(arrays[0]).expand(3, -1, -1)
+    per_frame_means = project_splat_components(means_b, *to_torch(arrays[1:]), *to_torch(cams),
+                                               W, H, sh_degree, aa=aa)
+    eps = float(np.finfo(np.float32).eps)
+    assert torch.equal(double.valid, batched.valid)
+    for name in SplatComponents._fields:
+        b = getattr(batched, name)
+        assert torch.equal(getattr(same, name), b), name
+        assert torch.equal(getattr(per_frame_means, name), b), name
+        if name != "valid":
+            scale = float(b[batched.valid].abs().max())
+            np.testing.assert_allclose(getattr(double, name).numpy(), b.numpy(), rtol=0,
+                                       atol=16 * eps * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("aa", [False, True])
+def test_batched_projection_grads_match_jax(aa):
+    """The VJP of project_frames's rows (9, F*N) against jax.vjp of the JAX
+    package's build_rows (raster_tiled.py, render_train_grads_batch) for
+    one seeded cotangent: per-frame location gradients (F, N, 3) and the
+    four other parameters' (summed over the frames), at the gradient
+    tolerance (assert_rel_close)."""
+    import jax
+    import jax.numpy as jnp
+    from gaussian_splatterer_tpu.ops.transforms import project_splat_components as j_project
+
+    f, n, sh_degree = 3, 60, 1
+    arrays = random_splats(n, 27, cap=n + 4)
+    cams = camera_stack(f)
+    cot = np.random.default_rng(4).normal(size=(9, f, n + 4)).astype(np.float32)
+
+    params = to_torch(arrays)
+    leaves = [params[0].expand(f, -1, -1).clone()] + [x.clone() for x in params[1:5]]
+    for x in leaves:
+        x.requires_grad_(True)
+    comps, rows9 = rt.project_frames(*leaves, params[5], *cams, W, H, sh_degree, aa)
+    assert rows9.shape == (9, f * (n + 4)) and comps.mx.shape == (f, n + 4)
+    g_t = torch.autograd.grad(rows9, leaves, torch.from_numpy(cot.reshape(9, -1)))
+
+    active = jnp.asarray(arrays[5])
+    jcams = to_jax(cams)
+
+    def build_rows(means_b, shs, scales, opac, rot):
+        def one(mb, v, pv, pos, tx, ty):
+            pr = j_project(mb, shs, scales, opac, rot, active, v, pv, pos, tx, ty, W, H,
+                           sh_degree, 1.0, aa=aa)
+            return jnp.stack([pr.mx, pr.my, pr.ca, pr.cb, pr.cc, pr.cr, pr.cg, pr.cb2,
+                              pr.opacity])
+
+        return jax.vmap(one)(means_b, *jcams)  # (F, 9, N)
+
+    j_args = to_jax(arrays[:5])
+    rows_j, pull = jax.vjp(build_rows, jnp.broadcast_to(j_args[0], (f, n + 4, 3)), *j_args[1:])
+    g_j = pull(jnp.asarray(np.moveaxis(cot, 0, 1)))
+    np.testing.assert_allclose(rows9.detach().numpy(),
+                               np.moveaxis(np.asarray(rows_j), 1, 0).reshape(9, -1),
+                               rtol=1e-5, atol=1e-5)
+    for name, a, b in zip(("means_b",) + GRAD_NAMES[1:], g_t, g_j):
+        assert a.shape == b.shape, name
+        assert_rel_close(a.numpy(), b, f"gradient {name}")
+    assert float(g_t[0].abs().max()) > 0
+
+
+def _binning_group(frames, empty, n=120, seed=21):
+    """(F, N) projected components of ``frames`` cameras; with ``empty`` the
+    middle frame has no valid splat."""
+    comps = project_batch(random_splats(n, seed), camera_stack(frames))
+    if empty:
+        valid = comps.valid.clone()
+        valid[frames // 2] = False
+        comps = comps._replace(valid=valid)
+    return comps
+
+
+def assert_frame_bins_equal(a, b):
+    for name, x, y in zip(a._fields, a, b):
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype and torch.equal(x, y.to(x.device)), name
+        else:
+            assert x == y, name
+
+
+@pytest.mark.parametrize("frames,empty", [(1, False), (3, False), (3, True)])
+@pytest.mark.parametrize("tile", [8, 16])
+@pytest.mark.parametrize("max_dup", [2**12, 100])
+def test_bin_splats_batch_equals_bin_frames(frames, empty, tile, max_dup):
+    """One batched pass against the frame-by-frame bin_frames: every
+    FrameBins field exactly equal; at max_dup 100 every frame overflows
+    and drops its deepest duplicates; with ``empty`` the middle frame has
+    no duplicate."""
+    comps = _binning_group(frames, empty)
+    split = [SplatComponents(*(x[i] for x in comps)) for i in range(frames)]
+    fb = bin_splats_batch(comps, W, H, tile, max_dup)
+    assert_frame_bins_equal(fb, bin_frames(split, W, H, tile, max_dup))
+    assert (fb.num_dup > max_dup) == (max_dup == 100)
+    assert (fb.frame_dups[frames // 2] == 0) == empty
+    assert fb.tile_start.shape == (frames * (-(-W // tile)) * (-(-H // tile)),)
 
 
 # -- the fused train core ------------------------------------------------------
@@ -468,12 +641,12 @@ def test_k3_sass_and_ptxas_readers():
 def _kernel_inputs(device, tile, frames=2, n=200, seed=3):
     """Binned duplicate rows, truth tiles and backgrounds of ``frames``
     frames, as one composite_train launch takes them."""
-    comps = project_stack(random_splats(n, seed), camera_stack(frames))
-    frames_c = [SplatComponents(*(x[i].to(device) for x in comps)) for i in range(frames)]
-    rows9 = torch.cat([rt._rows(c) for c in frames_c], dim=1)
+    comps = SplatComponents(*(x.to(device) for x in project_stack(random_splats(n, seed),
+                                                                    camera_stack(frames))))
+    rows9 = rt._rows(comps).reshape(9, -1)
     truths, bgs = random_truths(frames, 4)
     _, args = rt.train_launch_inputs(
-        rows9, frames_c, W, H, rt.image_to_tiles(torch.from_numpy(truths), tile),
+        rows9, comps, W, H, rt.image_to_tiles(torch.from_numpy(truths), tile),
         torch.from_numpy(bgs), tile, 2**13)
     return args
 
@@ -556,6 +729,41 @@ def test_train_grads_on_card_match_cpu(cuda_device):
     assert_rel_close(var_k.cpu().numpy(), var_c.numpy(), "var_loc")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,empty,max_dup", [(3, False, 2**12), (3, True, 100)])
+def test_bin_splats_batch_on_card_equals_cpu(cuda_device, frames, empty, max_dup):
+    """The batched binning on the card: every field (all integers) equal to
+    the CPU's."""
+    comps = _binning_group(frames, empty)
+    on_card = SplatComponents(*(x.to(cuda_device) for x in comps))
+    fb = bin_splats_batch(on_card, W, H, 16, max_dup)
+    assert fb.gather_idx.device.type == "cuda"
+    assert_frame_bins_equal(bin_splats_batch(comps, W, H, 16, max_dup), fb)
+
+
+@pytest.mark.cuda
+def test_batched_front_end_syncs_once_a_group(cuda_device):
+    """render_train_grads_batch on a 3-frame group whose inputs are on the
+    card synchronises with the host once: the binning's read of the F
+    duplicate counts (torch.cuda.set_sync_debug_mode("warn") counts it)."""
+    tile = 32
+    arrays, cams, truths, bgs = _batch_inputs(3, tile, n=120)
+    args = (*to_torch(arrays, cuda_device), *to_torch(cams, cuda_device), W, H,
+            rt.image_to_tiles(torch.from_numpy(truths), tile).to(cuda_device),
+            torch.from_numpy(bgs).to(cuda_device), 1)
+    rt.render_train_grads_batch(*args, tile=tile, max_dup=2**12)  # builds and loads K3
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rt.render_train_grads_batch(*args, tile=tile, max_dup=2**12)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+
+
 # -- train step, densify, Trainer and auto_train -------------------------------
 
 RES, TILE = 32, 16
@@ -573,6 +781,39 @@ def _rig(cams=4):
 def _runtime(**kw):
     return RuntimeConfig(render_resolution_x=RES, render_resolution_y=RES, tile_px=TILE,
                          max_dup=2**12, frame_group=4, train_mm_bf16=False, **kw)
+
+
+def test_fused_step_projects_and_bins_once_a_group(monkeypatch):
+    """The fused step's front end is frame-batched: 8 frames in frame
+    groups of 4 make two projection calls, each over (4, N), and two
+    bin_splats_batch calls; no frame is projected or binned alone."""
+    calls = {"project": [], "bin_splats_batch": 0}
+    project, bin_batch = rt.project_splat_components, rt.bin_splats_batch
+
+    def counted_project(means, *args, **kw):
+        calls["project"].append(tuple(means.shape))
+        return project(means, *args, **kw)
+
+    def counted_bin(*args, **kw):
+        calls["bin_splats_batch"] += 1
+        return bin_batch(*args, **kw)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the fused step binned a frame alone")
+
+    monkeypatch.setattr(rt, "project_splat_components", counted_project)
+    monkeypatch.setattr(rt, "bin_splats_batch", counted_bin)
+    monkeypatch.setattr(rt, "bin_splats", refuse)
+    arrays = random_splats(40, 17, cap=48)
+    cams = CameraBatch.from_cameras(Camera.get_cameras(_rig()), RES, RES, device="cpu")
+    truths, _ = random_truths(8, 9, RES, RES)
+    step = make_train_step(RES, RES, 1, renderer="tiled", fused=True,
+                           fused_opts=dict(tile=TILE, max_dup=2**12), frame_group=4)
+    _, metrics = step(SplatModel.from_numpy(*arrays[:5], count=40, device="cpu"),
+                      rt.image_to_tiles(torch.from_numpy(truths), TILE), cams,
+                      LearningRates.from_project(_rig()))
+    assert calls == {"project": [(4, 48, 3), (4, 48, 3)], "bin_splats_batch": 2}
+    assert metrics.num_dup > 0
 
 
 def test_fused_train_step_matches_jax():
