@@ -9,9 +9,11 @@ the training path (``Trainer`` under ``auto_train``), the tracer path
 (``new`` -> ``train`` -> ``render --mode rtx`` through the CLI), the
 non-fused tiled training path (``Trainer`` and the CLI's ``train`` at a
 resolution that is not a multiple of the tile), the fused step on its
-cumsum reduction route (``Trainer(reduction="cumsum")``) and the H100
-probes at full size, times the stages with CUDA events, and exits nonzero
-at the first phase that fails.  It imports nothing of JAX.
+cumsum reduction route (``Trainer(reduction="cumsum")``), the H100 probes,
+and the measuring and long-run entry points (the port's bench and
+bench_scale, quality_run with a resume across processes, eval_model) at
+full size, times the stages with CUDA events, and exits nonzero at the
+first phase that fails.  It imports nothing of JAX.
 
 Phases:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
@@ -35,11 +37,12 @@ Phases:
      scene at 1024^2 on the 16-camera rig (32 frames a step, 8 frames a
      kernel launch), truths rendered by the serve path from a perturbed
      teacher; then kernel against plain on one launch of the trained model;
-  8. times: per-layer step times, steps/s, the bench headline (fwd+bwd
-     ms/frame) and the device's busy share of a step; per group the
-     batched front end (one frame-batched projection forward and
-     backward, bin_splats_batch) beside the frame-by-frame one (a call a
-     frame, bin_frames): layer times, and for one group forward and
+  8. times: per-layer step times, steps/s, the bench's fwd+bwd ms/frame
+     (scripts/bench.py's call and timing, in process; phase 18 runs the
+     bench from the shell) and the device's busy share of a step; per
+     group the batched front end (one frame-batched projection forward
+     and backward, bin_splats_batch) beside the frame-by-frame one (a call
+     a frame, bin_frames): layer times, and for one group forward and
      backward its time, device busy time, device ops, host syncs and peak
      memory; render_train_grads_batch must sync the host once a group;
      the kernel against
@@ -106,7 +109,23 @@ Phases:
      its rows a block;
      each kernel against its plain twin (K6 and K7 exactly); then K1-K5's
      times from this run with their shares of the bound at the published
-     67 TFLOP/s and at K8's measured FP32 rate.
+     67 TFLOP/s and at K8's measured FP32 rate;
+  the measuring and long-run entry points, in subprocesses as a user
+  runs them (K1 in the forward gate and the evaluation renders, K3 in the
+  gradient gate, the timed runs and training, K5 in every capture):
+ 18. ``python -m gaussian_splatterer_tpu_torch.scripts.bench``: its one
+     JSON line, both gates within their bars and a finite value; again at
+     --tile 16 with a max_dup sized from a probe of the true count; then
+     scripts.bench_scale at 200k, 500k and 1M splats (ms/frame, duplicates,
+     peak memory), one line each;
+ 19. scripts.quality_run on the north star at the ns_r5 width (1024^2, 8
+     cameras, 32 samples, capacity 262,144, max_dup 786,432, recapture
+     every 50, densify every 150) in two processes: 60 steps with a
+     checkpoint every 30, then --resume to 120, which must resume at
+     iteration 60 from a model bit-equal to the checkpoint (its SHA-256);
+     then scripts.eval_model on the final model (32 samples, 2 views):
+     PSNR, SSIM, steps/s and the capture's share of the run.  The summary's
+     launches include these phases'.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of its FP32 operations over 67 TFLOP/s (the data sheet's; phase 17 adds a
@@ -122,6 +141,9 @@ kernel's operations are every (ray, real triangle) pair of the launch
 times its operations per pair, an FMA counted as two.  K2's bytes are the
 rows in, their gradients out, the ranges, and the forward output and its
 gradient in.  K4's bytes are its input read and its output written once.
+
+``--only bench`` and ``--only quality`` run phases 1-2 and then phase 18
+or 19 (or both) and end with the full run's last line.
 
 ``--only step`` runs phases 1-2, 7-8 and 16 (the fused step on both
 reduction routes, for quick rounds on the card) and ends with the same
@@ -209,6 +231,25 @@ NS_RUNTIME = ("--runtime", "lr_location_decay=0.9988", "--runtime", "densify_var
 NS_DENSIFY_VARIANCE = 0.001
 NS_STEPS, NS_INTERVAL_CAPTURE, NS_INTERVAL_DENSIFY = 6, 3, 4
 NS_LIT_SHARE = 0.005  # the mushroom covers a few percent of the frame
+# phase 18: the headline bench as a user runs it, at tile 32 and 16, and
+# its scaling rows (scripts/bench.py, scripts/bench_scale.py)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "numerics_gate_max_err",
+              "grad_gate_max_err")
+SCALE_SIZES = (200_000, 500_000, 1_000_000)
+# phase 19: the quality run of the north star at the ns_r5 width
+# (runs/README.md: 1024^2, 8 cameras, 32 samples, capacity 262,144, max_dup
+# 786,432, recapture every 50, densify every 150), cut to Q_STEPS steps in
+# two processes: the first stops at Q_RESUME_AT with a checkpoint every
+# Q_CHECKPOINT, the second resumes there
+Q_RESUME_AT, Q_STEPS, Q_CHECKPOINT, Q_EVAL_VIEWS = 60, 120, 30, 2
+NS_QUALITY = (
+    "--scene", "mushroom", "--mesh-res", str(NS_MESH[0]), "--res", str(NS_RES),
+    "--cams", str(NS_CAMS), "--samples", str(NS_SAMPLES), "--capacity", str(NS_CAPACITY),
+    "--max-dup", str(NS_MAX_DUP), "--work-cap", "6144",
+    "--densify-variance", str(NS_DENSIFY_VARIANCE), "--interval-densify", "150",
+    "--interval-capture", "50", "--lr-scale", "1.0", "--lr-location-decay", "0.9988",
+    "--densify-variance-decay", "0.999",
+)
 # the non-fused tiled step (phases 12-14): the bench scene trained at a
 # resolution that is not a multiple of the tile, so the Trainer runs render
 # tiled under autograd frame by frame (K1 forward, K2 backward)
@@ -238,31 +279,6 @@ def phase(title: str) -> None:
 def run(cmd: list[str]) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True, check=True, timeout=120)
     return proc.stdout.strip()
-
-
-def build_scene(n_splats: int, capacity: int, seed: int):
-    """The JAX package's bench scene generator (bench.py build_scene), in numpy."""
-    rng = np.random.default_rng(seed)
-    means = np.zeros((capacity, 3), np.float32)
-    means[:n_splats] = rng.uniform(-3, 3, (n_splats, 3))
-    shs = np.zeros((capacity, 4, 3), np.float32)
-    shs[:n_splats] = rng.normal(0, 0.5, (n_splats, 4, 3))
-    scales = np.zeros((capacity, 3), np.float32)
-    scales[:n_splats] = rng.uniform(0.01, 0.08, (n_splats, 3))
-    opac = np.zeros((capacity,), np.float32)
-    opac[:n_splats] = rng.uniform(0.2, 1.0, n_splats)
-    rot = np.zeros((capacity, 4), np.float32)
-    rot[:, 0] = 1.0
-    rot[:n_splats] = rng.normal(0, 1, (n_splats, 4))
-    return means, shs, scales, opac, rot
-
-
-def bench_cameras(n_frames: int):
-    """The bench's frame cameras (bench.py build_scene)."""
-    from gaussian_splatterer_tpu_torch.models.camera import Camera
-
-    return [Camera(np.array([0.3 + 0.2 * i, -0.2, -10.0 - 0.5 * i], np.float32),
-                   np.zeros(3, np.float32), 60.0) for i in range(n_frames)]
 
 
 def cuda_ms(fn, warmup: int = WARMUP, reps: int = REPS, setup=None) -> float:
@@ -457,6 +473,7 @@ class TeacherRtx:
 def serve_projects(dev) -> tuple[Path, dict[str, str]]:
     """Phase 4's projects: each of SCENES saved by a Session at the serve
     runtime.  Returns (their directory under build/, {label: project})."""
+    from gaussian_splatterer_tpu_torch.scripts.scenes import splat_arrays
     from gaussian_splatterer_tpu_torch.app.session import Session
     from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
     from gaussian_splatterer_tpu_torch.models.splats import SplatModel
@@ -469,7 +486,7 @@ def serve_projects(dev) -> tuple[Path, dict[str, str]]:
                                 splats_capacity=cap, sh_degree=1, sh_coeffs=4,
                                 max_dup=2**24)
         session = Session(project=Project.app_default(), runtime=runtime, device=dev)
-        session.model = SplatModel.from_numpy(*build_scene(n, cap, seed=0), count=n,
+        session.model = SplatModel.from_numpy(*splat_arrays(n, cap, seed=0), count=n,
                                               device=dev, sh_degree=1)
         session.save_project(str(work / label))
         projects[label] = str(work / label)
@@ -496,6 +513,7 @@ def serve_phases(dev, card, only: bool = False) -> dict:
     ``only`` (``--only k1``): phase 4 writes the projects and holds the
     kernel against plain on their cells without the CLI's renders, and
     phase 5 times the kernel alone."""
+    from gaussian_splatterer_tpu_torch.scripts.scenes import splat_arrays
     from gaussian_splatterer_tpu_torch.app import cli
     from gaussian_splatterer_tpu_torch.io.image import load_png
     from gaussian_splatterer_tpu_torch.models.camera import Camera
@@ -506,7 +524,7 @@ def serve_phases(dev, card, only: bool = False) -> dict:
     from gaussian_splatterer_tpu_torch.ops.transforms import project_splat_components
 
     phase("3. serve kernel vs plain vs oracle (gate scene: 150 splats, 128^2, seed 7)")
-    arrays = build_scene(150, 256, seed=7)
+    arrays = splat_arrays(150, 256, seed=7)
     gate_model = SplatModel.from_numpy(*arrays, count=150, device=dev, sh_degree=1)
     gate_cam = Camera(np.array([0.3, -0.2, -10.0], np.float32), np.zeros(3, np.float32), 60.0)
     gate_args = render_args(gate_model, gate_cam, 128, 128, True, BG_GATE, dev)
@@ -607,6 +625,7 @@ def serve_phases(dev, card, only: bool = False) -> dict:
 
 def train_gate(dev) -> float:
     """Phase 6.  Returns the largest kernel-vs-plain error."""
+    from gaussian_splatterer_tpu_torch.scripts.scenes import bench_cameras, splat_arrays
     from gaussian_splatterer_tpu_torch.models.splats import SplatModel
     from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
     from gaussian_splatterer_tpu_torch.ops.raster_reference import render_oracle
@@ -614,7 +633,7 @@ def train_gate(dev) -> float:
 
     phase("6. train gate scene (150 splats, 128^2, 2 frames, seed 11, truths seed 3, tile 32)")
     res, tile = 128, 32
-    model = SplatModel.from_numpy(*build_scene(150, 256, seed=11), count=150, device=dev,
+    model = SplatModel.from_numpy(*splat_arrays(150, 256, seed=11), count=150, device=dev,
                                   sh_degree=1)
     cams = CameraBatch.from_cameras(bench_cameras(2), res, res, device=dev)
     truths = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (2, res, res, 3))
@@ -682,12 +701,13 @@ def fused_cell(dev, reduction: str = "index_add"):
     at 1024^2, tile 32, frame_group 8, on the app's 16-camera rig, truths
     rendered by the serve path from a perturbed teacher.  Returns (the
     Trainer on the route ``reduction``, its rtx, the scene's arrays)."""
+    from gaussian_splatterer_tpu_torch.scripts.scenes import splat_arrays
     from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
     from gaussian_splatterer_tpu_torch.models.splats import SplatModel
     from gaussian_splatterer_tpu_torch.train.trainer import Trainer
 
     n, cap, res, tile = TRAIN_SPLATS, TRAIN_CAPACITY, TRAIN_RES, TRAIN_TILE
-    arrays = build_scene(n, cap, seed=0)
+    arrays = splat_arrays(n, cap, seed=0)
     t_arrays = teacher_arrays(arrays, n)
     runtime = RuntimeConfig(render_resolution_x=res, render_resolution_y=res,
                             splats_capacity=cap, sh_degree=1, sh_coeffs=4, tile_px=tile,
@@ -775,15 +795,16 @@ def train_main(dev, card):
     composite_train, the duplicate gradients of one launch of the trained
     model with its FrameBins and column count)."""
     from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.scripts import bench
     from gaussian_splatterer_tpu_torch.train import (
         CameraBatch, DensifyParams, LearningRates, auto_train, densify,
     )
     from gaussian_splatterer_tpu_torch.train.trainer import _apply_sgd
 
-    n, cap, res, tile = TRAIN_SPLATS, TRAIN_CAPACITY, TRAIN_RES, TRAIN_TILE
+    n, res, tile = TRAIN_SPLATS, TRAIN_RES, TRAIN_TILE
     phase(f"7. train main path: auto_train, {n} splats, {res}^2, tile {tile}, "
           f"frame_group {TRAIN_GROUP}, 16-camera rig")
-    trainer, rtx, arrays = fused_cell(dev)
+    trainer, rtx, _ = fused_cell(dev)
     runtime, project = trainer.runtime, trainer.project
     frames = 2 * project.num_cameras
     groups = frames // TRAIN_GROUP
@@ -938,18 +959,11 @@ def train_main(dev, card):
           f"{plain_ms:.3f} ms  {bounds_line(k3_bound, args, k3_stats, k3_ms)}  [{card}]")
     compositor_build_facts(card, "composite_train")
 
-    # the bench headline: render_train_grads_batch, 8 bench frames, uniform truths
-    b_arrays = [torch.from_numpy(a).to(dev) for a in arrays]
-    b_cams = CameraBatch.from_cameras(bench_cameras(TRAIN_GROUP), res, res, device=dev)
-    b_truths = torch.from_numpy(np.random.default_rng(1).uniform(
-        0, 1, (TRAIN_GROUP, res, res, 3)).astype(np.float32)).to(dev)
-    b_tiles = rt.image_to_tiles(b_truths, tile).contiguous()
-    b_active = torch.arange(cap, device=dev) < n
-    headline = cuda_ms(lambda: rt.render_train_grads_batch(
-        *b_arrays, b_active, *b_cams, res, res, b_tiles, torch.zeros((TRAIN_GROUP, 3), device=dev),
-        1, tile=tile, max_dup=runtime.max_dup), reps=reps) / TRAIN_GROUP
-    print(f"  fwd+bwd ms/frame (render_train_grads_batch, {n} splats, {res}^2, F = "
-          f"{TRAIN_GROUP}, tile {tile}): {headline:.3f}  [{card}]")
+    # the bench's headline call (scripts/bench.py), timed as the bench times it
+    headline, _ = bench.time_fwdbwd(bench.headline_inputs(dev), bench.W, bench.TILE,
+                                    bench.MAX_DUP, reps)
+    print(f"  fwd+bwd ms/frame (scripts/bench.py's call and timing, {reps} calls): "
+          f"{headline:.4f}  [{card}]")
 
     busy_ms, profiled_ms, step_ops = device_busy_ms(
         lambda: trainer._step(trainer.model, trainer.truths, trainer.truth_cams, lrs))
@@ -972,59 +986,6 @@ def train_main(dev, card):
         "bound_by": b_by,
         "library_ms": None,  # no PyTorch call composites splats
     }, (d_feat, fb, rows9.shape[1])
-
-
-def mushroom_mesh(n_theta: int = 48, n_prof: int = 24):
-    """The north star's procedural mushroom (scripts/quality_run.py
-    mushroom_mesh): a surface of revolution, stem and cap, UV (theta,
-    profile), as the port's TriangleMesh."""
-    from gaussian_splatterer_tpu_torch.io.obj import TriangleMesh
-
-    prof = []
-    for t in np.linspace(0.0, 1.0, n_prof):
-        if t < 0.45:  # stem
-            r = 0.35 + 0.05 * np.cos(t * 9)
-            y = -1.2 + t / 0.45 * 1.2
-        else:  # cap: hemisphere-ish with a lip
-            u = (t - 0.45) / 0.55 * np.pi / 2
-            r = 1.25 * np.cos(u) + 0.02
-            y = 0.85 * np.sin(u)
-        prof.append((r, y))
-    verts, uvs = [], []
-    for i, (r, y) in enumerate(prof):
-        for j in range(n_theta):
-            th = 2 * np.pi * j / n_theta
-            verts.append((r * np.cos(th), y, r * np.sin(th)))
-            uvs.append((j / n_theta, i / (n_prof - 1)))
-    verts, uvs = np.array(verts, np.float32), np.array(uvs, np.float32)
-    tris, tri_uv = [], []
-    for i in range(n_prof - 1):
-        for j in range(n_theta):
-            j2 = (j + 1) % n_theta
-            a, b = i * n_theta + j, i * n_theta + j2
-            c, d = (i + 1) * n_theta + j, (i + 1) * n_theta + j2
-            for t3 in ((a, b, d), (a, d, c)):
-                tris.append(t3)
-                tri_uv.append([uvs[k] for k in t3])
-    return TriangleMesh(verts, np.array(tris, np.int32), np.array(tri_uv, np.float32))
-
-
-def mushroom_texture(n: int = 128) -> np.ndarray:
-    """(n, n, 4) red-capped, white-spotted texture (scripts/quality_run.py
-    mushroom_texture, opaque spots)."""
-    t = np.zeros((n, n, 4), np.float32)
-    v = np.linspace(0, 1, n)[:, None]  # profile coordinate (rows)
-    t[..., 0] = np.where(v > 0.45, 0.85, 0.93)
-    t[..., 1] = np.where(v > 0.45, 0.12, 0.87)
-    t[..., 2] = np.where(v > 0.45, 0.10, 0.72)
-    rng = np.random.default_rng(5)
-    yy, xx = np.mgrid[0:n, 0:n]
-    for _ in range(25):  # white spots on the cap
-        cy, cx = rng.uniform(0.55, 0.95) * n, rng.uniform(0, 1) * n
-        d2 = (yy - cy) ** 2 + (np.minimum(np.abs(xx - cx), n - np.abs(xx - cx))) ** 2
-        t[d2 < (n * 0.035) ** 2, 0:3] = 0.95
-    t[..., 3] = 1.0
-    return t
 
 
 def write_obj(mesh, path: str) -> None:
@@ -1147,6 +1108,7 @@ def k5_slices(dev, r: int, t_real: int) -> int:
 
 def tracer_gate(dev) -> float:
     """Phase 9.  Returns the largest kernel-vs-plain error."""
+    from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh, mushroom_texture
     from gaussian_splatterer_tpu_torch.io.obj import TriangleMesh
     from gaussian_splatterer_tpu_torch.models.camera import Camera
     from gaussian_splatterer_tpu_torch.rt import RtxHost
@@ -1219,22 +1181,165 @@ def tracer_gate(dev) -> float:
     return worst
 
 
+def module_run(module: str, *args: str, timeout: int,
+               phase_no: int) -> subprocess.CompletedProcess:
+    """``python -m gaussian_splatterer_tpu_torch.<module> args`` in a
+    subprocess from the checkout; a nonzero exit fails the phase."""
+    proc = subprocess.run([sys.executable, "-m", f"gaussian_splatterer_tpu_torch.{module}",
+                           *args], cwd=HERE, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", file=sys.stderr)
+        raise SystemExit(f"phase {phase_no} failed: `{module} {' '.join(args[:1])}` exited "
+                         f"{proc.returncode}")
+    return proc
+
+
 def cli(*args: str, timeout: int, phase_no: int = 10) -> tuple[str, float]:
     """One ``gsplat-torch`` command in a subprocess from the checkout:
     (its standard output, its seconds on the host clock)."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "gaussian_splatterer_tpu_torch.app", *args],
-                          cwd=HERE, capture_output=True, text=True, timeout=timeout)
+    proc = module_run("app", *args, timeout=timeout, phase_no=phase_no)
+    return proc.stdout, time.perf_counter() - t0
+
+
+def script(name: str, *args: str, timeout: int, phase_no: int) -> tuple[list[str], dict, float]:
+    """One measuring script, ``python -m
+    gaussian_splatterer_tpu_torch.scripts.<name> args``, in a subprocess:
+    (its standard output's lines, the kernels' launches it reports on
+    standard error, its seconds on the host clock)."""
+    t0 = time.perf_counter()
+    proc = module_run(f"scripts.{name}", *args, timeout=timeout, phase_no=phase_no)
     secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", file=sys.stderr)
-        raise SystemExit(f"phase {phase_no} failed: `{args[0]}` exited {proc.returncode}")
-    return proc.stdout, secs
+    reports = [json.loads(line) for line in proc.stderr.splitlines()
+               if line.startswith('{"launches"')]
+    if len(reports) != 1:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"phase {phase_no} failed: {name} reported no launch counts")
+    return proc.stdout.strip().splitlines(), reports[0]["launches"], secs
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def bench_phase(dev, card) -> dict:
+    """Phase 18: the port's bench as a user runs it (its headline and
+    gates), at tile 16 with a max_dup sized from a probe, and bench_scale
+    at SCALE_SIZES.  Returns the kernels' launches of these runs."""
+    from gaussian_splatterer_tpu_torch.scripts import bench
+
+    phase(f"18. bench: python -m gaussian_splatterer_tpu_torch.scripts.bench (the headline "
+          f"and its gates), --tile 16, and bench_scale at "
+          f"{', '.join(f'{n:,}' for n in SCALE_SIZES)} splats ({card})")
+    torch.cuda.empty_cache()
+    total: dict = {}
+    rows = {}
+    for tile in (bench.TILE, 16):
+        args: tuple[str, ...] = ()
+        if tile != bench.TILE:
+            inputs = bench.headline_inputs(dev, tile=tile)
+            num_dup = bench.probe_num_dup(inputs, bench.W, tile)
+            del inputs
+            torch.cuda.empty_cache()
+            args = ("--tile", str(tile), "--max-dup", str(bench.sized_max_dup(num_dup)))
+            print(f"  tile {tile}: the probe's num_dup {num_dup} -> {' '.join(args)}")
+        lines, launches, secs = script("bench", *args, timeout=600, phase_no=18)
+        head = json.loads(lines[-1])
+        rows[tile] = head
+        add_launches(total, launches)
+        print(f"  bench{' ' + ' '.join(args) if args else ''}: {secs:.1f} s (host clock, "
+              f"process included); launches {launches}")
+        print(f"  {json.dumps(head)}  [{card}]", flush=True)
+        ok = (len(lines) == 1 and tuple(head) == BENCH_KEYS and np.isfinite(head["value"])
+              and head["value"] > 0
+              and head["numerics_gate_max_err"] <= bench.NUMERICS_ATOL
+              and head["grad_gate_max_err"] <= bench.GRAD_GATE_RTOL
+              and launches["composite_fwd"] >= 1
+              and launches["composite_train"] == bench.REPS + 2)
+        if not ok:
+            raise SystemExit("phase 18 failed: the bench's line, a gate, or its launches")
+    print(f"  fwd+bwd ms/frame: tile 32 {rows[32]['value']}  tile 16 {rows[16]['value']}  "
+          f"[{card}]")
+
+    torch.cuda.empty_cache()
+    lines, launches, secs = script("bench_scale", "--sizes", ",".join(map(str, SCALE_SIZES)),
+                                   timeout=900, phase_no=18)
+    add_launches(total, launches)
+    print(f"  bench_scale: {secs:.1f} s (host clock, process included); launches {launches}")
+    scale = [json.loads(line) for line in lines]
+    for row in scale:
+        print(f"  {json.dumps(row)}  [{card}]", flush=True)
+    if [r["n_splats"] for r in scale] != list(SCALE_SIZES) or not all(
+            np.isfinite(r["ms_per_frame"]) and r["num_dup"] <= r["max_dup"] for r in scale):
+        raise SystemExit("phase 18 failed: bench_scale's rows")
+    return total
+
+
+def quality_phase(card) -> dict:
+    """Phase 19: quality_run on the north star at the ns_r5 width in two
+    processes (the second resumes the first's checkpoint), then
+    eval_model on its final model.  Returns the kernels' launches of the
+    three processes."""
+    from gaussian_splatterer_tpu_torch.io.checkpoint import digest, load_checkpoint
+
+    phase(f"19. quality: quality_run on the north star at the ns_r5 width ({NS_RES}^2, "
+          f"{NS_CAMS} cameras, {NS_SAMPLES} samples, capacity {NS_CAPACITY:,}, recapture every "
+          f"50, densify every 150): {Q_RESUME_AT} steps, a checkpoint every {Q_CHECKPOINT}; "
+          f"--resume to {Q_STEPS} in a second process; eval_model ({card})")
+    torch.cuda.empty_cache()
+    (HERE / "build").mkdir(exist_ok=True)
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_quality_", dir=HERE / "build")) / "run"
+    common = (*NS_QUALITY, "--checkpoint-every", str(Q_CHECKPOINT), "--out", str(out_dir))
+    total: dict = {}
+    results = []
+    for steps, resume in ((Q_RESUME_AT, ()), (Q_STEPS, ("--resume",))):
+        want = digest(str(out_dir / "ckpt" / "latest.npz")) if resume else None
+        lines, launches, secs = script("quality_run", "--steps", str(steps), *resume, *common,
+                                       timeout=900, phase_no=19)
+        add_launches(total, launches)
+        for line in lines:
+            print(f"  {line}")
+        result = json.loads(lines[-1])
+        results.append(result)
+        print(f"  quality_run --steps {steps}{' --resume' if resume else ''}: {secs:.1f} s "
+              f"(host clock, process included); launches {launches}", flush=True)
+        trained = steps - (Q_RESUME_AT if resume else 0)
+        if launches["composite_train"] != trained * 2 * NS_CAMS // TRAIN_GROUP or not (
+                launches["mt_intersect"] > 0 and launches["composite_fwd"] > 0):
+            raise SystemExit("phase 19 failed: a step, capture or render did not launch its "
+                             "kernel")
+        if resume and not (f"resumed at iteration {Q_RESUME_AT};" in lines[0]
+                           and lines[1].endswith(f"sha256 {want}")):
+            raise SystemExit("phase 19 failed: the second process did not resume at iteration "
+                             f"{Q_RESUME_AT} from a model bit-equal to the checkpoint")
+    _, project = load_checkpoint(str(out_dir / "final.npz"), device="cpu")
+    lines, launches, secs = script("eval_model", str(out_dir), "--samples", str(NS_SAMPLES),
+                                   "--views", str(Q_EVAL_VIEWS), "--res", str(NS_RES),
+                                   "--scene", "mushroom", "--mesh-res", str(NS_MESH[0]),
+                                   timeout=600, phase_no=19)
+    add_launches(total, launches)
+    ev = json.loads(lines[-1])
+    print(f"  eval_model --samples {NS_SAMPLES} --views {Q_EVAL_VIEWS}: {secs:.1f} s; {lines[-1]}"
+          f"; launches {launches}")
+    last = results[-1]
+    print(f"  after {Q_STEPS} steps ({project.iterations} iterations in final.npz): held-out "
+          f"PSNR {last['psnr_mean']} dB, SSIM {last['ssim_mean']} (4 views); eval_model PSNR "
+          f"{ev['psnr_mean']} dB, SSIM {ev['ssim_mean']} ({Q_EVAL_VIEWS} views, seed 123); "
+          f"steps/s {results[0]['steps_per_s']} / {last['steps_per_s']}; capture_frac "
+          f"{results[0]['schedule']['capture_frac']} / {last['schedule']['capture_frac']}; "
+          f"splats {last['final_splats']}  [{card}]", flush=True)
+    values = [r[k] for r in (*results, ev) for k in ("psnr_mean", "ssim_mean")] + [
+        r["steps_per_s"] for r in results] + [r["schedule"]["capture_frac"] for r in results]
+    if project.iterations != Q_STEPS or not all(np.isfinite(v) for v in values):
+        raise SystemExit("phase 19 failed: the iteration count or a non-finite value")
+    return total
 
 
 def tracer_main(device: str = "cuda") -> dict:
     """Phase 10: ``new`` -> ``train`` -> ``render --mode rtx`` through the
     CLI on the north star.  Returns the K5 and K3 launches of ``train``."""
+    from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh, mushroom_texture
     from gaussian_splatterer_tpu_torch.config import Project
     from gaussian_splatterer_tpu_torch.io.image import load_png, save_png
 
@@ -1304,6 +1409,7 @@ def tracer_main(device: str = "cuda") -> dict:
 
 def tracer_times(dev, card, launches: int, gate_err: float) -> dict:
     """Phase 11.  Returns the kernel summary entry of mt_intersect."""
+    from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh, mushroom_texture
     from gaussian_splatterer_tpu_torch.models.camera import Camera
     from gaussian_splatterer_tpu_torch.rt import RtxHost
     from gaussian_splatterer_tpu_torch.rt import tracer as tr
@@ -1715,6 +1821,7 @@ def frame_bwd_args(model, cams, i, width, height, truth, bg, tile, max_dup):
 
 def bwd_gate(dev) -> float:
     """Phase 12.  Returns the largest kernel-vs-plain |d_feat| difference."""
+    from gaussian_splatterer_tpu_torch.scripts.scenes import bench_cameras, splat_arrays
     from gaussian_splatterer_tpu_torch.models.camera import Camera
     from gaussian_splatterer_tpu_torch.models.splats import SplatModel
     from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
@@ -1726,7 +1833,7 @@ def bwd_gate(dev) -> float:
     phase("12. serve backward kernel composite_bwd vs plain (gate scene: 150 splats, 128^2, "
           f"seed 7); render_tiled gradients vs the oracle's (grad gate scene, 128^2 and "
           f"{NF_GATE_CROP}^2, tile {TRAIN_TILE})")
-    model = SplatModel.from_numpy(*build_scene(150, 256, seed=7), count=150, device=dev,
+    model = SplatModel.from_numpy(*splat_arrays(150, 256, seed=7), count=150, device=dev,
                                   sh_degree=1)
     cam = Camera(np.array([0.3, -0.2, -10.0], np.float32), np.zeros(3, np.float32), 60.0)
     gate_args = render_args(model, cam, 128, 128, True, BG_GATE, dev)
@@ -1753,7 +1860,7 @@ def bwd_gate(dev) -> float:
             raise SystemExit("phase 12 failed: kernel vs plain")
         worst = max(worst, d_max)
 
-    model = SplatModel.from_numpy(*build_scene(150, 256, seed=11), count=150, device=dev,
+    model = SplatModel.from_numpy(*splat_arrays(150, 256, seed=11), count=150, device=dev,
                                   sh_degree=1)
     params = (model.means, model.shs, model.scales, model.opacities, model.rotations)
     for res in (128, NF_GATE_CROP):
@@ -1794,6 +1901,7 @@ def nonfused_cli(device: str) -> None:
     not a multiple of the runtime's tile 32, then ``train --steps
     NF_CLI_STEPS``; every step must launch composite_bwd and not
     composite_train."""
+    from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh, mushroom_texture
     from gaussian_splatterer_tpu_torch.config import Project
     from gaussian_splatterer_tpu_torch.io.image import save_png
 
@@ -1833,6 +1941,7 @@ def nonfused_cli(device: str) -> None:
 
 def nonfused_main(dev, card) -> dict:
     """Phases 13 and 14.  Returns the kernel summary entry of composite_bwd."""
+    from gaussian_splatterer_tpu_torch.scripts.scenes import splat_arrays
     from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
     from gaussian_splatterer_tpu_torch.models.splats import SplatModel
     from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
@@ -1845,7 +1954,7 @@ def nonfused_main(dev, card) -> dict:
     n, cap, res, tile = TRAIN_SPLATS, TRAIN_CAPACITY, NF_RES, TRAIN_TILE
     phase(f"13. non-fused train main path: Trainer(renderer='tiled') + auto_train, {n} splats, "
           f"{res}^2 (not a multiple of tile {tile}), 16-camera rig")
-    arrays = build_scene(n, cap, seed=0)
+    arrays = splat_arrays(n, cap, seed=0)
     t_arrays = teacher_arrays(arrays, n)
     runtime = RuntimeConfig(render_resolution_x=res, render_resolution_y=res,
                             splats_capacity=cap, sh_degree=1, sh_coeffs=4, tile_px=tile)
@@ -1984,12 +2093,13 @@ def k2_frame(dev):
     it, for K2 alone (``--only k2`` and the design variants): the untrained
     bench model at bench camera 0, its truth rendered from phase 13's
     teacher, a white background.  Returns frame_bwd_args of it."""
+    from gaussian_splatterer_tpu_torch.scripts.scenes import bench_cameras, splat_arrays
     from gaussian_splatterer_tpu_torch.config import RuntimeConfig
     from gaussian_splatterer_tpu_torch.models.splats import SplatModel
     from gaussian_splatterer_tpu_torch.train import CameraBatch
 
     n, cap, res, tile = TRAIN_SPLATS, TRAIN_CAPACITY, NF_RES, TRAIN_TILE
-    arrays = build_scene(n, cap, seed=0)
+    arrays = splat_arrays(n, cap, seed=0)
     runtime = RuntimeConfig(render_resolution_x=res, render_resolution_y=res,
                             splats_capacity=cap, sh_degree=1, sh_coeffs=4, tile_px=tile)
     teacher = TeacherRtx(SplatModel.from_numpy(*teacher_arrays(arrays, n), count=n, device=dev,
@@ -2473,7 +2583,8 @@ def device_busy_ms(fn) -> tuple[float, float, dict]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", action="append",
-                    choices=("step", "k1", "k2", "k3", "k4", "k5", "k6", "k7"),
+                    choices=("step", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "bench",
+                             "quality"),
                     help="run phases 1-2 and then only phases 7-8 and 16 (step: the fused "
                          "step's cell on both reduction routes, its layers and the batched "
                          "front end against the frame-by-frame one), phases 3-5 (k1: the "
@@ -2485,8 +2596,10 @@ def main(argv=None) -> int:
                          "shapes and K4 alone on a synthetic full-size group (k4), phase 11 (k5: "
                          "capture frames, the intersector's times, launch sizes and SASS) or "
                          "phase 17's gather probes (k6: from shared memory, k7: at the bench "
-                         "scale); for timing two trees of the repository in one call, this "
-                         "script copied into each")
+                         "scale; for timing two trees of the repository in one call, this "
+                         "script copied into each), or phase 18 (bench: the port's bench, "
+                         "--tile 16 and bench_scale) or phase 19 (quality: quality_run, "
+                         "resumed, and eval_model), which end with the full run's last line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU",
@@ -2534,9 +2647,18 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"ok": True, "device": device}))
         return 0
+    if args.only and set(args.only) <= {"bench", "quality"}:
+        if "bench" in args.only:
+            bench_phase(dev, card)
+        if "quality" in args.only:
+            quality_phase(card)
+        print(card)
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
     if args.only:
-        if "step" in args.only:
-            raise SystemExit("chip_smoke: --only step runs alone")
+        if not set(args.only).isdisjoint({"step", "bench", "quality"}):
+            raise SystemExit("chip_smoke: --only step, and --only bench and quality, "
+                             "run without the other --only options")
         if "k1" in args.only:
             serve_phases(dev, card, only=True)
         if "k2" in args.only:
@@ -2573,6 +2695,11 @@ def main(argv=None) -> int:
     k4 = cumsum_cell(dev, card, cumsum_gate(dev, group))
     del group
     probes = probe_phase(dev, card, [fwd, bwd, train, k4, k5])
+    measured = bench_phase(dev, card)
+    add_launches(measured, quality_phase(card))
+    for entry in (fwd, train, k5, bwd, k4):
+        entry["launches"] += measured.get(entry["name"], 0)
+    print(f"launches of phases 18-19 added to the summary: {measured}")
     if "jax" in sys.modules:
         raise SystemExit("chip_smoke: jax was imported")
 

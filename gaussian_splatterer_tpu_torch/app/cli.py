@@ -3,13 +3,18 @@ gaussian_splatterer_tpu.app.cli):
 
     gsplat-torch new PROJECT_DIR [--obj model.obj --texture tex.png] [--init-field grid|mono|model]
     gsplat-torch train PROJECT_DIR --steps N [--renderer tiled|oracle] [--log-every K]
+        [--checkpoint-every N [--checkpoint-dir D]] [--resume]
+        [--snapshot-every N [--snapshot-dir D]] [--watch [--watch-every N]]
     gsplat-torch render PROJECT_DIR OUT.png [--mode splats|rtx] [--size WxH] [--samples S]
     gsplat-torch info PROJECT_DIR
 
 Every subcommand takes ``--device`` (default cuda; cpu runs the kernels'
 plain PyTorch versions).  Flags keep the JAX CLI's names and meaning,
 including ``--runtime KEY=VALUE`` and the rule that sizes ``max_dup`` from
-the scene.  Checkpoints, snapshots, the watch page, ``--devices``,
+the scene.  ``train`` writes npz checkpoints (``--checkpoint-every``, into
+PROJECT/checkpoints by default) and resumes from the latest one
+(``--resume``), writes a PNG snapshot series (``--snapshot-every``) and a
+live watch page (``--watch``: PROJECT/watch/index.html).  ``--devices``,
 ``export``, ``doctor`` and ``--mode viewer`` are not ported yet.
 """
 
@@ -115,6 +120,14 @@ def cmd_train(args):
     session = _make_session(args, require=True)
     if session.rtx.mesh is None:
         raise SystemExit("project has no OBJ model; run `new --obj` first")
+    ckpt_dir = args.checkpoint_dir or os.path.join(args.project, "checkpoints")
+    if args.resume:
+        latest = os.path.join(ckpt_dir, "latest.npz")
+        if os.path.exists(latest):
+            session.resume_from_checkpoint(ckpt_dir)
+            print(f"resumed from {latest} at iter {session.project.iterations}")
+        else:
+            print(f"--resume: no checkpoint at {latest}; starting fresh")
     t0 = time.perf_counter()
     last = {"it": session.project.iterations, "t": t0}
     # kernel launches of each step, the capture before it included: the
@@ -144,7 +157,19 @@ def cmd_train(args):
             print(f"iter {it}  loss {float(metrics.loss):.6f}  splats {int(session.model.count)}"
                   f"  {rate:.1f} steps/s" + (f"  [{cadence}]" if cadence else ""), flush=True)
 
-    stats = session.auto_train(args.steps, on_step=on_step)
+    watch_dir = os.path.join(args.project, "watch")
+    if args.watch:
+        print(f"watch: open file://{os.path.abspath(watch_dir)}/index.html "
+              "in a browser (auto-refreshes)", flush=True)
+    stats = session.auto_train(
+        args.steps, on_step=on_step,
+        checkpoint_dir=ckpt_dir if args.checkpoint_every else None,
+        checkpoint_every=args.checkpoint_every,
+        snapshot_dir=args.snapshot_dir or os.path.join(args.project, "snapshots"),
+        snapshot_every=args.snapshot_every,
+        watch_dir=watch_dir if args.watch else None,
+        watch_every=args.watch_every if args.watch else 0,
+    )
     session.save_project(args.project)
     print(f"trained {args.steps} steps in {time.perf_counter() - t0:.1f}s; saved")
     print(json.dumps({**stats, "iterations": session.project.iterations,
@@ -222,6 +247,22 @@ def main(argv=None) -> int:
     p_tr.add_argument("--steps", type=int, default=200)
     p_tr.add_argument("--renderer", choices=["tiled", "oracle"], default="tiled")
     p_tr.add_argument("--log-every", type=int, default=10)
+    p_tr.add_argument("--checkpoint-every", type=int, default=0,
+                      help="crash-recovery .npz checkpoint every N iters")
+    p_tr.add_argument("--checkpoint-dir",
+                      help="checkpoint directory (default PROJECT/checkpoints)")
+    p_tr.add_argument("--resume", action="store_true",
+                      help="resume from the latest checkpoint if present")
+    p_tr.add_argument("--snapshot-every", type=int, default=0,
+                      help="export a splat-render PNG every N iters (the "
+                           "headless live-preview equivalent)")
+    p_tr.add_argument("--snapshot-dir",
+                      help="snapshot directory (default PROJECT/snapshots)")
+    p_tr.add_argument("--watch", action="store_true",
+                      help="live-watch mode: rewrite PROJECT/watch/index.html + "
+                           "latest.png every --watch-every iters; open it in a "
+                           "browser to track the run")
+    p_tr.add_argument("--watch-every", type=int, default=25)
     _add_runtime_flags(p_tr)
     p_tr.set_defaults(fn=cmd_train)
 

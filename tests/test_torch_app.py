@@ -365,6 +365,10 @@ def test_port_imports_no_jax_flax_or_pillow():
         "import gaussian_splatterer_tpu_torch.app.cli\n"
         "import gaussian_splatterer_tpu_torch.rt\n"
         "import gaussian_splatterer_tpu_torch.utils.metrics\n"
+        "import gaussian_splatterer_tpu_torch.io.checkpoint\n"
+        "import gaussian_splatterer_tpu_torch.io.watch\n"
+        "from gaussian_splatterer_tpu_torch.scripts import (\n"
+        "    bench, bench_scale, eval_model, quality_run, scenes)\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"

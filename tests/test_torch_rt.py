@@ -25,6 +25,7 @@ from gaussian_splatterer_tpu_torch.io.obj import TriangleMesh
 from gaussian_splatterer_tpu_torch.models.camera import Camera
 from gaussian_splatterer_tpu_torch.rt import tracer as tr
 from gaussian_splatterer_tpu_torch.rt.tracer import RtxHost
+from gaussian_splatterer_tpu_torch.scripts import scenes
 
 RES = 32
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -580,10 +581,10 @@ def test_mt_kernel_matches_plain_on_soup(cuda_device, r):  # noqa: F811
 @pytest.mark.cuda
 @pytest.mark.parametrize("r", [1 << 10, 1 << 16])
 def test_mt_kernel_matches_plain_on_mushroom(cuda_device, r):  # noqa: F811
-    """Bounce rays leaving the north-star mushroom's surface (chip_smoke's
+    """Bounce rays leaving the north-star mushroom's surface (scenes.py's
     mesh), the cancellation case of t_num."""
     smoke = _load_chip_smoke()
-    mesh = smoke.mushroom_mesh(32, 16)
+    mesh = scenes.mushroom_mesh(32, 16)
     host = RtxHost(device=cuda_device)
     host.load_model(mesh)
     o, d = smoke.surface_rays(mesh, r, seed=4)
@@ -592,7 +593,7 @@ def test_mt_kernel_matches_plain_on_mushroom(cuda_device, r):  # noqa: F811
 
 def _mushroom_rays(cuda_device, r, seed=4):
     smoke = _load_chip_smoke()
-    mesh = smoke.mushroom_mesh(32, 16)
+    mesh = scenes.mushroom_mesh(32, 16)
     host = RtxHost(device=cuda_device)
     host.load_model(mesh)
     o, d = smoke.surface_rays(mesh, r, seed=seed)
