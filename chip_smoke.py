@@ -10,10 +10,11 @@ the training path (``Trainer`` under ``auto_train``), the tracer path
 non-fused tiled training path (``Trainer`` and the CLI's ``train`` at a
 resolution that is not a multiple of the tile), the fused step on its
 cumsum reduction route (``Trainer(reduction="cumsum")``), the H100 probes,
-and the measuring and long-run entry points (the port's bench and
-bench_scale, quality_run with a resume across processes, eval_model) at
-full size, times the stages with CUDA events, and exits nonzero at the
-first phase that fails.  It imports nothing of JAX.
+the measuring and long-run entry points (the port's bench and
+bench_scale, quality_run with a resume across processes, eval_model) and
+the tracer at mesh scale (the CLI on a 65,024-triangle mesh, through the
+culled intersector) at full size, times the stages with CUDA events, and
+exits nonzero at the first phase that fails.  It imports nothing of JAX.
 
 Phases:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
@@ -60,7 +61,8 @@ Phases:
  10. main path: the CLI's new -> train -> render --mode rtx on the north
      star (the procedural mushroom, 1024^2, 8-camera rig, 32 samples,
      capacity 262,144), 6 steps that capture before iterations 0 and 3 and
-     densify at 0 and 4, in subprocesses; the launches ``train`` prints;
+     densify at 0 and 4, in subprocesses; the launches ``train`` prints
+     (mt_intersect at each capture, no mt_culled);
  11. times: seconds per 32-sample 1024^2 capture frame at the north-star
      and the close-up camera with the device's busy share, and the kernel,
      its plain twin and the FP32 product alone on one batch of primary rays
@@ -125,7 +127,29 @@ Phases:
      iteration 60 from a model bit-equal to the checkpoint (its SHA-256);
      then scripts.eval_model on the final model (32 samples, 2 views):
      PSNR, SSIM, steps/s and the capture's share of the run.  The summary's
-     launches include these phases'.
+     launches include these phases';
+  the tracer at mesh scale (kernel mt_culled, K9, the culled intersector;
+  meshes of accel_min = 1,024 triangles or more):
+ 20. K9 against its plain twin at phase 9's gate, and bit for bit, on the
+     600-triangle soup of tests/test_torch_culled.py, on 2^16 bounce rays
+     leaving the mushroom at mesh-res 256 (65,024 triangles in 127 chunks)
+     and on one 1-sample 1024^2 batch of its primary rays; two launches
+     bit-equal; K9 against K5 on the same rays (compare_forms: masks and
+     winners at phase 9's gate, K9's t, u, v against float64 within their
+     float32 condition); the main path: the CLI's new --obj (the mesh
+     written as an OBJ) -> train (6 steps, captures at 0 and 3; mt_culled
+     launches required at each and no mt_intersect launch) -> render
+     --mode rtx, as phase 10; times:
+     the 32-sample 1024^2 capture frame at rig camera 0 through K9, its
+     busy share and K9's launches by size, the same frame through the brute
+     force (K5, accel_min 10^9), the frame at mesh-res 1024 (1,046,528
+     triangles) through K9 with the brute force's primaries estimated from
+     one K5 launch; K9 at 2^10, 2^13, 2^16 and 2^20 bounce rays and on a
+     8-sample primary batch (the main path's), each held against its plain
+     twin (phase 9's gate, and bit for bit) and timed beside it, its chunks
+     visited a ray, its bound and K5 on the same rays; K9 against its plain
+     twin on the mesh-res 1024 mushroom (2,044 chunks: boxes in the opt-in
+     shared memory), on its 1-sample primary batch and 2^16 bounce rays.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of its FP32 operations over 67 TFLOP/s (the data sheet's; phase 17 adds a
@@ -138,12 +162,15 @@ counts its Gaussians, and K1's and K2's, only at the pairs inside the
 duplicate's exact footprint box (``pairs_box``), the work left once a pixel
 is shown to lie outside it.  The tracer
 kernel's operations are every (ray, real triangle) pair of the launch
-times its operations per pair, an FMA counted as two.  K2's bytes are the
+times its operations per pair, an FMA counted as two; the culled one's the
+(ray, triangle) pairs its march visits on these rays (counted by the plain
+twin) and one AABB test per ray and chunk.  K2's bytes are the
 rows in, their gradients out, the ranges, and the forward output and its
 gradient in.  K4's bytes are its input read and its output written once.
 
-``--only bench`` and ``--only quality`` run phases 1-2 and then phase 18
-or 19 (or both) and end with the full run's last line.
+``--only bench``, ``--only quality`` and ``--only k9`` run phases 1-2 and
+then phase 18, 19 or 20 (or several) and end with the full run's last line
+(``k9`` after its kernels line).
 
 ``--only step`` runs phases 1-2, 7-8 and 16 (the fused step on both
 reduction routes, for quick rounds on the card) and ends with the same
@@ -250,6 +277,25 @@ NS_QUALITY = (
     "--interval-capture", "50", "--lr-scale", "1.0", "--lr-location-decay", "0.9988",
     "--densify-variance-decay", "0.999",
 )
+# phase 20: the tracer at mesh scale (K9).  The mushroom at mesh resolution
+# 256 (65,024 triangles, past the JAX package's accel_min of 1,024: Morton-
+# ordered into 127 chunks of 512, the culled route for every intersection)
+# and at 1024 (1,046,528 triangles, 2,044 chunks); the soup of
+# tests/test_torch_culled.py (600 triangles, chunks of 32)
+K9_MESH, K9_BIG_MESH = (256, 128), (1024, 512)
+K9_SOUP, K9_SOUP_CHUNK = 600, 32
+# K9 against K5 (compare_forms): K9's t, u and v held to float64 within
+# this many float32 roundings of each quantity's condition
+K9_F64_ULPS = 16
+# operations of a visited (ray, triangle) pair in csrc/mt_culled.cu, each
+# counted once: p (6 products, 3 differences), det (3, 2), the guard's test
+# and select, the reciprocal, w (3), u (4, 2), q (6, 3), v (4, 2), t (4, 2),
+# the tests (valid, u, v, u + v and its test, t) 6, the running minimum 1
+K9_OPS_PAIR = 9 + 5 + 2 + 1 + 3 + 6 + 9 + 6 + 6 + 6 + 1
+# and of a (ray, chunk) AABB test, once a ray and chunk as the sort-based
+# march does it: 6 differences, 6 products, 3 min, 3 max, the entry's 3 max,
+# the exit's 2 min and the key's test
+K9_OPS_BOX = 6 + 6 + 3 + 3 + 3 + 2 + 1
 # the non-fused tiled step (phases 12-14): the bench scene trained at a
 # resolution that is not a multiple of the tile, so the Trainer runs render
 # tiled under autograd frame by frame (K1 forward, K2 backward)
@@ -1060,43 +1106,97 @@ def pair_hits64(o, d, tris, idx):
     return (e2 * q).sum(1) / det, (tv * p).sum(1) / det, (d * q).sum(1) / det
 
 
-def compare_hits(label: str, o, d, tris, k, p) -> float:
-    """K5's hits (t, idx, u, v) against its plain twin's on the same rays:
-    the gate of phase 9.  Where both hit, the winners are the same
-    triangle on K5_MASK_SHARE of the rays, and every other winner is an
-    exact tie: in float64 the kernel's triangle lies at the plain winner's
-    distance (rel K5_T_RTOL) and holds the hit point (barycentrics within
+def hit_winners(o, d, tris, k, p) -> dict:
+    """The hit masks and winners of hits ``k`` against ``p`` (t, idx, u, v)
+    on the same rays, as phase 9 judges them: the share of rays whose
+    masks agree, the rays where both hit and found another triangle, how
+    many may (1 - K5_MASK_SHARE of the rays both hit), and whether each is
+    an exact tie: in float64 k's triangle lies at p's winner's distance
+    (rel K5_T_RTOL) and holds the hit point (barycentrics within
     K5_TIE_BARY_ATOL).  A tie is judged in float64 because the two sides
-    round their sums in different orders.  Returns the largest |difference|
-    of t, u and v where both found the same triangle."""
+    round their sums in different orders.  Also k's miss contract."""
     hk, hp = torch.isfinite(k[0]), torch.isfinite(p[0])
     r = hk.numel()
-    mask_share = float((hk == hp).float().mean()) if r else 1.0
     both = hk & hp
     same = both & (k[1] == p[1])
     other = (both & ~same).nonzero()[:, 0]
-    n_other, limit = other.numel(), (1.0 - K5_MASK_SHARE) * int(both.sum())
     ties = True
-    if n_other:
+    if other.numel():
         tk, uk, vk = pair_hits64(o[other], d[other], tris, k[1][other].long())
         tp, _, _ = pair_hits64(o[other], d[other], tris, p[1][other].long())
         ties = bool((((tk - tp).abs() <= K5_T_RTOL * tp.abs()) & (uk >= -K5_TIE_BARY_ATOL)
                      & (vk >= -K5_TIE_BARY_ATOL) & (uk + vk <= 1.0 + K5_TIE_BARY_ATOL)).all())
+    miss_ok = not (k[1][~hk].any() or k[2][~hk].any() or k[3][~hk].any()
+                   or torch.isfinite(k[0][~hk]).any())
+    w = {"rays": r, "hits": int(hk.sum()), "both": both, "same": same, "ties": ties,
+         "mask_share": float((hk == hp).float().mean()) if r else 1.0,
+         "n_other": other.numel(), "limit": (1.0 - K5_MASK_SHARE) * int(both.sum()),
+         "miss_ok": miss_ok}
+    w["ok"] = (w["mask_share"] >= K5_MASK_SHARE and w["n_other"] <= w["limit"] and ties
+               and miss_ok)
+    w["text"] = (f"{r} rays, {w['hits']} hits; masks agree {w['mask_share']:.6f} (>= "
+                 f"{K5_MASK_SHARE}); another winner on {w['n_other']} rays (<= "
+                 f"{w['limit']:.1f}), all exact ties {ties}; miss contract {miss_ok}")
+    return w
+
+
+def compare_hits(label: str, o, d, tris, k, p, phase_no: int = 9) -> float:
+    """K5's hits (t, idx, u, v) against its plain twin's on the same rays:
+    the gate of phase 9.  The masks and winners as hit_winners judges
+    them; where both found the same triangle, t within K5_T_RTOL and u, v
+    within K5_UV_ATOL.  Returns the largest |difference| of t, u and v
+    there."""
+    w = hit_winners(o, d, tris, k, p)
+    both, same = w["both"], w["same"]
     rel = ((k[0] - p[0]).abs() / p[0].abs().clamp(min=1e-30))[both]
     t_rel = float(rel.max()) if rel.numel() else 0.0
     uv_err = max((float((a - b).abs()[same].max()) if same.any() else 0.0)
                  for a, b in ((k[2], p[2]), (k[3], p[3])))
     t_err = float((k[0] - p[0]).abs()[same].max()) if same.any() else 0.0
-    miss_ok = not (k[1][~hk].any() or k[2][~hk].any() or k[3][~hk].any()
-                   or torch.isfinite(k[0][~hk]).any())
-    print(f"  {label}: {r} rays, {int(hk.sum())} hits; masks agree {mask_share:.6f} "
-          f"(>= {K5_MASK_SHARE}); another winner on {n_other} rays (<= {limit:.1f}), "
-          f"all exact ties {ties}; t rel {t_rel:.3e} (<= {K5_T_RTOL}); |u|,|v| {uv_err:.3e} "
-          f"(<= {K5_UV_ATOL}); miss contract {miss_ok}", flush=True)
-    if not (mask_share >= K5_MASK_SHARE and n_other <= limit and ties and t_rel <= K5_T_RTOL
-            and uv_err <= K5_UV_ATOL and miss_ok):
-        raise SystemExit(f"phase 9 failed: {label}")
+    print(f"  {label}: {w['text']}; t rel {t_rel:.3e} (<= {K5_T_RTOL}); |u|,|v| {uv_err:.3e} "
+          f"(<= {K5_UV_ATOL})", flush=True)
+    if not (w["ok"] and t_rel <= K5_T_RTOL and uv_err <= K5_UV_ATOL):
+        raise SystemExit(f"phase {phase_no} failed: {label}")
     return max(uv_err, t_err)
+
+
+def compare_forms(label: str, o, d, tris, k, p, phase_no: int = 20) -> float:
+    """K9's hits ``k`` against K5's ``p`` on the same rays: two forms of the
+    arithmetic (K9's component Möller-Trumbore against K5's feat10 dot
+    products), which round the cancellations of the numerators
+    differently, so their t, u and v differ by more than phase 9's
+    tolerances where a triangle is small or seen at a grazing angle (up to
+    1.3e-3 in u on the mesh-res 256 primaries).  The masks and winners are
+    held as phase 9 holds them (hit_winners); k's t, u and v on its hits
+    are held to float64, each within K9_F64_ULPS float32 roundings of its
+    own condition (its terms' magnitudes over |det|, the det's error
+    carried through the division).  Returns the largest of those errors
+    over their bounds."""
+    w = hit_winners(o, d, tris, k, p)
+    hit = torch.isfinite(k[0])
+    idx = k[1][hit].long()
+    o64, d64 = o[hit].double(), d[hit].double()
+    a, e1, e2 = (torch.stack([tris[f"{n}{c}"][idx] for c in "xyz"], 1).double()
+                 for n in ("a", "e1", "e2"))
+    pv = torch.cross(d64, e2, dim=1)
+    det = (e1 * pv).sum(1)
+    wv = o64 - a
+    q = torch.cross(wv, e1, dim=1)
+    t, u, v = (e2 * q).sum(1) / det, (wv * pv).sum(1) / det, (d64 * q).sum(1) / det
+    nd, n1, n2, nw = (x.norm(dim=1) for x in (d64, e1, e2, wv))
+    eps = K9_F64_ULPS * 2.0 ** -24 / det.abs()
+    det_err = n1 * nd * n2
+    worst = 0.0
+    for got, x, terms in ((k[0][hit], t, n2 * nw * n1), (k[2][hit], u, nw * nd * n2),
+                          (k[3][hit], v, nd * nw * n1)):
+        ratio = (got.double() - x).abs() / (eps * (terms + x.abs() * det_err))
+        worst = max(worst, float(ratio.max()) if ratio.numel() else 0.0)
+    print(f"  {label}: {w['text']}; K9's t, u, v against float64: the largest error "
+          f"{worst:.3e} of its bound ({K9_F64_ULPS} roundings of the pair's condition; <= 1)",
+          flush=True)
+    if not (w["ok"] and worst <= 1.0):
+        raise SystemExit(f"phase {phase_no} failed: {label}")
+    return worst
 
 
 def k5_slices(dev, r: int, t_real: int) -> int:
@@ -1165,7 +1265,7 @@ def tracer_gate(dev) -> float:
     cam = close_camera()
     inv_pv = np.linalg.inv(cam.get_proj_view(1.0).astype(np.float64)).astype(np.float32)
     imgs = []
-    for fn in (tr.intersect, tr.intersect_reference):
+    for fn in (None, tr.intersect_reference):  # None: the tracer's route, K5 here
         gen = torch.Generator(device=dev).manual_seed(5)
         sums = tr.render_rtx_sums(host._tris, host._texture, cam.location, inv_pv, 32, 32,
                                   NS_SAMPLES, (0.0, 0.0, 0.0), gen, tri_chunk=host.tri_chunk,
@@ -1336,26 +1436,31 @@ def quality_phase(card) -> dict:
     return total
 
 
-def tracer_main(device: str = "cuda") -> dict:
+def tracer_main(device: str = "cuda", mesh_res: tuple[int, int] = NS_MESH, phase_no: int = 10,
+                kernel: str = "mt_intersect") -> dict:
     """Phase 10: ``new`` -> ``train`` -> ``render --mode rtx`` through the
-    CLI on the north star.  Returns the K5 and K3 launches of ``train``."""
+    CLI on the north star; phase 20 the same on the mushroom at mesh
+    resolution ``mesh_res``.  Each capture's step must report launches of
+    ``kernel`` (the intersector of the mesh's route).  Returns the
+    kernels' launches of ``train``."""
     from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh, mushroom_texture
     from gaussian_splatterer_tpu_torch.config import Project
     from gaussian_splatterer_tpu_torch.io.image import load_png, save_png
 
-    phase(f"10. tracer main path: gsplat-torch new -> train -> render --mode rtx, the "
-          f"mushroom north star ({NS_RES}^2, {NS_CAMS}-camera rig, {NS_SAMPLES} samples, "
-          f"capacity {NS_CAPACITY})")
+    mesh = mushroom_mesh(*mesh_res)
+    phase(f"{phase_no}. tracer main path: gsplat-torch new -> train -> render --mode rtx, the "
+          f"mushroom {'north star' if mesh_res == NS_MESH else f'at mesh-res {mesh_res[0]}'} "
+          f"({mesh.num_triangles:,} triangles; {NS_RES}^2, {NS_CAMS}-camera rig, {NS_SAMPLES} "
+          f"samples, capacity {NS_CAPACITY})")
     (HERE / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_rtx_", dir=HERE / "build"))
-    mesh = mushroom_mesh(NS_MESH[0], NS_MESH[1])
     write_obj(mesh, str(work / "mushroom.obj"))
     save_png(mushroom_texture()[..., :3], str(work / "mushroom.png"), flip_vertical=False)
     proj = str(work / "project")
     out, secs = cli("new", proj, "--obj", str(work / "mushroom.obj"), "--texture",
                     str(work / "mushroom.png"), "--init-field", "model", "--resolution",
                     str(NS_RES), "--capacity", str(NS_CAPACITY), "--max-dup", str(NS_MAX_DUP),
-                    *NS_RUNTIME, "--device", device, timeout=300)
+                    *NS_RUNTIME, "--device", device, timeout=300, phase_no=phase_no)
     print(f"  new: {secs:.3f} s (host clock): {out.strip()}")
     # the north star's rig and schedule: capture before iteration 0 and
     # again at 3, densify at 0 and 4 (train/schedule.py)
@@ -1367,24 +1472,29 @@ def tracer_main(device: str = "cuda") -> dict:
     p.save(f"{proj}/settings.json")
 
     out, secs = cli("train", proj, "--steps", str(NS_STEPS), "--log-every", "1",
-                    "--device", device, timeout=900)
+                    "--device", device, timeout=900, phase_no=phase_no)
     lines = out.strip().splitlines()
     for line in lines[:-1]:
         print(f"  {line}")
     stats = json.loads(lines[-1])
-    k5, k3 = stats["launches"]["mt_intersect"], stats["launches"]["composite_train"]
+    hits, k3 = stats["launches"][kernel], stats["launches"]["composite_train"]
+    # the other intersector: a mesh takes one route for every intersection
+    rival = sum(stats["launches"]["mt_culled" if kernel == "mt_intersect" else "mt_intersect"])
     captures = [i for i in range(NS_STEPS) if i % NS_INTERVAL_CAPTURE == 0]
     groups = 2 * NS_CAMS // TRAIN_GROUP
+    others = {k: sum(v) for k, v in stats["launches"].items() if k not in (kernel, "composite_train")}
     print(f"  train: {secs:.3f} s (host clock, process included); capture {stats['capture_s']} s "
-          f"in {1 + stats['recaptures']} captures of {2 * NS_CAMS} frames; mt_intersect "
-          f"launches by step (the capture before it included) {k5}; composite_train {k3} "
-          f"(= {NS_STEPS} steps x {groups} groups); splats {stats['splats']}")
+          f"in {1 + stats['recaptures']} captures of {2 * NS_CAMS} frames; {kernel} "
+          f"launches by step (the capture before it included) {hits}; composite_train {k3} "
+          f"(= {NS_STEPS} steps x {groups} groups); other launches {others}; splats "
+          f"{stats['splats']}")
     losses = [float(line.split()[3]) for line in lines if line.startswith("iter ")]
-    launched = all(k5[i] > 0 for i in captures) and sum(k3) == NS_STEPS * groups
+    launched = all(hits[i] > 0 for i in captures) and sum(k3) == NS_STEPS * groups and rival == 0
     if len(losses) != NS_STEPS or not all(np.isfinite(losses)):
-        raise SystemExit("phase 10 failed: a loss is missing or not finite")
+        raise SystemExit(f"phase {phase_no} failed: a loss is missing or not finite")
     if device != "cpu" and not launched:  # the CPU runs the plain versions
-        raise SystemExit("phase 10 failed: a capture or a step did not launch its kernel")
+        raise SystemExit(f"phase {phase_no} failed: a capture or a step did not launch its "
+                         f"kernel, or a capture launched the other intersector")
     from gaussian_splatterer_tpu_torch.io.gobj import load_gobj
 
     host_model = load_gobj(f"{proj}/splats.gobj", capacity=NS_CAPACITY)
@@ -1392,19 +1502,20 @@ def tracer_main(device: str = "cuda") -> dict:
     finite = all(np.isfinite(getattr(host_model, k)[:n]).all()
                  for k in ("means", "shs", "scales", "opacities", "rotations"))
     if not finite or n == 0:
-        raise SystemExit("phase 10 failed: the trained parameters are not finite")
+        raise SystemExit(f"phase {phase_no} failed: the trained parameters are not finite")
 
     png = str(work / "rtx.png")
     out, secs = cli("render", proj, png, "--mode", "rtx", "--size", f"{NS_RES}x{NS_RES}",
-                    "--samples", str(NS_SAMPLES), "--device", device, timeout=300)
+                    "--samples", str(NS_SAMPLES), "--device", device, timeout=300,
+                    phase_no=phase_no)
     img = load_png(png)
     lit = float((img.max(axis=2) > 0).mean())
     print(f"  render --mode rtx: {secs:.3f} s (host clock, process included); png "
           f"{img.shape}, {lit:.4f} of the pixels not black (>= {NS_LIT_SHARE}), "
           f"{len(np.unique(img.reshape(-1, 3), axis=0))} colours", flush=True)
     if img.shape != (NS_RES, NS_RES, 3) or lit < NS_LIT_SHARE or img.min() == img.max():
-        raise SystemExit("phase 10 failed: PNG check")
-    return {"mt_intersect": sum(k5), "composite_train": sum(k3)}
+        raise SystemExit(f"phase {phase_no} failed: PNG check")
+    return {name: sum(v) for name, v in stats["launches"].items()}
 
 
 def tracer_times(dev, card, launches: int, gate_err: float) -> dict:
@@ -2552,6 +2663,262 @@ def k6_phase(dev, card):
     return smem, launches, tab6, ids6
 
 
+def k9_bound(r: int, pairs: float, nc: int, t_pad: int, name: str | None = None):
+    """K9's bound for ``r`` rays: the (ray, triangle) pairs its march
+    visits on these rays (counted by the plain twin) at K9_OPS_PAIR, every
+    (ray, chunk) AABB test once at K9_OPS_BOX; rays in (24 B) and out
+    (16 B), geo10 (40 B a triangle) and the boxes (24 B a chunk) once."""
+    return bound_ms(K9_OPS_PAIR * pairs + K9_OPS_BOX * r * nc, 40 * r + 40 * t_pad + 24 * nc,
+                    name)
+
+
+def k9_hosts(dev):
+    """(soup host, its rays, the mesh-res 256 mushroom, its host): both
+    Morton-ordered, the mushroom at the default accel_min and chunk."""
+    from gaussian_splatterer_tpu_torch.io.obj import TriangleMesh
+    from gaussian_splatterer_tpu_torch.rt import RtxHost
+    from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh
+
+    rng = np.random.default_rng(5)  # tests/test_torch_culled.py's soup
+    soup = RtxHost(tri_chunk=K9_SOUP_CHUNK, device=dev)
+    soup.load_model(TriangleMesh(rng.uniform(-2, 2, (3 * K9_SOUP, 3)).astype(np.float32),
+                                 np.arange(3 * K9_SOUP, dtype=np.int32).reshape(K9_SOUP, 3),
+                                 rng.uniform(0, 1, (K9_SOUP, 3, 2)).astype(np.float32)),
+                    accel_min=1)
+    o = torch.from_numpy(rng.uniform(-4, 4, (1 << 14, 3)).astype(np.float32)).to(dev)
+    d = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(1 << 14, 3)).astype(np.float32)), dim=1).to(dev)
+    mesh = mushroom_mesh(*K9_MESH)
+    host = RtxHost(device=dev)
+    host.load_model(mesh)
+    if "bb_minx" not in host._tris or "bb_minx" not in soup._tris:
+        raise SystemExit("phase 20 failed: a scene past accel_min has no Morton chunks")
+    return soup, (o, d), mesh, host
+
+
+def culled_gate(dev) -> tuple[float, object]:
+    """Phase 20, part 1 and 2: K9 against its plain twin and against K5 at
+    phase 9's gate, on the soup, on 2^16 bounce rays leaving the mesh-res
+    256 mushroom and on one 1-sample 1024^2 batch of its primary rays; two
+    launches bit-equal.  Returns the largest kernel-vs-plain error and the
+    mushroom's host."""
+    from gaussian_splatterer_tpu_torch.models.camera import Camera
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+
+    soup, (so, sd), mesh, host = k9_hosts(dev)
+    nc = host._tris["bb_minx"].shape[0]
+    phase(f"20. the tracer at mesh scale: mt_culled (K9) vs plain and vs mt_intersect (K5) "
+          f"(the soup, {K9_SOUP} triangles; the mushroom at mesh-res {K9_MESH[0]}, "
+          f"{mesh.num_triangles:,} triangles in {nc} chunks of {host.tri_chunk})")
+    o, d = surface_rays(mesh, K5_BOUNCE_RAYS, seed=4)
+    po, pd = camera_rays(Camera.get_cameras(ns_project())[0], NS_RES, dev, seed=1, samples=1)
+    sets = [(f"random soup, {K9_SOUP} triangles, chunks of {K9_SOUP_CHUNK}", soup, so, sd),
+            (f"mushroom mesh-res {K9_MESH[0]}, {K5_BOUNCE_RAYS} bounce rays from its surface",
+             host, o.to(dev), d.to(dev)),
+            (f"mushroom mesh-res {K9_MESH[0]}, one 1-sample {NS_RES}^2 batch of primary rays "
+             f"from rig camera 0", host, po, pd)]
+    worst = 0.0
+    for label, h, o, d in sets:
+        tris, tc = h._tris, h.tri_chunk
+        before = tr.mt_culled_launches
+        k = tr.intersect_culled(o, d, tris, tc)
+        again = tr.intersect_culled(o, d, tris, tc)
+        torch.cuda.synchronize()
+        p = tr.intersect_culled_reference(o, d, tris, tc)
+        worst = max(worst, culled_check(label, o, d, tris, tc, k, p))
+        same = all(torch.equal(a, b) for a, b in zip(k, again))
+        print(f"    a second launch equals the first: {same}; launches counted "
+              f"{tr.mt_culled_launches - before}", flush=True)
+        if not same or tr.mt_culled_launches - before != 2:
+            raise SystemExit(f"phase 20 failed: {label}: a second launch or the count")
+        k5 = tr.intersect(o, d, tris, tc)
+        compare_forms(f"{label}: K9 vs K5", o, d, tris, k, k5)
+    return worst, host
+
+
+def culled_check(label: str, o, d, tris, tc: int, k, p) -> float:
+    """K9's hits ``k`` against its plain twin's ``p`` on the same rays:
+    phase 9's gate (compare_hits) and bit for bit, as the kernel rounds
+    every step as its twin does.  Returns compare_hits' error."""
+    err = compare_hits(f"{label}: K9 vs plain", o, d, tris, k, p, phase_no=20)
+    bits = all(torch.equal(a, b) for a, b in zip(k, p))
+    print(f"    K9 equals its plain twin bit for bit: {bits}", flush=True)
+    if not bits:
+        raise SystemExit(f"phase 20 failed: {label}: K9 differs from its plain twin")
+    return err
+
+
+def culled_launch_sizes(host, cam) -> list[tuple[str, int, int]]:
+    """K9's launches in one capture frame from ``cam``, by rays a launch:
+    (bucket, launches, rays)."""
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+
+    real, sizes = tr.intersect_culled, []
+
+    def recorded(o, *args, **kwargs):
+        sizes.append(o.shape[0])
+        return real(o, *args, **kwargs)
+
+    tr.intersect_culled = recorded
+    try:
+        host.render(cam, (0.0, 0.0, 0.0), NS_SAMPLES, NS_RES, NS_RES)
+    finally:
+        tr.intersect_culled = real
+    edges = (1 << 10, 1 << 13, 1 << 16, 1 << 20, 1 << 24)
+    out, lo = [], 0
+    for hi in edges:
+        part = [n for n in sizes if lo < n <= hi]
+        out.append((f"{lo + 1}-{hi}", len(part), sum(part)))
+        lo = hi
+    return out
+
+
+def culled_frame_s(host, cam, warmup: int = 1, reps: int = 2) -> float:
+    """Seconds of one NS_SAMPLES-sample NS_RES^2 capture frame, median of
+    ``reps`` after ``warmup`` (CUDA events)."""
+    return cuda_ms(lambda: host.render(cam, (0.0, 0.0, 0.0), NS_SAMPLES, NS_RES, NS_RES),
+                   warmup=warmup, reps=reps) / 1e3
+
+
+def culled_times(dev, card, host, launches: int, gate_err: float) -> dict:
+    """Phase 20, part 4: capture frames on the mesh-res 256 mushroom with K9
+    and with the brute force (K5, accel_min 10^9), on the mesh-res 1024
+    mushroom with K9 (its brute force estimated from one K5 launch); K9 by
+    launch size beside K5, its mean chunks visited and its bound.  Each
+    launch size, the main path's primary batch included, and the mesh-res
+    1024 mushroom's primary and bounce rays are held against the plain twin
+    (culled_check).  Returns the kernel summary entry of mt_culled."""
+    from gaussian_splatterer_tpu_torch.models.camera import Camera
+    from gaussian_splatterer_tpu_torch.rt import RtxHost
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+    from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh, mushroom_texture
+
+    phase(f"20. the tracer at mesh scale: times (CUDA events; {card})")
+    cam = Camera.get_cameras(ns_project())[0]
+    tex = mushroom_texture()
+    host.load_texture_diffuse(tex)
+    t_mesh = host.mesh.num_triangles
+    s9 = culled_frame_s(host, cam)
+    before = (tr.mt_culled_launches, tr.mt_intersect_launches)
+    busy_ms, wall_ms, by_name = device_busy_ms(
+        lambda: host.render(cam, (0.0, 0.0, 0.0), NS_SAMPLES, NS_RES, NS_RES))
+    per_frame = [(tr.mt_culled_launches - before[0]) // 2, (tr.mt_intersect_launches - before[1]) // 2]
+    k9_dev = sum(ms for name, (ms, _) in by_name.items() if "mt_culled" in name)
+    print(f"  K9 route, {t_mesh:,} triangles: {s9:.4f} s per {NS_SAMPLES}-sample {NS_RES}^2 "
+          f"capture frame at rig camera 0 (median of 2 after 1 warm-up); device busy "
+          f"{busy_ms:.3f} ms of a {wall_ms:.3f} ms profiled frame, share {busy_ms / wall_ms:.3f}; "
+          f"mt_culled {k9_dev:.3f} ms of it (the profiler's reading); {per_frame[0]} mt_culled "
+          f"and {per_frame[1]} mt_intersect launches a frame  [{card}]", flush=True)
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+        print(f"    device {ms:.3f} ms in {n} runs: {name[:90]}")
+    if per_frame[0] == 0 or per_frame[1] != 0:
+        raise SystemExit("phase 20 failed: a capture frame past accel_min did not take K9 alone")
+    sizes = culled_launch_sizes(host, cam)
+    print(f"    K9's launches in one frame by rays a launch (primaries and bounces): "
+          + "; ".join(f"{label} {n} launches, {rays:,} rays" for label, n, rays in sizes),
+          flush=True)
+    brute = RtxHost(device=dev)
+    brute.load_model(host.mesh, accel_min=10**9)
+    brute.load_texture_diffuse(tex)
+    s5 = culled_frame_s(brute, cam, warmup=0, reps=1)
+    print(f"  brute-force route (accel_min 10^9, K5), {t_mesh:,} triangles: {s5:.4f} s per "
+          f"frame (one frame); K9's route {s5 / s9:.2f}x faster  [{card}]", flush=True)
+    del brute
+
+    # K9 by launch size on the mesh-res 256 mushroom, and on a primary batch
+    tris, tc = host._tris, host.tri_chunk
+    nc, t_pad = int(tris["bb_minx"].numel()), int(tris["valid"].numel())
+    po, pd = camera_rays(cam, NS_RES, dev, seed=1, samples=host.sample_batch)
+    print(f"  mt_culled by launch size on {t_mesh:,} triangles ({nc} chunks of {tc}) (call: CUDA "
+          f"events around one call, median of {REPS}; device: 10 calls queued behind a spin "
+          f"kernel, median of 5; visits and pairs from the plain twin; bound at {K9_OPS_PAIR} "
+          f"operations a visited pair and {K9_OPS_BOX} a (ray, chunk) box test):")
+    entry = {}
+    for r in (*K5_SWEEP, po.shape[0]):
+        if r == po.shape[0]:
+            ro, rd, label = po, pd, f"primary batch, {host.sample_batch} samples of {NS_RES}^2"
+        else:
+            ro, rd = (x.to(dev) for x in surface_rays(host.mesh, r, seed=7))
+            label = "bounce rays"
+        call_ms = cuda_ms(lambda: tr.intersect_culled(ro, rd, tris, tc))
+        dev_ms = queued_ms(lambda: tr.intersect_culled(ro, rd, tris, tc))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        *plain, visits = tr.culled_march(ro, rd, tris, tc)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        gate_err = max(gate_err, culled_check(f"R = {r} ({label})", ro, rd, tris, tc,
+                                              tr.intersect_culled(ro, rd, tris, tc), plain))
+        pairs = float(visits.double().sum()) * tc
+        b_ms, b_by = k9_bound(r, pairs, nc, t_pad, "mt_culled" if r == po.shape[0] else None)
+        k5_ms = cuda_ms(lambda: tr.intersect(ro, rd, tris, tc, reject=r == po.shape[0]),
+                        warmup=1, reps=3)
+        print(f"    R = {r} ({label}): call {call_ms:.4f} ms, device {dev_ms:.4f} ms; plain "
+              f"{plain_ms:.1f} ms (one call); chunks visited a ray {float(visits.float().mean()):.3f}"
+              f" (max {int(visits.max())}), pairs {pairs:.4e}; bound {b_ms:.5f} ms ({b_by}), "
+              f"device share {b_ms / dev_ms:.4f}; K5 on the same rays {k5_ms:.4f} ms (call)  "
+              f"[{card}]", flush=True)
+        if r == po.shape[0]:
+            entry = {"ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    del po, pd, ro, rd
+
+    # the mesh-res 1024 mushroom: K9's frame, and the brute force's primaries
+    # estimated from one K5 launch on one 1-sample frame of them
+    t0 = time.perf_counter()
+    big = RtxHost(device=dev)
+    big.load_model(mushroom_mesh(*K9_BIG_MESH))
+    big.load_texture_diffuse(tex)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t_big = big.mesh.num_triangles
+    s9_big = culled_frame_s(big, cam)
+    fo, fd = camera_rays(cam, NS_RES, dev, seed=1, samples=1)
+    k5_frame_ms = cuda_ms(lambda: tr.intersect(fo, fd, big._tris, big.tri_chunk), warmup=0,
+                          reps=1)
+    k9_frame_ms = cuda_ms(lambda: tr.intersect_culled(fo, fd, big._tris, big.tri_chunk))
+    # the boxes of 2,044 chunks (49 KB) take the launch's opt-in shared memory
+    bo, bd = (x.to(dev) for x in surface_rays(big.mesh, K5_BOUNCE_RAYS, seed=8))
+    for label, ro, rd in ((f"mesh-res {K9_BIG_MESH[0]}, one 1-sample {NS_RES}^2 batch of "
+                           f"primary rays", fo, fd),
+                          (f"mesh-res {K9_BIG_MESH[0]}, {K5_BOUNCE_RAYS} bounce rays from its "
+                           f"surface", bo, bd)):
+        gate_err = max(gate_err, culled_check(
+            label, ro, rd, big._tris, big.tri_chunk,
+            tr.intersect_culled(ro, rd, big._tris, big.tri_chunk),
+            tr.intersect_culled_reference(ro, rd, big._tris, big.tri_chunk)))
+    print(f"  mesh-res {K9_BIG_MESH[0]}, {t_big:,} triangles ({big._tris['bb_minx'].numel()} "
+          f"chunks; mesh and tables built and loaded in {load_s:.2f} s): K9 route {s9_big:.4f} s "
+          f"per {NS_SAMPLES}-sample {NS_RES}^2 frame (median of 2 after 1 warm-up); one 1-sample "
+          f"{NS_RES}^2 batch of primary rays: K9 {k9_frame_ms:.3f} ms, K5 {k5_frame_ms:.3f} ms "
+          f"(one launch), so the brute force's primaries of a {NS_SAMPLES}-sample frame alone "
+          f"would take about {k5_frame_ms * NS_SAMPLES / 1e3:.1f} s (estimated, bounces left out)"
+          f"  [{card}]", flush=True)
+    del big, fo, fd, bo, bd, ro, rd
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(x) and x > 0 for x in (s9, s5, s9_big, k5_frame_ms)):
+        raise SystemExit("phase 20 failed: a time is not finite")
+    return {
+        "name": "mt_culled",
+        "route": "cuda",
+        "source": "gaussian_splatterer_tpu_torch/csrc/mt_culled.cu",
+        "replaces": "gaussian_splatterer_tpu/rt/tracer.py:145",
+        "launches": launches,
+        "max_abs_err": gate_err,
+        **entry,
+        "library_ms": None,  # no PyTorch call marches AABBs
+    }
+
+
+def culled_phase(dev, card) -> dict:
+    """Phase 20: the gates, the main path (``new --obj`` -> ``train`` ->
+    ``render --mode rtx`` on the mesh-res 256 mushroom, K9 launches
+    required) and the times.  Returns the summary entry of mt_culled."""
+    gate_err, host = culled_gate(dev)
+    launches = tracer_main(dev.type, mesh_res=K9_MESH, phase_no=20, kernel="mt_culled")
+    return culled_times(dev, card, host, launches["mt_culled"], gate_err)
+
+
 def device_busy_ms(fn) -> tuple[float, float, dict]:
     """(milliseconds in which the device ran a kernel or a copy, wall
     milliseconds, {name: [device ms, count]} of the kernels and copies) of
@@ -2583,7 +2950,7 @@ def device_busy_ms(fn) -> tuple[float, float, dict]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", action="append",
-                    choices=("step", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "bench",
+                    choices=("step", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k9", "bench",
                              "quality"),
                     help="run phases 1-2 and then only phases 7-8 and 16 (step: the fused "
                          "step's cell on both reduction routes, its layers and the batched "
@@ -2599,7 +2966,8 @@ def main(argv=None) -> int:
                          "scale; for timing two trees of the repository in one call, this "
                          "script copied into each), or phase 18 (bench: the port's bench, "
                          "--tile 16 and bench_scale) or phase 19 (quality: quality_run, "
-                         "resumed, and eval_model), which end with the full run's last line")
+                         "resumed, and eval_model) or phase 20 (k9: the tracer at mesh scale), "
+                         "which end with the full run's last line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU",
@@ -2647,17 +3015,20 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"ok": True, "device": device}))
         return 0
-    if args.only and set(args.only) <= {"bench", "quality"}:
+    if args.only and set(args.only) <= {"bench", "quality", "k9"}:
         if "bench" in args.only:
             bench_phase(dev, card)
         if "quality" in args.only:
             quality_phase(card)
+        if "k9" in args.only:
+            k9 = culled_phase(dev, card)
+            print(json.dumps({"kernels": [k9]}))
         print(card)
         print(json.dumps({"ok": True, "device": device}))
         return 0
     if args.only:
-        if not set(args.only).isdisjoint({"step", "bench", "quality"}):
-            raise SystemExit("chip_smoke: --only step, and --only bench and quality, "
+        if not set(args.only).isdisjoint({"step", "bench", "quality", "k9"}):
+            raise SystemExit("chip_smoke: --only step, and --only bench, quality and k9, "
                              "run without the other --only options")
         if "k1" in args.only:
             serve_phases(dev, card, only=True)
@@ -2697,13 +3068,14 @@ def main(argv=None) -> int:
     probes = probe_phase(dev, card, [fwd, bwd, train, k4, k5])
     measured = bench_phase(dev, card)
     add_launches(measured, quality_phase(card))
-    for entry in (fwd, train, k5, bwd, k4):
+    k9 = culled_phase(dev, card)
+    for entry in (fwd, train, k5, bwd, k4, k9):
         entry["launches"] += measured.get(entry["name"], 0)
     print(f"launches of phases 18-19 added to the summary: {measured}")
     if "jax" in sys.modules:
         raise SystemExit("chip_smoke: jax was imported")
 
-    print(json.dumps({"kernels": [fwd, train, k5, bwd, k4, *probes]}))
+    print(json.dumps({"kernels": [fwd, train, k5, bwd, k4, *probes, k9]}))
     print(card)
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -8,7 +8,7 @@ has an obvious counterpart to be held against.  This package imports
 Hand-written CUDA kernels live in ``csrc/`` and are compiled with ``nvcc``
 for ``sm_90a`` at first use (``ops/cuda_build.py``, whose ``KERNELS`` lists
 them): the compositors, their backward and the fused training compositor,
-the tracer's intersector and the per-frame scan of the cumsum reduction
+the tracer's two intersectors and the per-frame scan of the cumsum reduction
 route, and the kernels of the H100 probes in ``scripts``
 (``python -m gaussian_splatterer_tpu_torch.scripts.<name>``).  A tensor on a
 CUDA device goes through the kernel; a tensor on the CPU goes through the

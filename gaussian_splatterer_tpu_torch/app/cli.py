@@ -134,6 +134,7 @@ def cmd_train(args):
     # fused step launches composite_train, the non-fused one (a resolution
     # that is not a multiple of the tile) composite_fwd and composite_bwd
     counters = {"mt_intersect": lambda: tracer.mt_intersect_launches,
+                "mt_culled": lambda: tracer.mt_culled_launches,
                 "composite_train": lambda: raster_tiled.composite_train_launches,
                 "composite_fwd": lambda: raster_tiled.composite_fwd_launches,
                 "composite_bwd": lambda: raster_tiled.composite_bwd_launches}

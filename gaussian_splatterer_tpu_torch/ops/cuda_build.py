@@ -26,9 +26,10 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 # every kernel source of the package, csrc/<name>.cu: the compositors K1-K3,
-# the intersector K5, the scan K4 and the probes' kernels K6-K8
+# the intersectors K5 (brute force) and K9 (culled), the scan K4 and the
+# probes' kernels K6-K8
 KERNELS = ("composite_fwd", "composite_train", "mt_intersect", "composite_bwd", "cumsum_frames",
-           "peak_fma", "gather_cols", "smem_gather")
+           "peak_fma", "gather_cols", "smem_gather", "mt_culled")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -16,14 +16,24 @@ Reference semantics (src/rtx/RtxDevice.cu), as the JAX package keeps them:
     occluded by a nearer hit, inverts the averaged pixel (:36-47, 97);
   * per-sample clamp to [0, 1], then the average (:85-95).
 
-Intersection is brute-force Möller-Trumbore in the JAX package's linear
-"feat10" form: the four MT numerators (det, u, v, t) of a (ray, triangle)
-pair are dot products of the ray features ``[d, o x d, o, 1]`` with ten
-per-triangle columns built at scene load.  On a CUDA tensor ``intersect``
-launches the hand-written kernel csrc/mt_intersect.cu (K5); on a CPU tensor
-it takes the plain version ``intersect_reference``.  ``intersect_component``
-is the component form of the JAX package's ``_intersect_chunked``, the
-yardstick for hits in the tests.
+Intersection, as the JAX package routes it (``_intersect``): on a scene of
+``accel_min`` triangles or more, which scene_tables Morton-orders into
+chunks with AABBs, every intersection goes through the culled march of the
+JAX package's ``_intersect_culled``: per ray, the chunks in order of AABB
+entry distance, stopping once the best hit comes before the next chunk's
+entry.  On a CUDA tensor ``intersect_culled`` launches the hand-written
+kernel csrc/mt_culled.cu (K9); on a CPU tensor it takes the plain version
+``intersect_culled_reference``.  The JAX package's primaries on such a
+scene take its shared-origin MXU form; here they take the culled march too
+(the same first hit).  On a smaller scene every intersection is
+brute-force Möller-Trumbore in the JAX package's linear "feat10" form: the
+four MT numerators (det, u, v, t) of a (ray, triangle) pair are dot
+products of the ray features ``[d, o x d, o, 1]`` with ten per-triangle
+columns built at scene load.  On a CUDA tensor ``intersect`` launches the
+hand-written kernel csrc/mt_intersect.cu (K5); on a CPU tensor it takes
+the plain version ``intersect_reference``.  ``first_hit`` is the router.
+``intersect_component`` is the component form of the JAX package's
+``_intersect_chunked``, the yardstick for hits in the tests.
 
 Randomness: ``bounce_step`` takes its draws as tensors, so that a test can
 hand it the JAX package's.  ``RtxHost.render`` draws them from one
@@ -33,10 +43,8 @@ JAX package's in distribution, not bit for bit.
 
 Left out, as TPU workarounds: the dispatch pipelining (``max_inflight``),
 the chunked ray batches and phased compaction (here the live rays are
-compacted after every bounce), the culled and shared-origin intersectors
-(every intersection goes through the brute-force first hit, which the JAX
-package's own tests hold equal to the culled march).  ``sample_batch`` is
-the number of samples traced as one batch of rays.
+compacted after every bounce), and the shared-origin MXU intersector.
+``sample_batch`` is the number of samples traced as one batch of rays.
 """
 
 from __future__ import annotations
@@ -61,10 +69,11 @@ MAX_BOUNCES = 50  # src/rtx/RtxDevice.cu:23
 DET_EPS = 1e-12  # |det| below it is replaced by +DET_EPS (the JAX package's guard)
 REF_RAY_CHUNK = 65536  # rays per product of the plain intersector
 
-# Launches of the CUDA intersector in this process.  Only the CUDA branch of
-# intersect adds to it; a run can read it to show that its path went
-# through the kernel.
+# Launches of the CUDA intersectors in this process.  Only the CUDA branch
+# of intersect (K5), and of intersect_culled (K9), adds to its count; a run
+# can read them to show that its path went through the kernels.
 mt_intersect_launches = 0
+mt_culled_launches = 0
 
 
 # -- intersection --------------------------------------------------------------
@@ -85,8 +94,10 @@ def _fold(best, cand):
     return tuple(torch.where(closer, c, b) for b, c in zip(best, cand))
 
 
-def _first_min(t, u, v, base: int):
-    """Per-row first minimum of t (R, Tc) and its u, v, global index."""
+def best_lane(t, u, v, base):
+    """Per-row first minimum of t (R, Tc) and its u, v and global index
+    ``base`` + lane (the JAX package's ``_best_lane``); ``base`` is an int
+    or an (R,) tensor, as the culled march gives each ray its chunk's."""
     j = torch.argmin(t, dim=1, keepdim=True)  # the first minimum, as jnp.argmin
     return (t.gather(1, j)[:, 0], (base + j[:, 0]).to(torch.int32),
             u.gather(1, j)[:, 0], v.gather(1, j)[:, 0])
@@ -133,11 +144,38 @@ def intersect_reference(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk:
             hit = valid[None, ck * tc:(ck + 1) * tc] & (u >= 0.0) & (v >= 0.0) \
                 & (u + v <= 1.0) & (t > RAY_TMIN)
             t = torch.where(hit, t, torch.full_like(t, math.inf))
-            best = _fold(best, _first_min(t, u, v, ck * tc))
+            best = _fold(best, best_lane(t, u, v, ck * tc))
         out.append(best)
     if not out:
         return _miss(0, o.device)
     return tuple(torch.cat(x) for x in zip(*out))
+
+
+def mt_hit_components(ox, oy, oz, dx, dy, dz, ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z,
+                      valid):
+    """Component-form Möller-Trumbore of broadcast ray and triangle
+    components, operation for operation the JAX package's ``_mt_hit``, each
+    product and sum rounded on its own in float32: (t, u, v), t = inf where
+    the pair is no hit (|det| guarded to +1e-12; u >= 0, v >= 0,
+    u + v <= 1, t > RAY_TMIN and a valid triangle)."""
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    inv = _guarded_inverse(e1x * px + e1y * py + e1z * pz)
+    tx, ty, tz = ox - ax, oy - ay, oz - az
+    u = (tx * px + ty * py + tz * pz) * inv
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv
+    hit = valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > RAY_TMIN)
+    return torch.where(hit, t, torch.full_like(t, math.inf)), u, v
+
+
+def _ray_columns(o, d):
+    """The six (R, 1) components of rays o, d (R, 3)."""
+    return tuple(x[:, None] for x in (*o.unbind(1), *d.unbind(1)))
 
 
 def intersect_component(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk: int):
@@ -146,30 +184,135 @@ def intersect_component(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk:
     intersect_reference.  The tests' yardstick for hits."""
     r, tc = o.shape[0], tri_chunk
     n_chunks = tris["valid"].shape[0] // tc
-    ox, oy, oz = (x[:, None] for x in o.unbind(1))
-    dx, dy, dz = (x[:, None] for x in d.unbind(1))
+    rays = _ray_columns(o, d)
     best = _miss(r, o.device)
     for ck in range(n_chunks):
         sl = slice(ck * tc, (ck + 1) * tc)
-        ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = (
-            tris[k][None, sl] for k in ("ax", "ay", "az", "e1x", "e1y", "e1z",
-                                        "e2x", "e2y", "e2z"))
-        px = dy * e2z - dz * e2y
-        py = dz * e2x - dx * e2z
-        pz = dx * e2y - dy * e2x
-        inv = _guarded_inverse(e1x * px + e1y * py + e1z * pz)
-        tx, ty, tz = ox - ax, oy - ay, oz - az
-        u = (tx * px + ty * py + tz * pz) * inv
-        qx = ty * e1z - tz * e1y
-        qy = tz * e1x - tx * e1z
-        qz = tx * e1y - ty * e1x
-        v = (dx * qx + dy * qy + dz * qz) * inv
-        t = (e2x * qx + e2y * qy + e2z * qz) * inv
-        hit = tris["valid"][None, sl] & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) \
-            & (t > RAY_TMIN)
-        t = torch.where(hit, t, torch.full_like(t, math.inf))
-        best = _fold(best, _first_min(t, u, v, ck * tc))
+        t, u, v = mt_hit_components(*rays, *(tris[k][None, sl] for k in (
+            "ax", "ay", "az", "e1x", "e1y", "e1z", "e2x", "e2y", "e2z", "valid")))
+        best = _fold(best, best_lane(t, u, v, ck * tc))
     return best
+
+
+# -- the culled march (K9) -------------------------------------------------------
+
+BB_KEYS = ("bb_minx", "bb_miny", "bb_minz", "bb_maxx", "bb_maxy", "bb_maxz")
+
+
+def chunk_keys(o: torch.Tensor, d: torch.Tensor, tris: dict) -> torch.Tensor:
+    """(R, NC) entry distance of each ray into each chunk's AABB, as the JAX
+    package's ``_intersect_culled`` computes it: slabs with inverse
+    directions guarded like det (|d| < 1e-12 -> +1e-12), the entry no
+    nearer than RAY_TMIN, and inf where the ray misses the box (entry past
+    exit)."""
+    inv = [_guarded_inverse(x) for x in d.unbind(1)]
+    near, far = [], []
+    for k, (oc, ic) in enumerate(zip(o.unbind(1), inv)):
+        t0 = (tris[BB_KEYS[k]][None, :] - oc[:, None]) * ic[:, None]
+        t1 = (tris[BB_KEYS[3 + k]][None, :] - oc[:, None]) * ic[:, None]
+        near.append(torch.minimum(t0, t1))
+        far.append(torch.maximum(t0, t1))
+    tmin = torch.tensor(RAY_TMIN, dtype=torch.float32, device=o.device)
+    t_enter = torch.maximum(torch.maximum(near[0], near[1]), torch.maximum(near[2], tmin))
+    t_exit = torch.minimum(torch.minimum(far[0], far[1]), far[2])
+    return torch.where(t_enter <= t_exit, t_enter, torch.full_like(t_enter, math.inf))
+
+
+def culled_march(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk: int):
+    """The plain culled march with its work: (t, idx, u, v, visits), visits
+    (R,) int32 the chunks each ray tested.  Rays go in blocks of
+    REF_RAY_CHUNK; a ray's result depends on its own march alone."""
+    parts = [_march_block(o[r0:r0 + REF_RAY_CHUNK], d[r0:r0 + REF_RAY_CHUNK], tris, tri_chunk)
+             for r0 in range(0, o.shape[0], REF_RAY_CHUNK)]
+    if not parts:
+        return (*_miss(0, o.device), torch.zeros((0,), dtype=torch.int32, device=o.device))
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def _march_block(o, d, tris, tc: int):
+    """One block of culled_march.  Each ray's chunks sorted by (key, chunk
+    id); the rays march their sorted lists in lockstep, a ray taking step
+    s only while that chunk's entry comes before its best hit (the JAX
+    package's ``useful``; the others are left out of the step rather than
+    masked), a later chunk's first minimum replacing the best only when
+    strictly closer, until no ray's next entry comes before its best."""
+    r, dev = o.shape[0], o.device
+    key_sorted, order = torch.sort(chunk_keys(o, d, tris), dim=1, stable=True)
+    best = _miss(r, dev)
+    visits = torch.zeros((r,), dtype=torch.int32, device=dev)
+    lanes = torch.arange(tc, device=dev)
+    geo = tris["geo10"]
+    for s in range(key_sorted.shape[1]):
+        rows = (key_sorted[:, s] < best[0]).nonzero()[:, 0]
+        if rows.numel() == 0:
+            break
+        ck = order[rows, s]
+        g = geo[:, ck[:, None] * tc + lanes[None, :]]  # (10, n, Tc)
+        t, u, v = mt_hit_components(*_ray_columns(o[rows], d[rows]), *g[:9], g[9] > 0.5)
+        new = _fold(tuple(x[rows] for x in best), best_lane(t, u, v, ck * tc))
+        for x, y in zip(best, new):
+            x[rows] = y
+        visits[rows] += 1
+    return (*best, visits)
+
+
+def intersect_culled_reference(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk: int):
+    """Plain twin of K9: the first hit of each ray through the culled march
+    of the JAX package's ``_intersect_culled`` over the Morton chunks of
+    ``tris`` (bb_* and geo10 from scene_tables), with the contract of
+    intersect_reference (a miss is (inf, 0, 0, 0)).  Ties within a chunk go
+    to the lowest index; across chunks, to the chunk visited first."""
+    return culled_march(o, d, tris, tri_chunk)[:4]
+
+
+def intersect_culled(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk: int):
+    """First hit of each ray through the culled march: the CUDA kernel K9
+    (csrc/mt_culled.cu) for CUDA tensors, intersect_culled_reference for CPU
+    tensors (same contract)."""
+    global mt_culled_launches
+    if o.device.type == "cpu":
+        return intersect_culled_reference(o, d, tris, tri_chunk)
+    if o.device.type != "cuda":
+        raise ValueError(f"intersect_culled: unsupported device {o.device}")
+    r = o.shape[0]
+    for name, x in (("o", o), ("d", d)):
+        if x.dtype != torch.float32 or tuple(x.shape) != (r, 3) or not x.is_contiguous() \
+                or x.device != o.device:
+            raise ValueError(f"intersect_culled: {name} must be contiguous ({r}, 3) float32 "
+                             f"on {o.device}")
+    tri12, bbs = tris.get("tri12"), [tris.get(k) for k in BB_KEYS]
+    nc = bbs[0].shape[0] if bbs[0] is not None else 0
+    if tri12 is None or any(b is None for b in bbs) or nc == 0 or tri_chunk <= 0 \
+            or tuple(tri12.shape) != (nc * tri_chunk, 12) \
+            or any(x.device != o.device or x.dtype != torch.float32 or not x.is_contiguous()
+                   for x in (tri12, *bbs)) \
+            or any(tuple(b.shape) != (nc,) for b in bbs) or r >= 2**31 \
+            or 12 * nc * tri_chunk >= 2**31:
+        raise ValueError("intersect_culled: scene tables not laid out by scene_tables with "
+                         "the Morton order on the rays' device, or too many rays or triangles")
+    out_t, out_i, out_u, out_v = (torch.empty((r,), dtype=dt, device=o.device) for dt in (
+        torch.float32, torch.int32, torch.float32, torch.float32))
+    if r == 0:
+        return out_t, out_i, out_u, out_v
+    with torch.cuda.device(o.device):
+        err = _culled_lib().mt_culled(
+            o.data_ptr(), d.data_ptr(), r, tri12.data_ptr(), nc, tri_chunk,
+            *(b.data_ptr() for b in bbs),
+            out_t.data_ptr(), out_i.data_ptr(), out_u.data_ptr(), out_v.data_ptr(),
+            torch.cuda.current_stream(o.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mt_culled: shared-memory request refused or launch failed "
+                           f"({nc} chunks of {tri_chunk} triangles): cudaError_t {err}")
+    mt_culled_launches += 1
+    return out_t, out_i, out_u, out_v
+
+
+def _culled_lib() -> ctypes.CDLL:
+    lib = cuda_build.load_library("mt_culled")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mt_culled.argtypes = [p, p, i, p, i, i, p, p, p, p, p, p, p, p, p, p, p]
+    lib.mt_culled.restype = ctypes.c_int
+    return lib
 
 
 def _chain_nums(r10: torch.Tensor, rows: torch.Tensor):
@@ -199,7 +342,7 @@ def first_hit_rows(o: torch.Tensor, d: torch.Tensor, tri40: torch.Tensor,
     u, v, t = u_num * inv, v_num * inv, t_num * inv
     hit = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > RAY_TMIN)
     t = torch.where(hit, t, torch.full_like(t, math.inf))
-    bt, j, bu, bv = _first_min(t, u, v, 0)
+    bt, j, bu, bv = best_lane(t, u, v, 0)
     idx = torch.where(torch.isfinite(bt), tri_ids.to(o.device)[j.long()],
                       torch.zeros_like(j))
     return (bt, idx, torch.where(torch.isfinite(bt), bu, torch.zeros_like(bu)),
@@ -347,6 +490,18 @@ def intersect(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk: int, *,
     return out_t, out_i, out_u, out_v
 
 
+def first_hit(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk: int, *,
+              bounce: bool = False):
+    """The tracer's intersector, routed as the JAX package's ``_intersect``:
+    the culled march (intersect_culled, K9) on a Morton-ordered scene
+    (``bb_minx`` in its tables), else the brute force (intersect, K5).
+    Scattered ``bounce`` rays seldom let a whole warp take K5's reject,
+    which then only costs them (PERF.md §6): they run K5 without it."""
+    if "bb_minx" in tris:
+        return intersect_culled(o, d, tris, tri_chunk)
+    return intersect(o, d, tris, tri_chunk, reject=not bounce)
+
+
 def _mt_lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("mt_intersect")
     fn = lib.mt_intersect
@@ -383,7 +538,7 @@ def draws(r: int, generator: torch.Generator, roulette_from: int = 0):
 def bounce_step(tris, tex_cm, background, env, tri_chunk: int,
                 o, d, atten, result, alive, reflected,
                 u_alpha, sphere, u_roul=None, roulette_from: int = 0, bounce_i: int = 0,
-                intersector=intersect):
+                intersector=first_hit):
     """One path-tracing bounce of a flat ray batch (the reference's device
     loop body, RtxDevice.cu:105-158; the JAX package's ``_bounce_step``).
 
@@ -546,21 +701,20 @@ def render_rtx_sums(tris, texture, cam_location, inv_proj_view, width: int, heig
                     samples: int, background, generator: torch.Generator,
                     splat_cameras: Optional[torch.Tensor] = None, bounces: int = MAX_BOUNCES,
                     tri_chunk: int = 512, env: Optional[torch.Tensor] = None,
-                    roulette_from: int = 0, sample_batch: int = 8, intersector=intersect):
+                    roulette_from: int = 0, sample_batch: int = 8, intersector=None):
     """``samples`` paths per pixel, ``sample_batch`` samples traced as one
     ray batch: the primary step for every ray, then the bounces of the live
     rays.  Returns the flat (n_pix, 3) colour sum and the (n_pix,) orb mask.
     ``texture`` is (th, tw, 4) RGBA on the device that traces; the draws
-    come from ``generator`` on that device.  ``intersector`` is ``intersect``
-    but for a comparison of the kernel with its plain version."""
+    come from ``generator`` on that device.  ``intersector`` is None for
+    the tracer's route (first_hit, told which rays bounce), or one function
+    for every intersection, to compare a kernel with its plain version."""
     dev = texture.device
     tex_cm = texture.permute(2, 0, 1).contiguous()
     bg = torch.as_tensor(background, dtype=torch.float32, device=dev)
     eye = torch.as_tensor(np.asarray(cam_location, np.float32), device=dev)
-    # scattered bounce rays seldom let a whole warp take K5's reject, which
-    # then only costs them (PERF.md §6): the bounces run without it
-    bounce_hits = (functools.partial(intersect, reject=False) if intersector is intersect
-                   else intersector)
+    bounce_hits = intersector or functools.partial(first_hit, bounce=True)
+    intersector = intersector or first_hit
     n_pix = width * height
     color_acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
     orb_acc = torch.zeros((n_pix,), dtype=torch.bool, device=dev)
@@ -639,8 +793,11 @@ def scene_tables(mesh: TriangleMesh, tri_chunk: int, accel_min: int) -> dict:
     the ray features [d, o x d, o, 1], read by the plain intersector; tri40
     (T_real, 40) the same columns triangle by triangle for the real
     triangles only, and tri_ids (T_real,) int32 their indices, read by K5;
-    with the Morton order also the per-chunk AABBs bb_* and geo10 (10, T),
-    kept for chunk skipping (not used yet)."""
+    with the Morton order also the per-chunk AABBs bb_* (NC,) and geo10
+    (10, T) = [a, e1, e2, valid] component by component, read by the plain
+    culled march, and tri12 (T, 12), the same triangle by triangle with two
+    zeros, read by K9 (intersect_culled, which first_hit routes such a
+    scene to)."""
     t = mesh.num_triangles
     tc = max(tri_chunk, _round_up(t, tri_chunk))
     v, tri, tri_uv = mesh.vertices, mesh.triangles, mesh.tri_uv
@@ -692,7 +849,12 @@ def scene_tables(mesh: TriangleMesh, tri_chunk: int, accel_min: int) -> dict:
         mx = mx.reshape(ncb, tri_chunk, 3).max(1)
         for i, ax in enumerate("xyz"):
             out[f"bb_min{ax}"], out[f"bb_max{ax}"] = mn[:, i].copy(), mx[:, i].copy()
-        out["geo10"] = np.concatenate([a.T, e1.T, e2.T, valid[None].astype(np.float32)])
+        out["geo10"] = np.ascontiguousarray(
+            np.concatenate([a.T, e1.T, e2.T, valid[None].astype(np.float32)]))
+        # K9's table: the same ten values triangle by triangle, padded to 48
+        # bytes, so that a thread reads a triangle as three 16-byte loads
+        out["tri12"] = np.ascontiguousarray(np.concatenate(
+            [a, e1, e2, valid[:, None].astype(np.float32), np.zeros((tc, 2), np.float32)], 1))
     return out
 
 
@@ -724,11 +886,13 @@ class RtxHost:
 
     def load_model(self, source, progress=None, accel_min: int = 2 * 512,
                    mxu_bounce: bool = True, mt_kernel: bool = False) -> None:
-        """An OBJ path or a TriangleMesh.  ``accel_min`` sets where the
-        Morton order starts, as in the JAX package; ``mxu_bounce`` and
-        ``mt_kernel`` choose among the JAX package's TPU intersectors and
-        are accepted without effect (every intersection here is K5's first
-        hit, or its plain twin on the CPU)."""
+        """An OBJ path or a TriangleMesh.  ``accel_min`` is the triangle
+        count from which the Morton-chunk AABB march replaces brute force,
+        as in the JAX package: every intersection of such a mesh, primaries
+        and bounces, goes through K9 (intersect_culled), a smaller mesh's
+        through K5 (intersect), each its plain twin on the CPU.
+        ``mxu_bounce`` and ``mt_kernel`` choose among the JAX package's TPU
+        intersectors and are accepted without effect."""
         mesh = source if isinstance(source, TriangleMesh) else load_obj(source, progress)
         self.mesh = mesh
         self._tris = {k: torch.from_numpy(x).to(self.device)

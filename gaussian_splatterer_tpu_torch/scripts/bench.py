@@ -204,7 +204,8 @@ def launches() -> dict[str, int]:
             "composite_train": rt.composite_train_launches,
             "composite_bwd": rt.composite_bwd_launches,
             "cumsum_frames": rt.cumsum_frames_launches,
-            "mt_intersect": tracer.mt_intersect_launches}
+            "mt_intersect": tracer.mt_intersect_launches,
+            "mt_culled": tracer.mt_culled_launches}
 
 
 def main(argv=None) -> int:

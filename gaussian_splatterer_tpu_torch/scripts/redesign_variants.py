@@ -1,10 +1,11 @@
 """Design variants of the compositors (csrc/composite_fwd.cu K1,
 csrc/composite_bwd.cu K2, csrc/composite_train.cu K3), the per-frame scan
-(csrc/cumsum_frames.cu K4) and the shared-memory gather (csrc/smem_gather.cu
-K6), each with one part of its design taken out or changed, timed beside
-the shipped kernel on one card.
+(csrc/cumsum_frames.cu K4), the shared-memory gather (csrc/smem_gather.cu
+K6) and the culled intersector (csrc/mt_culled.cu K9), each with one part
+of its design taken out or changed, timed beside the shipped kernel on one
+card.
 
-    python -m gaussian_splatterer_tpu_torch.scripts.redesign_variants [--only k1|k2|k3|k4|k6]
+    python -m gaussian_splatterer_tpu_torch.scripts.redesign_variants [--only k1|k2|k3|k4|k6|k9]
 
 A variant is the shipped source, its local headers inlined
 (composite_common.cuh for the compositors), with the edits of K1_VARIANTS,
@@ -21,7 +22,12 @@ serve cells of chip_smoke.py's phase 4 (50k splats at 1024^2 and 2048^2,
 1024^2), held against the plain twin at phase 7's full-size gate; K4 on
 chip_smoke.k4_input (a synthetic (9, 8, 202,689) group), held to phase 15's
 gate shapes and its full-size rule, launches bit-equal; K6 on the (16, 4096)
-table at D = 2^21, at 8 and 4 rows a block, equal to its plain twin.  Times
+table at D = 2^21, at 8 and 4 rows a block, equal to its plain twin; K9 on
+the mesh-res 256 mushroom (chip_smoke.K9_MESH) at 2^10, 2^13, 2^16 and 2^20
+bounce rays and on a primary batch, equal to its plain twin bit for bit,
+its "component rows" variant (the first design) called on the geo10 table
+and the rest through the shipped wrapper, and the 32-sample 1024^2 capture
+frame with each variant but that one (chip_smoke.culled_frame_s).  Times
 are CUDA-event medians of 20 launches (K4: the device time of one call,
 chip_smoke.queued_ms) in ROUNDS rounds, the variants in alternating orders.
 Needs a card and nvcc; the last line is one JSON object of the results.
@@ -201,10 +207,39 @@ K4_VARIANTS = {
 }
 
 
+_UNROLL4 = "#pragma unroll 4\n      for (int j = 0; j < tri_chunk; ++j) {"
+_BLOCK256 = [("const int threads = per >= kThreads ? kThreads",
+              "const int threads = per >= 0 ? kThreads")]
+_TRI12_LOADS = """        const float4 g0 = __ldg(tri12 + 3 * i), g1 = __ldg(tri12 + 3 * i + 1),
+                     g2 = __ldg(tri12 + 3 * i + 2);
+        const float ax = g0.x, ay = g0.y, az = g0.z, e1x = g0.w;
+        const float e1y = g1.x, e1z = g1.y, e2x = g1.z, e2y = g1.w;
+        const float e2z = g2.x;
+        const bool valid = g2.y > 0.5f;
+"""
+_GEO10_LOADS = """        const long long n = static_cast<long long>(num_chunks) * tri_chunk;
+        const float* g = reinterpret_cast<const float*>(tri12) + i;
+        const float ax = __ldg(g), ay = __ldg(g + n), az = __ldg(g + 2 * n);
+        const float e1x = __ldg(g + 3 * n), e1y = __ldg(g + 4 * n), e1z = __ldg(g + 5 * n);
+        const float e2x = __ldg(g + 6 * n), e2y = __ldg(g + 7 * n), e2z = __ldg(g + 8 * n);
+        const bool valid = __ldg(g + 9 * n) > 0.5f;
+"""
+K9_VARIANTS = {
+    "shipped": [],
+    "unroll 1": [(_UNROLL4, _UNROLL4.replace("unroll 4", "unroll 1"))],
+    "unroll 8": [(_UNROLL4, _UNROLL4.replace("unroll 4", "unroll 8"))],
+    "blocks of 256 threads": _BLOCK256,
+    # the first design: geo10's ten component rows (the table passed in place
+    # of tri12), the loop not unrolled, blocks of 256
+    "component rows": [(_TRI12_LOADS, _GEO10_LOADS),
+                       (_UNROLL4, _UNROLL4.replace("unroll 4", "unroll 1"))] + _BLOCK256,
+}
+K9_ROWS = "component rows"
+
 # the variants of each kernel source
 VARIANTS = {"composite_fwd": K1_VARIANTS, "composite_bwd": K2_VARIANTS,
             "composite_train": K3_VARIANTS, "cumsum_frames": K4_VARIANTS,
-            "smem_gather": K6_VARIANTS}
+            "smem_gather": K6_VARIANTS, "mt_culled": K9_VARIANTS}
 
 
 def variant_source(kernel: str, edits) -> str:
@@ -389,6 +424,68 @@ def k4_variants(dev, name: str) -> dict:
     return dict(out, **{"torch.cumsum": lib_ms})
 
 
+def k9_variants(dev, name: str) -> dict:
+    from gaussian_splatterer_tpu_torch.models.camera import Camera
+    from gaussian_splatterer_tpu_torch.rt import RtxHost
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+    from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh, mushroom_texture
+
+    smoke = _chip_smoke()
+    mesh = mushroom_mesh(*smoke.K9_MESH)
+    host = RtxHost(device=dev)
+    host.load_model(mesh)
+    host.load_texture_diffuse(mushroom_texture())
+    tris, tc = host._tris, host.tri_chunk
+    cam = Camera.get_cameras(smoke.ns_project())[0]
+    rays = {f"{r} bounce rays": [x.to(dev) for x in smoke.surface_rays(mesh, r, seed=7)]
+            for r in smoke.K5_SWEEP}
+    rays["primary batch"] = smoke.camera_rays(cam, smoke.NS_RES, dev, seed=1,
+                                              samples=host.sample_batch)
+    libs = build_variants("mt_culled", K9_VARIANTS)
+    rows_lib = libs.pop(K9_ROWS)[0]
+    rows_lib.mt_culled.argtypes = tr._culled_lib().mt_culled.argtypes
+    rows_lib.mt_culled.restype = ctypes.c_int
+
+    def rows_call(o, d):  # the first design's entry point on geo10, as the wrapper calls it
+        out = [torch.empty((o.shape[0],), dtype=dt, device=dev) for dt in (
+            torch.float32, torch.int32, torch.float32, torch.float32)]
+        err = rows_lib.mt_culled(o.data_ptr(), d.data_ptr(), o.shape[0],
+                                 tris["geo10"].data_ptr(), tris["bb_minx"].numel(), tc,
+                                 *(tris[k].data_ptr() for k in tr.BB_KEYS),
+                                 *(x.data_ptr() for x in out),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise SystemExit(f"K9 variant {K9_ROWS!r}: cudaError_t {err}")
+        return out
+
+    out = {v: {"ptxas": smoke.ptxas_lines(log, "mt_culled")} for v, (_, log) in libs.items()}
+    for label, (o, d) in rays.items():
+        ref = tr.intersect_culled_reference(o, d, tris, tc)
+        for v, (lib, _) in libs.items():
+            cuda_build._loaded["mt_culled"] = lib
+            if not all(torch.equal(a, b) for a, b in zip(tr.intersect_culled(o, d, tris, tc),
+                                                         ref)):
+                raise SystemExit(f"K9 variant {v!r} differs from plain on {label}")
+        if not all(torch.equal(a, b) for a, b in zip(rows_call(o, d), ref)):
+            raise SystemExit(f"K9 variant {K9_ROWS!r} differs from plain on {label}")
+        cuda_build._loaded.pop("mt_culled")
+        for v, ms in timed("mt_culled", libs, lambda: tr.intersect_culled(o, d, tris, tc),
+                           smoke.queued_ms).items():
+            out[v][label] = ms
+        out.setdefault(K9_ROWS, {})[label] = [smoke.queued_ms(lambda: rows_call(o, d))
+                                              for _ in range(ROUNDS)]
+        for v in (*libs, K9_ROWS):
+            print(f"K9 {v}, {label}: {' / '.join(f'{t:.4f}' for t in out[v][label])} ms a "
+                  f"call on the device (queued); equal to plain  [{name}]", flush=True)
+    for v, s in timed("mt_culled", libs, lambda: smoke.culled_frame_s(host, cam, 0, 1),
+                      lambda fn: fn()).items():
+        out[v]["frame_s"] = s
+        print(f"K9 {v}: {' / '.join(f'{t:.4f}' for t in s)} s a {smoke.NS_SAMPLES}-sample "
+              f"{smoke.NS_RES}^2 capture frame at rig camera 0; "
+              f"{'; '.join(out[v]['ptxas'])}  [{name}]", flush=True)
+    return out
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
@@ -397,7 +494,7 @@ def _chip_smoke():
 
 
 RUNS = {"k1": k1_variants, "k2": k2_variants, "k3": k3_variants, "k4": k4_variants,
-        "k6": k6_variants}
+        "k6": k6_variants, "k9": k9_variants}
 
 
 def main(argv=None) -> int:

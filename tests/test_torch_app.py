@@ -285,8 +285,9 @@ def test_cli_new_train_render_rtx_on_cpu(tmp_path, capsys):
     assert len(losses) == 2 and np.isfinite(losses).all()
     assert stats["iterations"] == 2 and stats["recaptures"] == 1
     # on the CPU the plain versions run: no launch is counted
-    assert stats["launches"] == {"mt_intersect": [0, 0], "composite_train": [0, 0],
-                                 "composite_fwd": [0, 0], "composite_bwd": [0, 0]}
+    assert stats["launches"] == {"mt_intersect": [0, 0], "mt_culled": [0, 0],
+                                 "composite_train": [0, 0], "composite_fwd": [0, 0],
+                                 "composite_bwd": [0, 0]}
     out_png = str(tmp_path / "rtx.png")
     assert tcli.main(["render", proj, out_png, "--mode", "rtx", "--size", "24x16",
                       "--samples", "4", "--device", "cpu"]) == 0
@@ -364,6 +365,7 @@ def test_port_imports_no_jax_flax_or_pillow():
         "import gaussian_splatterer_tpu_torch as p\n"
         "import gaussian_splatterer_tpu_torch.app.cli\n"
         "import gaussian_splatterer_tpu_torch.rt\n"
+        "import gaussian_splatterer_tpu_torch.rt.tracer\n"
         "import gaussian_splatterer_tpu_torch.utils.metrics\n"
         "import gaussian_splatterer_tpu_torch.io.checkpoint\n"
         "import gaussian_splatterer_tpu_torch.io.watch\n"

@@ -75,7 +75,7 @@ def test_headline_prints_one_json_line(capsys):
     # on the CPU the plain versions run: no kernel launch is counted
     assert json.loads(captured.err.strip().splitlines()[-1]) == {"launches": {
         "composite_fwd": 0, "composite_train": 0, "composite_bwd": 0, "cumsum_frames": 0,
-        "mt_intersect": 0}}
+        "mt_intersect": 0, "mt_culled": 0}}
 
 
 def test_headline_call_matches_jax():

@@ -184,7 +184,7 @@ def test_probes_need_a_card(probe, monkeypatch):
 
 @pytest.mark.parametrize("kernel", sorted(rv.VARIANTS))
 def test_every_design_variant_applies(kernel):
-    """Each edit of each design variant (K1, K2, K3, K4 and K6) applies to
+    """Each edit of each design variant (K1, K2, K3, K4, K6 and K9) applies to
     the shipped source, its headers inlined; every variant but "shipped"
     changes it; a variant that is a source of its own (K4's three passes)
     has the shipped C entry points; an edit that does not apply raises."""
