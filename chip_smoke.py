@@ -142,14 +142,22 @@ Phases:
      --mode rtx, as phase 10; times:
      the 32-sample 1024^2 capture frame at rig camera 0 through K9, its
      busy share and K9's launches by size, the same frame through the brute
-     force (K5, accel_min 10^9), the frame at mesh-res 1024 (1,046,528
-     triangles) through K9 with the brute force's primaries estimated from
-     one K5 launch; K9 at 2^10, 2^13, 2^16 and 2^20 bounce rays and on a
-     8-sample primary batch (the main path's), each held against its plain
-     twin (phase 9's gate, and bit for bit) and timed beside it, its chunks
-     visited a ray, its bound and K5 on the same rays; K9 against its plain
-     twin on the mesh-res 1024 mushroom (2,044 chunks: boxes in the opt-in
-     shared memory), on its 1-sample primary batch and 2^16 bounce rays.
+     force (K5, accel_min 10^9), and through K9's first design
+     (scripts/variants/mt_culled_thread_per_ray.cu) and the shipped kernel in the
+     order first, shipped, shipped, first; the frame at mesh-res 1024
+     (1,046,528 triangles) through K9 with the brute force's primaries
+     estimated from one K5 launch, and its two designs side by side; K9 at
+     2^10, 2^13, 2^16 and 2^20 bounce rays and on a 8-sample primary batch
+     (the main path's), each held against its plain twin (phase 9's gate,
+     and bit for bit; the first design too) and timed beside it, its chunks
+     visited a ray, its steps and rays a bin (the launch's stats, whose
+     rays summed over the steps must equal the plain twin's visits), its
+     bound, K5 on the same rays and the two designs side by side; at 2^20
+     the first design on the rays as they come and sorted by their first
+     chunk (pairs/s and triangle bytes/s at 48 B a pair); K9 against its
+     plain twin on the mesh-res 1024 mushroom (2,044 chunks: boxes in the
+     opt-in shared memory), on its 1-sample primary batch and 2^16 bounce
+     rays, with its steps and rays a bin.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of its FP32 operations over 67 TFLOP/s (the data sheet's; phase 17 adds a
@@ -292,9 +300,8 @@ K9_F64_ULPS = 16
 # and select, the reciprocal, w (3), u (4, 2), q (6, 3), v (4, 2), t (4, 2),
 # the tests (valid, u, v, u + v and its test, t) 6, the running minimum 1
 K9_OPS_PAIR = 9 + 5 + 2 + 1 + 3 + 6 + 9 + 6 + 6 + 6 + 1
-# and of a (ray, chunk) AABB test, once a ray and chunk as the sort-based
-# march does it: 6 differences, 6 products, 3 min, 3 max, the entry's 3 max,
-# the exit's 2 min and the key's test
+# and of a ray's AABB test: 6 differences, 6 products, 3 min, 3 max, the
+# entry's 3 max, the exit's 2 min and the key's test
 K9_OPS_BOX = 6 + 6 + 3 + 3 + 3 + 2 + 1
 # the non-fused tiled step (phases 12-14): the bench scene trained at a
 # resolution that is not a multiple of the tile, so the Trainer runs render
@@ -2663,13 +2670,17 @@ def k6_phase(dev, card):
     return smem, launches, tab6, ids6
 
 
-def k9_bound(r: int, pairs: float, nc: int, t_pad: int, name: str | None = None):
+def k9_bound(r: int, pairs: float, visits: float, nc: int, ng: int, t_pad: int,
+             name: str | None = None):
     """K9's bound for ``r`` rays: the (ray, triangle) pairs its march
-    visits on these rays (counted by the plain twin) at K9_OPS_PAIR, every
-    (ray, chunk) AABB test once at K9_OPS_BOX; rays in (24 B) and out
-    (16 B), geo10 (40 B a triangle) and the boxes (24 B a chunk) once."""
-    return bound_ms(K9_OPS_PAIR * pairs + K9_OPS_BOX * r * nc, 40 * r + 40 * t_pad + 24 * nc,
-                    name)
+    visits on these rays (counted by the plain twin) at K9_OPS_PAIR; at
+    K9_OPS_BOX each ray's test of the ``ng`` group boxes and one test of
+    each of the ``visits`` chunks the rays visit (the least box work that
+    finds the visited chunks, fewer than the two-level scan's member tests);
+    rays in (24 B) and out (16 B), geo10 (40 B a triangle) and the chunk
+    and group boxes (24 B each) once."""
+    return bound_ms(K9_OPS_PAIR * pairs + K9_OPS_BOX * (r * ng + visits),
+                    40 * r + 40 * t_pad + 24 * (nc + ng), name)
 
 
 def k9_hosts(dev):
@@ -2780,6 +2791,44 @@ def culled_frame_s(host, cam, warmup: int = 1, reps: int = 2) -> float:
                    warmup=warmup, reps=reps) / 1e3
 
 
+def culled_forms_frames(host, cam) -> list[float]:
+    """Seconds of one capture frame from ``cam`` through K9's first design
+    (scripts/variants/mt_culled_thread_per_ray.cu) and through the shipped kernel, in
+    the order first, shipped, shipped, first: one frame each, after a
+    warm-up frame of the first design."""
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+    from gaussian_splatterer_tpu_torch.scripts.redesign_variants import first_design_intersect
+
+    real, out = tr.intersect_culled, []
+    try:
+        for i, form in enumerate((first_design_intersect, first_design_intersect, real, real, first_design_intersect)):
+            tr.intersect_culled = form
+            s = culled_frame_s(host, cam, warmup=0, reps=1)
+            if i:
+                out.append(s)
+    finally:
+        tr.intersect_culled = real
+    return out
+
+
+def culled_stats(o, d, tris, tc: int, visits) -> str:
+    """One K9 launch's stats on o, d: its steps, rays a bin and a slice, and
+    the milliseconds of its phases (init, offsets, scatter, tests, each to
+    the end of its grid barrier); its rays summed over the steps must equal
+    the plain twin's ``visits``."""
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+
+    stats = torch.zeros((8,), dtype=torch.int64, device=o.device)
+    tr.intersect_culled(o, d, tris, tc, stats=stats)
+    steps, bins, rays, slices, *ns = stats.tolist()
+    if rays != int(visits.long().sum()):
+        raise SystemExit(f"phase 20 failed: K9 tested {rays} (ray, chunk) pairs, its plain twin "
+                         f"{int(visits.long().sum())}")
+    return (f"{steps} steps, {rays / max(bins, 1):.1f} rays a bin, {rays / max(slices, 1):.1f} "
+            f"a slice; phases init / offsets / scatter / tests "
+            f"{' / '.join(f'{t / 1e6:.4f}' for t in ns)} ms")
+
+
 def culled_times(dev, card, host, launches: int, gate_err: float) -> dict:
     """Phase 20, part 4: capture frames on the mesh-res 256 mushroom with K9
     and with the brute force (K5, accel_min 10^9), on the mesh-res 1024
@@ -2824,15 +2873,23 @@ def culled_times(dev, card, host, launches: int, gate_err: float) -> dict:
     print(f"  brute-force route (accel_min 10^9, K5), {t_mesh:,} triangles: {s5:.4f} s per "
           f"frame (one frame); K9's route {s5 / s9:.2f}x faster  [{card}]", flush=True)
     del brute
+    sides = culled_forms_frames(host, cam)
+    print(f"  K9's first design (thread a ray) / shipped (chunk-binned) / shipped / first, "
+          f"{t_mesh:,} triangles: {' / '.join(f'{x:.4f}' for x in sides)} s a frame (one frame "
+          f"each)  [{card}]", flush=True)
 
     # K9 by launch size on the mesh-res 256 mushroom, and on a primary batch
     tris, tc = host._tris, host.tri_chunk
-    nc, t_pad = int(tris["bb_minx"].numel()), int(tris["valid"].numel())
+    nc, ng = int(tris["bb_minx"].numel()), int(tris["bg_minx"].numel())
+    t_pad = int(tris["valid"].numel())
     po, pd = camera_rays(cam, NS_RES, dev, seed=1, samples=host.sample_batch)
     print(f"  mt_culled by launch size on {t_mesh:,} triangles ({nc} chunks of {tc}) (call: CUDA "
           f"events around one call, median of {REPS}; device: 10 calls queued behind a spin "
           f"kernel, median of 5; visits and pairs from the plain twin; bound at {K9_OPS_PAIR} "
-          f"operations a visited pair and {K9_OPS_BOX} a (ray, chunk) box test):")
+          f"operations a visited pair and {K9_OPS_BOX} a box test, each ray's {ng} group boxes and "
+          f"each visited chunk's box once):")
+    from gaussian_splatterer_tpu_torch.scripts import redesign_variants as rv
+
     entry = {}
     for r in (*K5_SWEEP, po.shape[0]):
         if r == po.shape[0]:
@@ -2851,14 +2908,36 @@ def culled_times(dev, card, host, launches: int, gate_err: float) -> dict:
         gate_err = max(gate_err, culled_check(f"R = {r} ({label})", ro, rd, tris, tc,
                                               tr.intersect_culled(ro, rd, tris, tc), plain))
         pairs = float(visits.double().sum()) * tc
-        b_ms, b_by = k9_bound(r, pairs, nc, t_pad, "mt_culled" if r == po.shape[0] else None)
+        b_ms, b_by = k9_bound(r, pairs, float(visits.double().sum()), nc, ng, t_pad,
+                              "mt_culled" if r == po.shape[0] else None)
         k5_ms = cuda_ms(lambda: tr.intersect(ro, rd, tris, tc, reject=r == po.shape[0]),
                         warmup=1, reps=3)
+        if not all(torch.equal(a, b) for a, b in zip(rv.first_design_intersect(ro, rd, tris, tc), plain)):
+            raise SystemExit(f"phase 20 failed: R = {r}: K9's first design differs from plain")
+        sides = [queued_ms(lambda: rv.first_design_intersect(ro, rd, tris, tc)), dev_ms,
+                 queued_ms(lambda: tr.intersect_culled(ro, rd, tris, tc)),
+                 queued_ms(lambda: rv.first_design_intersect(ro, rd, tris, tc))]
+        launch = culled_stats(ro, rd, tris, tc, visits)
         print(f"    R = {r} ({label}): call {call_ms:.4f} ms, device {dev_ms:.4f} ms; plain "
               f"{plain_ms:.1f} ms (one call); chunks visited a ray {float(visits.float().mean()):.3f}"
               f" (max {int(visits.max())}), pairs {pairs:.4e}; bound {b_ms:.5f} ms ({b_by}), "
-              f"device share {b_ms / dev_ms:.4f}; K5 on the same rays {k5_ms:.4f} ms (call)  "
-              f"[{card}]", flush=True)
+              f"device share {b_ms / dev_ms:.4f}; K5 on the same rays {k5_ms:.4f} ms (call); "
+              f"{launch}; device first design / shipped / shipped "
+              f"/ first {' / '.join(f'{x:.4f}' for x in sides)} ms  [{card}]", flush=True)
+        if r == 1 << 20:  # step 1's split: the first design on the rays reordered
+            order = rv.ray_order(ro, rd, tris)
+            so, sd = ro[order].contiguous(), rd[order].contiguous()
+            split = [queued_ms(lambda: rv.first_design_intersect(ro, rd, tris, tc)),
+                     queued_ms(lambda: rv.first_design_intersect(so, sd, tris, tc)),
+                     queued_ms(lambda: tr.intersect_culled(ro, rd, tris, tc))]
+            order_ms = cuda_ms(lambda: rv.ray_order(ro, rd, tris), warmup=1, reps=5)
+            print(f"    the first design on R = {r} as they come / sorted by first chunk, and "
+                  f"the shipped kernel: " + "; ".join(
+                      f"{name} {ms:.4f} ms, {pairs / ms * 1e3:.4e} pairs/s, "
+                      f"{48 * pairs / ms * 1e3 / 1e12:.3f} TB/s of triangles at 48 B a pair"
+                      for name, ms in zip(("as they come", "sorted", "shipped"), split))
+                  + f"; the sort itself {order_ms:.4f} ms (call)  [{card}]", flush=True)
+            del order, so, sd
         if r == po.shape[0]:
             entry = {"ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
     del po, pd, ro, rd
@@ -2883,10 +2962,12 @@ def culled_times(dev, card, host, launches: int, gate_err: float) -> dict:
                            f"primary rays", fo, fd),
                           (f"mesh-res {K9_BIG_MESH[0]}, {K5_BOUNCE_RAYS} bounce rays from its "
                            f"surface", bo, bd)):
+        *plain, visits = tr.culled_march(ro, rd, big._tris, big.tri_chunk)
         gate_err = max(gate_err, culled_check(
             label, ro, rd, big._tris, big.tri_chunk,
-            tr.intersect_culled(ro, rd, big._tris, big.tri_chunk),
-            tr.intersect_culled_reference(ro, rd, big._tris, big.tri_chunk)))
+            tr.intersect_culled(ro, rd, big._tris, big.tri_chunk), plain))
+        print(f"    {culled_stats(ro, rd, big._tris, big.tri_chunk, visits)}, chunks visited "
+              f"a ray {float(visits.float().mean()):.3f}", flush=True)
     print(f"  mesh-res {K9_BIG_MESH[0]}, {t_big:,} triangles ({big._tris['bb_minx'].numel()} "
           f"chunks; mesh and tables built and loaded in {load_s:.2f} s): K9 route {s9_big:.4f} s "
           f"per {NS_SAMPLES}-sample {NS_RES}^2 frame (median of 2 after 1 warm-up); one 1-sample "
@@ -2894,6 +2975,10 @@ def culled_times(dev, card, host, launches: int, gate_err: float) -> dict:
           f"(one launch), so the brute force's primaries of a {NS_SAMPLES}-sample frame alone "
           f"would take about {k5_frame_ms * NS_SAMPLES / 1e3:.1f} s (estimated, bounces left out)"
           f"  [{card}]", flush=True)
+    sides_big = culled_forms_frames(big, cam)
+    print(f"  K9's first design / shipped / shipped / first, {t_big:,} triangles: "
+          f"{' / '.join(f'{x:.4f}' for x in sides_big)} s a frame (one frame each)  [{card}]",
+          flush=True)
     del big, fo, fd, bo, bd, ro, rd
     torch.cuda.empty_cache()
     if not all(np.isfinite(x) and x > 0 for x in (s9, s5, s9_big, k5_frame_ms)):

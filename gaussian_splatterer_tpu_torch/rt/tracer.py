@@ -22,8 +22,10 @@ chunks with AABBs, every intersection goes through the culled march of the
 JAX package's ``_intersect_culled``: per ray, the chunks in order of AABB
 entry distance, stopping once the best hit comes before the next chunk's
 entry.  On a CUDA tensor ``intersect_culled`` launches the hand-written
-kernel csrc/mt_culled.cu (K9); on a CPU tensor it takes the plain version
-``intersect_culled_reference``.  The JAX package's primaries on such a
+kernel csrc/mt_culled.cu (K9: a chunk-binned march whose rays share each
+staged chunk, with a two-level key scan over group boxes); on a CPU tensor
+it takes the plain version ``intersect_culled_reference``.  The JAX
+package's primaries on such a
 scene take its shared-origin MXU form; here they take the culled march too
 (the same first hit).  On a smaller scene every intersection is
 brute-force Möller-Trumbore in the JAX package's linear "feat10" form: the
@@ -197,25 +199,65 @@ def intersect_component(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk:
 # -- the culled march (K9) -------------------------------------------------------
 
 BB_KEYS = ("bb_minx", "bb_miny", "bb_minz", "bb_maxx", "bb_maxy", "bb_maxz")
+# the group boxes of K9's two-level key scan, each over consecutive chunks
+BG_KEYS = ("bg_minx", "bg_miny", "bg_minz", "bg_maxx", "bg_maxy", "bg_maxz")
+CHUNK_GROUP = 16  # the most chunks a group box covers (scene_tables)
 
 
-def chunk_keys(o: torch.Tensor, d: torch.Tensor, tris: dict) -> torch.Tensor:
-    """(R, NC) entry distance of each ray into each chunk's AABB, as the JAX
-    package's ``_intersect_culled`` computes it: slabs with inverse
-    directions guarded like det (|d| < 1e-12 -> +1e-12), the entry no
-    nearer than RAY_TMIN, and inf where the ray misses the box (entry past
-    exit)."""
+def group_size(num_chunks: int, num_groups: int) -> int:
+    """Chunks a group: ``num_groups`` groups of consecutive chunks, the last
+    one ragged.  scene_tables makes ceil(NC / CHUNK_GROUP) groups of this
+    size, so the kernel reads it from the two tables' lengths."""
+    return -(-num_chunks // num_groups)
+
+
+def group_boxes(bb_min, bb_max, group: int):
+    """(min, max) of ceil(NC / group) groups over the chunk boxes bb_min,
+    bb_max (NC, 3): each group the exact float32 min and max of its
+    members' planes, ``group_size`` chunks a group.  numpy or torch arrays."""
+    nc = bb_min.shape[0]
+    ng = -(-nc // group)
+    size = group_size(nc, ng)
+    lib = torch if isinstance(bb_min, torch.Tensor) else np
+    return (lib.stack([lib.amin(bb_min[g * size:(g + 1) * size], 0) for g in range(ng)]),
+            lib.stack([lib.amax(bb_max[g * size:(g + 1) * size], 0) for g in range(ng)]))
+
+
+def with_groups(tris: dict, group: int) -> dict:
+    """``tris`` with its group boxes remade for at most ``group`` chunks a
+    group (the design variants and the tests; scene_tables uses
+    CHUNK_GROUP)."""
+    lo, hi = group_boxes(torch.stack([tris[k] for k in BB_KEYS[:3]], 1),
+                         torch.stack([tris[k] for k in BB_KEYS[3:]], 1), group)
+    out = dict(tris)
+    for i, k in enumerate(BG_KEYS):
+        out[k] = (lo if i < 3 else hi)[:, i % 3].contiguous()
+    return out
+
+
+def _box_keys(o: torch.Tensor, d: torch.Tensor, lo, hi, exits: bool = False):
+    """(R, m) entry distance of each ray into each of m boxes, planes lo, hi
+    (three (m,) tensors each), as the JAX package's ``_intersect_culled``
+    computes it: slabs with inverse directions guarded like det (|d| <
+    1e-12 -> +1e-12), the entry no nearer than RAY_TMIN, and inf where the
+    ray misses the box (entry past exit); with ``exits``, (keys, exits)."""
     inv = [_guarded_inverse(x) for x in d.unbind(1)]
     near, far = [], []
-    for k, (oc, ic) in enumerate(zip(o.unbind(1), inv)):
-        t0 = (tris[BB_KEYS[k]][None, :] - oc[:, None]) * ic[:, None]
-        t1 = (tris[BB_KEYS[3 + k]][None, :] - oc[:, None]) * ic[:, None]
+    for oc, ic, a, b in zip(o.unbind(1), inv, lo, hi):
+        t0 = (a[None, :] - oc[:, None]) * ic[:, None]
+        t1 = (b[None, :] - oc[:, None]) * ic[:, None]
         near.append(torch.minimum(t0, t1))
         far.append(torch.maximum(t0, t1))
     tmin = torch.tensor(RAY_TMIN, dtype=torch.float32, device=o.device)
     t_enter = torch.maximum(torch.maximum(near[0], near[1]), torch.maximum(near[2], tmin))
     t_exit = torch.minimum(torch.minimum(far[0], far[1]), far[2])
-    return torch.where(t_enter <= t_exit, t_enter, torch.full_like(t_enter, math.inf))
+    keys = torch.where(t_enter <= t_exit, t_enter, torch.full_like(t_enter, math.inf))
+    return (keys, t_exit) if exits else keys
+
+
+def chunk_keys(o: torch.Tensor, d: torch.Tensor, tris: dict) -> torch.Tensor:
+    """(R, NC) entry distance of each ray into each chunk's AABB (_box_keys)."""
+    return _box_keys(o, d, [tris[k] for k in BB_KEYS[:3]], [tris[k] for k in BB_KEYS[3:]])
 
 
 def culled_march(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk: int):
@@ -265,10 +307,15 @@ def intersect_culled_reference(o: torch.Tensor, d: torch.Tensor, tris: dict, tri
     return culled_march(o, d, tris, tri_chunk)[:4]
 
 
-def intersect_culled(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk: int):
+def intersect_culled(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk: int, *,
+                     stats: Optional[torch.Tensor] = None):
     """First hit of each ray through the culled march: the CUDA kernel K9
-    (csrc/mt_culled.cu) for CUDA tensors, intersect_culled_reference for CPU
-    tensors (same contract)."""
+    (csrc/mt_culled.cu, one cooperative launch) for CUDA tensors,
+    intersect_culled_reference for CPU tensors (same contract).  ``stats``,
+    an int64 (8,) tensor on the rays' device, takes the launch's steps, its
+    bins, rays and slices summed over the steps, and the nanoseconds of its
+    phases (init, offsets, scatter, tests; each to the end of its grid
+    barrier)."""
     global mt_culled_launches
     if o.device.type == "cpu":
         return intersect_culled_reference(o, d, tris, tri_chunk)
@@ -280,29 +327,40 @@ def intersect_culled(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk: in
                 or x.device != o.device:
             raise ValueError(f"intersect_culled: {name} must be contiguous ({r}, 3) float32 "
                              f"on {o.device}")
-    tri12, bbs = tris.get("tri12"), [tris.get(k) for k in BB_KEYS]
+    tri12, bbs, bgs = tris.get("tri12"), [tris.get(k) for k in BB_KEYS], \
+        [tris.get(k) for k in BG_KEYS]
     nc = bbs[0].shape[0] if bbs[0] is not None else 0
-    if tri12 is None or any(b is None for b in bbs) or nc == 0 or tri_chunk <= 0 \
-            or tuple(tri12.shape) != (nc * tri_chunk, 12) \
+    ng = bgs[0].shape[0] if bgs[0] is not None else 0
+    if tri12 is None or any(b is None for b in (*bbs, *bgs)) or nc == 0 or ng == 0 \
+            or tri_chunk <= 0 or tuple(tri12.shape) != (nc * tri_chunk, 12) \
             or any(x.device != o.device or x.dtype != torch.float32 or not x.is_contiguous()
-                   for x in (tri12, *bbs)) \
-            or any(tuple(b.shape) != (nc,) for b in bbs) or r >= 2**31 \
-            or 12 * nc * tri_chunk >= 2**31:
+                   for x in (tri12, *bbs, *bgs)) \
+            or any(tuple(b.shape) != (nc,) for b in bbs) \
+            or any(tuple(b.shape) != (ng,) for b in bgs) or ng > nc \
+            or 6 * r >= 2**31 or 12 * nc * tri_chunk >= 2**31:
         raise ValueError("intersect_culled: scene tables not laid out by scene_tables with "
                          "the Morton order on the rays' device, or too many rays or triangles")
+    if stats is not None and (stats.dtype != torch.int64 or tuple(stats.shape) != (8,)
+                              or stats.device != o.device):
+        raise ValueError(f"intersect_culled: stats must be an int64 (8,) tensor on {o.device}")
     out_t, out_i, out_u, out_v = (torch.empty((r,), dtype=dt, device=o.device) for dt in (
         torch.float32, torch.int32, torch.float32, torch.float32))
     if r == 0:
         return out_t, out_i, out_u, out_v
+    lib = _culled_lib()
+    scratch = torch.empty((lib.mt_culled_scratch_words(r, nc),), dtype=torch.int32,
+                          device=o.device)
     with torch.cuda.device(o.device):
-        err = _culled_lib().mt_culled(
+        err = lib.mt_culled(
             o.data_ptr(), d.data_ptr(), r, tri12.data_ptr(), nc, tri_chunk,
-            *(b.data_ptr() for b in bbs),
+            *(b.data_ptr() for b in (*bbs, *bgs)), ng, group_size(nc, ng),
+            scratch.data_ptr(), stats.data_ptr() if stats is not None else None,
             out_t.data_ptr(), out_i.data_ptr(), out_u.data_ptr(), out_v.data_ptr(),
             torch.cuda.current_stream(o.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"mt_culled: shared-memory request refused or launch failed "
-                           f"({nc} chunks of {tri_chunk} triangles): cudaError_t {err}")
+        raise RuntimeError(f"mt_culled: shared-memory request or cooperative launch refused, "
+                           f"or launch failed ({nc} chunks of {tri_chunk} triangles): "
+                           f"cudaError_t {err}")
     mt_culled_launches += 1
     return out_t, out_i, out_u, out_v
 
@@ -310,8 +368,10 @@ def intersect_culled(o: torch.Tensor, d: torch.Tensor, tris: dict, tri_chunk: in
 def _culled_lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("mt_culled")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mt_culled.argtypes = [p, p, i, p, i, i, p, p, p, p, p, p, p, p, p, p, p]
+    lib.mt_culled.argtypes = [p, p, i, p, i, i, *[p] * 12, i, i, p, p, p, p, p, p, p]
     lib.mt_culled.restype = ctypes.c_int
+    lib.mt_culled_scratch_words.argtypes = [i, i]
+    lib.mt_culled_scratch_words.restype = ctypes.c_longlong
     return lib
 
 
@@ -793,7 +853,8 @@ def scene_tables(mesh: TriangleMesh, tri_chunk: int, accel_min: int) -> dict:
     the ray features [d, o x d, o, 1], read by the plain intersector; tri40
     (T_real, 40) the same columns triangle by triangle for the real
     triangles only, and tri_ids (T_real,) int32 their indices, read by K5;
-    with the Morton order also the per-chunk AABBs bb_* (NC,) and geo10
+    with the Morton order also the per-chunk AABBs bb_* (NC,), the group
+    boxes bg_* (ceil(NC / CHUNK_GROUP),) over them (group_boxes), and geo10
     (10, T) = [a, e1, e2, valid] component by component, read by the plain
     culled march, and tri12 (T, 12), the same triangle by triangle with two
     zeros, read by K9 (intersect_culled, which first_hit routes such a
@@ -849,6 +910,11 @@ def scene_tables(mesh: TriangleMesh, tri_chunk: int, accel_min: int) -> dict:
         mx = mx.reshape(ncb, tri_chunk, 3).max(1)
         for i, ax in enumerate("xyz"):
             out[f"bb_min{ax}"], out[f"bb_max{ax}"] = mn[:, i].copy(), mx[:, i].copy()
+        # K9's group boxes over CHUNK_GROUP consecutive chunks, for its
+        # two-level key scan
+        gmn, gmx = group_boxes(mn, mx, CHUNK_GROUP)
+        for i, ax in enumerate("xyz"):
+            out[f"bg_min{ax}"], out[f"bg_max{ax}"] = gmn[:, i].copy(), gmx[:, i].copy()
         out["geo10"] = np.ascontiguousarray(
             np.concatenate([a.T, e1.T, e2.T, valid[None].astype(np.float32)]))
         # K9's table: the same ten values triangle by triangle, padded to 48

@@ -24,12 +24,17 @@ chip_smoke.k4_input (a synthetic (9, 8, 202,689) group), held to phase 15's
 gate shapes and its full-size rule, launches bit-equal; K6 on the (16, 4096)
 table at D = 2^21, at 8 and 4 rows a block, equal to its plain twin; K9 on
 the mesh-res 256 mushroom (chip_smoke.K9_MESH) at 2^10, 2^13, 2^16 and 2^20
-bounce rays and on a primary batch, equal to its plain twin bit for bit,
-its "component rows" variant (the first design) called on the geo10 table
-and the rest through the shipped wrapper, and the 32-sample 1024^2 capture
-frame with each variant but that one (chip_smoke.culled_frame_s).  Times
-are CUDA-event medians of 20 launches (K4: the device time of one call,
-chip_smoke.queued_ms) in ROUNDS rounds, the variants in alternating orders.
+bounce rays and on a primary batch, and on the mesh-res 1024 one
+(K9_BIG_MESH) at 2^16 bounce rays and a primary batch, equal to its plain
+twin bit for bit, and the 32-sample 1024^2 capture frame at both meshes
+(chip_smoke.culled_frame_s, two rounds): the shipped chunk-binned kernel,
+its slices never split over threads, group boxes of 8 and 32 chunks and one
+group (K9_GROUPS, tables remade by tracer.with_groups), the first design
+(variants/mt_culled_thread_per_ray.cu, first_design_intersect) and the first design on rays
+reordered by their first chunk (design 2, the reorder timed with it).
+Times are CUDA-event medians of 20 launches (K4 and K9: the device time of
+one call, chip_smoke.queued_ms; K9's reorder: events around one call) in
+ROUNDS rounds, the variants in alternating orders.
 Needs a card and nvcc; the last line is one JSON object of the results.
 """
 
@@ -42,6 +47,7 @@ import json
 import random
 import subprocess
 import sys
+from functools import partial
 from pathlib import Path
 
 import torch
@@ -207,34 +213,89 @@ K4_VARIANTS = {
 }
 
 
-_UNROLL4 = "#pragma unroll 4\n      for (int j = 0; j < tri_chunk; ++j) {"
-_BLOCK256 = [("const int threads = per >= kThreads ? kThreads",
-              "const int threads = per >= 0 ? kThreads")]
-_TRI12_LOADS = """        const float4 g0 = __ldg(tri12 + 3 * i), g1 = __ldg(tri12 + 3 * i + 1),
-                     g2 = __ldg(tri12 + 3 * i + 2);
-        const float ax = g0.x, ay = g0.y, az = g0.z, e1x = g0.w;
-        const float e1y = g1.x, e1z = g1.y, e2x = g1.z, e2y = g1.w;
-        const float e2z = g2.x;
-        const bool valid = g2.y > 0.5f;
-"""
-_GEO10_LOADS = """        const long long n = static_cast<long long>(num_chunks) * tri_chunk;
-        const float* g = reinterpret_cast<const float*>(tri12) + i;
-        const float ax = __ldg(g), ay = __ldg(g + n), az = __ldg(g + 2 * n);
-        const float e1x = __ldg(g + 3 * n), e1y = __ldg(g + 4 * n), e1z = __ldg(g + 5 * n);
-        const float e2x = __ldg(g + 6 * n), e2y = __ldg(g + 7 * n), e2z = __ldg(g + 8 * n);
-        const bool valid = __ldg(g + 9 * n) > 0.5f;
-"""
+# K9: the first design, a thread a ray (FIRST_DESIGN_SOURCE, its own C entry point:
+# first_design_intersect), and the shipped chunk-binned kernel with one part of its
+# design changed; the group sizes are table variants (K9_GROUPS)
+_K9_SIZES = ("constexpr int kSizes = 6;", "constexpr int kSizes = 1;")
+_K9_BOUNDS = "__global__ void __launch_bounds__(kThreads, 3) mt_culled_kernel"
 K9_VARIANTS = {
     "shipped": [],
-    "unroll 1": [(_UNROLL4, _UNROLL4.replace("unroll 4", "unroll 1"))],
-    "unroll 8": [(_UNROLL4, _UNROLL4.replace("unroll 4", "unroll 8"))],
-    "blocks of 256 threads": _BLOCK256,
-    # the first design: geo10's ten component rows (the table passed in place
-    # of tri12), the loop not unrolled, blocks of 256
-    "component rows": [(_TRI12_LOADS, _GEO10_LOADS),
-                       (_UNROLL4, _UNROLL4.replace("unroll 4", "unroll 1"))] + _BLOCK256,
+    "slices of 256 rays": [_K9_SIZES],
+    # the first chunk-binned form: slices of 256, at most 8 threads a ray
+    "slices of 256 rays, at most 8 threads a ray": [
+        _K9_SIZES, ("constexpr int kMinSlots = 8;", "constexpr int kMinSlots = 32;")],
+    "no split slices": [("constexpr int kMinSlots = 8;", "constexpr int kMinSlots = 256;")],
+    "power-of-two slots": [("  const int slots = max(n, kMinSlots), parts = kThreads / slots;",
+                            "  int slots = kMinSlots;\n  while (slots < n) slots <<= 1;\n"
+                            "  const int parts = kThreads / slots;")],
+    "boxes from global memory": [
+        ("const int stage_boxes = stage_groups && smem + box_bytes <= room;",
+         "const int stage_boxes = 0;")],
+    "no register bound": [(_K9_BOUNDS, _K9_BOUNDS.replace("(kThreads, 3)", "(kThreads)"))],
+    # the scan without the exit test: a group passed by the ray is scanned
+    "no passed-group skip": [("if (!(box_key(bg, g, r, exit) < cand_k) || exit < last_k) continue;",
+                              "if (!(box_key(bg, g, r, exit) < cand_k)) continue;")],
 }
-K9_ROWS = "component rows"
+K9_GROUPS = (8, 32, 0)  # chunks a group box beside CHUNK_GROUP; 0: one group (a flat scan)
+FIRST_DESIGN_SOURCE = Path(__file__).resolve().parent / "variants" / "mt_culled_thread_per_ray.cu"
+_FIRST_DESIGN: dict = {}
+
+
+def first_design_lib() -> ctypes.CDLL:
+    """The first design of K9 (variants/mt_culled_thread_per_ray.cu), built once."""
+    if "lib" not in _FIRST_DESIGN:
+        lib, log = build_variants("mt_culled_thread_per_ray",
+                                  {"first design": FIRST_DESIGN_SOURCE})["first design"]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mt_culled.argtypes = [p, p, i, p, i, i, p, p, p, p, p, p, p, p, p, p, p]
+        lib.mt_culled.restype = ctypes.c_int
+        _FIRST_DESIGN.update(lib=lib, log=log)
+    return _FIRST_DESIGN["lib"]
+
+
+def ray_order(o, d, tris) -> torch.Tensor:
+    """The permutation that sorts the rays by their first chunk in the
+    march (the smallest (key, id); NC for a ray that enters no box),
+    stable; in blocks of rays that keep the (rays, NC) key plane near 2^26
+    floats."""
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+
+    nc = tris["bb_minx"].numel()
+    step = max(1, (1 << 26) // nc)
+    first = []
+    for r0 in range(0, o.shape[0], step):
+        key, c = tr.chunk_keys(o[r0:r0 + step], d[r0:r0 + step], tris).min(1)
+        first.append(torch.where(torch.isinf(key), torch.full_like(c, nc), c))
+    return torch.sort(torch.cat(first), stable=True)[1]
+
+
+def first_design_intersect(o, d, tris, tc: int, order=None):
+    """K9's first design on rays o, d (outputs in the rays' order), the rays
+    taken in ``order`` (a permutation, design 2: rays reordered by their
+    first chunk; ``True`` computes it with ray_order) where it is given.
+    Uncounted: a comparison, not the path's kernel."""
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+
+    if order is True:
+        order = ray_order(o, d, tris)
+    if order is not None:
+        o, d = o[order].contiguous(), d[order].contiguous()
+    out = [torch.empty((o.shape[0],), dtype=dt, device=o.device) for dt in (
+        torch.float32, torch.int32, torch.float32, torch.float32)]
+    err = first_design_lib().mt_culled(o.data_ptr(), d.data_ptr(), o.shape[0], tris["tri12"].data_ptr(),
+                               tris["bb_minx"].numel(), tc,
+                               *(tris[k].data_ptr() for k in tr.BB_KEYS),
+                               *(x.data_ptr() for x in out),
+                               torch.cuda.current_stream(o.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"K9's first design: cudaError_t {err}")
+    if order is None:
+        return out
+    back = [torch.empty_like(x) for x in out]
+    for x, y in zip(back, out):
+        x[order] = y
+    return back
+
 
 # the variants of each kernel source
 VARIANTS = {"composite_fwd": K1_VARIANTS, "composite_bwd": K2_VARIANTS,
@@ -431,58 +492,81 @@ def k9_variants(dev, name: str) -> dict:
     from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh, mushroom_texture
 
     smoke = _chip_smoke()
-    mesh = mushroom_mesh(*smoke.K9_MESH)
-    host = RtxHost(device=dev)
-    host.load_model(mesh)
-    host.load_texture_diffuse(mushroom_texture())
-    tris, tc = host._tris, host.tri_chunk
     cam = Camera.get_cameras(smoke.ns_project())[0]
-    rays = {f"{r} bounce rays": [x.to(dev) for x in smoke.surface_rays(mesh, r, seed=7)]
-            for r in smoke.K5_SWEEP}
-    rays["primary batch"] = smoke.camera_rays(cam, smoke.NS_RES, dev, seed=1,
-                                              samples=host.sample_batch)
     libs = build_variants("mt_culled", K9_VARIANTS)
-    rows_lib = libs.pop(K9_ROWS)[0]
-    rows_lib.mt_culled.argtypes = tr._culled_lib().mt_culled.argtypes
-    rows_lib.mt_culled.restype = ctypes.c_int
+    shipped = libs["shipped"][0]
+    real = tr.intersect_culled
+    regrouped: dict = {}
 
-    def rows_call(o, d):  # the first design's entry point on geo10, as the wrapper calls it
-        out = [torch.empty((o.shape[0],), dtype=dt, device=dev) for dt in (
-            torch.float32, torch.int32, torch.float32, torch.float32)]
-        err = rows_lib.mt_culled(o.data_ptr(), d.data_ptr(), o.shape[0],
-                                 tris["geo10"].data_ptr(), tris["bb_minx"].numel(), tc,
-                                 *(tris[k].data_ptr() for k in tr.BB_KEYS),
-                                 *(x.data_ptr() for x in out),
-                                 torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise SystemExit(f"K9 variant {K9_ROWS!r}: cudaError_t {err}")
-        return out
-
-    out = {v: {"ptxas": smoke.ptxas_lines(log, "mt_culled")} for v, (_, log) in libs.items()}
-    for label, (o, d) in rays.items():
-        ref = tr.intersect_culled_reference(o, d, tris, tc)
-        for v, (lib, _) in libs.items():
+    def form(lib, group=None):
+        def call(o, d, tris, tc):
             cuda_build._loaded["mt_culled"] = lib
-            if not all(torch.equal(a, b) for a, b in zip(tr.intersect_culled(o, d, tris, tc),
-                                                         ref)):
-                raise SystemExit(f"K9 variant {v!r} differs from plain on {label}")
-        if not all(torch.equal(a, b) for a, b in zip(rows_call(o, d), ref)):
-            raise SystemExit(f"K9 variant {K9_ROWS!r} differs from plain on {label}")
-        cuda_build._loaded.pop("mt_culled")
-        for v, ms in timed("mt_culled", libs, lambda: tr.intersect_culled(o, d, tris, tc),
-                           smoke.queued_ms).items():
-            out[v][label] = ms
-        out.setdefault(K9_ROWS, {})[label] = [smoke.queued_ms(lambda: rows_call(o, d))
-                                              for _ in range(ROUNDS)]
-        for v in (*libs, K9_ROWS):
-            print(f"K9 {v}, {label}: {' / '.join(f'{t:.4f}' for t in out[v][label])} ms a "
-                  f"call on the device (queued); equal to plain  [{name}]", flush=True)
-    for v, s in timed("mt_culled", libs, lambda: smoke.culled_frame_s(host, cam, 0, 1),
-                      lambda fn: fn()).items():
-        out[v]["frame_s"] = s
-        print(f"K9 {v}: {' / '.join(f'{t:.4f}' for t in s)} s a {smoke.NS_SAMPLES}-sample "
-              f"{smoke.NS_RES}^2 capture frame at rig camera 0; "
-              f"{'; '.join(out[v]['ptxas'])}  [{name}]", flush=True)
+            if group is not None:
+                key = (id(tris), group)
+                if key not in regrouped:
+                    regrouped[key] = tr.with_groups(tris, group or tris["bb_minx"].numel())
+                tris = regrouped[key]
+            return real(o, d, tris, tc)
+        return call
+
+    forms = {v: form(lib) for v, (lib, _) in libs.items()}
+    forms.update({f"groups of {g}" if g else "one group": form(shipped, g) for g in K9_GROUPS})
+    forms["first design (a thread a ray)"] = first_design_intersect
+    forms["first design, rays in first-chunk order"] = partial(first_design_intersect, order=True)
+    out = {v: {"ptxas": smoke.ptxas_lines(log, "mt_culled")} for v, (_, log) in libs.items()}
+    first_design_lib()
+    out["first design (a thread a ray)"] = {
+        "ptxas": smoke.ptxas_lines(_FIRST_DESIGN["log"], "mt_culled")}
+    for mesh_res in (smoke.K9_MESH, smoke.K9_BIG_MESH):
+        mesh = mushroom_mesh(*mesh_res)
+        host = RtxHost(device=dev)
+        host.load_model(mesh)
+        host.load_texture_diffuse(mushroom_texture())
+        tris, tc = host._tris, host.tri_chunk
+        sizes = smoke.K5_SWEEP if mesh_res == smoke.K9_MESH else (smoke.K5_BOUNCE_RAYS,)
+        rays = {f"{r} bounce rays": [x.to(dev) for x in smoke.surface_rays(mesh, r, seed=7)]
+                for r in sizes}
+        rays["primary batch"] = smoke.camera_rays(cam, smoke.NS_RES, dev, seed=1,
+                                                  samples=host.sample_batch)
+        tag = f"{mesh.num_triangles:,} triangles"
+        for label, (o, d) in rays.items():
+            ref = tr.intersect_culled_reference(o, d, tris, tc)
+            for v, fn in forms.items():
+                if not all(torch.equal(a, b) for a, b in zip(fn(o, d, tris, tc), ref)):
+                    raise SystemExit(f"K9 variant {v!r} differs from plain on {label}, {tag}")
+            times: dict[str, list[float]] = {v: [] for v in forms}
+            for i in range(ROUNDS):
+                for v in (list(forms) if i % 2 == 0 else list(forms)[::-1]):
+                    # the reorder is many small operations: events around one call
+                    clock = (partial(cuda_ms, warmup=1, reps=5) if "order" in v
+                             else smoke.queued_ms)
+                    times[v].append(clock(lambda: forms[v](o, d, tris, tc)))
+            for v, ms in times.items():
+                out.setdefault(v, {})[f"{label}, {tag}"] = ms
+                print(f"K9 {v}, {label}, {tag}: {' / '.join(f'{t:.4f}' for t in ms)} ms a call "
+                      f"on the device ({'one call' if 'order' in v else 'queued'}); equal to "
+                      f"plain  [{name}]", flush=True)
+            del o, d, ref
+        del rays
+        frames: dict[str, list[float]] = {v: [] for v in forms}
+        try:
+            for v in forms:  # one warm-up frame each
+                tr.intersect_culled = forms[v]
+                smoke.culled_frame_s(host, cam, warmup=0, reps=1)
+            for i in range(2):
+                for v in (list(forms) if i % 2 == 0 else list(forms)[::-1]):
+                    tr.intersect_culled = forms[v]
+                    frames[v].append(smoke.culled_frame_s(host, cam, warmup=0, reps=1))
+        finally:
+            tr.intersect_culled = real
+        for v, s in frames.items():
+            out.setdefault(v, {})[f"frame_s, {tag}"] = s
+            print(f"K9 {v}: {' / '.join(f'{t:.4f}' for t in s)} s a {smoke.NS_SAMPLES}-sample "
+                  f"{smoke.NS_RES}^2 capture frame at rig camera 0, {tag}  [{name}]", flush=True)
+        del host, tris
+        regrouped.clear()
+        torch.cuda.empty_cache()
+    cuda_build._loaded.pop("mt_culled", None)
     return out
 
 
