@@ -13,8 +13,10 @@ cumsum reduction route (``Trainer(reduction="cumsum")``), the H100 probes,
 the measuring and long-run entry points (the port's bench and
 bench_scale, quality_run with a resume across processes, eval_model) and
 the tracer at mesh scale (the CLI on a 65,024-triangle mesh, through the
-culled intersector) at full size, times the stages with CUDA events, and
-exits nonzero at the first phase that fails.  It imports nothing of JAX.
+culled intersector) and the rest of the product (a JPEG texture, export
+and import, doctor, the native parsers) at full size, times the stages
+with CUDA events, and exits nonzero at the first phase that fails.  It
+imports nothing of JAX.
 
 Phases:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
@@ -157,7 +159,25 @@ Phases:
      chunk (pairs/s and triangle bytes/s at 48 B a pair); K9 against its
      plain twin on the mesh-res 1024 mushroom (2,044 chunks: boxes in the
      opt-in shared memory), on its 1-sample primary batch and 2^16 bounce
-     rays, with its steps and rays a bin.
+     rays, with its steps and rays a bin;
+  the rest of the product (K1, K3 and K5 again):
+ 21. the committed JPEG fixtures (tests/data/jpeg: the 1024^2 mushroom
+     texture, baseline and progressive) decoded on the host, bit-equal to
+     their Pillow decodes, with the seconds; the CLI's new --obj --texture
+     (the JPEG) -> train (3 steps, one capture through K5) on the north
+     star; the project's texture on the card equal to the fixture's PNG;
+     export to .ply, .html and .gobj and render --mode viewer (in process,
+     through the CLI's main), the viewer's data equal to
+     pack_viewer_arrays of the model; the .ply read into a fresh Session
+     by load_splats_ply: means, SH and rotations bit-equal, opacities and
+     scales within the JAX test's round-trip tolerances, its 1024^2 render
+     (K1) within PLY_RENDER_ATOL of the trained model's on
+     PLY_SHARE_WITHIN of the pixels and MAIN_MAX_ATOL on all, and equal to
+     it with the trained opacities and scales put back; ``gsplat-torch doctor`` in a subprocess (cuda,
+     gate ok, micro steps a second); the native parsers required: the
+     mesh-res 1024 mushroom as an OBJ, and a 262,144-splat .gobj saved and
+     loaded, native against Python, equal, with the host seconds of each.
+     Its launches join the summary's.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of its FP32 operations over 67 TFLOP/s (the data sheet's; phase 17 adds a
@@ -176,9 +196,9 @@ twin) and one AABB test per ray and chunk.  K2's bytes are the
 rows in, their gradients out, the ranges, and the forward output and its
 gradient in.  K4's bytes are its input read and its output written once.
 
-``--only bench``, ``--only quality`` and ``--only k9`` run phases 1-2 and
-then phase 18, 19 or 20 (or several) and end with the full run's last line
-(``k9`` after its kernels line).
+``--only bench``, ``--only quality``, ``--only k9`` and ``--only export``
+run phases 1-2 and then phase 18, 19, 20 or 21 (or several) and end with
+the full run's last line (``k9`` after its kernels line).
 
 ``--only step`` runs phases 1-2, 7-8 and 16 (the fused step on both
 reduction routes, for quick rounds on the card) and ends with the same
@@ -207,7 +227,7 @@ import sys
 import tempfile
 import time
 import warnings
-from functools import partial
+from functools import lru_cache, partial
 from pathlib import Path
 
 import numpy as np
@@ -303,6 +323,20 @@ K9_OPS_PAIR = 9 + 5 + 2 + 1 + 3 + 6 + 9 + 6 + 6 + 6 + 1
 # and of a ray's AABB test: 6 differences, 6 products, 3 min, 3 max, the
 # entry's 3 max, the exit's 2 min and the key's test
 K9_OPS_BOX = 6 + 6 + 3 + 3 + 3 + 2 + 1
+# phase 21: the rest of the product.  The committed JPEG fixtures (the 1024^2
+# mushroom texture at quality 90, 4:2:0, baseline and progressive, and their
+# Pillow decodes as PNGs: tests/data/jpeg/make_fixtures.py); the north star's
+# CLI cut to 3 steps that capture once; the .ply import's render tolerance
+# (tests/test_torch_export.py); the .gobj size of the native parsers' check
+JPEG_FIXTURES = ("mushroom1024_q90_420", "mushroom1024_q90_420_progressive")
+P21_STEPS = 3
+PLY_RENDER_ATOL = 1e-4
+# at full size the import's float32 round trips of opacity (a logit) and
+# scale (a log) flip an alpha or transmittance test at isolated pixels:
+# the render is held to PLY_RENDER_ATOL on this share of its pixels and to
+# MAIN_MAX_ATOL everywhere, and with the two fields put back, exactly
+PLY_SHARE_WITHIN = 0.9999
+P21_GOBJ_SPLATS = 262_144
 # the non-fused tiled step (phases 12-14): the bench scene trained at a
 # resolution that is not a multiple of the tile, so the Trainer runs render
 # tiled under autograd frame by frame (K1 forward, K2 backward)
@@ -2946,7 +2980,7 @@ def culled_times(dev, card, host, launches: int, gate_err: float) -> dict:
     # estimated from one K5 launch on one 1-sample frame of them
     t0 = time.perf_counter()
     big = RtxHost(device=dev)
-    big.load_model(mushroom_mesh(*K9_BIG_MESH))
+    big.load_model(big_mushroom())
     big.load_texture_diffuse(tex)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
@@ -3004,6 +3038,232 @@ def culled_phase(dev, card) -> dict:
     return culled_times(dev, card, host, launches["mt_culled"], gate_err)
 
 
+@lru_cache(maxsize=1)
+def big_mushroom():
+    """The mushroom at mesh-res 1024 (1,046,528 triangles), made once for
+    phases 20 and 21."""
+    from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh
+
+    return mushroom_mesh(*K9_BIG_MESH)
+
+
+def write_obj_indexed(mesh, path: str) -> None:
+    """The mesh as a Wavefront OBJ with one ``vt`` a vertex, as exporters
+    write a mesh whose corners share their vertex's UV (the mushroom's do)."""
+    uv = np.zeros((mesh.vertices.shape[0], 2), np.float32)
+    uv[mesh.triangles.ravel()] = mesh.tri_uv.reshape(-1, 2)
+    if not np.array_equal(uv[mesh.triangles], mesh.tri_uv):
+        raise ValueError("write_obj_indexed: corners of a vertex differ in UV")
+    lines = [f"v {x!r} {y!r} {z!r}" for x, y, z in mesh.vertices.tolist()]
+    lines += [f"vt {u!r} {v!r}" for u, v in uv.tolist()]
+    lines += [f"f {a}/{a} {b}/{b} {c}/{c}" for a, b, c in (mesh.triangles + 1).tolist()]
+    Path(path).write_text("\n".join(lines) + "\n")
+
+
+def timed(fn):
+    """(fn(), its seconds on the host clock)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def product_phase(dev, card) -> dict:
+    """Phase 21: the rest of the product.  A JPEG-textured north star
+    through the CLI (new -> train), its export to .ply, .html and .gobj and
+    render --mode viewer, the .ply imported into a fresh session and
+    rendered by K1 against the trained model's render, ``doctor`` in a
+    subprocess, and the native parsers against the Python ones at size.
+    Returns the kernels' launches of the phase.  On a CPU device (a
+    rehearsal at small sizes) the CLI runs with ``--device cpu`` and no
+    launch is required."""
+    import argparse
+
+    from gaussian_splatterer_tpu_torch import native
+    from gaussian_splatterer_tpu_torch.app import cli as tcli
+    from gaussian_splatterer_tpu_torch.app.session import Session
+    from gaussian_splatterer_tpu_torch.config import Project
+    from gaussian_splatterer_tpu_torch.io import gobj as tgobj
+    from gaussian_splatterer_tpu_torch.io import obj as tobj
+    from gaussian_splatterer_tpu_torch.io.image import decode_png_rgba, load_texture_rgba
+    from gaussian_splatterer_tpu_torch.io.jpeg import decode_jpeg
+    from gaussian_splatterer_tpu_torch.io.ply import load_ply
+    from gaussian_splatterer_tpu_torch.io.viewer import pack_viewer_arrays
+    from gaussian_splatterer_tpu_torch.models.splats import SplatModelHost
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh
+
+    def fail(why: str):
+        raise SystemExit(f"phase 21 failed: {why}")
+
+    phase(f"21. the rest of the product: a JPEG texture, export (.ply, .html, .gobj, render "
+          f"--mode viewer), the .ply imported and rendered, doctor, the native parsers ({card})")
+    launches: dict[str, int] = {}
+    on_card = dev.type == "cuda"
+    flag = ("--device", dev.type)
+    fixtures = HERE / "tests" / "data" / "jpeg"
+    for name in JPEG_FIXTURES:
+        blob = (fixtures / f"{name}.jpg").read_bytes()
+        rgba, secs = timed(lambda: decode_jpeg(blob))
+        same = np.array_equal(rgba, decode_png_rgba((fixtures / f"{name}.png").read_bytes()))
+        print(f"  decode_jpeg {name}.jpg ({len(blob):,} B, {rgba.shape[1]}x{rgba.shape[0]}): "
+              f"{secs:.4f} s (host clock); equal to its Pillow decode (the PNG) {same}")
+        if not same:
+            fail(f"{name}.jpg does not decode to its PNG")
+
+    (HERE / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_product_", dir=HERE / "build"))
+    write_obj(mushroom_mesh(*NS_MESH), str(work / "mushroom.obj"))
+    jpg = str(fixtures / f"{JPEG_FIXTURES[0]}.jpg")
+    proj = str(work / "project")
+    out, secs = cli("new", proj, "--obj", str(work / "mushroom.obj"), "--texture", jpg,
+                    "--init-field", "model", "--resolution", str(NS_RES), "--capacity",
+                    str(NS_CAPACITY), "--max-dup", str(NS_MAX_DUP), *NS_RUNTIME, *flag,
+                    timeout=300, phase_no=21)
+    print(f"  new --texture {Path(jpg).name}: {secs:.3f} s (host clock): {out.strip()}")
+    p = Project.load(f"{proj}/settings.json")
+    p.sphere1.count, p.rtSamples = NS_CAMS, NS_SAMPLES
+    p.intervalCapture, p.intervalDensify = NS_INTERVAL_CAPTURE, NS_INTERVAL_DENSIFY
+    p.paramDensifyVariance = NS_DENSIFY_VARIANCE
+    p.save(f"{proj}/settings.json")
+    out, secs = cli("train", proj, "--steps", str(P21_STEPS), "--log-every", "1", *flag,
+                    timeout=600, phase_no=21)
+    stats = json.loads(out.strip().splitlines()[-1])
+    steps = {name: sum(v) for name, v in stats["launches"].items()}
+    add_launches(launches, steps)
+    groups = 2 * NS_CAMS // TRAIN_GROUP
+    print(f"  train --steps {P21_STEPS}: {secs:.3f} s (host clock, process included); capture "
+          f"{stats['capture_s']} s; launches {stats['launches']}; splats {stats['splats']}")
+    if on_card and (stats["launches"]["mt_intersect"][0] == 0 or steps["mt_culled"]
+                    or steps["composite_train"] != P21_STEPS * groups):
+        fail("the capture did not run K5, or a step did not run K3")
+
+    # export and import, in this process: the CLI's entry point, counts from 0
+    rt.composite_fwd_launches = rt.composite_train_launches = 0
+    session = tcli._make_session(argparse.Namespace(project=proj, device=dev.type),
+                                 require=True)
+    png_tex = load_texture_rgba(str(fixtures / f"{JPEG_FIXTURES[0]}.png"))
+    if not np.array_equal(session.rtx._texture.cpu().numpy(), png_tex):
+        fail("the project's texture differs from the fixture's Pillow decode")
+    print(f"  the project's texture on the card equals {JPEG_FIXTURES[0]}.png's decode bit for "
+          f"bit; OBJ read by the {tobj.last_path} parser, splats.gobj by the "
+          f"{tgobj.last_path} one")
+    host = session.model.to_host()
+    outs = {ext: str(work / f"model.{ext}") for ext in ("ply", "html", "gobj")}
+    for ext, path in outs.items():
+        _, secs = timed(lambda: tcli.main(["export", proj, path, *flag]))
+        print(f"  export {Path(path).name}: {secs:.3f} s (host clock), "
+              f"{Path(path).stat().st_size:,} B")
+    viewer = str(work / "viewer.html")
+    _, secs = timed(lambda: tcli.main(["render", proj, viewer, "--mode", "viewer", *flag]))
+    html = Path(viewer).read_text()
+    b64 = html.split('const B64 = "', 1)[1].split('"', 1)[0]
+    import base64
+
+    embedded = np.frombuffer(base64.b64decode(b64), np.float32).reshape(host.count, 23)
+    viewer_ok = (np.array_equal(embedded, pack_viewer_arrays(host))
+                 and html == Path(outs["html"]).read_text())
+    gobj_back = tgobj.load_gobj(outs["gobj"], capacity=NS_CAPACITY)
+    ply_back = load_ply(outs["ply"])
+    print(f"  render --mode viewer: {secs:.3f} s (host clock); embedded data equal to "
+          f"pack_viewer_arrays of the model ({host.count:,} splats) and to export's .html "
+          f"{viewer_ok}; .gobj {gobj_back.count:,} splats, .ply {ply_back.count:,}")
+    if (not viewer_ok or gobj_back.count != host.count or ply_back.count != host.count
+            or not np.array_equal(gobj_back.means[:host.count], host.means[:host.count])):
+        fail("an export does not hold the model")
+    fresh = Session(runtime=session.runtime, device=dev)
+    fresh.load_splats_ply(outs["ply"])
+    imported, n_i = fresh.model.to_host(), fresh.model.count
+    exact = n_i == host.count and all(
+        np.array_equal(getattr(imported, k)[:n_i], getattr(host, k)[:n_i])
+        for k in ("means", "shs", "rotations"))
+    # the INRIA layout stores opacity as a logit (clipped to [1e-5, 1 - 1e-5]
+    # first) and scales as logs: float32 round trips, held to
+    # tests/test_splats_io.py's tolerances
+    clipped = np.clip(host.opacities[:n_i], 1e-5, 1 - 1e-5)
+    d_opac = float(np.abs(imported.opacities[:n_i] - clipped).max())
+    d_scale = float((np.abs(imported.scales[:n_i] - host.scales[:n_i])
+                     / host.scales[:n_i]).max())
+    cam, scale = session.preview_camera(), session.project.previewSplatScale
+    with torch.no_grad():
+        a = session.render_splats(NS_RES, NS_RES, camera=cam, splat_scale=scale)
+        b = fresh.render_splats(NS_RES, NS_RES, camera=cam, splat_scale=scale)
+        for k in ("opacities", "scales"):  # the trained values back: the same model
+            getattr(fresh.model, k).copy_(getattr(session.model, k))
+        c = fresh.render_splats(NS_RES, NS_RES, camera=cam, splat_scale=scale)
+    if on_card:
+        torch.cuda.synchronize()
+    diff = torch.abs(a - b).amax(dim=2)
+    err, off = float(diff.max()), int((diff > PLY_RENDER_ATOL).sum())
+    restored = float(torch.max(torch.abs(a - c)))
+    k1 = rt.composite_fwd_launches
+    add_launches(launches, {"composite_fwd": k1})
+    print(f"  .ply imported into a fresh session ({n_i:,} splats, capacity "
+          f"{fresh.model.capacity:,}): means, SH and rotations bit-equal to the trained "
+          f"model's {exact}; opacity max |diff| from the clipped trained one {d_opac:.3e} (<= 1e-5), scales max rel "
+          f"{d_scale:.3e} (<= 1e-5)")
+    print(f"  its {NS_RES}^2 K1 render against the trained model's: max |diff| {err:.3e}, "
+          f"mean {float(diff.mean()):.3e}, {off} of {diff.numel():,} pixels beyond "
+          f"{PLY_RENDER_ATOL} (share within {1 - off / diff.numel():.6f} >= "
+          f"{PLY_SHARE_WITHIN}; max <= {MAIN_MAX_ATOL}); with the trained opacities and "
+          f"scales put back, max |diff| {restored:.3e} (== 0); composite_fwd launches {k1}")
+    if (not exact or d_opac > 1e-5 or d_scale > 1e-5 or restored != 0.0
+            or 1 - off / diff.numel() < PLY_SHARE_WITHIN or err > MAIN_MAX_ATOL
+            or (on_card and k1 < 3) or not bool(torch.isfinite(b).all())):
+        fail("the imported model differs from the trained one, or K1 did not run")
+    del session, fresh, a, b, c
+
+    proc = module_run("app", "doctor", *flag, timeout=300, phase_no=21)
+    report = json.loads(proc.stdout)
+    doc = [json.loads(ln)["launches"] for ln in proc.stderr.splitlines()
+           if ln.startswith('{"launches"')]
+    print(f"  gsplat-torch doctor: platform {report['platform']}, numerics_gate "
+          f"{report['numerics_gate']}, tiled_vs_oracle_max_err "
+          f"{report['tiled_vs_oracle_max_err']}, micro_step_per_s {report['micro_step_per_s']} "
+          f"({report['config']}); launches {doc}  [{card}]")
+    if report["platform"] != dev.type or report["numerics_gate"] != "ok" or len(doc) != 1:
+        fail("doctor did not pass on the card")
+    add_launches(launches, doc[0])
+
+    if native.lib() is None:
+        fail("the native parser library did not build or load")
+    mesh = big_mushroom()
+    big = str(work / "mushroom1024.obj")
+    _, secs = timed(lambda: write_obj_indexed(mesh, big))
+    got, n_secs = timed(lambda: tobj.load_obj(big))
+    path_n = tobj.last_path
+    ref, p_secs = timed(lambda: tobj.load_obj_python(big))
+    same = all(np.array_equal(getattr(got, k), getattr(ref, k))
+               for k in ("vertices", "triangles", "tri_uv"))
+    print(f"  OBJ at mesh-res {K9_BIG_MESH[0]} ({got.num_triangles:,} triangles, "
+          f"{Path(big).stat().st_size:,} B, written in {secs:.2f} s): native {n_secs:.3f} s, "
+          f"Python {p_secs:.3f} s (host clock), {p_secs / n_secs:.1f}x; equal arrays {same}, "
+          f"equal to the mesh {np.array_equal(got.tri_uv, mesh.tri_uv)}")
+    if path_n != "native" or not same or got.num_triangles != mesh.num_triangles:
+        fail("the native OBJ parser did not run or disagrees with the Python one")
+    rng = np.random.default_rng(21)
+    n = P21_GOBJ_SPLATS
+    model = SplatModelHost.from_arrays(
+        rng.normal(0, 1, (n, 3)), rng.normal(0, 0.5, (n, 4, 3)), rng.uniform(0.01, 0.3, (n, 3)),
+        rng.uniform(0.05, 1, n), rng.normal(0, 1, (n, 4)), capacity=n)
+    files = {k: str(work / f"splats_{k}.gobj") for k in ("native", "python")}
+    _, sn = timed(lambda: tgobj.save_gobj(model, files["native"]))
+    wrote_n = tgobj.last_path
+    _, sp = timed(lambda: tgobj.save_gobj_python(model, files["python"]))
+    text_same = Path(files["native"]).read_bytes() == Path(files["python"]).read_bytes()
+    back_n, ln = timed(lambda: tgobj.load_gobj(files["native"], capacity=n))
+    read_n = tgobj.last_path
+    back_p, lp = timed(lambda: tgobj.load_gobj_python(files["native"], capacity=n))
+    same = all(np.array_equal(getattr(back_n, k), getattr(back_p, k))
+               for k in ("means", "shs", "scales", "opacities", "rotations"))
+    print(f"  .gobj of {n:,} splats (SH degree 1, {Path(files['native']).stat().st_size:,} B): "
+          f"save native {sn:.3f} s, Python {sp:.3f} s, equal text {text_same}; load native "
+          f"{ln:.3f} s, Python {lp:.3f} s, equal arrays {same} (host clock)")
+    if wrote_n != "native" or read_n != "native" or not text_same or not same:
+        fail("the native .gobj parser did not run or disagrees with the Python one")
+    print(f"  launches of phase 21: {launches}", flush=True)
+    return launches
+
+
 def device_busy_ms(fn) -> tuple[float, float, dict]:
     """(milliseconds in which the device ran a kernel or a copy, wall
     milliseconds, {name: [device ms, count]} of the kernels and copies) of
@@ -3036,7 +3296,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", action="append",
                     choices=("step", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k9", "bench",
-                             "quality"),
+                             "quality", "export"),
                     help="run phases 1-2 and then only phases 7-8 and 16 (step: the fused "
                          "step's cell on both reduction routes, its layers and the batched "
                          "front end against the frame-by-frame one), phases 3-5 (k1: the "
@@ -3051,8 +3311,9 @@ def main(argv=None) -> int:
                          "scale; for timing two trees of the repository in one call, this "
                          "script copied into each), or phase 18 (bench: the port's bench, "
                          "--tile 16 and bench_scale) or phase 19 (quality: quality_run, "
-                         "resumed, and eval_model) or phase 20 (k9: the tracer at mesh scale), "
-                         "which end with the full run's last line")
+                         "resumed, and eval_model) or phase 20 (k9: the tracer at mesh scale) "
+                         "or phase 21 (export: the JPEG texture, export and import, doctor, "
+                         "the native parsers), which end with the full run's last line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU",
@@ -3100,7 +3361,7 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"ok": True, "device": device}))
         return 0
-    if args.only and set(args.only) <= {"bench", "quality", "k9"}:
+    if args.only and set(args.only) <= {"bench", "quality", "k9", "export"}:
         if "bench" in args.only:
             bench_phase(dev, card)
         if "quality" in args.only:
@@ -3108,13 +3369,15 @@ def main(argv=None) -> int:
         if "k9" in args.only:
             k9 = culled_phase(dev, card)
             print(json.dumps({"kernels": [k9]}))
+        if "export" in args.only:
+            product_phase(dev, card)
         print(card)
         print(json.dumps({"ok": True, "device": device}))
         return 0
     if args.only:
-        if not set(args.only).isdisjoint({"step", "bench", "quality", "k9"}):
-            raise SystemExit("chip_smoke: --only step, and --only bench, quality and k9, "
-                             "run without the other --only options")
+        if not set(args.only).isdisjoint({"step", "bench", "quality", "k9", "export"}):
+            raise SystemExit("chip_smoke: --only step, and --only bench, quality, k9 and "
+                             "export, run without the other --only options")
         if "k1" in args.only:
             serve_phases(dev, card, only=True)
         if "k2" in args.only:
@@ -3154,9 +3417,10 @@ def main(argv=None) -> int:
     measured = bench_phase(dev, card)
     add_launches(measured, quality_phase(card))
     k9 = culled_phase(dev, card)
+    add_launches(measured, product_phase(dev, card))
     for entry in (fwd, train, k5, bwd, k4, k9):
         entry["launches"] += measured.get(entry["name"], 0)
-    print(f"launches of phases 18-19 added to the summary: {measured}")
+    print(f"launches of phases 18-19 and 21 added to the summary: {measured}")
     if "jax" in sys.modules:
         raise SystemExit("chip_smoke: jax was imported")
 

@@ -5,8 +5,10 @@ gaussian_splatterer_tpu.app.cli):
     gsplat-torch train PROJECT_DIR --steps N [--renderer tiled|oracle] [--log-every K]
         [--checkpoint-every N [--checkpoint-dir D]] [--resume]
         [--snapshot-every N [--snapshot-dir D]] [--watch [--watch-every N]]
-    gsplat-torch render PROJECT_DIR OUT.png [--mode splats|rtx] [--size WxH] [--samples S]
+    gsplat-torch render PROJECT_DIR OUT [--mode splats|rtx|viewer] [--size WxH] [--samples S]
+    gsplat-torch export PROJECT_DIR OUT.ply|OUT.html|OUT.gobj
     gsplat-torch info PROJECT_DIR
+    gsplat-torch doctor
 
 Every subcommand takes ``--device`` (default cuda; cpu runs the kernels'
 plain PyTorch versions).  Flags keep the JAX CLI's names and meaning,
@@ -14,8 +16,13 @@ including ``--runtime KEY=VALUE`` and the rule that sizes ``max_dup`` from
 the scene.  ``train`` writes npz checkpoints (``--checkpoint-every``, into
 PROJECT/checkpoints by default) and resumes from the latest one
 (``--resume``), writes a PNG snapshot series (``--snapshot-every``) and a
-live watch page (``--watch``: PROJECT/watch/index.html).  ``--devices``,
-``export``, ``doctor`` and ``--mode viewer`` are not ported yet.
+live watch page (``--watch``: PROJECT/watch/index.html).  ``export``
+writes the model as standard 3DGS ``.ply``, as a self-contained HTML
+viewer (``.html``, also ``render --mode viewer``) or as the reference's
+``.gobj`` (any other name).  ``doctor`` is the backend's health check: the
+numerics gate of the tiled renderer against the oracle and a timed micro
+train step, as one JSON object; it exits 1 when the gate fails.
+``--devices`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -182,6 +189,8 @@ def cmd_render(args):
     w, h = (int(x) for x in args.size.split("x")) if args.size else (None, None)
     if args.mode == "rtx":
         session.export_rtx_png(args.output, w, h, samples=args.samples)
+    elif args.mode == "viewer":
+        session.export_viewer_html(args.output)
     else:
         if args.samples:
             print(
@@ -191,6 +200,109 @@ def cmd_render(args):
             )
         session.export_splats_png(args.output, w, h)
     print(f"wrote {args.output}")
+
+
+def cmd_export(args):
+    session = _make_session(args, require=True)
+    out = args.output
+    if out.endswith(".ply"):
+        session.save_splats_ply(out)
+    elif out.endswith(".html"):
+        session.export_viewer_html(out)
+    else:
+        session.save_splats(out)  # .gobj text, which the reference reads
+    print(f"wrote {out}")
+
+
+DOCTOR_RES, DOCTOR_TILE, DOCTOR_CAPACITY, DOCTOR_MAX_DUP = 128, 16, 8192, 2**13
+DOCTOR_ATOL = 2e-2  # tiled vs oracle: the forward gate of the bench
+
+
+def doctor_report(device="cuda", reps: int = 20) -> dict:
+    """The health check of a backend (the JAX CLI's ``doctor``): the
+    kernels it uses built first (a failed build raises), the 17^3 grid
+    field rendered at 128^2 through ``render_tiled`` (K1 on the card) and
+    through ``render_oracle`` on the CPU, gated on a finite image within
+    DOCTOR_ATOL of the oracle, then ``reps`` fused train steps (K3 on the
+    card) timed after one warm-up, the device synchronised around the
+    timed window."""
+    import numpy as np
+    import torch
+
+    from gaussian_splatterer_tpu_torch import resolve_device
+    from gaussian_splatterer_tpu_torch.config import Project
+    from gaussian_splatterer_tpu_torch.models.camera import Camera
+    from gaussian_splatterer_tpu_torch.models.splats import init_field_grid
+    from gaussian_splatterer_tpu_torch.ops.raster_reference import render_oracle
+    from gaussian_splatterer_tpu_torch.ops.raster_tiled import image_to_tiles, render_tiled
+    from gaussian_splatterer_tpu_torch.train.trainer import (
+        CameraBatch,
+        LearningRates,
+        make_train_step,
+    )
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from gaussian_splatterer_tpu_torch.ops import cuda_build
+
+        cuda_build.build(("composite_fwd", "composite_train"))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    res, tile, cap = DOCTOR_RES, DOCTOR_TILE, DOCTOR_CAPACITY
+    host = init_field_grid(cap, 1, 4)  # the reference's 17^3 boot grid
+    cam = Camera(np.array([0.3, -0.2, -8.0], np.float32), np.zeros(3, np.float32), 60.0)
+    tx, ty = cam.tan_fov(res, res, train=True)
+
+    def render_args(model):
+        bg = torch.tensor([0.2, 0.3, 0.4], dtype=torch.float32, device=model.device)
+        return (model.means, model.shs, model.scales, model.opacities, model.rotations,
+                model.active_mask(), cam.get_view(), cam.get_proj_view(1.0), cam.location,
+                tx, ty, res, res, bg, 1, 1.0)
+
+    model = host.to_device(dev)
+    with torch.no_grad():
+        img_t = render_tiled(*render_args(model), tile=tile, max_dup=DOCTOR_MAX_DUP)
+        img_o = render_oracle(*render_args(host.to_device("cpu")), row_chunk=16,
+                              tile_cull=tile)
+    img_t = img_t.cpu()
+    err = float(torch.max(torch.abs(img_t - img_o)))
+    gate_ok = bool(torch.isfinite(img_t).all()) and err < DOCTOR_ATOL
+
+    cams = CameraBatch.from_cameras([cam], res, res, device=dev)
+    truths = image_to_tiles(torch.zeros((2, res, res, 3), dtype=torch.float32, device=dev),
+                            tile).contiguous()
+    step = make_train_step(res, res, 1, renderer="tiled", fused=True,
+                           fused_opts=dict(tile=tile, max_dup=DOCTOR_MAX_DUP))
+    lrs = LearningRates.from_project(Project())
+    step(model, truths, cams, lrs)  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(model, truths, cams, lrs)
+    sync()
+    sps = reps / (time.perf_counter() - t0)
+    return {
+        "platform": dev.type,
+        "numerics_gate": "ok" if gate_ok else f"FAILED (max err {err:.2e})",
+        "tiled_vs_oracle_max_err": round(err, 6),
+        "micro_step_per_s": round(sps, 2),
+        "config": f"{res}^2, {cap} splats, tile {tile}",
+    }
+
+
+def cmd_doctor(args) -> int:
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled
+
+    report = doctor_report(args.device)
+    print(json.dumps(report, indent=2))
+    # the kernels' launches, on standard error as the measuring scripts give them
+    print(json.dumps({"launches": {"composite_fwd": raster_tiled.composite_fwd_launches,
+                                   "composite_train": raster_tiled.composite_train_launches}}),
+          file=sys.stderr, flush=True)
+    return 0 if report["numerics_gate"] == "ok" else 1
 
 
 def cmd_info(args):
@@ -238,7 +350,7 @@ def main(argv=None) -> int:
     p_new = sub.add_parser("new", help="create a project directory")
     p_new.add_argument("project")
     p_new.add_argument("--obj", help="OBJ mesh to trace as truth")
-    p_new.add_argument("--texture", help="diffuse texture (PNG or TGA)")
+    p_new.add_argument("--texture", help="diffuse texture (PNG, TGA or JPEG)")
     p_new.add_argument("--init-field", choices=["grid", "mono", "model"], default="grid")
     _add_runtime_flags(p_new)
     p_new.set_defaults(fn=cmd_new)
@@ -267,25 +379,37 @@ def main(argv=None) -> int:
     _add_runtime_flags(p_tr)
     p_tr.set_defaults(fn=cmd_train)
 
-    p_re = sub.add_parser("render", help="export a PNG")
+    p_re = sub.add_parser("render", help="export a PNG, or the HTML viewer")
     p_re.add_argument("project")
     p_re.add_argument("output")
-    p_re.add_argument("--mode", choices=["splats", "rtx"], default="splats",
-                      help="splats, or rtx: the path-traced truth view")
+    p_re.add_argument("--mode", choices=["splats", "rtx", "viewer"], default="splats",
+                      help="splats; rtx: the path-traced truth view; viewer: a "
+                           "self-contained interactive HTML viewer")
     p_re.add_argument("--size", help="WxH, e.g. 1024x1024")
     p_re.add_argument("--samples", type=int)
     p_re.add_argument("--renderer", choices=["tiled", "oracle"], default="tiled")
     _add_runtime_flags(p_re)
     p_re.set_defaults(fn=cmd_render)
 
+    p_ex = sub.add_parser("export", help="export the splats (.ply, .html or .gobj)")
+    p_ex.add_argument("project")
+    p_ex.add_argument("output", help="OUT.ply (standard 3DGS), OUT.html (viewer), "
+                                     "else .gobj text")
+    _add_runtime_flags(p_ex)
+    p_ex.set_defaults(fn=cmd_export)
+
     p_in = sub.add_parser("info", help="print project summary")
     p_in.add_argument("project")
     p_in.add_argument("--device", default="cuda")
     p_in.set_defaults(fn=cmd_info)
 
+    p_dr = sub.add_parser("doctor", help="backend health check: numerics gate and a "
+                                         "timed micro train step")
+    p_dr.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p_dr.set_defaults(fn=cmd_doctor)
+
     args = ap.parse_args(argv)
-    args.fn(args)
-    return 0
+    return args.fn(args) or 0
 
 
 if __name__ == "__main__":

@@ -12,6 +12,11 @@ src/ui/UiFrame.cpp:373-450):
 
 The SH coefficient count is taken from the first ``sh`` line and must be the
 same on every line (reference src/ui/UiFrame.cpp:419-420).
+
+A file given by its path is read and written by the C++ parser of
+``native/`` when it builds; the pure-Python code here is its plain twin
+and the fallback.  ``last_path`` says which one handled the last call:
+"native" or "python".
 """
 
 from __future__ import annotations
@@ -21,10 +26,28 @@ from typing import TextIO, Union
 
 import numpy as np
 
+from gaussian_splatterer_tpu_torch import native
 from gaussian_splatterer_tpu_torch.models.splats import SplatModelHost
+
+last_path = None  # "native" or "python": the code that handled the last call
 
 
 def save_gobj(model: SplatModelHost, path_or_file: Union[str, TextIO]) -> None:
+    """The native writer when given a path and the library builds, else
+    save_gobj_python."""
+    global last_path
+    n = model.count
+    if isinstance(path_or_file, str) and native.save_gobj(
+            path_or_file, model.means[:n], model.shs[:n], model.scales[:n],
+            model.opacities[:n], model.rotations[:n]):
+        last_path = "native"
+        return
+    save_gobj_python(model, path_or_file)
+
+
+def save_gobj_python(model: SplatModelHost, path_or_file: Union[str, TextIO]) -> None:
+    global last_path
+    last_path = "python"
     n, k = model.count, model.sh_coeffs
     buf = _io.StringIO()
     for i in range(n):
@@ -67,6 +90,21 @@ def _parse(fh: TextIO) -> dict[str, list]:
 
 
 def load_gobj(path_or_file: Union[str, TextIO], capacity: int | None = None) -> SplatModelHost:
+    """The native reader when given a path and the library builds (and
+    reads the file), else load_gobj_python."""
+    global last_path
+    if isinstance(path_or_file, str):
+        arrays = native.load_gobj(path_or_file)
+        if arrays is not None:
+            last_path = "native"
+            return SplatModelHost.from_arrays(*arrays, capacity=capacity)
+    return load_gobj_python(path_or_file, capacity)
+
+
+def load_gobj_python(path_or_file: Union[str, TextIO],
+                     capacity: int | None = None) -> SplatModelHost:
+    global last_path
+    last_path = "python"
     if isinstance(path_or_file, str):
         with open(path_or_file) as fh:
             rows = _parse(fh)

@@ -1,6 +1,8 @@
 """Wavefront OBJ loading with the reference's semantics (counterpart of
-gaussian_splatterer_tpu.io.obj; the pure-Python parser, without the JAX
-package's C++ fast path).
+gaussian_splatterer_tpu.io.obj).  The C++ parser of ``native/`` reads the
+file when it builds and no ``progress`` callback is given; the pure-Python
+parser here is its plain twin and the fallback.  ``last_path`` says which
+one read the last file: "native" or "python".
 
 The reference parser (src/rtx/RtxHost.cpp:107-186) reads:
   * ``v x y z`` vertices and ``vt u v`` texture coordinates;
@@ -18,6 +20,9 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from gaussian_splatterer_tpu_torch import native
+
+last_path = None  # "native" or "python": the parser that read the last file
 
 @dataclass
 class TriangleMesh:
@@ -51,6 +56,21 @@ def _corner(tok: str, n_vertices: int, n_uvs: int) -> tuple[int, int]:
 
 
 def load_obj(path: str, progress: Optional[Callable[[], None]] = None) -> TriangleMesh:
+    """The mesh of ``path``: the native parser's when it builds and no
+    ``progress`` callback is given, else load_obj_python's."""
+    global last_path
+    if progress is None:
+        arrays = native.load_obj(path)
+        if arrays is not None:
+            last_path = "native"
+            return TriangleMesh(*arrays)
+    return load_obj_python(path, progress)
+
+
+def load_obj_python(path: str, progress: Optional[Callable[[], None]] = None) -> TriangleMesh:
+    """The pure-Python parser; ``progress()`` is called once a line."""
+    global last_path
+    last_path = "python"
     vertices: list[tuple[float, float, float]] = []
     uvs: list[tuple[float, float]] = []
     triangles: list[tuple[int, int, int]] = []

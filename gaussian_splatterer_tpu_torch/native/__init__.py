@@ -1,0 +1,147 @@
+"""Native C++ file parsers (the ``.obj`` mesh and ``.gobj`` splat formats),
+loaded with ctypes (counterpart of gaussian_splatterer_tpu.native).
+
+``src/parsers.cpp`` exposes a plain C interface.  At first use it is
+compiled with ``g++`` into ``build/native/`` at the root of the checkout,
+named by a hash of its source and flags (an unchanged source is reused
+across processes, a changed one builds anew), and loaded.  Nothing is
+built at import time.  A failed build prints the compiler's message to
+standard error; ``lib()`` then returns None and io/obj.py and io/gobj.py
+take their pure-Python parsers, which stay as the plain twin of these.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+SRC = Path(__file__).resolve().parent / "src" / "parsers.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+
+_state: dict = {}  # "lib": the loaded library or None, once tried
+
+
+def lib_path() -> Path:
+    digest = hashlib.sha256(SRC.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libgstparsers-{digest}.so"
+
+
+def build() -> Path | None:
+    """Compile the library if it is not built yet; its path, or None when
+    there is no ``g++`` or the build failed (the compiler's message goes
+    to standard error)."""
+    path = lib_path()
+    if path.exists():
+        return path
+    cxx = shutil.which("g++")
+    if cxx is None:
+        print("gaussian_splatterer_tpu_torch.native: g++ not found; the pure-Python "
+              "parsers run", file=sys.stderr)
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *CXX_FLAGS, str(SRC), "-o", str(tmp)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        print(f"gaussian_splatterer_tpu_torch.native: g++ failed to build {SRC}:\n"
+              f"{proc.stdout}{proc.stderr}", file=sys.stderr)
+        tmp.unlink(missing_ok=True)
+        return None
+    os.replace(tmp, path)  # atomic: concurrent builds leave one whole file
+    return path
+
+
+def lib() -> ctypes.CDLL | None:
+    """The loaded parser library (built at the first call), or None."""
+    if "lib" not in _state:
+        path = build()
+        _state["lib"] = _bind(ctypes.CDLL(str(path))) if path is not None else None
+    return _state["lib"]
+
+
+def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
+    pf = ctypes.POINTER(ctypes.c_float)
+    pi = ctypes.POINTER(ctypes.c_int32)
+    ppf, ppi = ctypes.POINTER(pf), ctypes.POINTER(pi)
+    pi64 = ctypes.POINTER(ctypes.c_int64)
+    cdll.gst_free.argtypes = [ctypes.c_void_p]
+    cdll.gst_load_obj.argtypes = [ctypes.c_char_p, ppf, pi64, ppi, pi64, ppf]
+    cdll.gst_load_obj.restype = ctypes.c_int
+    cdll.gst_load_gobj.argtypes = [ctypes.c_char_p, ppf, ppf, ppf, ppf, ppf, pi64, pi64]
+    cdll.gst_load_gobj.restype = ctypes.c_int
+    cdll.gst_save_gobj.argtypes = [ctypes.c_char_p, pf, pf, pf, pf, pf,
+                                   ctypes.c_int64, ctypes.c_int64]
+    cdll.gst_save_gobj.restype = ctypes.c_int
+    return cdll
+
+
+def _take(cdll, ptr, shape, dtype) -> np.ndarray:
+    """Copy a malloc'd C buffer into a numpy array and free it."""
+    n = int(np.prod(shape))
+    out = (np.ctypeslib.as_array(ptr, shape=(n,)).astype(dtype, copy=True) if n
+           else np.zeros((0,), dtype))
+    cdll.gst_free(ptr)
+    return out.reshape(shape)
+
+
+def load_obj(path: str):
+    """(vertices (V, 3) float32, triangles (T, 3) int32, tri_uv (T, 3, 2)
+    float32), or None when the library is missing or the parser refused
+    the file (the Python parser then reads it and names the fault)."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    pf, pi = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)
+    verts, tris, uv = pf(), pi(), pf()
+    nv, nt = ctypes.c_int64(), ctypes.c_int64()
+    rc = cdll.gst_load_obj(os.fsencode(path), ctypes.byref(verts), ctypes.byref(nv),
+                           ctypes.byref(tris), ctypes.byref(nt), ctypes.byref(uv))
+    if rc != 0:
+        return None
+    return (_take(cdll, verts, (nv.value, 3), np.float32),
+            _take(cdll, tris, (nt.value, 3), np.int32),
+            _take(cdll, uv, (nt.value, 3, 2), np.float32))
+
+
+def load_gobj(path: str):
+    """(means, shs (N, K, 3), scales, opacities, rotations) as float32, or
+    None when the library is missing or the parser refused the file."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    pf = ctypes.POINTER(ctypes.c_float)
+    means, shs, scales, opac, rot = pf(), pf(), pf(), pf(), pf()
+    n, shv = ctypes.c_int64(), ctypes.c_int64()
+    rc = cdll.gst_load_gobj(os.fsencode(path), ctypes.byref(means), ctypes.byref(shs),
+                            ctypes.byref(scales), ctypes.byref(opac), ctypes.byref(rot),
+                            ctypes.byref(n), ctypes.byref(shv))
+    if rc != 0:
+        return None
+    count, k3 = n.value, shv.value
+    return (_take(cdll, means, (count, 3), np.float32),
+            _take(cdll, shs, (count, k3 // 3, 3), np.float32),
+            _take(cdll, scales, (count, 3), np.float32),
+            _take(cdll, opac, (count,), np.float32),
+            _take(cdll, rot, (count, 4), np.float32))
+
+
+def save_gobj(path: str, means, shs, scales, opacities, rotations) -> bool:
+    """Write the .gobj text; False when the library is missing or the
+    file could not be opened."""
+    cdll = lib()
+    if cdll is None:
+        return False
+    n = means.shape[0]
+    k3 = int(np.prod(shs.shape[1:]))
+    arrays = [np.ascontiguousarray(a, dtype=np.float32) for a in
+              (means, shs.reshape(n, k3), scales, opacities, rotations)]
+    ptrs = [a.ctypes.data_as(ctypes.POINTER(ctypes.c_float)) for a in arrays]
+    return cdll.gst_save_gobj(os.fsencode(path), *ptrs, n, k3) == 0

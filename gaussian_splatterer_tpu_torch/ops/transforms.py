@@ -142,6 +142,40 @@ def _sh_to_rgb_channels(shs, dx, dy, dz, sh_degree: int):
     return tuple(out)
 
 
+def sh_eval_linear(shs, dirs, sh_degree: int):
+    """Raw SH band sum, (N, K, 3) coefficients and (N, 3) unit view
+    directions -> (N, 3): no +0.5 offset and no clamp.  The linear part
+    that partial evaluations use (the HTML viewer bakes bands >= 2 at a
+    nominal direction).  Works on numpy arrays and on tensors."""
+    x, y, z = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
+    c = SH_C0 * shs[:, 0]
+    if sh_degree >= 1:
+        c = c - SH_C1 * y * shs[:, 1] + SH_C1 * z * shs[:, 2] - SH_C1 * x * shs[:, 3]
+    if sh_degree >= 2:
+        xx, yy, zz = x * x, y * y, z * z
+        xy, yz, xz = x * y, y * z, x * z
+        c = (
+            c
+            + SH_C2[0] * xy * shs[:, 4]
+            + SH_C2[1] * yz * shs[:, 5]
+            + SH_C2[2] * (2.0 * zz - xx - yy) * shs[:, 6]
+            + SH_C2[3] * xz * shs[:, 7]
+            + SH_C2[4] * (xx - yy) * shs[:, 8]
+        )
+    if sh_degree >= 3:
+        c = (
+            c
+            + SH_C3[0] * y * (3.0 * xx - yy) * shs[:, 9]
+            + SH_C3[1] * xy * z * shs[:, 10]
+            + SH_C3[2] * y * (4.0 * zz - xx - yy) * shs[:, 11]
+            + SH_C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy) * shs[:, 12]
+            + SH_C3[4] * x * (4.0 * zz - xx - yy) * shs[:, 13]
+            + SH_C3[5] * z * (xx - yy) * shs[:, 14]
+            + SH_C3[6] * x * (xx - yy) * shs[:, 15]
+        )
+    return c
+
+
 def _safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     """sqrt(x) for x >= 0 whose gradient at x = 0 is 0, not inf: the
     clamp after it zeroes the cotangent there, and inf * 0 would put NaN

@@ -184,7 +184,7 @@ def test_texture_loader_matches_jax(tmp_path, fmt, mode):
 
 
 def test_texture_loader_names_what_it_cannot_read(tmp_path):
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(tmp_path / "t.jpg")
+    Image.new("CMYK", (4, 4), (0, 0, 0, 0)).save(tmp_path / "t.jpg")
     with pytest.raises(ValueError, match="JPEG"):
         timage.load_texture_rgba(str(tmp_path / "t.jpg"))
     (tmp_path / "t.bmp").write_bytes(b"BM" + bytes(60))
@@ -369,6 +369,10 @@ def test_port_imports_no_jax_flax_or_pillow():
         "import gaussian_splatterer_tpu_torch.utils.metrics\n"
         "import gaussian_splatterer_tpu_torch.io.checkpoint\n"
         "import gaussian_splatterer_tpu_torch.io.watch\n"
+        "import gaussian_splatterer_tpu_torch.io.jpeg\n"
+        "import gaussian_splatterer_tpu_torch.io.ply\n"
+        "import gaussian_splatterer_tpu_torch.io.viewer\n"
+        "import gaussian_splatterer_tpu_torch.native\n"
         "from gaussian_splatterer_tpu_torch.scripts import (\n"
         "    bench, bench_scale, eval_model, quality_run, scenes)\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
