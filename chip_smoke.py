@@ -13,10 +13,11 @@ cumsum reduction route (``Trainer(reduction="cumsum")``), the H100 probes,
 the measuring and long-run entry points (the port's bench and
 bench_scale, quality_run with a resume across processes, eval_model) and
 the tracer at mesh scale (the CLI on a 65,024-triangle mesh, through the
-culled intersector) and the rest of the product (a JPEG texture, export
-and import, doctor, the native parsers) at full size, times the stages
-with CUDA events, and exits nonzero at the first phase that fails.  It
-imports nothing of JAX.
+culled intersector), the rest of the product (a JPEG texture, export
+and import, doctor, the native parsers) and multi-device training (two
+ranks sharing the card) at full size, times the stages with CUDA events,
+and exits nonzero at the first phase that fails.  It imports nothing of
+JAX.
 
 Phases:
   1. environment: torch, CUDA, nvcc, the card's name and power limit;
@@ -178,6 +179,23 @@ Phases:
      mesh-res 1024 mushroom as an OBJ, and a 262,144-splat .gobj saved and
      loaded, native against Python, equal, with the host seconds of each.
      Its launches join the summary's.
+  multi-device training (parallel/; K3, K4, K5, K9 on every rank):
+ 22. two ranks sharing cuda:0 over gloo, in spawned workers (NCCL refuses
+     two ranks on one GPU): (a) one DP and one FSDP step (1 x 2 mesh) of
+     phase 7's cell on the cumsum route against the single-process step,
+     within 1e-4 of each field's largest |value| (the gap printed), the DP
+     ranks bit-equal, each FSDP rank on capacity / 2 rows; per-rank step
+     ms and collective ms and bytes over 3 timed steps ("2 ranks sharing
+     one H100 via gloo, not a scaling figure"); (b) the sharded capture of
+     the north-star rig (16 frames, 8 samples, 1024^2) on the mushroom at
+     mesh-res 256 (K9), each frame bit-equal to a serial render with the
+     same frame seed; (c) ``train --devices 2`` of the north star (the
+     CLI's run_train on each rank) on the DP and on the FSDP mesh: 6 steps,
+     the DP ranks' models bit-equal, densify grows the model, a finite
+     loss; (d) one nccl rank's DP step bit-equal to make_train_step on the
+     cumsum route; (e) ``gsplat-torch train --devices 2`` on the one-card
+     host exits nonzero naming both numbers.  Both ranks' launches join
+     the summary's.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of its FP32 operations over 67 TFLOP/s (the data sheet's; phase 17 adds a
@@ -196,9 +214,10 @@ twin) and one AABB test per ray and chunk.  K2's bytes are the
 rows in, their gradients out, the ranges, and the forward output and its
 gradient in.  K4's bytes are its input read and its output written once.
 
-``--only bench``, ``--only quality``, ``--only k9`` and ``--only export``
-run phases 1-2 and then phase 18, 19, 20 or 21 (or several) and end with
-the full run's last line (``k9`` after its kernels line).
+``--only bench``, ``--only quality``, ``--only k9``, ``--only export`` and
+``--only parallel`` run phases 1-2 and then phase 18, 19, 20, 21 or 22 (or
+several) and end with the full run's last line (``k9`` after its kernels
+line).
 
 ``--only step`` runs phases 1-2, 7-8 and 16 (the fused step on both
 reduction routes, for quick rounds on the card) and ends with the same
@@ -357,6 +376,22 @@ K4_D = 202_689  # the group's largest kept count on phase 7's cell (--only k4's 
 ROUTE_ATOL = 2e-4
 # (operations, bytes) of each kernel's summary bound, for phase 17's second share
 BOUND_PARTS: dict[str, tuple[float, float]] = {}
+
+
+# phase 22: multi-device training on the one card.  Two ranks share cuda:0
+# over gloo (NCCL refuses two ranks on one GPU): phase 7's cell on the
+# cumsum route, a step held to the single-process one at P22_GATE of each
+# field's largest |value|; the sharded capture of the north-star rig on the
+# mesh-res 256 mushroom at P22_CAPTURE_SAMPLES samples; the north star's
+# loops through the CLI's run_train
+P22_WORLD, P22_GATE, P22_TIMED_STEPS = 2, 1e-4, 3
+P22_CAPTURE_SAMPLES, P22_SEED = 8, 5
+P22_FIELDS = ("means", "shs", "scales", "opacities", "rotations", "var_loc", "avg_grad_loc",
+              "loss")
+# the size constants the phase's workers read
+P22_SIZES = ("TRAIN_SPLATS", "TRAIN_CAPACITY", "TRAIN_RES", "TRAIN_TILE", "TRAIN_GROUP",
+             "NS_MESH", "NS_RES", "NS_CAMS", "NS_SAMPLES", "NS_CAPACITY", "NS_MAX_DUP", "NS_STEPS",
+             "K9_MESH", "P22_CAPTURE_SAMPLES", "P22_TIMED_STEPS")
 
 
 def phase(title: str) -> None:
@@ -3264,6 +3299,405 @@ def product_phase(dev, card) -> dict:
     return launches
 
 
+def p22_sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def p22_counts() -> dict[str, int]:
+    """The launch counts of the kernels on phase 22's path."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+
+    return {"composite_train": rt.composite_train_launches,
+            "cumsum_frames": rt.cumsum_frames_launches,
+            "composite_fwd": rt.composite_fwd_launches,
+            "mt_intersect": tr.mt_intersect_launches, "mt_culled": tr.mt_culled_launches}
+
+
+def p22_zero_counts() -> None:
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+
+    rt.composite_train_launches = rt.cumsum_frames_launches = rt.composite_fwd_launches = 0
+    tr.mt_intersect_launches = tr.mt_culled_launches = 0
+
+
+def p22_fields(model, met) -> dict:
+    """A step's model and metrics as numpy arrays."""
+    out = {name: getattr(model, name).detach().cpu().numpy() for name in P22_FIELDS[:5]}
+    out.update(var_loc=met.var_loc.cpu().numpy(), avg_grad_loc=met.avg_grad_loc.cpu().numpy(),
+               loss=np.float64(float(met.loss)))
+    return out
+
+
+def p22_digest(arrays: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(arrays):
+        h.update(name.encode())
+        h.update(np.ascontiguousarray(arrays[name]).tobytes())
+    return h.hexdigest()
+
+
+def p22_cell(dev):
+    """Phase 7's cell on the cumsum route with its truths captured: (the
+    trainer, the scene's arrays, the step's learning rates)."""
+    from gaussian_splatterer_tpu_torch.train import LearningRates
+
+    trainer, rtx, arrays = fused_cell(dev, "cumsum")
+    trainer.capture_truths(rtx)
+    return trainer, arrays, LearningRates.from_project(trainer.project)
+
+
+def p22_model(arrays, dev):
+    from gaussian_splatterer_tpu_torch.models.splats import SplatModel
+
+    return SplatModel.from_numpy(*arrays, count=TRAIN_SPLATS, device=dev, sh_degree=1)
+
+
+def p22_steps(rank: int, dev, out: Path) -> dict:
+    """Part (a) on one rank: one DP and one FSDP step of phase 7's cell
+    (cumsum route), its outputs written for the parent (rank 0: the whole
+    model), then P22_TIMED_STEPS timed steps with the collectives timed."""
+    from gaussian_splatterer_tpu_torch import parallel
+    from gaussian_splatterer_tpu_torch.parallel.collectives import all_gather_rows
+
+    trainer, arrays, lrs = p22_cell(dev)
+    runtime, res = trainer.runtime, TRAIN_RES
+    result = {}
+    for kind in ("dp", "fsdp"):
+        if kind == "dp":
+            mesh = parallel.make_camera_mesh(dev.type)
+            step = parallel.make_dp_train_step(mesh, res, res, 1, runtime=runtime,
+                                               reduction="cumsum")
+            model = p22_model(arrays, dev)
+        else:
+            mesh = parallel.make_2d_mesh(dev.type, 1, P22_WORLD)
+            step = parallel.make_fsdp_train_step(mesh, res, res, 1, runtime=runtime,
+                                                 reduction="cumsum")
+            model = parallel.shard_model(mesh, p22_model(arrays, dev))
+        truths = parallel.shard_truths(mesh, trainer.truths)
+        p22_sync(dev)
+        p22_zero_counts()
+        model, met = step(model, truths, trainer.truth_cams, lrs)
+        p22_sync(dev)
+        launches = p22_counts()
+        if kind == "dp":
+            fields = p22_fields(model, met)
+        else:
+            group = mesh.get_group(parallel.SPLAT_AXIS)
+            whole = parallel.gather_model(mesh, model)
+            fields = p22_fields(whole, met._replace(
+                var_loc=all_gather_rows(met.var_loc, group),
+                avg_grad_loc=all_gather_rows(met.avg_grad_loc, group)))
+        if rank == 0:
+            np.savez(out / f"{kind}.npz", **fields)
+        step.comm.reset()
+        step.comm.timed = True
+        times = []
+        for _ in range(P22_TIMED_STEPS):
+            p22_sync(dev)
+            t0 = time.perf_counter()
+            step(model, truths, trainer.truth_cams, lrs)
+            p22_sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        result[kind] = {
+            "frames": truths.shape[0], "rows": model.means.shape[0], "launches": launches,
+            "digest": p22_digest(fields), "step_ms": statistics.median(times),
+            "comm_ms": step.comm.seconds * 1e3 / P22_TIMED_STEPS,
+            "comm_bytes": step.comm.bytes // P22_TIMED_STEPS,
+            "comm_calls": step.comm.calls // P22_TIMED_STEPS,
+        }
+    return result
+
+
+def p22_capture_host(dev):
+    from gaussian_splatterer_tpu_torch.rt import RtxHost
+    from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh, mushroom_texture
+
+    host = RtxHost(device=dev)
+    host.load_model(mushroom_mesh(*K9_MESH))
+    host.load_texture_diffuse(mushroom_texture())
+    return host
+
+
+def p22_frame_digest(img) -> str:
+    import hashlib
+
+    return hashlib.sha256(img.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def p22_capture(rank: int, dev) -> dict:
+    """Part (b) on one rank: its block of the sharded capture of the
+    north-star rig on the mesh-res 256 mushroom (K9), each frame's
+    SHA-256."""
+    from gaussian_splatterer_tpu_torch.models.camera import Camera
+    from gaussian_splatterer_tpu_torch.parallel import capture_images_sharded
+
+    host = p22_capture_host(dev)
+    cameras = Camera.get_cameras(ns_project())
+    p22_sync(dev)
+    p22_zero_counts()
+    t0 = time.perf_counter()
+    frames = capture_images_sharded(host, cameras, P22_CAPTURE_SAMPLES, NS_RES, NS_RES,
+                                    seed=P22_SEED)
+    p22_sync(dev)
+    return {"seconds": time.perf_counter() - t0, "launches": p22_counts(),
+            "first": rank * frames.shape[0], "digests": [p22_frame_digest(f) for f in frames]}
+
+
+def p22_loops(rank: int, dev, projects: dict) -> dict:
+    """Part (c) on one rank: ``train --devices 2`` of each project through
+    the CLI's run_train (the body every worker of ``spawn_train`` runs)."""
+    from gaussian_splatterer_tpu_torch.app import cli as tcli
+    from gaussian_splatterer_tpu_torch.io.checkpoint import digest
+
+    result = {}
+    for kind, proj in projects.items():
+        args = tcli.build_parser().parse_args(
+            ["train", proj, "--steps", str(NS_STEPS), "--devices", str(P22_WORLD),
+             "--log-every", "1", "--device", str(dev), "--runtime", f"train_mesh={kind}"])
+        p22_sync(dev)
+        p22_zero_counts()
+        t0 = time.perf_counter()
+        session = tcli.run_train(args)
+        p22_sync(dev)
+        secs = time.perf_counter() - t0
+        launches = p22_counts()
+        model = session.model  # gathered under fsdp, on every rank
+        result[kind] = {"seconds": secs, "launches": launches, "digest": digest(model),
+                        "count": model.count, "devices": session.devices,
+                        "rows": session.trainer.model.means.shape[0],
+                        "loss": float(session.trainer.last_metrics.loss),
+                        "iterations": session.project.iterations}
+    return result
+
+
+def p22_worker(rank: int, init_method: str, out: str, projects: dict, device: str,
+               sizes: dict) -> None:
+    """Rank ``rank`` of phase 22 on ``device`` (cuda:0 for every rank): a
+    gloo group of P22_WORLD ranks (NCCL refuses two ranks on one GPU),
+    parts (a)-(c), its results in OUT/rank<r>.json.  ``sizes`` are the
+    parent's size constants (a rehearsal on the CPU sets them small)."""
+    import torch.distributed as dist
+
+    from gaussian_splatterer_tpu_torch import parallel
+
+    globals().update(sizes)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.zeros(1, device=dev)  # the device is set up before the meshes
+    parallel.init_distributed(rank=rank, world_size=P22_WORLD, init_method=init_method,
+                              backend="gloo")
+    try:
+        result = {"steps": p22_steps(rank, dev, Path(out)), "capture": p22_capture(rank, dev),
+                  "loops": p22_loops(rank, dev, projects)}
+    finally:
+        dist.destroy_process_group()
+    Path(out, f"rank{rank}.json").write_text(json.dumps(result))
+
+
+def p22_projects(work: Path, dev) -> dict:
+    """The north star as ``new`` makes it (phase 10's mesh, rig and
+    schedule), once for each mesh kind."""
+    import shutil
+
+    from gaussian_splatterer_tpu_torch.app import cli as tcli
+    from gaussian_splatterer_tpu_torch.config import Project
+    from gaussian_splatterer_tpu_torch.io.image import save_png
+    from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh, mushroom_texture
+
+    write_obj(mushroom_mesh(*NS_MESH), str(work / "mushroom.obj"))
+    save_png(mushroom_texture()[..., :3], str(work / "mushroom.png"), flip_vertical=False)
+    dp = str(work / "dp")
+    if tcli.main(["new", dp, "--obj", str(work / "mushroom.obj"), "--texture",
+                  str(work / "mushroom.png"), "--init-field", "model", "--resolution",
+                  str(NS_RES), "--capacity", str(NS_CAPACITY), "--max-dup", str(NS_MAX_DUP),
+                  *NS_RUNTIME, "--device", dev.type]) != 0:
+        raise SystemExit("phase 22 failed: new")
+    p = Project.load(f"{dp}/settings.json")
+    ns = ns_project()
+    p.sphere1.count, p.rtSamples = ns.sphere1.count, ns.rtSamples
+    p.intervalCapture, p.intervalDensify = NS_INTERVAL_CAPTURE, NS_INTERVAL_DENSIFY
+    p.paramDensifyVariance = NS_DENSIFY_VARIANCE
+    p.save(f"{dp}/settings.json")
+    fsdp = str(work / "fsdp")
+    shutil.copytree(dp, fsdp)
+    return {"dp": dp, "fsdp": fsdp}
+
+
+def p22_gap(got: dict, want: dict) -> dict[str, float]:
+    """Each field's max |got - want| over want's largest |value|."""
+    return {k: float(np.max(np.abs(got[k] - want[k]))) / max(float(np.max(np.abs(want[k]))),
+                                                            1e-30) for k in P22_FIELDS}
+
+
+def parallel_phase(dev, card) -> dict:
+    """Phase 22: multi-device training on the one card, 2 gloo ranks on
+    cuda:0 in spawned workers: (a) a DP and an FSDP step of phase 7's cell
+    (cumsum route) against the single-process step; (b) the sharded capture
+    of the north-star rig on the mesh-res 256 mushroom (K9) bit-equal to
+    serial renders; (c) ``train --devices 2`` of the north star on each
+    mesh (DP copies bit-equal, densify grows it, a finite loss); (d) one
+    nccl rank's DP step bit-equal to make_train_step; (e) the CLI's
+    ``train --devices 2`` refused on the one-card host.  Returns the
+    kernels' launches of the workers' main paths, both ranks summed."""
+    import shutil
+    import socket
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from gaussian_splatterer_tpu_torch import parallel
+    from gaussian_splatterer_tpu_torch.io.gobj import load_gobj
+    from gaussian_splatterer_tpu_torch.models.camera import Camera
+    from gaussian_splatterer_tpu_torch.parallel import frame_seed
+    from gaussian_splatterer_tpu_torch.train import fused_kw_from_runtime, make_train_step
+
+    def fail(why: str):
+        raise SystemExit(f"phase 22 failed: {why}")
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    phase(f"22. multi-device training: {P22_WORLD} ranks sharing one H100 via gloo, not a "
+          f"scaling figure ({card})")
+    t_phase = time.perf_counter()
+    # the single-process step of phase 7's cell on the cumsum route, and (d)
+    trainer, arrays, lrs = p22_cell(dev)
+    runtime, res = trainer.runtime, TRAIN_RES
+    single = make_train_step(res, res, 1, renderer="tiled", fused=True,
+                             fused_opts=dict(fused_kw_from_runtime(runtime), reduction="cumsum"),
+                             frame_group=runtime.frame_group)
+    want = p22_fields(*single(p22_model(arrays, dev), trainer.truths, trainer.truth_cams, lrs))
+    parallel.init_distributed(rank=0, world_size=1, init_method=f"tcp://127.0.0.1:{free_port()}",
+                              backend=parallel.backend_for(dev))
+    try:
+        mesh = parallel.make_camera_mesh(dev.type)
+        step = parallel.make_dp_train_step(mesh, res, res, 1, runtime=runtime,
+                                           reduction="cumsum")
+        p22_zero_counts()
+        one = p22_fields(*step(p22_model(arrays, dev), trainer.truths, trainer.truth_cams, lrs))
+        p22_sync(dev)
+        nccl_launches = p22_counts()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    equal = all(np.array_equal(one[k], want[k]) for k in P22_FIELDS)
+    print(f"  (d) one {backend} rank's DP step against make_train_step, cumsum route: "
+          f"bit-equal {equal}; launches {nccl_launches}", flush=True)
+    if not equal or backend != parallel.backend_for(dev) or (
+            dev.type == "cuda" and nccl_launches["composite_train"] == 0):
+        fail("(d) the 1-rank nccl DP step is not bit-equal to the single-process step")
+    del trainer
+
+    (HERE / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_", dir=HERE / "build"))
+    projects = p22_projects(work, dev)
+    start = load_gobj(f"{projects['dp']}/splats.gobj", capacity=NS_CAPACITY).count
+    t0 = time.perf_counter()
+    sizes = {k: globals()[k] for k in P22_SIZES}
+    mp.start_processes(p22_worker, args=(f"tcp://127.0.0.1:{free_port()}", str(work), projects,
+                                         "cuda:0" if dev.type == "cuda" else "cpu", sizes),
+                       nprocs=P22_WORLD, join=True, start_method="spawn")
+    workers_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(P22_WORLD)]
+    print(f"  workers: {workers_s:.3f} s (host clock, the processes' start included)")
+
+    # (a) the steps against the single-process step
+    launches: dict[str, int] = {}
+    for kind in ("dp", "fsdp"):
+        with np.load(work / f"{kind}.npz") as z:
+            got = {k: z[k] for k in z.files}
+        gap = p22_gap(got, want)
+        per = [r["steps"][kind] for r in ranks]
+        for r, x in enumerate(per):
+            print(f"  (a) {kind} rank {r}: {x['frames']} frames, {x['rows']} rows; step "
+                  f"{x['step_ms']:.3f} ms, collectives {x['comm_ms']:.3f} ms in "
+                  f"{x['comm_calls']} calls of {x['comm_bytes']:,} B a step (median of "
+                  f"{P22_TIMED_STEPS}, collectives timed with the device synchronised, "
+                  f"2 ranks sharing one H100 via gloo, not a scaling figure); launches "
+                  f"{x['launches']}")
+        print(f"  (a) {kind} against the single-process step, max |diff| over the field's "
+              f"largest (<= {P22_GATE}): " + ", ".join(f"{k} {v:.3e}" for k, v in gap.items()),
+              flush=True)
+        if max(gap.values()) > P22_GATE or not all(np.isfinite(v) for v in gap.values()):
+            fail(f"(a) the {kind} step against the single-process step")
+        if dev.type == "cuda" and any(x["launches"]["composite_train"] == 0
+                                      or x["launches"]["cumsum_frames"] == 0 for x in per):
+            fail(f"(a) a rank's {kind} step did not launch K3 and K4")
+        if kind == "dp" and per[0]["digest"] != per[1]["digest"]:
+            fail("(a) the DP ranks' models differ")
+        if kind == "fsdp" and [x["rows"] for x in per] != [TRAIN_CAPACITY // P22_WORLD] * 2:
+            fail("(a) an FSDP rank does not hold capacity / 2 rows")
+        add_launches(launches, {k: sum(x["launches"][k] for x in per) for k in per[0]["launches"]})
+
+    # (b) the sharded capture against serial renders, frame seeds alike
+    host = p22_capture_host(dev)
+    cameras = Camera.get_cameras(ns_project())
+    c = len(cameras)
+    p22_sync(dev)
+    t0 = time.perf_counter()
+    serial = [p22_frame_digest(host.render(cameras[i % c], (1.0,) * 3 if i < c else (0.0,) * 3,
+                                           P22_CAPTURE_SAMPLES, NS_RES, NS_RES,
+                                           seed=frame_seed(P22_SEED, i)))
+              for i in range(2 * c)]
+    p22_sync(dev)
+    serial_s = time.perf_counter() - t0
+    sharded = [d for r in ranks for d in r["capture"]["digests"]]
+    for r, x in enumerate(ranks):
+        cap = x["capture"]
+        print(f"  (b) rank {r}: frames {cap['first']}-{cap['first'] + len(cap['digests']) - 1} "
+              f"in {cap['seconds']:.3f} s (host clock); launches {cap['launches']}")
+    print(f"  (b) {2 * c} frames of {P22_CAPTURE_SAMPLES} samples at {NS_RES}^2, the mushroom "
+          f"at mesh-res {K9_MESH[0]}: serial {serial_s:.3f} s; sharded bit-equal to serial "
+          f"{sharded == serial}", flush=True)
+    if sharded != serial or len(set(serial)) != 2 * c:
+        fail("(b) the sharded capture is not bit-equal to the serial renders")
+    if dev.type == "cuda" and any(x["capture"]["launches"]["mt_culled"] == 0 for x in ranks):
+        fail("(b) a rank's capture did not launch K9")
+    add_launches(launches, {k: sum(x["capture"]["launches"][k] for x in ranks)
+                            for k in ranks[0]["capture"]["launches"]})
+
+    # (c) the product loops
+    for kind in ("dp", "fsdp"):
+        per = [r["loops"][kind] for r in ranks]
+        for r, x in enumerate(per):
+            print(f"  (c) {kind} rank {r}: train --devices {P22_WORLD}, {x['iterations']} "
+                  f"steps in {x['seconds']:.3f} s (host clock); splats {start} -> {x['count']}; "
+                  f"loss {x['loss']:.6f}; rows {x['rows']}; launches {x['launches']}")
+        ok = (all(x["iterations"] == NS_STEPS and x["devices"] == P22_WORLD
+                  and x["count"] > start and np.isfinite(x["loss"])
+                  and (dev.type != "cuda" or (x["launches"]["composite_train"] > 0
+                                              and x["launches"]["mt_intersect"] > 0))
+                  for x in per) and per[0]["digest"] == per[1]["digest"])
+        if not ok:
+            fail(f"(c) the {kind} loop: steps, growth, a finite loss, launches or the ranks' "
+                 "models")
+        add_launches(launches, {k: sum(x["launches"][k] for x in per) for k in per[0]["launches"]})
+
+    # (e) the CLI refuses more ranks than cards
+    rt_before = Path(projects["dp"], "runtime.json").read_text()
+    proc = subprocess.run([sys.executable, "-m", "gaussian_splatterer_tpu_torch.app", "train",
+                           projects["dp"], "--steps", "1", "--devices", str(P22_WORLD)],
+                          cwd=HERE, capture_output=True, text=True, timeout=300)
+    want_msg = f"train_devices={P22_WORLD} but only {torch.cuda.device_count()} devices"
+    print(f"  (e) train --devices {P22_WORLD} with {torch.cuda.device_count()} card(s): exit "
+          f"{proc.returncode}; {proc.stderr.strip().splitlines()[-1] if proc.stderr else ''}")
+    if dev.type == "cuda" and torch.cuda.device_count() < P22_WORLD and (
+            proc.returncode == 0 or want_msg not in proc.stderr
+            or Path(projects["dp"], "runtime.json").read_text() != rt_before):
+        fail("(e) train --devices was not refused on the one-card host")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"  phase 22: {time.perf_counter() - t_phase:.3f} s; launches {launches}", flush=True)
+    return launches
+
+
 def device_busy_ms(fn) -> tuple[float, float, dict]:
     """(milliseconds in which the device ran a kernel or a copy, wall
     milliseconds, {name: [device ms, count]} of the kernels and copies) of
@@ -3296,7 +3730,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", action="append",
                     choices=("step", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k9", "bench",
-                             "quality", "export"),
+                             "quality", "export", "parallel"),
                     help="run phases 1-2 and then only phases 7-8 and 16 (step: the fused "
                          "step's cell on both reduction routes, its layers and the batched "
                          "front end against the frame-by-frame one), phases 3-5 (k1: the "
@@ -3313,7 +3747,8 @@ def main(argv=None) -> int:
                          "--tile 16 and bench_scale) or phase 19 (quality: quality_run, "
                          "resumed, and eval_model) or phase 20 (k9: the tracer at mesh scale) "
                          "or phase 21 (export: the JPEG texture, export and import, doctor, "
-                         "the native parsers), which end with the full run's last line")
+                         "the native parsers) or phase 22 (parallel: multi-device training, "
+                         "2 ranks sharing the card), which end with the full run's last line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU",
@@ -3361,7 +3796,7 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"ok": True, "device": device}))
         return 0
-    if args.only and set(args.only) <= {"bench", "quality", "k9", "export"}:
+    if args.only and set(args.only) <= {"bench", "quality", "k9", "export", "parallel"}:
         if "bench" in args.only:
             bench_phase(dev, card)
         if "quality" in args.only:
@@ -3371,13 +3806,16 @@ def main(argv=None) -> int:
             print(json.dumps({"kernels": [k9]}))
         if "export" in args.only:
             product_phase(dev, card)
+        if "parallel" in args.only:
+            parallel_phase(dev, card)
         print(card)
         print(json.dumps({"ok": True, "device": device}))
         return 0
     if args.only:
-        if not set(args.only).isdisjoint({"step", "bench", "quality", "k9", "export"}):
-            raise SystemExit("chip_smoke: --only step, and --only bench, quality, k9 and "
-                             "export, run without the other --only options")
+        if not set(args.only).isdisjoint({"step", "bench", "quality", "k9", "export",
+                                          "parallel"}):
+            raise SystemExit("chip_smoke: --only step, and --only bench, quality, k9, export "
+                             "and parallel, run without the other --only options")
         if "k1" in args.only:
             serve_phases(dev, card, only=True)
         if "k2" in args.only:
@@ -3418,9 +3856,10 @@ def main(argv=None) -> int:
     add_launches(measured, quality_phase(card))
     k9 = culled_phase(dev, card)
     add_launches(measured, product_phase(dev, card))
+    add_launches(measured, parallel_phase(dev, card))
     for entry in (fwd, train, k5, bwd, k4, k9):
         entry["launches"] += measured.get(entry["name"], 0)
-    print(f"launches of phases 18-19 and 21 added to the summary: {measured}")
+    print(f"launches of phases 18-19 and 21-22 added to the summary: {measured}")
     if "jax" in sys.modules:
         raise SystemExit("chip_smoke: jax was imported")
 

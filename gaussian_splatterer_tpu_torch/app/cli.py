@@ -3,7 +3,7 @@ gaussian_splatterer_tpu.app.cli):
 
     gsplat-torch new PROJECT_DIR [--obj model.obj --texture tex.png] [--init-field grid|mono|model]
     gsplat-torch train PROJECT_DIR --steps N [--renderer tiled|oracle] [--log-every K]
-        [--checkpoint-every N [--checkpoint-dir D]] [--resume]
+        [--devices N] [--checkpoint-every N [--checkpoint-dir D]] [--resume]
         [--snapshot-every N [--snapshot-dir D]] [--watch [--watch-every N]]
     gsplat-torch render PROJECT_DIR OUT [--mode splats|rtx|viewer] [--size WxH] [--samples S]
     gsplat-torch export PROJECT_DIR OUT.ply|OUT.html|OUT.gobj
@@ -22,7 +22,16 @@ viewer (``.html``, also ``render --mode viewer``) or as the reference's
 ``.gobj`` (any other name).  ``doctor`` is the backend's health check: the
 numerics gate of the tiled renderer against the oracle and a timed micro
 train step, as one JSON object; it exits 1 when the gate fails.
-``--devices`` is not ported yet.
+
+``train --devices N`` trains on N devices (``train_mesh`` "dp", the
+default, or "fsdp" through ``--runtime train_mesh=fsdp``) and persists
+``train_devices`` with the project, and ``capture_data_parallel`` when N >
+1; ``--devices 1`` goes back to one device.  N > 1 starts N worker
+processes (spawned, a process group on 127.0.0.1 at a free port): rank r on
+``cuda:r`` over nccl, or on the CPU over gloo with ``--device cpu``.  The
+kernels are built once, before the workers start.  On ``cuda`` N above the
+card count is refused.  Rank 0 alone prints and writes; a failed worker
+fails the command.
 """
 
 from __future__ import annotations
@@ -87,6 +96,11 @@ def _make_session(args, require: bool = False):
     if getattr(args, "capacity", None):
         runtime.splats_capacity = args.capacity
         resized = True
+    if getattr(args, "devices", None) is not None:
+        # persists with the project like every runtime knob
+        runtime.train_devices = args.devices
+        if args.devices > 1:
+            runtime.capture_data_parallel = True
     resized = _apply_runtime_overrides(runtime, getattr(args, "runtime", None)) or resized
     if getattr(args, "max_dup", None):
         runtime.max_dup = args.max_dup
@@ -120,10 +134,91 @@ def cmd_new(args):
     print(f"created project at {args.project}")
 
 
+# the kernels of the training path, built before the workers start
+TRAIN_KERNELS = ("composite_fwd", "composite_train", "composite_bwd", "cumsum_frames",
+                 "mt_intersect", "mt_culled")
+
+
+def train_devices(args) -> int:
+    """The ranks ``train`` runs on: ``--devices``, else the project's
+    persisted train_devices, resolved against 2 x its cameras; on cuda, N
+    above the card count exits nonzero."""
+    import torch
+
+    from gaussian_splatterer_tpu_torch.app.session import RUNTIME_FILE, SETTINGS_FILE
+    from gaussian_splatterer_tpu_torch.config import Project
+    from gaussian_splatterer_tpu_torch.train.trainer import _resolve_devices
+
+    n = args.devices
+    rt_path = os.path.join(args.project, RUNTIME_FILE)
+    if n is None and os.path.exists(rt_path):
+        n = RuntimeConfig.load(rt_path).train_devices
+    settings = os.path.join(args.project, SETTINGS_FILE)
+    if not n or n <= 1 or not os.path.exists(settings):
+        return 1
+    kind = torch.device(args.device).type
+    count = torch.cuda.device_count() if kind == "cuda" else None
+    try:
+        return _resolve_devices(n, 2 * Project.load(settings).num_cameras, kind, count)
+    except RuntimeError as exc:
+        raise SystemExit(f"train --devices {n} on {kind}: {exc}") from None
+
+
 def cmd_train(args):
+    n = train_devices(args)
+    if n > 1:
+        return spawn_train(args, n)
+    run_train(args)
+    return 0
+
+
+def spawn_train(args, n: int) -> int:
+    """``train`` on ``n`` worker processes, one a device."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    kind = torch.device(args.device).type
+    if kind == "cuda":
+        from gaussian_splatterer_tpu_torch.ops import cuda_build
+
+        cuda_build.build(TRAIN_KERNELS)  # once here, not once a rank
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mp.start_processes(_train_worker, args=(args, n, f"tcp://127.0.0.1:{port}", kind),
+                       nprocs=n, join=True, start_method="spawn")
+    return 0
+
+
+def _train_worker(rank: int, args, n: int, init_method: str, kind: str) -> None:
+    """Rank ``rank`` of ``spawn_train``: rank r on cuda:r over nccl, or on
+    the CPU over gloo."""
+    import torch
+    import torch.distributed as dist
+
+    from gaussian_splatterer_tpu_torch import parallel
+
+    if kind == "cuda":
+        torch.cuda.set_device(rank)
+        args.device = f"cuda:{rank}"
+    parallel.init_distributed(rank=rank, world_size=n, init_method=init_method,
+                              backend=parallel.backend_for(kind))
+    try:
+        run_train(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_train(args):
+    """The body of ``train`` on one process, or on each rank of a process
+    group, which rank 0 alone prints from.  Returns the session."""
+    from gaussian_splatterer_tpu_torch import parallel
     from gaussian_splatterer_tpu_torch.ops import raster_tiled
     from gaussian_splatterer_tpu_torch.rt import tracer
 
+    say = print if parallel.rank() == 0 else (lambda *a, **k: None)
     session = _make_session(args, require=True)
     if session.rtx.mesh is None:
         raise SystemExit("project has no OBJ model; run `new --obj` first")
@@ -132,9 +227,9 @@ def cmd_train(args):
         latest = os.path.join(ckpt_dir, "latest.npz")
         if os.path.exists(latest):
             session.resume_from_checkpoint(ckpt_dir)
-            print(f"resumed from {latest} at iter {session.project.iterations}")
+            say(f"resumed from {latest} at iter {session.project.iterations}")
         else:
-            print(f"--resume: no checkpoint at {latest}; starting fresh")
+            say(f"--resume: no checkpoint at {latest}; starting fresh")
     t0 = time.perf_counter()
     last = {"it": session.project.iterations, "t": t0}
     # kernel launches of each step, the capture before it included: the
@@ -162,13 +257,14 @@ def cmd_train(args):
             p = session.project
             cadence = "  ".join(f"{name} in {iv - (it % iv)}" for name, iv in (
                 ("capture", p.intervalCapture), ("densify", p.intervalDensify)) if iv)
-            print(f"iter {it}  loss {float(metrics.loss):.6f}  splats {int(session.model.count)}"
-                  f"  {rate:.1f} steps/s" + (f"  [{cadence}]" if cadence else ""), flush=True)
+            say(f"iter {it}  loss {float(metrics.loss):.6f}  splats "
+                f"{int(session.trainer.model.count)}  {rate:.1f} steps/s"
+                + (f"  [{cadence}]" if cadence else ""), flush=True)
 
     watch_dir = os.path.join(args.project, "watch")
     if args.watch:
-        print(f"watch: open file://{os.path.abspath(watch_dir)}/index.html "
-              "in a browser (auto-refreshes)", flush=True)
+        say(f"watch: open file://{os.path.abspath(watch_dir)}/index.html "
+            "in a browser (auto-refreshes)", flush=True)
     stats = session.auto_train(
         args.steps, on_step=on_step,
         checkpoint_dir=ckpt_dir if args.checkpoint_every else None,
@@ -179,9 +275,11 @@ def cmd_train(args):
         watch_every=args.watch_every if args.watch else 0,
     )
     session.save_project(args.project)
-    print(f"trained {args.steps} steps in {time.perf_counter() - t0:.1f}s; saved")
-    print(json.dumps({**stats, "iterations": session.project.iterations,
-                      "splats": int(session.model.count), "launches": launches}))
+    say(f"trained {args.steps} steps in {time.perf_counter() - t0:.1f}s; saved")
+    say(json.dumps({**stats, "iterations": session.project.iterations,
+                    "splats": int(session.trainer.model.count), "devices": session.devices or 1,
+                    "launches": launches}), flush=True)
+    return session
 
 
 def cmd_render(args):
@@ -342,7 +440,7 @@ def _add_runtime_flags(p):
                         "plain PyTorch versions)")
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="gsplat-torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -359,6 +457,10 @@ def main(argv=None) -> int:
     p_tr.add_argument("project")
     p_tr.add_argument("--steps", type=int, default=200)
     p_tr.add_argument("--renderer", choices=["tiled", "oracle"], default="tiled")
+    p_tr.add_argument("--devices", type=int,
+                      help="train on N devices, one worker process each (camera-DP; "
+                           "--runtime train_mesh=fsdp for splat-sharded parameters). "
+                           "Persists with the project; --devices 1 reverts")
     p_tr.add_argument("--log-every", type=int, default=10)
     p_tr.add_argument("--checkpoint-every", type=int, default=0,
                       help="crash-recovery .npz checkpoint every N iters")
@@ -407,8 +509,11 @@ def main(argv=None) -> int:
                                          "timed micro train step")
     p_dr.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p_dr.set_defaults(fn=cmd_doctor)
+    return ap
 
-    args = ap.parse_args(argv)
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     return args.fn(args) or 0
 
 

@@ -12,6 +12,12 @@ export of the splats and of the traced scene
 (src/ui/tools/UiPanelToolsView.cpp:112-141, 227-259), and the model's
 export to and import from standard 3DGS ``.ply`` and its export to a
 self-contained HTML viewer.
+
+Trained on N devices (``runtime.train_devices``), every rank of the
+process group runs its own Session with the same arguments and calls it in
+step with the others: reading ``model`` gathers a splat-sharded model (a
+collective), and rank 0 alone (``writer``) writes files: settings.json,
+runtime.json, .gobj, checkpoints, snapshots, the watch page and exports.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gaussian_splatterer_tpu_torch import resolve_device
+from gaussian_splatterer_tpu_torch import parallel, resolve_device
 from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
 from gaussian_splatterer_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from gaussian_splatterer_tpu_torch.io.gobj import load_gobj, save_gobj
@@ -55,7 +61,8 @@ ORACLE_ROW_CHUNK = 32  # pixel rows per oracle step (the JAX Trainer's default)
 
 
 class Session:
-    """Project + scene + trainer on one device (reference UiFrame, headless)."""
+    """Project + scene + trainer on one device, or on one rank's device of
+    several (reference UiFrame, headless)."""
 
     def __init__(self, project: Optional[Project] = None,
                  runtime: Optional[RuntimeConfig] = None,
@@ -77,10 +84,21 @@ class Session:
         model = init(rt.splats_capacity, rt.sh_degree, rt.sh_coeffs).to_device(self.device)
         self.trainer = Trainer(self.project, self.runtime, model, renderer=renderer)
 
+    @property
+    def devices(self) -> Optional[int]:
+        """The number of ranks the trainer shards over (None for one)."""
+        return self.trainer.devices
+
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes files: rank 0, or the only process."""
+        return parallel.rank() == 0
+
     # -- scene ------------------------------------------------------------
     @property
     def model(self) -> SplatModel:
-        return self.trainer.model
+        """The whole model (gathered from the ranks' rows when sharded)."""
+        return self.trainer._gathered_model()
 
     @model.setter
     def model(self, m: SplatModel) -> None:
@@ -112,8 +130,12 @@ class Session:
         self.project.iterations = 0
 
     # -- training -----------------------------------------------------------
+    def _capture_devices(self) -> Optional[int]:
+        """With ``capture_data_parallel``, the ranks a capture splits over."""
+        return parallel.world_size() if self.runtime.capture_data_parallel else None
+
     def capture(self) -> None:
-        self.trainer.capture_truths(self.rtx)
+        self.trainer.capture_truths(self.rtx, devices=self._capture_devices())
 
     def train(self, steps: int = 1, densify: bool = False):
         for _ in range(steps):
@@ -142,6 +164,9 @@ class Session:
         it_start = self.project.iterations
         watch_history: list = []
 
+        def count() -> int:
+            return int(self.trainer.model.count)
+
         def _advance_preview_clock():
             now = time.monotonic()
             last = getattr(self, "_last_snapshot_time", None)
@@ -162,30 +187,35 @@ class Session:
                 status = {
                     "iteration": it,
                     "loss": f"{float(metrics.loss):.6f}",
-                    "splats": f"{int(self.model.count)} / {self.model.capacity}",
+                    "splats": f"{count()} / {self.runtime.splats_capacity}",
                     "steps/s": f"{(it - it_start) / max(elapsed, 1e-9):.2f}",
                     "elapsed": f"{elapsed:.0f}s",
-                    "devices": 1,
+                    "devices": self.devices or 1,
                 }
                 watch_history.append({"it": it, "loss": round(float(metrics.loss), 6),
-                                      "splats": int(self.model.count)})
-                write_watch_page(watch_dir, status, watch_history)
-            self.logger.log_step(it, metrics.loss, self.model.count)
+                                      "splats": count()})
+                if self.writer:
+                    write_watch_page(watch_dir, status, watch_history)
+            self.logger.log_step(it, metrics.loss, count())
             if checkpoint_dir and checkpoint_every and it % checkpoint_every == 0:
-                os.makedirs(checkpoint_dir, exist_ok=True)
-                save_checkpoint(os.path.join(checkpoint_dir, "latest.npz"), self.model,
-                                self.project)
+                model = self.model  # every rank: a sharded model gathers
+                if self.writer:
+                    os.makedirs(checkpoint_dir, exist_ok=True)
+                    save_checkpoint(os.path.join(checkpoint_dir, "latest.npz"), model,
+                                    self.project)
             p = self.project
             if it % max(p.intervalCapture or p.intervalDensify or 100, 1) == 0:
                 self.trainer.maybe_grow_dup_buffer(metrics)
             if on_step is not None:
                 on_step(it, metrics)
 
-        return auto_train(self.trainer, self.rtx, steps, rng=self.rng, on_step=log_step)
+        return auto_train(self.trainer, self.rtx, steps, rng=self.rng, on_step=log_step,
+                          capture_devices=self._capture_devices())
 
     def resume_from_checkpoint(self, checkpoint_dir: str) -> None:
         """Load ``checkpoint_dir/latest.npz`` onto the session's device and
-        swap in its project (its iteration count with it)."""
+        swap in its project (its iteration count with it); every rank loads
+        it, and a splat-sharded trainer keeps its rows."""
         model, project = load_checkpoint(os.path.join(checkpoint_dir, "latest.npz"),
                                          device=self.device)
         self.model = model
@@ -195,9 +225,10 @@ class Session:
 
     # -- project persistence (reference src/ui/UiFrame.cpp:323-450) ---------
     def save_project(self, directory: str) -> None:
-        os.makedirs(directory, exist_ok=True)
+        if self.writer:
+            os.makedirs(directory, exist_ok=True)
+            self.runtime.save(os.path.join(directory, RUNTIME_FILE))
         self.save_settings(os.path.join(directory, SETTINGS_FILE))
-        self.runtime.save(os.path.join(directory, RUNTIME_FILE))
         self.save_splats(os.path.join(directory, SPLATS_FILE))
 
     def load_project(self, directory: str, runtime: Optional[RuntimeConfig] = None) -> None:
@@ -236,18 +267,23 @@ class Session:
         self.trainer = Trainer(self.project, runtime, model, renderer=self.renderer)
 
     def save_settings(self, path: str) -> None:
-        self.project.save(path)
+        if self.writer:
+            self.project.save(path)
 
     def load_settings(self, path: str) -> None:
         self.project = Project.load(path)
         self.trainer.project = self.project
+        # the loaded rig may change 2 x num_cameras, which the ranks divide
+        self.trainer.refresh_devices()
         if self.project.pathModel and os.path.exists(self.project.pathModel):
             self.load_model_obj(self.project.pathModel)
         if self.project.pathTextureDiffuse and os.path.exists(self.project.pathTextureDiffuse):
             self.load_texture(self.project.pathTextureDiffuse)
 
     def save_splats(self, path: str) -> None:
-        save_gobj(self.model.to_host(), path)
+        host = self.model.to_host()
+        if self.writer:
+            save_gobj(host, path)
 
     def load_splats(self, path: str) -> None:
         host = load_gobj(path, capacity=self.runtime.splats_capacity)
@@ -256,7 +292,9 @@ class Session:
     def save_splats_ply(self, path: str) -> None:
         """Standard 3DGS binary PLY export (io/ply.py), which ecosystem
         viewers and tools read."""
-        save_ply(self.model.to_host(), path)
+        host = self.model.to_host()
+        if self.writer:
+            save_ply(host, path)
 
     def load_splats_ply(self, path: str) -> None:
         """Standard 3DGS binary PLY import onto the session's device, at
@@ -307,18 +345,24 @@ class Session:
         """Reference 'Render Splats' export (vertically flipped PNG)."""
         w = width or self.project.renderResX
         h = height or self.project.renderResY
-        self._save(self.render_splats(w, h), path)
+        img = self.render_splats(w, h)
+        if self.writer:
+            self._save(img, path)
 
     def export_rtx_png(self, path: str, width=None, height=None, samples=None) -> None:
         """Reference 'Render RTX' export (vertically flipped PNG)."""
         w = width or self.project.renderResX
         h = height or self.project.renderResY
-        self._save(self.render_rtx(w, h, samples=samples), path)
+        img = self.render_rtx(w, h, samples=samples)
+        if self.writer:
+            self._save(img, path)
 
     def export_viewer_html(self, path: str) -> None:
         """Self-contained interactive WebGL viewer (io/viewer.py), the
         shareable stand-in for the reference's live preview panels."""
-        export_viewer_html(self.model, path)
+        model = self.model
+        if self.writer:
+            export_viewer_html(model, path)
 
     @staticmethod
     def _save(img: torch.Tensor, path: str) -> None:

@@ -26,16 +26,25 @@ def auto_train(
     num_steps: int,
     rng: Optional[random.Random] = None,
     on_step: Optional[Callable[[int, object], None]] = None,
+    capture_devices: Optional[int] = None,
 ) -> dict:
     """Run ``num_steps`` auto-training iterations, capturing truth first if
     the trainer has none.  Returns the wall-clock split: total seconds,
-    capture seconds and their share, and the number of re-captures."""
+    capture seconds and their share, and the number of re-captures.
+
+    ``capture_devices`` > 1 splits every (re)capture's frames over the
+    ranks of the process group (parallel/capture.py).  On a sharded
+    trainer every rank runs this loop; each recapture's randomized rig is
+    rank 0's."""
 
     def _fenced_capture():
         """Capture, then wait for the device, so that the capture's device
         time counts as capture."""
         t0 = time.perf_counter()
-        trainer.capture_truths(rtx)
+        if capture_devices is not None:
+            trainer.capture_truths(rtx, devices=capture_devices)
+        else:
+            trainer.capture_truths(rtx)
         if trainer.truths.is_cuda:
             torch.cuda.synchronize(trainer.truths.device)
         return time.perf_counter() - t0
@@ -51,6 +60,7 @@ def auto_train(
         densify_now = p.intervalDensify > 0 and p.iterations % p.intervalDensify == 0
         if capture and p.iterations > 0:
             randomize_rig_rotations(p, rng)
+            trainer.share_rig()
             capture_s += _fenced_capture()
             recaptures += 1
         metrics = trainer.train(densify_now=densify_now)

@@ -26,7 +26,10 @@ Two step kinds, as in the JAX package:
     composite_bwd), renderer "oracle", or a caller's ``render_fn``.  The
     Trainer passes its runtime-configured renderer, so this step bins with
     the runtime's tile_px, max_dup and mip_antialias.
-A multi-device trainer (ROADMAP A-7) raises at its first step.
+With ``train_devices`` N > 1 (``gsplat-torch train --devices N``) each of N
+ranks of a ``torch.distributed`` group runs a Trainer: ``train_mesh`` "dp"
+(camera-data-parallel, parallel/dp.py) or "fsdp" (splat-sharded,
+parallel/fsdp.py), with sharded recaptures (parallel/capture.py).
 
 The step updates the model's parameters in place (the JAX step returns a
 new model); densify returns a new model.
@@ -162,6 +165,79 @@ def _apply_sgd(model: SplatModel, avg, lrs: LearningRates) -> None:
     model.rotations.add_(g_rot * lrs.rotation)
 
 
+def backgrounds(f: int, device) -> torch.Tensor:
+    """The (2F, 3) backgrounds of a step's frames: F white, then F black."""
+    return torch.cat([torch.ones((f, 3)), torch.zeros((f, 3))]).to(device)
+
+
+def make_frame_accumulator(
+    width: int,
+    height: int,
+    sh_degree: int,
+    renderer: str = "oracle",
+    row_chunk: int = 32,
+    render_fn: Optional[RenderFn] = None,
+    fused: bool = False,
+    fused_opts: Optional[dict] = None,
+    frame_group: int = 8,
+):
+    """The frame loop of a train step, shared by the single-device step and
+    the sharded ones (parallel/dp.py): a function
+
+        accumulate(params, active, truths, cams, bgs, divisor) ->
+            (g, var, loss_sum, num_dup)
+
+    over the frames given (``cams`` one camera a frame, ``bgs`` (n, 3)).
+    ``g`` are the five parameter gradients and ``var`` the (C,) sum of each
+    frame's |location gradient|, summed over the frames and divided by
+    ``divisor``: the fused step divides the sums (``frame_group`` frames a
+    launch of render_train_grads_batch, snapped down to a divisor of the
+    frame count), the frame-by-frame step each frame's terms, as the JAX
+    package's single-device step does.  ``loss_sum`` is the sum of the
+    frames' mean squared residuals; ``num_dup`` the most duplicates of any
+    frame on the fused step, -1 off it."""
+    fkw = dict(fused_opts or {})
+    if not fused:
+        render = render_fn if render_fn is not None else _default_render(renderer, row_chunk)
+
+    def accumulate(params, active, truths, cams: CameraBatch, bgs, divisor: float):
+        n = truths.shape[0]
+        dev = params[0].device
+        gsum = [torch.zeros_like(p) for p in params]
+        var = torch.zeros((params[0].shape[0],), dtype=torch.float32, device=dev)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        if fused:
+            group = _largest_divisor_leq(n, frame_group)
+            num_dup = 0
+            for g0 in range(0, n, group):
+                sl = slice(g0, g0 + group)
+                l_sum, g, v, _, nd, _ = render_train_grads_batch(
+                    *params, active, *(x[sl] for x in cams),
+                    width, height, truths[sl], bgs[sl], sh_degree, **fkw)
+                for acc, gi in zip(gsum, g):
+                    acc += gi
+                var += v
+                loss_sum += l_sum
+                num_dup = max(num_dup, nd)
+            return [x / divisor for x in gsum], var / divisor, loss_sum, num_dup
+        tans = torch.stack([cams.tan_fovx, cams.tan_fovy], 1).tolist()
+        for i in range(n):
+            leaves = [p.detach().clone().requires_grad_(True) for p in params]
+            with torch.enable_grad():
+                img = render(*leaves, active, cams.view[i], cams.proj_view[i],
+                             cams.cam_pos[i], *tans[i], width, height, bgs[i],
+                             sh_degree, 1.0)
+            residual = (truths[i] - img).detach()  # signed diff = -dL/dpixel of L2/2
+            g = torch.autograd.grad(img, leaves, residual)
+            for acc, gi in zip(gsum, g):
+                acc += gi / divisor
+            var += torch.linalg.vector_norm(g[0], dim=-1) / divisor
+            loss_sum += torch.mean(torch.square(residual))
+        return gsum, var, loss_sum, -1  # num_dup is not reported off the fused path
+
+    return accumulate
+
+
 def make_train_step(
     width: int,
     height: int,
@@ -183,58 +259,41 @@ def make_train_step(
     2F; ``fused_opts`` are render_train_grads_batch's keywords (tile,
     max_dup, aa, reduction).  The model's parameters are updated in
     place."""
-    fkw = dict(fused_opts or {})
-    if not fused:
-        render = render_fn if render_fn is not None else _default_render(renderer, row_chunk)
+    accumulate = make_frame_accumulator(width, height, sh_degree, renderer, row_chunk,
+                                        render_fn, fused, fused_opts, frame_group)
 
     def step(model: SplatModel, truths: torch.Tensor, cams: CameraBatch, lrs: LearningRates):
         f = cams.num_frames
         if truths.shape[0] != 2 * f:
             raise ValueError("need a white and a black frame per camera")
         samples = float(2 * f)
-        dev = model.device
-        active = model.active_mask()
-        cams2 = cams.twice()
-        bgs = torch.cat([torch.ones((f, 3)), torch.zeros((f, 3))]).to(dev)
-        gsum = [torch.zeros_like(p) for p in _params(model)]
-        var = torch.zeros((model.capacity,), dtype=torch.float32, device=dev)
-        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        if fused:
-            group = _largest_divisor_leq(2 * f, frame_group)
-            num_dup = 0
-            for g0 in range(0, 2 * f, group):
-                sl = slice(g0, g0 + group)
-                l_sum, g, v, _, nd, _ = render_train_grads_batch(
-                    *_params(model), active, *(x[sl] for x in cams2),
-                    width, height, truths[sl], bgs[sl], sh_degree, **fkw)
-                for acc, gi in zip(gsum, g):
-                    acc += gi
-                var += v
-                loss_sum += l_sum
-                num_dup = max(num_dup, nd)
-            avg = [x / samples for x in gsum]
-            var = var / samples
-        else:
-            avg = gsum
-            tans = torch.stack([cams2.tan_fovx, cams2.tan_fovy], 1).tolist()
-            for i in range(2 * f):
-                leaves = [p.detach().clone().requires_grad_(True) for p in _params(model)]
-                with torch.enable_grad():
-                    img = render(*leaves, active, cams2.view[i], cams2.proj_view[i],
-                                 cams2.cam_pos[i], *tans[i], width, height, bgs[i],
-                                 sh_degree, 1.0)
-                residual = (truths[i] - img).detach()  # signed diff = -dL/dpixel of L2/2
-                g = torch.autograd.grad(img, leaves, residual)
-                for acc, gi in zip(avg, g):
-                    acc += gi / samples
-                var += torch.linalg.vector_norm(g[0], dim=-1) / samples
-                loss_sum += torch.mean(torch.square(residual))
-            num_dup = -1  # not reported off the fused path
+        avg, var, loss_sum, num_dup = accumulate(
+            _params(model), model.active_mask(), truths, cams.twice(),
+            backgrounds(f, model.device), samples)
         _apply_sgd(model, avg, lrs)
         return model, TrainMetrics(loss=loss_sum / samples, var_loc=var,
                                    avg_grad_loc=avg[0], num_dup=num_dup)
 
     return step
+
+
+def _resolve_devices(n: int, frames: int, device_type: str = "cpu",
+                     device_count: Optional[int] = None) -> int:
+    """The number of ranks to train on when ``n`` are asked for: 1 for 0 or
+    1; otherwise the largest divisor of the step's ``frames`` (2F, split
+    evenly by the sharded steps) up to ``n``, with a warning when that is
+    fewer.  On ``cuda`` with ``device_count`` given (the launcher's cards,
+    one a rank), ``n`` above it raises."""
+    if n <= 1:
+        return 1
+    if device_type == "cuda" and device_count is not None and n > device_count:
+        raise RuntimeError(f"train_devices={n} but only {device_count} devices are attached")
+    k = n
+    while frames % k:
+        k -= 1
+    if k != n:
+        warnings.warn(f"2*num_cameras={frames} not divisible by {n} devices; training on {k}")
+    return k
 
 
 def randomize_rig_rotations(project: Project, rng: Optional[random.Random] = None) -> None:
@@ -256,6 +315,17 @@ class Trainer:
     such as renders of a teacher model.  The model's device is the training
     device.  ``reduction`` is the fused step's route for the duplicate
     gradients, "index_add" or "cumsum" (ops.raster_tiled.REDUCTIONS).
+
+    Several devices: ``devices`` (a count, or a sequence whose length is
+    taken) or else ``runtime.train_devices`` asks for N; ``devices`` is the
+    number resolved from it (None for one).  Each rank of a process group of
+    that size (parallel.init_distributed) makes its own Trainer with the
+    same arguments, its model on its own device, and calls it in step with
+    the others.  Made without such a group (a project saved for N devices,
+    opened to print its info or render), the Trainer raises at its first
+    step or capture.  On "fsdp" ``model`` is the rank's rows (a
+    parallel.SplatShard); assigning a whole SplatModel shards it, and
+    ``_gathered_model()`` (a collective) returns the whole model.
     """
 
     def __init__(
@@ -271,12 +341,13 @@ class Trainer:
     ):
         if reduction not in REDUCTIONS:
             raise ValueError(f"reduction {reduction!r} is not one of {REDUCTIONS}")
-        # more than one device is refused at the first step, so that a
-        # project saved with train_devices > 1 still opens, renders and
-        # prints its info
-        self._n_dev = len(devices) if devices is not None else int(runtime.train_devices or 0)
+        if devices is not None and not isinstance(devices, int):
+            devices = len(devices)
+        self._devices_asked = devices
         self.project = project
         self.runtime = runtime
+        self._mesh = None
+        self._model_sharded = False
         self.model = model
         self.renderer = renderer
         self.row_chunk = row_chunk
@@ -287,7 +358,45 @@ class Trainer:
         self.truth_cams: Optional[CameraBatch] = None
         self.last_metrics: Optional[TrainMetrics] = None
         self._last_buffer_check_it: Optional[int] = None
+        self._capture_seed = 0  # the sharded capture's seed counter
+        self.devices = self._resolve()
         self._build_step()
+
+    @property
+    def model(self):
+        return self._model
+
+    @model.setter
+    def model(self, m) -> None:
+        if self._model_sharded and isinstance(m, SplatModel):
+            from gaussian_splatterer_tpu_torch.parallel import shard_model
+
+            m = shard_model(self._mesh, m)
+        self._model = m
+
+    def _resolve(self) -> Optional[int]:
+        """The number of ranks asked for, resolved by _resolve_devices
+        (None for one).  The
+        card count is the launcher's to check: ranks of a gloo group may
+        share one card."""
+        n = self._devices_asked
+        if n is None:
+            n = int(self.runtime.train_devices or 0)
+        k = _resolve_devices(n, 2 * self.project.num_cameras, self.model.device.type)
+        return k if k > 1 else None
+
+    def refresh_devices(self) -> None:
+        """Resolve the ranks again after the Project changed under the
+        Trainer (Session.load_settings swaps the rig in place): the
+        frame-divisor shrink depends on 2 x num_cameras."""
+        new = self._resolve()
+        if new != self.devices:
+            if self._model_sharded:
+                self._model = self._gathered_model()
+            self.devices = new
+            self._mesh = None
+            self._model_sharded = False
+            self._build_step()
 
     def _build_step(self) -> None:
         """(Re)build the step from the current RuntimeConfig: at
@@ -300,6 +409,9 @@ class Trainer:
             and runtime.render_resolution_x % runtime.tile_px == 0
             and runtime.render_resolution_y % runtime.tile_px == 0
         )
+        if self.devices is not None:
+            self._build_mesh_step()
+            return
         self._step = make_train_step(
             runtime.render_resolution_x, runtime.render_resolution_y, runtime.sh_degree,
             renderer=self.renderer, row_chunk=self.row_chunk,
@@ -311,6 +423,68 @@ class Trainer:
             fused_opts=dict(fused_kw_from_runtime(runtime), reduction=self.reduction),
             frame_group=runtime.frame_group,
         )
+
+    def _build_mesh_step(self) -> None:
+        """The sharded step of ``runtime.train_mesh``: "dp", the replicated
+        model over a 1-D camera mesh; "fsdp", the model's rows split over a
+        1 x N (camera x splat) mesh, densify gathering them.  Without a
+        process group of the resolved size there is no step (train raises).
+        Both steps take the single-device step's arguments."""
+        from gaussian_splatterer_tpu_torch import parallel
+
+        runtime, n = self.runtime, self.devices
+        kind = runtime.train_mesh
+        if kind not in ("dp", "fsdp"):
+            raise ValueError(f"unknown train_mesh {kind!r} (expected 'dp' or 'fsdp')")
+        self._step = None
+        if parallel.world_size() != n:
+            return
+        dev_type = self.model.device.type
+        if self._mesh is None:
+            self._mesh = (parallel.make_camera_mesh(dev_type) if kind == "dp"
+                          else parallel.make_2d_mesh(dev_type, 1, n))
+        common = dict(renderer=self.renderer,
+                      render_fn=self._render_fn if self._user_render else None,
+                      row_chunk=self.row_chunk, runtime=runtime, fused=self._fused,
+                      frame_group=runtime.frame_group, reduction=self.reduction)
+        size = (runtime.render_resolution_x, runtime.render_resolution_y, runtime.sh_degree)
+        if kind == "dp":
+            self._step = parallel.make_dp_train_step(self._mesh, *size, **common)
+        else:
+            self._step = parallel.make_fsdp_train_step(self._mesh, *size, **common)
+            self._reshard_model = parallel.shard_model
+            self._model_sharded = True
+            self.model = self._model  # the rest state: this rank's rows
+
+    def _require_group(self) -> None:
+        if self.devices is not None and self._step is None:
+            n = self.devices
+            raise RuntimeError(
+                f"training on {n} devices needs a torch.distributed process group of {n} "
+                f"ranks: run `gsplat-torch train PROJECT --devices {n}` (one process a "
+                "device), or set train_devices to 1")
+
+    def _gathered_model(self) -> SplatModel:
+        """The whole model: itself on one device and under "dp"; under
+        "fsdp" gathered from every rank's rows (a collective: every rank
+        calls it)."""
+        if not self._model_sharded:
+            return self.model
+        from gaussian_splatterer_tpu_torch.parallel import gather_model
+
+        return gather_model(self._mesh, self.model)
+
+    def share_rig(self) -> None:
+        """Rank 0's rig rotations on every rank (after a randomized
+        recapture: each rank's rng draws its own)."""
+        if self.devices is None:
+            return
+        from gaussian_splatterer_tpu_torch.parallel.collectives import broadcast_object
+
+        p = self.project
+        rot = broadcast_object([(s.rotX, s.rotY) for s in (p.sphere1, p.sphere2)])
+        for sph, (rx, ry) in zip((p.sphere1, p.sphere2), rot):
+            sph.rotX, sph.rotY = rx, ry
 
     # ------------------------------------------------------------------
     def maybe_grow_dup_buffer(self, metrics: Optional[TrainMetrics] = None) -> bool:
@@ -350,22 +524,40 @@ class Trainer:
         return False
 
     # ------------------------------------------------------------------
-    def capture_truths(self, rtx) -> None:
+    def capture_truths(self, rtx, devices: Optional[int] = None) -> None:
         """Photograph the scene from every rig camera against white AND
         black backgrounds (src/Trainer.cu:218-250): whites then blacks,
-        tiled for the fused step."""
+        tiled for the fused step.
+
+        ``devices`` > 1 (default: the Trainer's) splits the path tracer's
+        frames over the ranks of the default group
+        (parallel.capture_images_sharded, a new seed each capture); a
+        sharded Trainer keeps its own block of the frames.  A truth source
+        without a traced scene (no ``_tris``) is called for every frame on
+        every rank."""
+        from gaussian_splatterer_tpu_torch import parallel
+
+        self._require_group()
         w = self.runtime.render_resolution_x
         h = self.runtime.render_resolution_y
         dev = self.model.device
         cameras = Camera.get_cameras(self.project)
+        n = devices if devices is not None else self.devices
+        if n and n > 1 and parallel.world_size() > 1 and getattr(rtx, "_tris", None) is not None:
+            self._capture_seed += 1
+            truths = parallel.capture_images_sharded(
+                rtx, cameras, self.project.rtSamples, w, h, seed=self._capture_seed,
+                gather=self._mesh is None).to(dev)
+        else:
+            def shoot(c, bg):
+                img = rtx.render(c, bg, self.project.rtSamples, w, h)
+                return torch.as_tensor(img, dtype=torch.float32).to(dev)
 
-        def shoot(c, bg):
-            img = rtx.render(c, bg, self.project.rtSamples, w, h)
-            return torch.as_tensor(img, dtype=torch.float32).to(dev)
-
-        whites = [shoot(c, (1.0, 1.0, 1.0)) for c in cameras]
-        blacks = [shoot(c, (0.0, 0.0, 0.0)) for c in cameras]
-        truths = torch.stack(whites + blacks)
+            whites = [shoot(c, (1.0, 1.0, 1.0)) for c in cameras]
+            blacks = [shoot(c, (0.0, 0.0, 0.0)) for c in cameras]
+            truths = torch.stack(whites + blacks)
+            if self._mesh is not None:
+                truths = parallel.shard_truths(self._mesh, truths)
         if self._fused:
             truths = image_to_tiles(truths, self.runtime.tile_px).contiguous()
         self.truths = truths
@@ -373,10 +565,7 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def train(self, densify_now: bool = False) -> TrainMetrics:
-        if self._n_dev > 1:
-            raise NotImplementedError(
-                "multi-device training (train_devices / devices > 1) is not ported "
-                "yet (ROADMAP A-7)")
+        self._require_group()
         if self.truths is None:
             raise RuntimeError("Can't run training iteration, no truth data available!")
         p, runtime = self.project, self.runtime
@@ -405,7 +594,14 @@ class Trainer:
                 # anneal the split/clone trigger over training (off by default)
                 threshold *= runtime.densify_variance_decay ** p.iterations
             dp = dp._replace(densify_variance=threshold)
-            self.model = densify(self.model, metrics.var_loc, metrics.avg_grad_loc, dp)
+            if self._model_sharded:
+                # the rows gathered -> the single-device densify -> re-sharded
+                from gaussian_splatterer_tpu_torch.parallel import densify_sharded
+
+                self.model = densify_sharded(self._mesh, self.model, metrics.var_loc,
+                                             metrics.avg_grad_loc, dp, self._reshard_model)
+            else:
+                self.model = densify(self.model, metrics.var_loc, metrics.avg_grad_loc, dp)
             self.maybe_grow_dup_buffer(metrics)
         reset_iv = runtime.opacity_reset_interval
         if reset_iv and p.iterations % reset_iv == 0:
@@ -425,7 +621,7 @@ class Trainer:
 
         if self.truth_cams is None:
             raise RuntimeError("no truth cameras captured")
-        i, m, rt = camera_index, self.model, self.runtime
+        i, m, rt = camera_index, self._gathered_model(), self.runtime
         cams = self.truth_cams
         c = project_splat_components(
             m.means, m.shs, m.scales, m.opacities, m.rotations, m.active_mask(),
@@ -447,7 +643,7 @@ class Trainer:
         w = width or self.runtime.render_resolution_x
         h = height or self.runtime.render_resolution_y
         tan_x, tan_y = camera.tan_fov(w, h, train=False)
-        m = self.model
+        m = self._gathered_model()
         return self._render_fn(
             m.means, m.shs, m.scales, m.opacities, m.rotations, m.active_mask(),
             camera.get_view(), camera.get_proj_view(w / h), camera.location, tan_x, tan_y,

@@ -329,11 +329,12 @@ def test_jax_project_trains_and_renders_in_the_port(tmp_path, capsys):
                       "16x16", "--samples", "2", "--device", "cpu"]) == 0
 
 
-def test_project_saved_for_several_devices_opens_and_renders(tmp_path, capsys):
+def test_project_saved_for_several_devices_opens_and_renders(tmp_path, capfd):
     """A project whose runtime.json asks for train_devices 2 (what the JAX
     CLI's ``train --devices 2`` persists) opens in the port's CLI: ``info``
-    and ``render --mode splats`` work on the CPU, and ``train`` raises
-    NotImplementedError naming ROADMAP A-7 at its first step."""
+    and ``render --mode splats`` work in one process on the CPU, and
+    ``train`` runs 2 gloo ranks on the CPU, rank 0 printing the last line
+    and writing the project."""
     from gaussian_splatterer_tpu_torch.app import cli as tcli
 
     obj, png = _tiny_scene(tmp_path)
@@ -346,17 +347,20 @@ def test_project_saved_for_several_devices_opens_and_renders(tmp_path, capsys):
     runtime = tcfg.RuntimeConfig.load(rt_path)
     runtime.train_devices = 2
     runtime.save(rt_path)
-    capsys.readouterr()
+    capfd.readouterr()
     assert tcli.main(["info", proj, "--device", "cpu"]) == 0
-    info = json.loads(capsys.readouterr().out)
+    info = json.loads(capfd.readouterr().out)
     assert info["splats"] >= 2 and info["iterations"] == 0
     out_png = str(tmp_path / "splats.png")
     assert tcli.main(["render", proj, out_png, "--mode", "splats", "--size", "32x32",
                       "--device", "cpu"]) == 0
     assert timage.load_png(out_png).shape == (32, 32, 3)
-    with pytest.raises(NotImplementedError, match="A-7"):
-        tcli.main(["train", proj, "--steps", "1", "--device", "cpu"])
+    capfd.readouterr()
+    assert tcli.main(["train", proj, "--steps", "1", "--device", "cpu"]) == 0
+    last = json.loads(capfd.readouterr().out.strip().splitlines()[-1])
+    assert last["devices"] == 2 and last["iterations"] == 1
     assert tcfg.RuntimeConfig.load(rt_path).train_devices == 2
+    assert tcfg.Project.load(os.path.join(proj, "settings.json")).iterations == 1
 
 
 def test_port_imports_no_jax_flax_or_pillow():
@@ -368,6 +372,7 @@ def test_port_imports_no_jax_flax_or_pillow():
         "import gaussian_splatterer_tpu_torch.rt.tracer\n"
         "import gaussian_splatterer_tpu_torch.utils.metrics\n"
         "import gaussian_splatterer_tpu_torch.io.checkpoint\n"
+        "import gaussian_splatterer_tpu_torch.parallel\n"
         "import gaussian_splatterer_tpu_torch.io.watch\n"
         "import gaussian_splatterer_tpu_torch.io.jpeg\n"
         "import gaussian_splatterer_tpu_torch.io.ply\n"

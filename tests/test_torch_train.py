@@ -1031,10 +1031,12 @@ def test_from_numpy_copies_the_arrays():
 
 
 def test_unported_training_paths_raise():
-    """More than one device needs the parallel modules: the Trainer is made
-    (a project saved so still opens), and its first step raises instead of
-    training another way.  A tiled step that cannot be fused (40 x 40 at
-    tile 16) trains on the serve path's backward."""
+    """More than one device needs a process group of that many ranks: the
+    Trainer is made without one (a project saved so still opens), and its
+    first step raises a RuntimeError naming the size and `gsplat-torch
+    train --devices` instead of training another way.  A tiled step that
+    cannot be fused (40 x 40 at tile 16) trains on the serve path's
+    backward."""
     student = SplatModel.from_numpy(*random_splats(8, 1, cap=16)[:5], count=8, device="cpu")
     unfused = Trainer(_rig(), RuntimeConfig(render_resolution_x=40, render_resolution_y=40,
                                             tile_px=16), student, renderer="tiled")
@@ -1043,7 +1045,8 @@ def test_unported_training_paths_raise():
     assert np.isfinite(float(unfused.train().loss))
     multi = Trainer(_rig(), _runtime(train_devices=2), student, renderer="tiled")
     iterations = multi.project.iterations
-    with pytest.raises(NotImplementedError, match="A-7"):
+    assert multi.devices == 2
+    with pytest.raises(RuntimeError, match="process group of 2 ranks.*train PROJECT --devices 2"):
         multi.train()
     assert multi.project.iterations == iterations
     trainer = Trainer(_rig(), _runtime(), student, renderer="tiled")
