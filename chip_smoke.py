@@ -381,10 +381,13 @@ BOUND_PARTS: dict[str, tuple[float, float]] = {}
 # phase 22: multi-device training on the one card.  Two ranks share cuda:0
 # over gloo (NCCL refuses two ranks on one GPU): phase 7's cell on the
 # cumsum route, a step held to the single-process one at P22_GATE of each
-# field's largest |value|; the sharded capture of the north-star rig on the
-# mesh-res 256 mushroom at P22_CAPTURE_SAMPLES samples; the north star's
-# loops through the CLI's run_train
+# field's largest |value| (DP, FSDP and the band step on a 1 x 2 camera x
+# tile mesh, 2 bands of 16 tile rows; then the 3-axis step on P22_MESH3,
+# 4 ranks); the sharded checkpoint of the FSDP shard; the sharded capture
+# of the north-star rig on the mesh-res 256 mushroom at P22_CAPTURE_SAMPLES
+# samples; the north star's loops through the CLI's run_train
 P22_WORLD, P22_GATE, P22_TIMED_STEPS = 2, 1e-4, 3
+P22_MESH3 = (1, 2, 2)  # camera x tile x splat
 P22_CAPTURE_SAMPLES, P22_SEED = 8, 5
 P22_FIELDS = ("means", "shs", "scales", "opacities", "rotations", "var_loc", "avg_grad_loc",
               "loss")
@@ -3357,60 +3360,180 @@ def p22_model(arrays, dev):
     return SplatModel.from_numpy(*arrays, count=TRAIN_SPLATS, device=dev, sh_degree=1)
 
 
-def p22_steps(rank: int, dev, out: Path) -> dict:
-    """Part (a) on one rank: one DP and one FSDP step of phase 7's cell
-    (cumsum route), its outputs written for the parent (rank 0: the whole
-    model), then P22_TIMED_STEPS timed steps with the collectives timed."""
+def p22_run_step(rank: int, kind: str, step, mesh, model, truths, cams, lrs, dev,
+                 out: Path):
+    """One step of a sharded ``kind`` with the launch counts zeroed just
+    before it and read just after, its outputs written for the parent
+    (rank 0: the whole model), then P22_TIMED_STEPS timed steps with the
+    collectives timed.  Returns (its summary, the model after the first
+    step)."""
     from gaussian_splatterer_tpu_torch import parallel
     from gaussian_splatterer_tpu_torch.parallel.collectives import all_gather_rows
+
+    p22_sync(dev)
+    p22_zero_counts()
+    model, met = step(model, truths, cams, lrs)
+    p22_sync(dev)
+    launches = p22_counts()
+    if isinstance(model, parallel.SplatShard):
+        group = mesh.get_group(parallel.SPLAT_AXIS)
+        fields = p22_fields(parallel.gather_model(mesh, model), met._replace(
+            var_loc=all_gather_rows(met.var_loc, group),
+            avg_grad_loc=all_gather_rows(met.avg_grad_loc, group)))
+    else:
+        fields = p22_fields(model, met)
+    if rank == 0:
+        np.savez(out / f"{kind}.npz", **fields)
+    summary = {"frames": truths.shape[0], "tiles": truths.shape[1],
+               "rows": model.means.shape[0], "launches": launches,
+               "digest": p22_digest(fields)}
+    return summary, model
+
+
+def p22_time_steps(step, model, truths, cams, lrs, dev) -> dict:
+    """P22_TIMED_STEPS more steps: the median step and the collectives'
+    time, bytes and calls a step (CommStats, timed)."""
+    step.comm.reset()
+    step.comm.timed = True
+    times = []
+    for _ in range(P22_TIMED_STEPS):
+        p22_sync(dev)
+        t0 = time.perf_counter()
+        step(model, truths, cams, lrs)
+        p22_sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"step_ms": statistics.median(times),
+            "comm_ms": step.comm.seconds * 1e3 / P22_TIMED_STEPS,
+            "comm_bytes": step.comm.bytes // P22_TIMED_STEPS,
+            "comm_calls": step.comm.calls // P22_TIMED_STEPS}
+
+
+def p22_checkpoint(mesh, shard, arrays, dev, out: Path) -> dict:
+    """Part (f) on one rank: the FSDP shard saved sharded into
+    OUT/ckpt_fsdp, then loaded into a shard of the unstepped model's rows;
+    whether its rows came back bit for bit, and the seconds of each."""
+    from gaussian_splatterer_tpu_torch import parallel
+    from gaussian_splatterer_tpu_torch.io.checkpoint import (
+        load_checkpoint_sharded, save_checkpoint_sharded,
+    )
+
+    like = parallel.shard_model(mesh, p22_model(arrays, dev))
+    saves = []
+    for _ in range(2):  # the first call also imports and sets up the checkpointer
+        p22_sync(dev)
+        t0 = time.perf_counter()
+        save_checkpoint_sharded(str(out / "ckpt_fsdp"), shard)
+        saves.append(time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    back, _ = load_checkpoint_sharded(str(out / "ckpt_fsdp"), like=like)
+    p22_sync(dev)
+    t2 = time.perf_counter()
+    equal = (back.count == shard.count and back.offset == shard.offset
+             and all(torch.equal(getattr(back, k), getattr(shard, k)) for k in P22_FIELDS[:5]))
+    return {"equal": bool(equal), "save_s": saves, "load_s": t2 - t1,
+            "device": str(back.device)}
+
+
+def p22_steps(rank: int, dev, out: Path) -> dict:
+    """Parts (a) and (f) on one rank: one DP, one FSDP and one band (tp)
+    step of phase 7's cell on the cumsum route and a band step on the
+    index_add route, each timed after, and the FSDP shard's sharded
+    checkpoint."""
+    from gaussian_splatterer_tpu_torch import parallel
 
     trainer, arrays, lrs = p22_cell(dev)
     runtime, res = trainer.runtime, TRAIN_RES
     result = {}
-    for kind in ("dp", "fsdp"):
+    for kind in ("dp", "fsdp", "tp", "tp_index_add"):
+        reduction = "index_add" if kind.endswith("index_add") else "cumsum"
         if kind == "dp":
             mesh = parallel.make_camera_mesh(dev.type)
             step = parallel.make_dp_train_step(mesh, res, res, 1, runtime=runtime,
                                                reduction="cumsum")
             model = p22_model(arrays, dev)
-        else:
+            truths = parallel.shard_truths(mesh, trainer.truths)
+        elif kind == "fsdp":
             mesh = parallel.make_2d_mesh(dev.type, 1, P22_WORLD)
             step = parallel.make_fsdp_train_step(mesh, res, res, 1, runtime=runtime,
                                                  reduction="cumsum")
             model = parallel.shard_model(mesh, p22_model(arrays, dev))
-        truths = parallel.shard_truths(mesh, trainer.truths)
-        p22_sync(dev)
-        p22_zero_counts()
-        model, met = step(model, truths, trainer.truth_cams, lrs)
-        p22_sync(dev)
-        launches = p22_counts()
-        if kind == "dp":
-            fields = p22_fields(model, met)
+            truths = parallel.shard_truths(mesh, trainer.truths)
         else:
-            group = mesh.get_group(parallel.SPLAT_AXIS)
-            whole = parallel.gather_model(mesh, model)
-            fields = p22_fields(whole, met._replace(
-                var_loc=all_gather_rows(met.var_loc, group),
-                avg_grad_loc=all_gather_rows(met.avg_grad_loc, group)))
-        if rank == 0:
-            np.savez(out / f"{kind}.npz", **fields)
-        step.comm.reset()
-        step.comm.timed = True
-        times = []
-        for _ in range(P22_TIMED_STEPS):
-            p22_sync(dev)
-            t0 = time.perf_counter()
-            step(model, truths, trainer.truth_cams, lrs)
-            p22_sync(dev)
-            times.append((time.perf_counter() - t0) * 1e3)
-        result[kind] = {
-            "frames": truths.shape[0], "rows": model.means.shape[0], "launches": launches,
-            "digest": p22_digest(fields), "step_ms": statistics.median(times),
-            "comm_ms": step.comm.seconds * 1e3 / P22_TIMED_STEPS,
-            "comm_bytes": step.comm.bytes // P22_TIMED_STEPS,
-            "comm_calls": step.comm.calls // P22_TIMED_STEPS,
-        }
+            mesh = parallel.make_tile_mesh(dev.type, 1, P22_WORLD)
+            step = parallel.make_tp_train_step(mesh, res, res, 1, runtime=runtime,
+                                               reduction=reduction)
+            model = p22_model(arrays, dev)
+            truths = parallel.shard_truths_tp(mesh, trainer.truths)
+        result[kind], model = p22_run_step(rank, kind, step, mesh, model, truths,
+                                           trainer.truth_cams, lrs, dev, out)
+        if kind == "fsdp":
+            result["ckpt"] = p22_checkpoint(mesh, model, arrays, dev, out)
+        result[kind].update(p22_time_steps(step, model, truths, trainer.truth_cams, lrs, dev))
     return result
+
+
+def p22_mesh3(rank: int, dev, out: Path) -> dict:
+    """Part (g) on one rank of P22_MESH3's: one 3-axis step of phase 7's
+    cell (cumsum route), then timed steps."""
+    from gaussian_splatterer_tpu_torch import parallel
+
+    trainer, arrays, lrs = p22_cell(dev)
+    res = TRAIN_RES
+    mesh = parallel.make_3d_mesh(dev.type, *P22_MESH3)
+    step = parallel.make_3d_train_step(mesh, res, res, 1, runtime=trainer.runtime,
+                                       reduction="cumsum")
+    truths = parallel.shard_truths_3d(mesh, trainer.truths)
+    summary, shard = p22_run_step(rank, "mesh3", step, mesh,
+                                  parallel.shard_model_3d(mesh, p22_model(arrays, dev)), truths,
+                                  trainer.truth_cams, lrs, dev, out)
+    summary["offset"] = shard.offset
+    summary.update(p22_time_steps(step, shard, truths, trainer.truth_cams, lrs, dev))
+    return summary
+
+
+def p22_mesh3_worker(rank: int, init_method: str, out: str, device: str, sizes: dict) -> None:
+    """Rank ``rank`` of the 3-axis step on ``device``: a gloo group of the
+    P22_MESH3 ranks, its result in OUT/mesh3_rank<r>.json."""
+    import torch.distributed as dist
+
+    from gaussian_splatterer_tpu_torch import parallel
+
+    globals().update(sizes)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.zeros(1, device=dev)
+    parallel.init_distributed(rank=rank, world_size=int(np.prod(P22_MESH3)),
+                              init_method=init_method, backend="gloo")
+    try:
+        result = p22_mesh3(rank, dev, Path(out))
+    finally:
+        dist.destroy_process_group()
+    Path(out, f"mesh3_rank{rank}.json").write_text(json.dumps(result))
+
+
+def p22_band_launch(trainer, band: int, n_band: int):
+    """The composite_train arguments of band ``band`` of ``n_band`` of the
+    cell's first frame group, as the band step launches them: the
+    projection shifted up by the band's offset, binned on the band's
+    grid, against the band's truth tiles."""
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.train.trainer import CameraBatch, backgrounds
+
+    res, tile, g = TRAIN_RES, TRAIN_TILE, TRAIN_GROUP
+    band_h = res // n_band
+    model = trainer.model
+    cams = CameraBatch(*(x[:g] for x in trainer.truth_cams.twice()))
+    bgs = backgrounds(trainer.truth_cams.num_frames, model.device)[:g]
+    t = trainer.truths.shape[1] // n_band
+    tiles = trainer.truths[:g, band * t:(band + 1) * t].contiguous()
+    with torch.no_grad():
+        comps, rows9 = rt.project_frames(
+            model.means.expand(g, -1, -1), model.shs, model.scales, model.opacities,
+            model.rotations, model.active_mask(), *cams, res, res, model.sh_degree)
+        comps, rows9 = rt.shift_to_band(comps, rows9, band * band_h)
+        return rt.train_launch_inputs(rows9, comps, res, band_h, tiles, bgs, tile,
+                                      trainer.runtime.max_dup)[1]
 
 
 def p22_capture_host(dev):
@@ -3529,6 +3652,39 @@ def p22_projects(work: Path, dev) -> dict:
     return {"dp": dp, "fsdp": fsdp}
 
 
+def p22_step_check(work: Path, kind: str, per: list, want: dict, dev, fail) -> dict:
+    """Print each rank's step and collectives and the gap of the sharded
+    ``kind`` to the single-process step; fail past P22_GATE, without K3
+    and K4 launches on the card, or when the ranks' whole models differ.
+    Returns the launches summed over the ranks."""
+    with np.load(work / f"{kind}.npz") as z:
+        got = {k: z[k] for k in z.files}
+    gap = p22_gap(got, want)
+    part = "(g)" if kind == "mesh3" else "(a)"
+    for r, x in enumerate(per):
+        print(f"  {part} {kind} rank {r}: {x['frames']} frames, {x['tiles']} tiles a frame, "
+              f"{x['rows']} rows; step {x['step_ms']:.3f} ms, collectives {x['comm_ms']:.3f} ms "
+              f"in {x['comm_calls']} calls of {x['comm_bytes']:,} B a step (median of "
+              f"{P22_TIMED_STEPS}, collectives timed with the device synchronised, "
+              f"{len(per)} ranks sharing one H100 via gloo, not a scaling figure); launches "
+              f"{x['launches']}")
+    print(f"  {part} {kind} against the single-process step, max |diff| over the field's "
+          f"largest (<= {P22_GATE}): " + ", ".join(f"{k} {v:.3e}" for k, v in gap.items()),
+          flush=True)
+    if max(gap.values()) > P22_GATE or not all(np.isfinite(v) for v in gap.values()):
+        fail(f"{part} the {kind} step against the single-process step")
+    cumsum = not kind.endswith("index_add")
+    if dev.type == "cuda" and any(x["launches"]["composite_train"] == 0
+                                  or (cumsum and x["launches"]["cumsum_frames"] == 0)
+                                  for x in per):
+        fail(f"{part} a rank's {kind} step did not launch K3" + (" and K4" if cumsum else ""))
+    if len({x["digest"] for x in per}) != 1:  # the whole model, gathered under fsdp
+        fail(f"{part} the {kind} ranks' models differ")
+    if kind == "fsdp" and [x["rows"] for x in per] != [TRAIN_CAPACITY // P22_WORLD] * 2:
+        fail("(a) an FSDP rank does not hold capacity / 2 rows")
+    return {k: sum(x["launches"][k] for x in per) for k in per[0]["launches"]}
+
+
 def p22_gap(got: dict, want: dict) -> dict[str, float]:
     """Each field's max |got - want| over want's largest |value|."""
     return {k: float(np.max(np.abs(got[k] - want[k]))) / max(float(np.max(np.abs(want[k]))),
@@ -3537,8 +3693,13 @@ def p22_gap(got: dict, want: dict) -> dict[str, float]:
 
 def parallel_phase(dev, card) -> dict:
     """Phase 22: multi-device training on the one card, 2 gloo ranks on
-    cuda:0 in spawned workers: (a) a DP and an FSDP step of phase 7's cell
-    (cumsum route) against the single-process step; (b) the sharded capture
+    cuda:0 in spawned workers: (a) a DP, an FSDP and a band (tp, 1 x 2
+    camera x tile) step of phase 7's cell (cumsum route; the band step on
+    the index_add route too) against the single-process step on the same
+    route, K3 on a band's grid against its plain version first; (f) the FSDP shard's sharded checkpoint, restored bit for bit
+    on each rank and, in one process, equal to the gathered model; (g) the
+    3-axis step on P22_MESH3 (4 gloo ranks) against the single-process
+    step; (b) the sharded capture
     of the north-star rig on the mesh-res 256 mushroom (K9) bit-equal to
     serial renders; (c) ``train --devices 2`` of the north star on each
     mesh (DP copies bit-equal, densify grows it, a finite loss); (d) one
@@ -3552,8 +3713,11 @@ def parallel_phase(dev, card) -> dict:
     import torch.multiprocessing as mp
 
     from gaussian_splatterer_tpu_torch import parallel
+    from gaussian_splatterer_tpu_torch.io.checkpoint import load_checkpoint_sharded
     from gaussian_splatterer_tpu_torch.io.gobj import load_gobj
     from gaussian_splatterer_tpu_torch.models.camera import Camera
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.ops.raster_tiled import REDUCTIONS
     from gaussian_splatterer_tpu_torch.parallel import frame_seed
     from gaussian_splatterer_tpu_torch.train import fused_kw_from_runtime, make_train_step
 
@@ -3571,10 +3735,15 @@ def parallel_phase(dev, card) -> dict:
     # the single-process step of phase 7's cell on the cumsum route, and (d)
     trainer, arrays, lrs = p22_cell(dev)
     runtime, res = trainer.runtime, TRAIN_RES
-    single = make_train_step(res, res, 1, renderer="tiled", fused=True,
-                             fused_opts=dict(fused_kw_from_runtime(runtime), reduction="cumsum"),
-                             frame_group=runtime.frame_group)
-    want = p22_fields(*single(p22_model(arrays, dev), trainer.truths, trainer.truth_cams, lrs))
+    wants = {}
+    for reduction in REDUCTIONS:
+        single = make_train_step(res, res, 1, renderer="tiled", fused=True,
+                                 fused_opts=dict(fused_kw_from_runtime(runtime),
+                                                 reduction=reduction),
+                                 frame_group=runtime.frame_group)
+        wants[reduction] = p22_fields(*single(p22_model(arrays, dev), trainer.truths,
+                                              trainer.truth_cams, lrs))
+    want = wants["cumsum"]
     parallel.init_distributed(rank=0, world_size=1, init_method=f"tcp://127.0.0.1:{free_port()}",
                               backend=parallel.backend_for(dev))
     try:
@@ -3594,7 +3763,20 @@ def parallel_phase(dev, card) -> dict:
     if not equal or backend != parallel.backend_for(dev) or (
             dev.type == "cuda" and nccl_launches["composite_train"] == 0):
         fail("(d) the 1-rank nccl DP step is not bit-equal to the single-process step")
-    del trainer
+    # K3 on the second band's grid, as the band step launches it
+    args = p22_band_launch(trainer, 1, P22_WORLD)
+    out_k = rt.composite_train(*args)
+    p22_sync(dev)
+    finite, r_max, r_mean, d_max, rel_max, rel_mean = compare_train(args, out_k)
+    print(f"  (a) K3 on band 1 of {P22_WORLD} ({TRAIN_GROUP} frames, {args[-1]} tiles a frame, "
+          f"{args[0].shape[1]} duplicates) vs plain: max|res| {r_max:.3e} (<= {MAIN_MAX_ATOL}) "
+          f"mean {r_mean:.3e} (<= {MAIN_MEAN_ATOL})  max|d_feat| {d_max:.3e}, over the row's "
+          f"largest: max {rel_max:.3e} (<= {MAIN_MAX_ATOL}) mean {rel_mean:.3e} "
+          f"(<= {MAIN_MEAN_ATOL})  finite {finite}", flush=True)
+    if not (finite and r_max <= MAIN_MAX_ATOL and r_mean <= MAIN_MEAN_ATOL
+            and rel_max <= MAIN_MAX_ATOL and rel_mean <= MAIN_MEAN_ATOL):
+        fail("(a) K3 on a band's grid against its plain version")
+    del trainer, args, out_k
 
     (HERE / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_", dir=HERE / "build"))
@@ -3611,31 +3793,41 @@ def parallel_phase(dev, card) -> dict:
 
     # (a) the steps against the single-process step
     launches: dict[str, int] = {}
-    for kind in ("dp", "fsdp"):
-        with np.load(work / f"{kind}.npz") as z:
-            got = {k: z[k] for k in z.files}
-        gap = p22_gap(got, want)
-        per = [r["steps"][kind] for r in ranks]
-        for r, x in enumerate(per):
-            print(f"  (a) {kind} rank {r}: {x['frames']} frames, {x['rows']} rows; step "
-                  f"{x['step_ms']:.3f} ms, collectives {x['comm_ms']:.3f} ms in "
-                  f"{x['comm_calls']} calls of {x['comm_bytes']:,} B a step (median of "
-                  f"{P22_TIMED_STEPS}, collectives timed with the device synchronised, "
-                  f"2 ranks sharing one H100 via gloo, not a scaling figure); launches "
-                  f"{x['launches']}")
-        print(f"  (a) {kind} against the single-process step, max |diff| over the field's "
-              f"largest (<= {P22_GATE}): " + ", ".join(f"{k} {v:.3e}" for k, v in gap.items()),
-              flush=True)
-        if max(gap.values()) > P22_GATE or not all(np.isfinite(v) for v in gap.values()):
-            fail(f"(a) the {kind} step against the single-process step")
-        if dev.type == "cuda" and any(x["launches"]["composite_train"] == 0
-                                      or x["launches"]["cumsum_frames"] == 0 for x in per):
-            fail(f"(a) a rank's {kind} step did not launch K3 and K4")
-        if kind == "dp" and per[0]["digest"] != per[1]["digest"]:
-            fail("(a) the DP ranks' models differ")
-        if kind == "fsdp" and [x["rows"] for x in per] != [TRAIN_CAPACITY // P22_WORLD] * 2:
-            fail("(a) an FSDP rank does not hold capacity / 2 rows")
-        add_launches(launches, {k: sum(x["launches"][k] for x in per) for k in per[0]["launches"]})
+    for kind in ("dp", "fsdp", "tp", "tp_index_add"):
+        add_launches(launches, p22_step_check(
+            work, kind, [r["steps"][kind] for r in ranks],
+            wants["index_add" if kind.endswith("index_add") else "cumsum"], dev, fail))
+    if [x["steps"]["tp"]["tiles"] for x in ranks] != [ranks[0]["steps"]["dp"]["tiles"] // 2] * 2:
+        fail("(a) a tp rank does not hold half the tiles")
+
+    # (f) the FSDP shard's sharded checkpoint
+    for r, x in enumerate(ranks):
+        ck = x["steps"]["ckpt"]
+        print(f"  (f) fsdp rank {r}: saved sharded in {ck['save_s'][0]:.3f} s, again (over "
+              f"it) in {ck['save_s'][1]:.3f} s, loaded into its rows on {ck['device']} in "
+              f"{ck['load_s']:.3f} s (host clock): bit-equal {ck['equal']}")
+    whole, _ = load_checkpoint_sharded(str(work / "ckpt_fsdp"), device=dev)
+    with np.load(work / "fsdp.npz") as z:
+        same = all(np.array_equal(getattr(whole, k).cpu().numpy(), z[k]) for k in P22_FIELDS[:5])
+    print(f"  (f) the checkpoint loaded in one process, no group: equal to the gathered FSDP "
+          f"model bit for bit {same}", flush=True)
+    if not (same and all(x["steps"]["ckpt"]["equal"] for x in ranks)):
+        fail("(f) the sharded checkpoint did not restore the rows bit for bit")
+    del whole
+
+    # (g) the 3-axis step on P22_MESH3's 4 ranks
+    n3 = int(np.prod(P22_MESH3))
+    t0 = time.perf_counter()
+    mp.start_processes(p22_mesh3_worker, args=(f"tcp://127.0.0.1:{free_port()}", str(work),
+                                               "cuda:0" if dev.type == "cuda" else "cpu", sizes),
+                       nprocs=n3, join=True, start_method="spawn")
+    print(f"  (g) {n3} workers: {time.perf_counter() - t0:.3f} s (host clock, the processes' "
+          f"start included)")
+    per3 = [json.loads((work / f"mesh3_rank{r}.json").read_text()) for r in range(n3)]
+    add_launches(launches, p22_step_check(work, "mesh3", per3, want, dev, fail))
+    half = TRAIN_CAPACITY // P22_MESH3[2]
+    if [x["offset"] for x in per3] != [0, half] * (n3 // 2) or len({x["digest"] for x in per3}) != 1:
+        fail("(g) the 3-axis ranks' rows or models")
 
     # (b) the sharded capture against serial renders, frame seeds alike
     host = p22_capture_host(dev)

@@ -130,9 +130,15 @@ class Session:
         self.project.iterations = 0
 
     # -- training -----------------------------------------------------------
-    def _capture_devices(self) -> Optional[int]:
-        """With ``capture_data_parallel``, the ranks a capture splits over."""
-        return parallel.world_size() if self.runtime.capture_data_parallel else None
+    def _capture_devices(self):
+        """With ``capture_data_parallel``, what a capture splits over: the
+        ranks of the process group, or without one this process's cards
+        (JAX splits over ``jax.devices()`` in one process)."""
+        if not self.runtime.capture_data_parallel:
+            return None
+        if parallel.world_size() > 1:
+            return parallel.world_size()
+        return parallel.local_devices(self.device)
 
     def capture(self) -> None:
         self.trainer.capture_truths(self.rtx, devices=self._capture_devices())

@@ -105,3 +105,16 @@ def render_oracle(
             row_chunk, width, 3))
     return torch.cat(rows, 0)
 
+
+def render_oracle_model(model, camera, width: int, height: int, background,
+                        scale_mod=1.0, train_fov: bool = True,
+                        row_chunk: int = 32) -> torch.Tensor:
+    """render_oracle of a SplatModel from a Camera (host-side matrices), on
+    the model's device."""
+    tan_fovx, tan_fovy = camera.tan_fov(width, height, train=train_fov)
+    return render_oracle(
+        model.means, model.shs, model.scales, model.opacities, model.rotations,
+        model.active_mask(), camera.get_view(), camera.get_proj_view(width / height),
+        camera.location, tan_fovx, tan_fovy, width, height, background, model.sh_degree,
+        scale_mod, row_chunk=row_chunk,
+    )

@@ -885,7 +885,8 @@ def render_train_grads_batch(
     backgrounds,  # (F, 3)
     sh_degree: int,
     *, tile: int = 32, max_dup: int = 2**18, aa: bool = False,
-    reduction: str = "index_add",
+    reduction: str = "index_add", band: Optional[tuple] = None,
+    frame_loc_grads: bool = False,
 ):
     """Fused training core for F frames: one frame-batched projection
     (forward and backward), one binning pass with one host sync (the F
@@ -893,6 +894,18 @@ def render_train_grads_batch(
     ``reduction`` picks the route of the duplicate gradients' reduction:
     "index_add" (one index_add_) or "cumsum" (the JAX package's per-frame
     scan route, deterministic on the card).
+
+    ``band=(y_off_px, band_h)`` rasterizes only the horizontal band
+    [y_off_px, y_off_px + band_h) of the image: the projection stays
+    full-image, the centres are shifted by -y_off_px (in float32, in the
+    binning's detached copy and in row 1 of the rows, so the gradient of
+    ``my`` passes through unchanged), and binning and compositing run on
+    the band's ``band_h``-tall tile grid.  ``band_h`` must be a multiple of
+    the tile, and ``truth_tiles`` holds the band's tiles alone,
+    (F, T_band, P, 3).  Band-parallel training (parallel/tp.py) builds on
+    it.  ``frame_loc_grads=True`` returns the raw per-frame location
+    gradients (F, N, 3) in place of ``var_loc``, for a caller that sums
+    them over bands before the nonlinear norm.
 
     Returns (loss_sum, grads, var_loc, res, num_dup, num_work):
       loss_sum = sum over frames of the per-frame mean squared residual;
@@ -904,6 +917,11 @@ def render_train_grads_batch(
       res      = (F, T, P, 4) residual rgb and T_final per pixel;
       num_dup  = the most duplicates any frame generated; num_work = -1."""
     f = len(views)
+    bin_height = height
+    if band is not None:
+        y_off, bin_height = float(band[0]), int(band[1])
+        if bin_height % tile:
+            raise ValueError(f"band height {bin_height} is not a multiple of the tile {tile}")
     leaves = [means.detach().expand(f, -1, -1).clone()] + [
         x.detach() for x in (shs, scales, opacities, rotations)]
     for x in leaves:
@@ -911,12 +929,30 @@ def render_train_grads_batch(
     with torch.enable_grad():
         comps, rows9 = project_frames(*leaves, active, views, proj_views, cam_posns,
                                       tan_fovxs, tan_fovys, width, height, sh_degree, aa)
+        if band is not None:
+            comps, rows9 = shift_to_band(comps, rows9, y_off)
     loss_sum, d_rows9, res, num_dup = _train_core(
-        rows9.detach(), comps, width, height, truth_tiles, backgrounds, tile, max_dup,
+        rows9.detach(), comps, width, bin_height, truth_tiles, backgrounds, tile, max_dup,
         reduction)
     d_means_b, *grads = torch.autograd.grad(rows9, leaves, d_rows9)
-    var_loc = torch.sqrt(torch.sum(torch.square(d_means_b), dim=-1)).sum(0)
+    var_loc = d_means_b if frame_loc_grads else loc_norm_sum(d_means_b)
     return loss_sum, (d_means_b.sum(0), *grads), var_loc, res, num_dup, -1
+
+
+def shift_to_band(comps: SplatComponents, rows9: torch.Tensor, y_off: float):
+    """Projected splats moved into the band that starts ``y_off`` pixels
+    down: ``my`` less y_off in float32, in the detached components that
+    binning reads and in row 1 of the rows (inside the autograd graph,
+    where the gradient of ``my`` passes through unchanged)."""
+    shift = torch.zeros((F_ROWS, 1), dtype=torch.float32, device=rows9.device)
+    shift[F_MY] = y_off
+    return comps._replace(my=comps.my - y_off), rows9 - shift
+
+
+def loc_norm_sum(d_means_b: torch.Tensor) -> torch.Tensor:
+    """(F, N, 3) per-frame location gradients -> (N,) the sum over frames
+    of their norms: the densify signal."""
+    return torch.sqrt(torch.sum(torch.square(d_means_b), dim=-1)).sum(0)
 
 
 def render_train_grads(

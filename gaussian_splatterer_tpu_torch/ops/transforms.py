@@ -142,6 +142,13 @@ def _sh_to_rgb_channels(shs, dx, dy, dz, sh_degree: int):
     return tuple(out)
 
 
+def sh_to_rgb(shs: torch.Tensor, dirs: torch.Tensor, sh_degree: int) -> torch.Tensor:
+    """SH colour, (N, K, 3) coefficients and (N, 3) unit view directions ->
+    (N, 3): the band sum + 0.5, clamped at zero (INRIA's
+    computeColorFromSH; the clamp stops the gradient, as under autograd)."""
+    return torch.clamp(sh_eval_linear(shs, dirs, sh_degree) + 0.5, min=0.0)
+
+
 def sh_eval_linear(shs, dirs, sh_degree: int):
     """Raw SH band sum, (N, K, 3) coefficients and (N, 3) unit view
     directions -> (N, 3): no +0.5 offset and no clamp.  The linear part

@@ -9,9 +9,11 @@ Rank r trains on ``cuda:r`` unless the caller asks for the CPU; the backend
 is ``nccl`` for CUDA and ``gloo`` for the CPU (``backend_for``).
 
 Ported: the camera-data-parallel step (dp.py), the splat-sharded step
-(fsdp.py), densify under sharded parameters (densify.py) and the sharded
-truth capture (capture.py).  The tile-parallel, 3-D and routed steps and
-the sharded (orbax) checkpoints are not ported (ROADMAP A-7).
+(fsdp.py), the band-parallel step (tp.py), the 3-axis camera x band x
+splat step (mesh3.py), densify under sharded parameters (densify.py), the
+sharded truth capture over ranks or over one process's cards (capture.py)
+and, in io/checkpoint.py, the sharded checkpoints.  Only the routed steps
+(the JAX package's route.py and routed3.py) are still to come.
 """
 
 from __future__ import annotations
@@ -22,7 +24,12 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from gaussian_splatterer_tpu_torch.parallel.capture import capture_images_sharded, frame_seed
+from gaussian_splatterer_tpu_torch.parallel.capture import (
+    capture_images_local,
+    capture_images_sharded,
+    frame_seed,
+    local_devices,
+)
 from gaussian_splatterer_tpu_torch.parallel.densify import densify_sharded
 from gaussian_splatterer_tpu_torch.parallel.dp import (
     CAMERA_AXIS,
@@ -40,10 +47,26 @@ from gaussian_splatterer_tpu_torch.parallel.fsdp import (
     shard_model,
     shard_truths_2d,
 )
+from gaussian_splatterer_tpu_torch.parallel.mesh3 import (
+    make_3d_mesh,
+    make_3d_train_step,
+    shard_model_3d,
+    shard_truths_3d,
+)
+from gaussian_splatterer_tpu_torch.parallel.tp import (
+    TILE_AXIS,
+    make_band_accumulate,
+    make_tile_mesh,
+    make_tp_train_step,
+    shard_truths_tp,
+)
 
 __all__ = [
     "CAMERA_AXIS",
+    "TILE_AXIS",
+    "capture_images_local",
     "capture_images_sharded",
+    "local_devices",
     "densify_sharded",
     "frame_seed",
     "SPLAT_AXIS",
@@ -54,10 +77,18 @@ __all__ = [
     "make_dp_train_step",
     "make_local_accumulate",
     "make_2d_mesh",
+    "make_3d_mesh",
+    "make_3d_train_step",
+    "make_band_accumulate",
     "make_fsdp_train_step",
+    "make_tile_mesh",
+    "make_tp_train_step",
     "shard_model",
+    "shard_model_3d",
     "shard_truths",
     "shard_truths_2d",
+    "shard_truths_3d",
+    "shard_truths_tp",
     "init_distributed",
     "world_size",
     "rank",

@@ -14,7 +14,8 @@ gives every rank the same sums, so the copies stay equal.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -47,26 +48,39 @@ def make_camera_mesh(device_type: str) -> DeviceMesh:
                             mesh_dim_names=(CAMERA_AXIS,))
 
 
-def mesh_rank(mesh: DeviceMesh) -> int:
-    """This rank's place in the mesh, its axes flattened in order: the
-    index of its block of frames."""
+def axes_size(mesh: DeviceMesh, axes: Optional[Sequence[str]] = None) -> int:
+    """The number of ranks along ``axes`` (every axis when None)."""
+    axes = mesh.mesh_dim_names if axes is None else axes
+    return math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
+
+
+def mesh_rank(mesh: DeviceMesh, axes: Optional[Sequence[str]] = None) -> int:
+    """This rank's place along ``axes`` (every axis when None), flattened
+    in their order: the index of its block of frames."""
     coord = mesh.get_coordinate()
     if coord is None:
         raise RuntimeError("this rank is not in the mesh")
+    names = mesh.mesh_dim_names
     flat = 0
-    for i, c in enumerate(coord):
-        flat = flat * mesh.size(i) + c
+    for a in (names if axes is None else axes):
+        i = names.index(a)
+        flat = flat * mesh.size(i) + coord[i]
     return flat
 
 
-def frame_slice(mesh: DeviceMesh, n_frames: int) -> slice:
-    """This rank's contiguous block of the ``n_frames`` frames."""
-    n = mesh.size()
-    if n_frames % n:
-        raise ValueError(f"{n_frames} frames do not split over {n} ranks")
-    k = n_frames // n
-    r = mesh_rank(mesh)
-    return slice(r * k, (r + 1) * k)
+def block(n_items: int, parts: int, index: int, what: str = "frames") -> slice:
+    """The ``index``-th of ``parts`` equal contiguous blocks of ``n_items``."""
+    if n_items % parts:
+        raise ValueError(f"{n_items} {what} do not split over {parts} ranks")
+    k = n_items // parts
+    return slice(index * k, (index + 1) * k)
+
+
+def frame_slice(mesh: DeviceMesh, n_frames: int,
+                axes: Optional[Sequence[str]] = None) -> slice:
+    """This rank's contiguous block of the ``n_frames`` frames, split over
+    ``axes`` (every axis when None)."""
+    return block(n_frames, axes_size(mesh, axes), mesh_rank(mesh, axes))
 
 
 def shard_truths(mesh: DeviceMesh, truths: torch.Tensor) -> torch.Tensor:
@@ -119,15 +133,17 @@ def make_local_accumulate(
     return local_accumulate, fused
 
 
-def step_inputs(mesh: DeviceMesh, truths: torch.Tensor, cams: CameraBatch, device):
+def step_inputs(mesh: DeviceMesh, truths: torch.Tensor, cams: CameraBatch, device,
+                axes: Optional[Sequence[str]] = None):
     """The rank's cameras and backgrounds for its ``truths`` (its block of
-    the 2F frames), after the same checks as JAX's step."""
+    the 2F frames, split over ``axes``, every axis when None), after the
+    same checks as JAX's step."""
     f = cams.num_frames
-    n_dev = mesh.size()
+    n_dev = axes_size(mesh, axes)
     if truths.shape[0] * n_dev != 2 * f:
         raise ValueError(f"{truths.shape[0]} truth frames on each of {n_dev} ranks; "
                          f"a step needs 2 x {f} cameras")
-    sl = frame_slice(mesh, 2 * f)
+    sl = frame_slice(mesh, 2 * f, axes)
     return CameraBatch(*(x[sl] for x in cams.twice())), backgrounds(f, device)[sl]
 
 

@@ -44,15 +44,17 @@ _FIELDS = ("means", "shs", "scales", "opacities", "rotations")
 class SplatShard:
     """One rank's rows of a splat-sharded model: the five parameter
     tensors, capacity // n_splat rows each (rows ``offset`` on), beside the
-    whole model's ``count``, ``capacity`` and ``sh_degree``.  The step
-    updates the rows in place."""
+    whole model's ``count``, ``capacity`` and ``sh_degree``, and the
+    ``mesh`` whose ``splat`` axis splits the rows (the sharded checkpoints
+    read it).  The step updates the rows in place."""
 
     def __init__(self, means, shs, scales, opacities, rotations, count: int, capacity: int,
-                 sh_degree: int, offset: int):
+                 sh_degree: int, offset: int, mesh: Optional[DeviceMesh] = None):
         self.means, self.shs, self.scales = means, shs, scales
         self.opacities, self.rotations = opacities, rotations
         self.count, self.capacity, self.sh_degree = int(count), int(capacity), int(sh_degree)
         self.offset = int(offset)
+        self.mesh = mesh
 
     @property
     def rows(self) -> int:
@@ -77,15 +79,17 @@ def shard_truths_2d(mesh: DeviceMesh, truths: torch.Tensor) -> torch.Tensor:
 
 
 def shard_model(mesh: DeviceMesh, model: SplatModel) -> SplatShard:
-    """This rank's capacity / n_splat rows of ``model`` (copies)."""
-    n = mesh.size(1)
+    """This rank's capacity / n_splat rows of ``model`` (copies), on any
+    mesh with a ``splat`` axis: replicated over its other axes."""
+    n = mesh.size(mesh.mesh_dim_names.index(SPLAT_AXIS))
     cap = model.capacity
     if cap % n:
         raise ValueError(f"capacity {cap} does not split over {n} splat shards")
     rows = cap // n
     lo = mesh.get_local_rank(SPLAT_AXIS) * rows
     return SplatShard(*(getattr(model, f).detach()[lo:lo + rows].clone() for f in _FIELDS),
-                      count=model.count, capacity=cap, sh_degree=model.sh_degree, offset=lo)
+                      count=model.count, capacity=cap, sh_degree=model.sh_degree, offset=lo,
+                      mesh=mesh)
 
 
 def _pack(tensors) -> torch.Tensor:

@@ -51,6 +51,7 @@ compacted after every bounce), and the shared-origin MXU intersector.
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import functools
 import math
@@ -924,6 +925,13 @@ def scene_tables(mesh: TriangleMesh, tri_chunk: int, accel_min: int) -> dict:
     return out
 
 
+def _indexed(device: torch.device) -> torch.device:
+    """``device`` with its index: the current card for a bare "cuda"."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class RtxHost:
     """Scene owner and capture entry point (reference RtxHost,
     src/rtx/RtxHost.{h,cpp}; the JAX package's ``RtxHost``): loads the mesh
@@ -983,6 +991,21 @@ class RtxHost:
         self._tris = None
         self._texture = self._to_device(blank_texture())
         self._env = None
+
+    def replica(self, device) -> "RtxHost":
+        """This host on ``device``: a copy holding its scene, texture and sky
+        there (itself on its own device), for a capture split over the
+        cards of one process (parallel.capture_images_local)."""
+        device = _indexed(resolve_device(device))
+        if device == _indexed(self.device):
+            return self
+        twin = copy.copy(self)
+        twin.device = device
+        twin._tris = None if self._tris is None else {
+            k: x.to(device) for k, x in self._tris.items()}
+        twin._texture = self._texture.to(device)
+        twin._env = None if self._env is None else self._env.to(device)
+        return twin
 
     def render(self, camera: Camera, background, samples: int, width: int = 1024,
                height: int = 1024, splat_cameras=None, bounces: int = MAX_BOUNCES,

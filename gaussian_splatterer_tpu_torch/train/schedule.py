@@ -26,14 +26,15 @@ def auto_train(
     num_steps: int,
     rng: Optional[random.Random] = None,
     on_step: Optional[Callable[[int, object], None]] = None,
-    capture_devices: Optional[int] = None,
+    capture_devices=None,
 ) -> dict:
     """Run ``num_steps`` auto-training iterations, capturing truth first if
     the trainer has none.  Returns the wall-clock split: total seconds,
     capture seconds and their share, and the number of re-captures.
 
-    ``capture_devices`` > 1 splits every (re)capture's frames over the
-    ranks of the process group (parallel/capture.py).  On a sharded
+    ``capture_devices`` splits every (re)capture's frames: a count > 1 over
+    the ranks of the process group, a list of devices over those devices
+    in this process (Trainer.capture_truths, parallel/capture.py).  On a sharded
     trainer every rank runs this loop; each recapture's randomized rig is
     rank 0's."""
 

@@ -49,7 +49,7 @@ from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
 from gaussian_splatterer_tpu_torch.models.camera import Camera
 from gaussian_splatterer_tpu_torch.models.splats import SplatModel
 from gaussian_splatterer_tpu_torch.ops.raster_tiled import (
-    REDUCTIONS, image_to_tiles, render_train_grads_batch,
+    REDUCTIONS, image_to_tiles, loc_norm_sum, render_train_grads_batch,
 )
 from gaussian_splatterer_tpu_torch.train.densify import DensifyParams, densify
 
@@ -180,9 +180,10 @@ def make_frame_accumulator(
     fused: bool = False,
     fused_opts: Optional[dict] = None,
     frame_group: int = 8,
+    loc_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ):
     """The frame loop of a train step, shared by the single-device step and
-    the sharded ones (parallel/dp.py): a function
+    the sharded ones (parallel/dp.py, parallel/tp.py): a function
 
         accumulate(params, active, truths, cams, bgs, divisor) ->
             (g, var, loss_sum, num_dup)
@@ -195,8 +196,17 @@ def make_frame_accumulator(
     frame count), the frame-by-frame step each frame's terms, as the JAX
     package's single-device step does.  ``loss_sum`` is the sum of the
     frames' mean squared residuals; ``num_dup`` the most duplicates of any
-    frame on the fused step, -1 off it."""
+    frame on the fused step, -1 off it.
+
+    ``loc_reduce`` (fused step only) asks each group for its per-frame
+    location gradients (F, N, 3) and passes them through it before they are
+    summed and normed: the band step sums a frame's bands there, since the
+    norm is not linear."""
     fkw = dict(fused_opts or {})
+    if loc_reduce is not None:
+        if not fused:
+            raise ValueError("loc_reduce needs the fused step")
+        fkw["frame_loc_grads"] = True
     if not fused:
         render = render_fn if render_fn is not None else _default_render(renderer, row_chunk)
 
@@ -214,6 +224,9 @@ def make_frame_accumulator(
                 l_sum, g, v, _, nd, _ = render_train_grads_batch(
                     *params, active, *(x[sl] for x in cams),
                     width, height, truths[sl], bgs[sl], sh_degree, **fkw)
+                if loc_reduce is not None:
+                    d_means_b = loc_reduce(v)
+                    g, v = (d_means_b.sum(0), *g[1:]), loc_norm_sum(d_means_b)
                 for acc, gi in zip(gsum, g):
                     acc += gi
                 var += v
@@ -524,17 +537,18 @@ class Trainer:
         return False
 
     # ------------------------------------------------------------------
-    def capture_truths(self, rtx, devices: Optional[int] = None) -> None:
+    def capture_truths(self, rtx, devices=None) -> None:
         """Photograph the scene from every rig camera against white AND
         black backgrounds (src/Trainer.cu:218-250): whites then blacks,
         tiled for the fused step.
 
-        ``devices`` > 1 (default: the Trainer's) splits the path tracer's
-        frames over the ranks of the default group
-        (parallel.capture_images_sharded, a new seed each capture); a
-        sharded Trainer keeps its own block of the frames.  A truth source
-        without a traced scene (no ``_tris``) is called for every frame on
-        every rank."""
+        ``devices`` (default: the Trainer's) splits the path tracer's
+        frames, with a new seed each capture: a count > 1 over the ranks of
+        the default group (parallel.capture_images_sharded; a sharded
+        Trainer keeps its own block of the frames), a list of more than one
+        device, without a process group, over those devices in this process
+        (parallel.capture_images_local).  A truth source without a traced
+        scene (no ``_tris``) is called for every frame on every rank."""
         from gaussian_splatterer_tpu_torch import parallel
 
         self._require_group()
@@ -543,7 +557,13 @@ class Trainer:
         dev = self.model.device
         cameras = Camera.get_cameras(self.project)
         n = devices if devices is not None else self.devices
-        if n and n > 1 and parallel.world_size() > 1 and getattr(rtx, "_tris", None) is not None:
+        traced = getattr(rtx, "_tris", None) is not None
+        local = isinstance(n, (list, tuple))
+        if traced and local and len(n) > 1 and parallel.world_size() == 1:
+            self._capture_seed += 1
+            truths = parallel.capture_images_local(
+                rtx, cameras, self.project.rtSamples, w, h, n, seed=self._capture_seed).to(dev)
+        elif traced and not local and n and n > 1 and parallel.world_size() > 1:
             self._capture_seed += 1
             truths = parallel.capture_images_sharded(
                 rtx, cameras, self.project.rtSamples, w, h, seed=self._capture_seed,

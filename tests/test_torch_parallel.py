@@ -50,7 +50,7 @@ def world2(tmp_path_factory):
 
     def load(case):
         ranks = []
-        for r in range(runner.WORLD):
+        for r in range(runner.WORLDS["steps"]):
             with np.load(out / f"{case}_rank{r}.npz") as z:
                 ranks.append({k: z[k] for k in z.files})
         assert not any(bool(x["jax_loaded"]) for x in ranks), "a rank imported JAX"

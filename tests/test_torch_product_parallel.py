@@ -51,7 +51,7 @@ def world2(tmp_path_factory):
 
     def load(case):
         ranks = []
-        for r in range(runner.WORLD):
+        for r in range(runner.WORLDS["product"]):
             with np.load(out / f"{case}_rank{r}.npz") as z:
                 ranks.append({k: z[k] for k in z.files})
         assert not any(bool(x["jax_loaded"]) for x in ranks), "a rank imported JAX"
@@ -83,7 +83,7 @@ def jax_loop():
 def assert_loop_matches(ranks, jax_trainer):
     j_count = int(jax_trainer.model.count)
     for r in ranks:
-        assert int(r["devices"]) == runner.WORLD
+        assert int(r["devices"]) == runner.WORLDS["product"]
         assert int(r["iterations"]) == jax_trainer.project.iterations == runner.STEPS
         assert int(r["recaptures"]) == 1
         assert int(r["count"]) == j_count > 24  # densify grew the model

@@ -1,12 +1,14 @@
-"""World-2 runs of the PyTorch port's sharded training on the CPU, for
-tests/test_torch_parallel.py (``steps``) and
-tests/test_torch_product_parallel.py (``product``):
+"""Multi-rank runs of the PyTorch port's sharded training on the CPU, for
+tests/test_torch_parallel.py (``steps``), tests/test_torch_product_parallel.py
+(``product``) and tests/test_torch_parallel_bands.py (``bands`` and
+``bands3d``):
 
-    python tests/torch_parallel_runner.py steps|product OUT_DIR
+    python tests/torch_parallel_runner.py steps|product|bands|bands3d OUT_DIR
 
-starts 2 ranks (torch.multiprocessing, spawn; a gloo group on 127.0.0.1);
-each writes OUT_DIR/<case>_rank<r>.npz, with ``jax_loaded`` saying whether
-JAX got imported in it.  The scenes are made here from seeds with numpy,
+starts WORLDS[suite] ranks (torch.multiprocessing, spawn; a gloo group on
+127.0.0.1): 2, and 4 for ``bands3d``; each writes
+OUT_DIR/<case>_rank<r>.npz, with ``jax_loaded`` saying whether JAX got
+imported in it.  The scenes are made here from seeds with numpy,
 so that the tests build the JAX side from the same functions.  This module
 imports nothing of JAX and is not collected (like tests/multihost_runner.py).
 """
@@ -22,7 +24,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 
-WORLD = 2
+WORLDS = {"steps": 2, "product": 2, "bands": 2, "bands3d": 4}
 RANK_THREADS = 2
 # the steps: tests/test_parallel.py's fused scene (24 splats in 64 slots,
 # SH 1, 4 cameras, 64^2, tile 16); the non-fused step at 40^2, tile 16
@@ -167,34 +169,46 @@ def _metrics(met):
                 avg_grad_loc=met.avg_grad_loc.detach().cpu().numpy(), num_dup=met.num_dup)
 
 
-def steps_suite(rank, out_dir):
+def _step_scene():
+    """The fused step scene (model maker, cameras, pre-tiled truths,
+    learning rates, runtime) at STEP_RES, tile STEP_TILE."""
     import torch
 
     from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
     from gaussian_splatterer_tpu_torch.models.camera import Camera
     from gaussian_splatterer_tpu_torch.models.splats import SplatModel
     from gaussian_splatterer_tpu_torch.ops.raster_tiled import image_to_tiles
+    from gaussian_splatterer_tpu_torch.train import CameraBatch, LearningRates
+
+    arrays, n = step_arrays()
+    res, tile = STEP_RES, STEP_TILE
+    runtime = RuntimeConfig(render_resolution_x=res, render_resolution_y=res, tile_px=tile,
+                            max_dup=2**12)
+    cams = CameraBatch.from_cameras(Camera.get_cameras(port_rig(STEP_CAMS)), res, res,
+                                    device="cpu")
+    tiles = image_to_tiles(torch.from_numpy(step_truths(res)), tile).contiguous()
+
+    def model():
+        return SplatModel.from_numpy(*arrays, count=n, device="cpu")
+
+    return model, cams, tiles, LearningRates.from_project(Project()), runtime
+
+
+def steps_suite(rank, out_dir):
+    import torch
+
+    from gaussian_splatterer_tpu_torch.config import Project, RuntimeConfig
+    from gaussian_splatterer_tpu_torch.models.camera import Camera
     from gaussian_splatterer_tpu_torch.parallel import (
         densify_sharded, gather_model, make_2d_mesh, make_camera_mesh, make_dp_train_step,
         make_fsdp_train_step, shard_model, shard_truths, shard_truths_2d,
     )
     from gaussian_splatterer_tpu_torch.parallel.collectives import all_gather_rows
-    from gaussian_splatterer_tpu_torch.train import (
-        CameraBatch, DensifyParams, LearningRates, densify,
-    )
+    from gaussian_splatterer_tpu_torch.train import CameraBatch, DensifyParams, densify
 
-    arrays, n = step_arrays()
-    lrs = LearningRates.from_project(Project())
-    cameras = Camera.get_cameras(port_rig(STEP_CAMS))
-
-    def model():
-        return SplatModel.from_numpy(*arrays, count=n, device="cpu")
-
+    model, cams, tiles, lrs, runtime = _step_scene()
     res, tile = STEP_RES, STEP_TILE
-    runtime = RuntimeConfig(render_resolution_x=res, render_resolution_y=res, tile_px=tile,
-                            max_dup=2**12)
-    cams = CameraBatch.from_cameras(cameras, res, res, device="cpu")
-    tiles = image_to_tiles(torch.from_numpy(step_truths(res)), tile).contiguous()
+    cameras = Camera.get_cameras(port_rig(STEP_CAMS))
 
     mesh = make_camera_mesh("cpu")
     step = make_dp_train_step(mesh, res, res, 1, runtime=runtime)
@@ -202,7 +216,7 @@ def steps_suite(rank, out_dir):
     _save(out_dir, "dp", rank, fused=step.fused, frames=shard_truths(mesh, tiles).shape[0],
           calls=step.comm.calls, bytes=step.comm.bytes, **_model_arrays(m), **_metrics(met))
 
-    mesh2 = make_2d_mesh("cpu", 1, WORLD)
+    mesh2 = make_2d_mesh("cpu", 1, WORLDS["steps"])
     step = make_fsdp_train_step(mesh2, res, res, 1, runtime=runtime)
     shard, met = step(shard_model(mesh2, model()), shard_truths_2d(mesh2, tiles), cams, lrs)
     _save(out_dir, "fsdp", rank, offset=shard.offset, rows=shard.rows,
@@ -244,7 +258,7 @@ def product_suite(rank, out_dir):
         project = port_rig(CAMS)
         for key, value in project_kw.items():
             setattr(project, key, value)
-        runtime = RuntimeConfig(**runtime_kw, train_devices=WORLD, train_mesh=kind)
+        runtime = RuntimeConfig(**runtime_kw, train_devices=WORLDS["product"], train_mesh=kind)
         trainer = Trainer(project, runtime, SplatModel.from_numpy(*arrays, count=n, device="cpu"),
                           renderer="tiled")
         # each rank's rng draws its own rig: the recaptures must take rank 0's
@@ -269,7 +283,67 @@ def product_suite(rank, out_dir):
           clear=clear.numpy(), empty=empty.numpy())
 
 
-SUITES = {"steps": steps_suite, "product": product_suite}
+def bands_suite(rank, out_dir):
+    """The band step on a 1 x 2 (camera x tile) mesh on both reduction
+    routes, and the sharded checkpoint of an FSDP shard."""
+    from gaussian_splatterer_tpu_torch.config import Project
+    from gaussian_splatterer_tpu_torch.io.checkpoint import (
+        load_checkpoint_sharded, save_checkpoint, save_checkpoint_sharded,
+    )
+    from gaussian_splatterer_tpu_torch.parallel import (
+        gather_model, make_2d_mesh, make_tile_mesh, make_tp_train_step, shard_model,
+        shard_truths_tp,
+    )
+
+    model, cams, tiles, lrs, runtime = _step_scene()
+    res = STEP_RES
+    mesh = make_tile_mesh("cpu", 1, WORLDS["bands"])
+    for reduction in ("index_add", "cumsum"):
+        step = make_tp_train_step(mesh, res, res, 1, runtime=runtime, reduction=reduction)
+        truths = shard_truths_tp(mesh, tiles)
+        m, met = step(model(), truths, cams, lrs)
+        _save(out_dir, f"tp_{reduction}", rank, tiles=truths.shape[1], frames=truths.shape[0],
+              calls=step.comm.calls, bytes=step.comm.bytes, **_model_arrays(m), **_metrics(met))
+
+    # the FSDP shard of a stepped model, saved sharded and loaded into its rows
+    mesh2 = make_2d_mesh("cpu", 1, WORLDS["bands"])
+    shard = shard_model(mesh2, m)
+    project = Project()
+    project.iterations = 17
+    ckpt = os.path.join(out_dir, "ckpt_sharded")
+    save_checkpoint_sharded(ckpt, shard, project)
+    like = shard_model(mesh2, model())  # other rows of the same shape
+    back, back_project = load_checkpoint_sharded(ckpt, like=like)
+    whole = gather_model(mesh2, shard)
+    if rank == 0:
+        save_checkpoint(os.path.join(out_dir, "ckpt_gathered.npz"), whole, project)
+    _save(out_dir, "ckpt", rank, offset=shard.offset, count=back.count,
+          iterations=back_project.iterations, back_offset=back.offset,
+          **{f"saved_{k}": v for k, v in _model_arrays(shard).items()},
+          **{f"back_{k}": v for k, v in _model_arrays(back).items()})
+
+
+def bands3d_suite(rank, out_dir):
+    """The 3-axis step on a 1 x 2 x 2 (camera x tile x splat) mesh on both
+    reduction routes."""
+    from gaussian_splatterer_tpu_torch.parallel import (
+        make_3d_mesh, make_3d_train_step, shard_model_3d, shard_truths_3d,
+    )
+
+    model, cams, tiles, lrs, runtime = _step_scene()
+    res = STEP_RES
+    mesh = make_3d_mesh("cpu", 1, 2, 2)
+    for reduction in ("index_add", "cumsum"):
+        step = make_3d_train_step(mesh, res, res, 1, runtime=runtime, reduction=reduction)
+        truths = shard_truths_3d(mesh, tiles)
+        shard, met = step(shard_model_3d(mesh, model()), truths, cams, lrs)
+        _save(out_dir, f"mesh3_{reduction}", rank, offset=shard.offset, rows=shard.rows,
+              tiles=truths.shape[1], frames=truths.shape[0], calls=step.comm.calls,
+              **_model_arrays(shard), **_metrics(met))
+
+
+SUITES = {"steps": steps_suite, "product": product_suite, "bands": bands_suite,
+          "bands3d": bands3d_suite}
 
 
 def _rank_main(rank, suite, out_dir, init_method):
@@ -279,7 +353,7 @@ def _rank_main(rank, suite, out_dir, init_method):
     from gaussian_splatterer_tpu_torch import parallel
 
     torch.set_num_threads(RANK_THREADS)  # the test workers share the cores
-    parallel.init_distributed(rank=rank, world_size=WORLD, init_method=init_method,
+    parallel.init_distributed(rank=rank, world_size=WORLDS[suite], init_method=init_method,
                               backend="gloo")
     try:
         SUITES[suite](rank, out_dir)
@@ -295,7 +369,7 @@ def main(argv):
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     mp.start_processes(_rank_main, args=(suite, out_dir, f"tcp://127.0.0.1:{port}"),
-                       nprocs=WORLD, join=True, start_method="spawn")
+                       nprocs=WORLDS[suite], join=True, start_method="spawn")
 
 
 if __name__ == "__main__":
