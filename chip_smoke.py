@@ -14,8 +14,9 @@ the measuring and long-run entry points (the port's bench and
 bench_scale, quality_run with a resume across processes, eval_model) and
 the tracer at mesh scale (the CLI on a 65,024-triangle mesh, through the
 culled intersector), the rest of the product (a JPEG texture, export
-and import, doctor, the native parsers) and multi-device training (two
-ranks sharing the card) at full size, times the stages with CUDA events,
+and import, doctor, the native parsers), multi-device training (two and
+four ranks sharing the card, the routed 3-axis step included) and the
+graft entry points at full size, times the stages with CUDA events,
 and exits nonzero at the first phase that fails.  It imports nothing of
 JAX.
 
@@ -194,8 +195,23 @@ Phases:
      the DP ranks' models bit-equal, densify grows the model, a finite
      loss; (d) one nccl rank's DP step bit-equal to make_train_step on the
      cumsum route; (e) ``gsplat-torch train --devices 2`` on the one-card
-     host exits nonzero naming both numbers.  Both ranks' launches join
-     the summary's.
+     host exits nonzero naming both numbers; the band step (tp) on a 1 x 2
+     camera x tile mesh in (a) on both routes, with K3 on a band's grid
+     against its plain version; (f) the FSDP shard's sharded checkpoint;
+     then 4 ranks on the (1, 2, 2) camera x tile x splat mesh: (g) the
+     3-axis step and (h) the routed 3-axis step (records routed to their
+     compositors over an exact uneven all-to-all, no parameter gather),
+     each against the single-process step within 1e-4 of each field's
+     largest, the routed step's RouteStats and the bytes of its exchanges,
+     and each rank's peak memory in one step of each.  Every rank's
+     launches join the summary's;
+  the graft entry points (K1, K3, K4):
+ 23. graft_entry.entry() on the card: its function once (one K1 launch),
+     its duplicate budget the binning's whole count (nothing dropped), its
+     image equal to K1's on that launch's binning, K1 there against its
+     plain version exactly (max |diff| 0.0), and the call's time; then
+     graft_entry.dryrun_multichip(4) on the card (4 gloo ranks sharing
+     cuda:0): every branch's line, rank 0 on cuda:0 with K3 launched.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of its FP32 operations over 67 TFLOP/s (the data sheet's; phase 17 adds a
@@ -214,10 +230,10 @@ twin) and one AABB test per ray and chunk.  K2's bytes are the
 rows in, their gradients out, the ranges, and the forward output and its
 gradient in.  K4's bytes are its input read and its output written once.
 
-``--only bench``, ``--only quality``, ``--only k9``, ``--only export`` and
-``--only parallel`` run phases 1-2 and then phase 18, 19, 20, 21 or 22 (or
-several) and end with the full run's last line (``k9`` after its kernels
-line).
+``--only bench``, ``--only quality``, ``--only k9``, ``--only export``,
+``--only parallel`` and ``--only entry`` run phases 1-2 and then phase 18,
+19, 20, 21, 22 or 23 (or several) and end with the full run's last line
+(``k9`` after its kernels line).
 
 ``--only step`` runs phases 1-2, 7-8 and 16 (the fused step on both
 reduction routes, for quick rounds on the card) and ends with the same
@@ -3473,27 +3489,61 @@ def p22_steps(rank: int, dev, out: Path) -> dict:
 
 
 def p22_mesh3(rank: int, dev, out: Path) -> dict:
-    """Part (g) on one rank of P22_MESH3's: one 3-axis step of phase 7's
-    cell (cumsum route), then timed steps."""
+    """Parts (g) and (h) on one rank of P22_MESH3's: one 3-axis step and one
+    routed 3-axis step of phase 7's cell (cumsum route), each followed by
+    timed steps; the routed step's RouteStats and the collectives of its
+    first step."""
     from gaussian_splatterer_tpu_torch import parallel
 
     trainer, arrays, lrs = p22_cell(dev)
     res = TRAIN_RES
     mesh = parallel.make_3d_mesh(dev.type, *P22_MESH3)
-    step = parallel.make_3d_train_step(mesh, res, res, 1, runtime=trainer.runtime,
-                                       reduction="cumsum")
     truths = parallel.shard_truths_3d(mesh, trainer.truths)
-    summary, shard = p22_run_step(rank, "mesh3", step, mesh,
-                                  parallel.shard_model_3d(mesh, p22_model(arrays, dev)), truths,
-                                  trainer.truth_cams, lrs, dev, out)
-    summary["offset"] = shard.offset
-    summary.update(p22_time_steps(step, shard, truths, trainer.truth_cams, lrs, dev))
-    return summary
+    mesh3 = parallel.make_3d_train_step(mesh, res, res, 1, runtime=trainer.runtime,
+                                        reduction="cumsum")
+    routed = parallel.make_routed3_train_step(mesh, res, res, 1, runtime=trainer.runtime,
+                                              frame_group=TRAIN_GROUP, reduction="cumsum")
+    stats = []
+
+    def routed_step(shard, truths, cams, lrs):
+        shard, met, route_stats = routed(shard, truths, cams, lrs)
+        stats.append(route_stats)
+        return shard, met
+
+    routed_step.comm = routed.comm
+    result = {}
+    for kind, step in (("mesh3", mesh3), ("routed", routed_step)):
+        summary, shard = p22_run_step(rank, kind, step, mesh,
+                                      parallel.shard_model_3d(mesh, p22_model(arrays, dev)),
+                                      truths, trainer.truth_cams, lrs, dev, out)
+        summary["offset"] = shard.offset
+        summary["first_comm"] = [step.comm.calls, step.comm.bytes]
+        if kind == "routed":
+            summary["route_stats"] = stats[0]._asdict()
+        summary.update(p22_time_steps(step, shard, truths, trainer.truth_cams, lrs, dev))
+        summary["memory_mib"] = p22_step_memory(step, shard, truths, trainer.truth_cams, lrs,
+                                                dev)
+        result[kind] = summary
+    return result
+
+
+def p22_step_memory(step, model, truths, cams, lrs, dev):
+    """[MiB allocated before one more step, MiB of its peak above that]
+    in this process (each rank is one), or None on the CPU."""
+    if dev.type != "cuda":
+        return None
+    p22_sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    step(model, truths, cams, lrs)
+    p22_sync(dev)
+    return [base / 2**20, (torch.cuda.max_memory_allocated(dev) - base) / 2**20]
 
 
 def p22_mesh3_worker(rank: int, init_method: str, out: str, device: str, sizes: dict) -> None:
-    """Rank ``rank`` of the 3-axis step on ``device``: a gloo group of the
-    P22_MESH3 ranks, its result in OUT/mesh3_rank<r>.json."""
+    """Rank ``rank`` of the 3-axis and routed 3-axis steps on ``device``: a
+    gloo group of the P22_MESH3 ranks, its results in
+    OUT/mesh3_rank<r>.json."""
     import torch.distributed as dist
 
     from gaussian_splatterer_tpu_torch import parallel
@@ -3660,7 +3710,7 @@ def p22_step_check(work: Path, kind: str, per: list, want: dict, dev, fail) -> d
     with np.load(work / f"{kind}.npz") as z:
         got = {k: z[k] for k in z.files}
     gap = p22_gap(got, want)
-    part = "(g)" if kind == "mesh3" else "(a)"
+    part = {"mesh3": "(g)", "routed": "(h)"}.get(kind, "(a)")
     for r, x in enumerate(per):
         print(f"  {part} {kind} rank {r}: {x['frames']} frames, {x['tiles']} tiles a frame, "
               f"{x['rows']} rows; step {x['step_ms']:.3f} ms, collectives {x['comm_ms']:.3f} ms "
@@ -3696,10 +3746,12 @@ def parallel_phase(dev, card) -> dict:
     cuda:0 in spawned workers: (a) a DP, an FSDP and a band (tp, 1 x 2
     camera x tile) step of phase 7's cell (cumsum route; the band step on
     the index_add route too) against the single-process step on the same
-    route, K3 on a band's grid against its plain version first; (f) the FSDP shard's sharded checkpoint, restored bit for bit
-    on each rank and, in one process, equal to the gathered model; (g) the
-    3-axis step on P22_MESH3 (4 gloo ranks) against the single-process
-    step; (b) the sharded capture
+    route, K3 on a band's grid against its plain version first; (f) the
+    FSDP shard's sharded checkpoint, restored bit for bit on each rank and,
+    in one process, equal to the gathered model; (g) the 3-axis step and
+    (h) the routed 3-axis step (records routed to their compositors, no
+    parameter gather) on P22_MESH3 (4 gloo ranks) against the
+    single-process step, the routed step's RouteStats; (b) the sharded capture
     of the north-star rig on the mesh-res 256 mushroom (K9) bit-equal to
     serial renders; (c) ``train --devices 2`` of the north star on each
     mesh (DP copies bit-equal, densify grows it, a finite loss); (d) one
@@ -3815,19 +3867,35 @@ def parallel_phase(dev, card) -> dict:
         fail("(f) the sharded checkpoint did not restore the rows bit for bit")
     del whole
 
-    # (g) the 3-axis step on P22_MESH3's 4 ranks
+    # (g) the 3-axis step and (h) the routed 3-axis step on P22_MESH3's 4 ranks
     n3 = int(np.prod(P22_MESH3))
     t0 = time.perf_counter()
     mp.start_processes(p22_mesh3_worker, args=(f"tcp://127.0.0.1:{free_port()}", str(work),
                                                "cuda:0" if dev.type == "cuda" else "cpu", sizes),
                        nprocs=n3, join=True, start_method="spawn")
-    print(f"  (g) {n3} workers: {time.perf_counter() - t0:.3f} s (host clock, the processes' "
+    print(f"  (g)-(h) {n3} workers: {time.perf_counter() - t0:.3f} s (host clock, the processes' "
           f"start included)")
-    per3 = [json.loads((work / f"mesh3_rank{r}.json").read_text()) for r in range(n3)]
-    add_launches(launches, p22_step_check(work, "mesh3", per3, want, dev, fail))
+    ranks3 = [json.loads((work / f"mesh3_rank{r}.json").read_text()) for r in range(n3)]
     half = TRAIN_CAPACITY // P22_MESH3[2]
-    if [x["offset"] for x in per3] != [0, half] * (n3 // 2) or len({x["digest"] for x in per3}) != 1:
-        fail("(g) the 3-axis ranks' rows or models")
+    for kind in ("mesh3", "routed"):
+        per3 = [x[kind] for x in ranks3]
+        add_launches(launches, p22_step_check(work, kind, per3, want, dev, fail))
+        if ([x["offset"] for x in per3] != [0, half] * (n3 // 2)
+                or len({x["digest"] for x in per3}) != 1):
+            fail(f"the {kind} ranks' rows or models")
+    # (h) the routed step's true route maxima and its first step's exchanges
+    routed = [x["routed"] for x in ranks3]
+    for r, x in enumerate(routed):
+        print(f"  (h) routed rank {r}: RouteStats {x['route_stats']}; first step's collectives "
+              f"{x['first_comm'][0]} calls of {x['first_comm'][1]:,} B (against the 3-axis "
+              f"step's {ranks3[r]['mesh3']['first_comm'][1]:,} B)")
+        mem = {k: ranks3[r][k]["memory_mib"] for k in ("mesh3", "routed")}
+        if mem["routed"] is not None:
+            print(f"  (g)-(h) rank {r} memory (torch.cuda allocator of the rank's process): "
+                  + "; ".join(f"{k} {v[0]:.3f} MiB held before a step, its peak {v[1]:.3f} "
+                              f"MiB above that" for k, v in mem.items()))
+    if len({json.dumps(x["route_stats"], sort_keys=True) for x in routed}) != 1:
+        fail("(h) the ranks' RouteStats differ")
 
     # (b) the sharded capture against serial renders, frame seeds alike
     host = p22_capture_host(dev)
@@ -3890,6 +3958,79 @@ def parallel_phase(dev, card) -> dict:
     return launches
 
 
+def entry_phase(dev, card) -> dict:
+    """Phase 23: the graft entry points on the card.  graft_entry.entry():
+    its function called once (one K1 launch, counted), no duplicate
+    dropped, its image equal to K1's on that launch's binning, and K1 there
+    against its plain version exactly; then the call's time.  Then
+    dryrun_multichip(4): every branch, K3 launched on rank 0.  Returns the
+    launches."""
+    from gaussian_splatterer_tpu_torch import graft_entry
+    from gaussian_splatterer_tpu_torch.ops import raster_tiled as rt
+    from gaussian_splatterer_tpu_torch.ops.binning import bin_splats
+    from gaussian_splatterer_tpu_torch.ops.transforms import project_splat_components
+
+    phase(f"23. the graft entry points: graft_entry.entry() and dryrun_multichip(4) on the "
+          f"card ({card})")
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry(dev.type)
+    p22_sync(dev)
+    made_s = time.perf_counter() - t0
+    rt.composite_fwd_launches = 0
+    t0 = time.perf_counter()
+    img = fn(*args)
+    p22_sync(dev)
+    first_s = time.perf_counter() - t0
+    launches = {"composite_fwd": rt.composite_fwd_launches}
+    size, tile = img.shape[0], graft_entry.ENTRY_TILE
+    with torch.no_grad():
+        comps = project_splat_components(*args[:11], size, size, 1, 1.0)
+        bins = bin_splats(comps, size, size, tile, fn.max_dup)
+        cargs = (rt.gather_features(comps, bins), bins.tile_start, bins.tile_end, tile,
+                 -(-size // tile))
+        out_k = rt.composite_fwd(*cargs)
+        out_p = rt.composite_fwd_reference(*cargs)
+        img_k = rt.tiles_to_image(out_k[..., 0:3] + out_k[..., 3:4] * args[11], size, size, tile)
+    p22_sync(dev)
+    err = float((out_k - out_p).abs().max())
+    same = bool(torch.equal(img, img_k))
+    lit = float((img.max(dim=2).values > 0).float().mean())
+    print(f"  entry(): {int(args[5].sum())} splats in {args[0].shape[0]} slots, image "
+          f"{tuple(img.shape)}, lit share {lit:.4f}, finite {bool(torch.isfinite(img).all())}; "
+          f"scene made in {made_s:.3f} s, first call {first_s:.3f} s (host clock); launches "
+          f"{launches}")
+    print(f"  K1 on the entry's launch ({cargs[0].shape[1]} duplicates, num_dup {bins.num_dup}, "
+          f"max_dup {fn.max_dup}): max|kernel - plain| {err:.3e} (== 0); the "
+          f"entry's image equal to K1's {same}")
+    if dev.type == "cuda" and launches["composite_fwd"] != 1:
+        raise SystemExit("phase 23 failed: entry() did not launch K1 once")
+    if not bins.num_dup == fn.num_dup <= fn.max_dup == cargs[0].shape[1]:
+        raise SystemExit("phase 23 failed: entry()'s render dropped duplicates")
+    if err != 0.0 or not same or not torch.isfinite(img).all() or lit < 0.05:
+        raise SystemExit("phase 23 failed: entry()'s render against K1's plain version")
+    ms = cuda_ms(lambda: fn(*args))
+    print(f"  entry()'s call: {ms:.4f} ms (CUDA events, median of {REPS} after {WARMUP} "
+          f"warm-ups; {card})", flush=True)
+    del fn, args, img, comps, bins, cargs, out_k, out_p, img_k
+
+    # the dry run on the card: 4 gloo ranks sharing it; rank 0 prints its lines
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(4, dev.type)
+    print(f"  dryrun_multichip(4): {time.perf_counter() - t0:.3f} s (host clock, the 4 "
+          f"processes' start included); rank 0 on {dry['device']} over {dry['backend']}, its "
+          f"launches {dry['launches']}; losses " + ", ".join(
+              f"{k} {dry[k]:.6f}" for k in ("dp", "fsdp", "bands", "mesh3", "routed")) +
+          f"; RouteStats {dry['route_stats']}; densify {dry['densify']}; product "
+          f"{dry['product']}", flush=True)
+    if dev.type == "cuda" and (dry["device"] != "cuda:0"
+                               or dry["launches"]["composite_train"] == 0):
+        raise SystemExit("phase 23 failed: the dry run did not run K3 on the card")
+    if set(dry["product"]) != {"dp", "fsdp"} or dry["densify"][1] <= dry["densify"][0]:
+        raise SystemExit("phase 23 failed: the dry run missed a branch")
+    launches["composite_train"] = dry["launches"]["composite_train"]
+    return launches
+
+
 def device_busy_ms(fn) -> tuple[float, float, dict]:
     """(milliseconds in which the device ran a kernel or a copy, wall
     milliseconds, {name: [device ms, count]} of the kernels and copies) of
@@ -3922,7 +4063,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", action="append",
                     choices=("step", "k1", "k2", "k3", "k4", "k5", "k6", "k7", "k9", "bench",
-                             "quality", "export", "parallel"),
+                             "quality", "export", "parallel", "entry"),
                     help="run phases 1-2 and then only phases 7-8 and 16 (step: the fused "
                          "step's cell on both reduction routes, its layers and the batched "
                          "front end against the frame-by-frame one), phases 3-5 (k1: the "
@@ -3940,7 +4081,8 @@ def main(argv=None) -> int:
                          "resumed, and eval_model) or phase 20 (k9: the tracer at mesh scale) "
                          "or phase 21 (export: the JPEG texture, export and import, doctor, "
                          "the native parsers) or phase 22 (parallel: multi-device training, "
-                         "2 ranks sharing the card), which end with the full run's last line")
+                         "2 and 4 ranks sharing the card) or phase 23 (entry: the graft "
+                         "entry points), which end with the full run's last line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU",
@@ -3988,7 +4130,8 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"ok": True, "device": device}))
         return 0
-    if args.only and set(args.only) <= {"bench", "quality", "k9", "export", "parallel"}:
+    if args.only and set(args.only) <= {"bench", "quality", "k9", "export", "parallel",
+                                        "entry"}:
         if "bench" in args.only:
             bench_phase(dev, card)
         if "quality" in args.only:
@@ -4000,14 +4143,16 @@ def main(argv=None) -> int:
             product_phase(dev, card)
         if "parallel" in args.only:
             parallel_phase(dev, card)
+        if "entry" in args.only:
+            entry_phase(dev, card)
         print(card)
         print(json.dumps({"ok": True, "device": device}))
         return 0
     if args.only:
         if not set(args.only).isdisjoint({"step", "bench", "quality", "k9", "export",
-                                          "parallel"}):
-            raise SystemExit("chip_smoke: --only step, and --only bench, quality, k9, export "
-                             "and parallel, run without the other --only options")
+                                          "parallel", "entry"}):
+            raise SystemExit("chip_smoke: --only step, and --only bench, quality, k9, export, "
+                             "parallel and entry, run without the other --only options")
         if "k1" in args.only:
             serve_phases(dev, card, only=True)
         if "k2" in args.only:
@@ -4049,9 +4194,10 @@ def main(argv=None) -> int:
     k9 = culled_phase(dev, card)
     add_launches(measured, product_phase(dev, card))
     add_launches(measured, parallel_phase(dev, card))
+    add_launches(measured, entry_phase(dev, card))
     for entry in (fwd, train, k5, bwd, k4, k9):
         entry["launches"] += measured.get(entry["name"], 0)
-    print(f"launches of phases 18-19 and 21-22 added to the summary: {measured}")
+    print(f"launches of phases 18-19 and 21-23 added to the summary: {measured}")
     if "jax" in sys.modules:
         raise SystemExit("chip_smoke: jax was imported")
 

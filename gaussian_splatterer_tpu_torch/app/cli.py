@@ -174,25 +174,20 @@ def cmd_train(args):
 
 def spawn_train(args, n: int) -> int:
     """``train`` on ``n`` worker processes, one a device."""
-    import socket
-
     import torch
-    import torch.multiprocessing as mp
+
+    from gaussian_splatterer_tpu_torch import parallel
 
     kind = torch.device(args.device).type
     if kind == "cuda":
         from gaussian_splatterer_tpu_torch.ops import cuda_build
 
         cuda_build.build(TRAIN_KERNELS)  # once here, not once a rank
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    mp.start_processes(_train_worker, args=(args, n, f"tcp://127.0.0.1:{port}", kind),
-                       nprocs=n, join=True, start_method="spawn")
+    parallel.spawn_ranks(_train_worker, n, args, n, kind)
     return 0
 
 
-def _train_worker(rank: int, args, n: int, init_method: str, kind: str) -> None:
+def _train_worker(rank: int, init_method: str, args, n: int, kind: str) -> None:
     """Rank ``rank`` of ``spawn_train``: rank r on cuda:r over nccl, or on
     the CPU over gloo."""
     import torch

@@ -10,10 +10,11 @@ is ``nccl`` for CUDA and ``gloo`` for the CPU (``backend_for``).
 
 Ported: the camera-data-parallel step (dp.py), the splat-sharded step
 (fsdp.py), the band-parallel step (tp.py), the 3-axis camera x band x
-splat step (mesh3.py), densify under sharded parameters (densify.py), the
-sharded truth capture over ranks or over one process's cards (capture.py)
-and, in io/checkpoint.py, the sharded checkpoints.  Only the routed steps
-(the JAX package's route.py and routed3.py) are still to come.
+splat step (mesh3.py), the routed 3-axis step that never gathers the
+parameters (routed3.py, on route.py's exact uneven exchange of records),
+densify under sharded parameters (densify.py), the sharded truth capture
+over ranks or over one process's cards (capture.py) and, in
+io/checkpoint.py, the sharded checkpoints.
 """
 
 from __future__ import annotations
@@ -53,6 +54,13 @@ from gaussian_splatterer_tpu_torch.parallel.mesh3 import (
     shard_model_3d,
     shard_truths_3d,
 )
+from gaussian_splatterer_tpu_torch.parallel.route import (
+    bucket_local,
+    bucket_route,
+    route_back,
+    unbucket_local,
+)
+from gaussian_splatterer_tpu_torch.parallel.routed3 import RouteStats, make_routed3_train_step
 from gaussian_splatterer_tpu_torch.parallel.tp import (
     TILE_AXIS,
     make_band_accumulate,
@@ -70,7 +78,10 @@ __all__ = [
     "densify_sharded",
     "frame_seed",
     "SPLAT_AXIS",
+    "RouteStats",
     "SplatShard",
+    "bucket_local",
+    "bucket_route",
     "backend_for",
     "gather_model",
     "make_camera_mesh",
@@ -82,14 +93,18 @@ __all__ = [
     "make_band_accumulate",
     "make_fsdp_train_step",
     "make_tile_mesh",
+    "make_routed3_train_step",
     "make_tp_train_step",
+    "route_back",
     "shard_model",
     "shard_model_3d",
     "shard_truths",
     "shard_truths_2d",
     "shard_truths_3d",
     "shard_truths_tp",
+    "unbucket_local",
     "init_distributed",
+    "spawn_ranks",
     "world_size",
     "rank",
 ]
@@ -127,6 +142,21 @@ def init_distributed(rank: Optional[int] = None, world_size: Optional[int] = Non
         kw.update(init_method=init_method, rank=rank, world_size=world_size)
     dist.init_process_group(**kw)
     return dist.get_world_size()
+
+
+def spawn_ranks(fn, nprocs: int, *args) -> None:
+    """Run ``fn(rank, init_method, *args)`` in ``nprocs`` spawned processes,
+    ``init_method`` a TCP address on 127.0.0.1 at a free port for
+    init_distributed, and wait for them all; a rank's error raises here."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mp.start_processes(fn, args=(f"tcp://127.0.0.1:{port}", *args), nprocs=nprocs, join=True,
+                       start_method="spawn")
 
 
 def world_size() -> int:

@@ -373,6 +373,9 @@ def test_port_imports_no_jax_flax_or_pillow():
         "import gaussian_splatterer_tpu_torch.utils.metrics\n"
         "import gaussian_splatterer_tpu_torch.io.checkpoint\n"
         "import gaussian_splatterer_tpu_torch.parallel\n"
+        "import gaussian_splatterer_tpu_torch.parallel.route\n"
+        "import gaussian_splatterer_tpu_torch.parallel.routed3\n"
+        "import gaussian_splatterer_tpu_torch.graft_entry\n"
         "import gaussian_splatterer_tpu_torch.io.watch\n"
         "import gaussian_splatterer_tpu_torch.io.jpeg\n"
         "import gaussian_splatterer_tpu_torch.io.ply\n"

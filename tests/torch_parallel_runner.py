@@ -1,12 +1,13 @@
 """Multi-rank runs of the PyTorch port's sharded training on the CPU, for
 tests/test_torch_parallel.py (``steps``), tests/test_torch_product_parallel.py
-(``product``) and tests/test_torch_parallel_bands.py (``bands`` and
-``bands3d``):
+(``product``), tests/test_torch_parallel_bands.py (``bands`` and
+``bands3d``), tests/test_torch_route.py (``route``) and
+tests/test_torch_parallel_routed.py (``routed``):
 
-    python tests/torch_parallel_runner.py steps|product|bands|bands3d OUT_DIR
+    python tests/torch_parallel_runner.py SUITE OUT_DIR
 
 starts WORLDS[suite] ranks (torch.multiprocessing, spawn; a gloo group on
-127.0.0.1): 2, and 4 for ``bands3d``; each writes
+127.0.0.1): 2, and 4 for ``bands3d``, ``route`` and ``routed``; each writes
 OUT_DIR/<case>_rank<r>.npz, with ``jax_loaded`` saying whether JAX got
 imported in it.  The scenes are made here from seeds with numpy,
 so that the tests build the JAX side from the same functions.  This module
@@ -15,7 +16,6 @@ imports nothing of JAX and is not collected (like tests/multihost_runner.py).
 
 import os
 import random
-import socket
 import sys
 
 # run as `python tests/torch_parallel_runner.py`, which puts tests/ and not
@@ -24,7 +24,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 
-WORLDS = {"steps": 2, "product": 2, "bands": 2, "bands3d": 4}
+WORLDS = {"steps": 2, "product": 2, "bands": 2, "bands3d": 4, "route": 4, "routed": 4}
 RANK_THREADS = 2
 # the steps: tests/test_parallel.py's fused scene (24 splats in 64 slots,
 # SH 1, 4 cameras, 64^2, tile 16); the non-fused step at 40^2, tile 16
@@ -34,6 +34,9 @@ NONFUSED_RES = 40
 RES, TILE, CAP, CAMS, STEPS = 32, 16, 128, 4, 6
 # the sharded capture: a quad at 16^2, 2 cameras, 2 samples
 CAPTURE_RES, CAPTURE_SAMPLES, CAPTURE_SEED = 16, 2, 7
+# the record routes: tests/test_route.py's records (96 a rank, 4 payload
+# rows) over the 4 ranks, every 7th record sent out of range
+ROUTE_L, ROUTE_K, ROUTE_DROP = 96, 4, 7
 
 
 # -- scenes (numpy) ---------------------------------------------------------------
@@ -51,6 +54,31 @@ def step_arrays(cap=STEP_CAP, n=STEP_N, seed=0):
     scales[:n] = rng.uniform(0.1, 0.4, (n, 3))
     opac[:n] = rng.uniform(0.3, 1.0, n)
     return (means, shs, scales, opac, rot), n
+
+
+def route_records(seed, skew=None, shards=4):
+    """tests/test_route.py's make_records: per-rank (dst (S, L), payload
+    (S, K, L)), payload row 0 = source x 1000 + local index; then every
+    ROUTE_DROP-th record's destination put out of range, -1 or S in turn."""
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, shards, size=(shards, ROUTE_L)).astype(np.int32)
+    if skew is not None:
+        dst[:, : ROUTE_L // 2] = skew
+    payload = rng.normal(size=(shards, ROUTE_K, ROUTE_L)).astype(np.float32)
+    payload[:, 0] = (np.arange(shards, dtype=np.float32)[:, None] * 1000
+                     + np.arange(ROUTE_L, dtype=np.float32)[None, :])
+    drop = np.arange(0, ROUTE_L, ROUTE_DROP)
+    dst[:, drop] = np.where(np.arange(drop.size) % 2 == 0, -1, shards)
+    return dst, payload
+
+
+def route_slots(seed=4, slots=2, shards=4):
+    """Per-rank (dst (S, slots, L), payload (S, K, L)): route_records(seed)'s
+    payload, each row sent from ``slots`` slots, slot b's destinations
+    those of route_records(seed + b)."""
+    payload = route_records(seed, shards=shards)[1]
+    dst = np.stack([route_records(seed + b, shards=shards)[0] for b in range(slots)], 1)
+    return dst, payload
 
 
 def step_truths(res, cams=STEP_CAMS, seed=1):
@@ -342,11 +370,63 @@ def bands3d_suite(rank, out_dir):
               **_model_arrays(shard), **_metrics(met))
 
 
+def route_suite(rank, out_dir):
+    """bucket_route and route_back over the 4 ranks on route_records: the
+    records of seed 0, of seed 1 with half of every rank's to rank 3, of
+    seed 3 sent there and back (the receiver doubles them), and the rows of
+    seed 4 in two slots each (route_slots) sent there and back."""
+    import torch
+
+    from gaussian_splatterer_tpu_torch.parallel import bucket_route, route_back
+    from gaussian_splatterer_tpu_torch.parallel.collectives import CommStats
+
+    group = None  # the default group: every rank
+    for case, seed, skew in (("exact", 0, None), ("skew", 1, 3), ("back", 3, None)):
+        dst, payload = route_records(seed, skew)
+        d = torch.from_numpy(dst[rank]).long()
+        p = torch.from_numpy(payload[rank].T.copy())  # (L, K) rows
+        stats = CommStats()
+        recv, counts, max_count = bucket_route(d, p, group, stats)
+        arrays = dict(recv=recv.numpy(), counts=np.array(counts), max_count=max_count)
+        if case == "back":
+            back = route_back(d, recv * 2.0, counts, group, stats)
+            arrays["back"] = back.numpy()
+        _save(out_dir, f"route_{case}", rank, calls=stats.calls, bytes=stats.bytes, **arrays)
+    dst, payload = route_slots()
+    d = torch.from_numpy(dst[rank]).long()
+    p = torch.from_numpy(payload[rank].T.copy())
+    stats = CommStats()
+    recv, counts, max_count = bucket_route(d, p, group, stats)
+    back = route_back(d, recv * 2.0, counts, group, stats)
+    _save(out_dir, "route_slots", rank, calls=stats.calls, bytes=stats.bytes, recv=recv.numpy(),
+          counts=np.array(counts), max_count=max_count, back=back.numpy())
+
+
+def routed_suite(rank, out_dir):
+    """The routed 3-axis step on a 1 x 2 x 2 (camera x tile x splat) mesh on
+    both reduction routes."""
+    from gaussian_splatterer_tpu_torch.parallel import (
+        make_3d_mesh, make_routed3_train_step, shard_model_3d, shard_truths_3d,
+    )
+
+    model, cams, tiles, lrs, runtime = _step_scene()
+    res = STEP_RES
+    mesh = make_3d_mesh("cpu", 1, 2, 2)
+    truths = shard_truths_3d(mesh, tiles)
+    for reduction in ("index_add", "cumsum"):
+        step = make_routed3_train_step(mesh, res, res, 1, runtime=runtime, reduction=reduction)
+        shard, met, stats = step(shard_model_3d(mesh, model()), truths, cams, lrs)
+        _save(out_dir, f"routed_{reduction}", rank, offset=shard.offset, rows=shard.rows,
+              tiles=truths.shape[1], frames=truths.shape[0], calls=step.comm.calls,
+              bytes=step.comm.bytes, stats=np.array(stats), **_model_arrays(shard),
+              **_metrics(met))
+
+
 SUITES = {"steps": steps_suite, "product": product_suite, "bands": bands_suite,
-          "bands3d": bands3d_suite}
+          "bands3d": bands3d_suite, "route": route_suite, "routed": routed_suite}
 
 
-def _rank_main(rank, suite, out_dir, init_method):
+def _rank_main(rank, init_method, suite, out_dir):
     import torch
     import torch.distributed as dist
 
@@ -362,14 +442,10 @@ def _rank_main(rank, suite, out_dir, init_method):
 
 
 def main(argv):
-    import torch.multiprocessing as mp
+    from gaussian_splatterer_tpu_torch.parallel import spawn_ranks
 
     suite, out_dir = argv
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    mp.start_processes(_rank_main, args=(suite, out_dir, f"tcp://127.0.0.1:{port}"),
-                       nprocs=WORLDS[suite], join=True, start_method="spawn")
+    spawn_ranks(_rank_main, WORLDS[suite], suite, out_dir)
 
 
 if __name__ == "__main__":
