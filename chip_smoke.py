@@ -364,6 +364,14 @@ K9_OPS_BOX = 6 + 6 + 3 + 3 + 3 + 2 + 1
 # CLI cut to 3 steps that capture once; the .ply import's render tolerance
 # (tests/test_torch_export.py); the .gobj size of the native parsers' check
 JPEG_FIXTURES = ("mushroom1024_q90_420", "mushroom1024_q90_420_progressive")
+# the texture fixtures (tests/data/textures/make_fixtures.py: the 256^2 mushroom
+# texture as an alpha-keyed palette PNG, 16-bit RGBA PNG, Adam7 PNG, colour-mapped
+# RLE TGA and CMYK JPEG, each beside its Pillow decode <stem>.pillow.png); the
+# keyed palette PNG on the north-star mesh, one frame from rig camera 0 at this
+# size, sample count and seed
+TEXTURE_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_rgba16.png",
+                    "mushroom256_adam7.png", "mushroom256_map_rle.tga", "mushroom256_cmyk.jpg")
+P21_KEYED_RES, P21_KEYED_SAMPLES, P21_KEYED_SEED = 512, 8, 21
 P21_STEPS = 3
 PLY_RENDER_ATOL = 1e-4
 # at full size the import's float32 round trips of opacity (a logit) and
@@ -3121,9 +3129,64 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def pillow_decode(path: Path) -> Path:
+    """A texture fixture's committed Pillow decode, an 8-bit RGBA PNG."""
+    return path.with_name(f"{path.name.rsplit('.', 1)[0]}.pillow.png")
+
+
+def keyed_texture_frames(dev, card, textures: Path, fail) -> int:
+    """Phase 21's alpha path: the north-star mesh under the alpha-keyed
+    palette PNG fixture, one frame from rig camera 0 with the same seed
+    three times: the texture loaded by path, given as its committed Pillow
+    decode, and that decode with alpha forced to 1.  The first two must be
+    bit-equal and the third must differ.  Returns K5's launches."""
+    from gaussian_splatterer_tpu_torch.io.image import load_texture_rgba
+    from gaussian_splatterer_tpu_torch.models.camera import Camera
+    from gaussian_splatterer_tpu_torch.rt import RtxHost
+    from gaussian_splatterer_tpu_torch.rt import tracer as tr
+    from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh
+
+    path = textures / TEXTURE_FIXTURES[0]
+    decoded = load_texture_rgba(str(pillow_decode(path)))
+    opaque = decoded.copy()
+    opaque[..., 3] = 1.0
+    host = RtxHost(device=dev)
+    host.load_model(mushroom_mesh(*NS_MESH))
+    cam = Camera.get_cameras(ns_project())[0]
+    before = tr.mt_intersect_launches
+    frames = []
+    t0 = time.perf_counter()
+    for tex in (str(path), decoded, opaque):
+        host.load_texture_diffuse(tex)
+        frames.append(host.render(cam, (0.0, 0.0, 0.0), P21_KEYED_SAMPLES, P21_KEYED_RES,
+                                  P21_KEYED_RES, seed=P21_KEYED_SEED))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k5 = tr.mt_intersect_launches - before
+    from_file, from_decode, from_opaque = frames
+    equal = torch.equal(from_file, from_decode)
+    lit = int((from_file.amax(dim=-1) > 0).sum())
+    differ = int((from_file != from_opaque).any(dim=-1).sum())
+    print(f"  {path.name} ({float((decoded[..., 3] == 0).mean()):.4f} of its texels keyed "
+          f"out) on the mushroom ({host.mesh.num_triangles} triangles), rig camera 0, "
+          f"{P21_KEYED_SAMPLES} samples at {P21_KEYED_RES}^2, seed {P21_KEYED_SEED}: the frame "
+          f"from the file bit-equal to the frame from its Pillow decode {equal}; {differ:,} of "
+          f"{P21_KEYED_RES ** 2:,} pixels ({lit:,} lit) differ from the frame with alpha "
+          f"forced to 1; mt_intersect launches {k5}; three frames {secs:.3f} s (host clock)  "
+          f"[{card}]")
+    if (not equal or differ == 0 or (dev.type == "cuda" and k5 == 0)
+            or not all(bool(torch.isfinite(f).all()) for f in frames)):
+        fail("the alpha-keyed texture's frame is not the frame of its Pillow decode, does not "
+             "differ from the opaque one, or K5 did not run")
+    return k5
+
+
 def product_phase(dev, card) -> dict:
-    """Phase 21: the rest of the product.  A JPEG-textured north star
-    through the CLI (new -> train), its export to .ply, .html and .gobj and
+    """Phase 21: the rest of the product.  The JPEG and texture fixtures
+    against their Pillow decodes, an alpha-keyed texture's frame through K5
+    (``keyed_texture_frames``), a JPEG-textured north star through the CLI
+    (new -> train), its export to .ply, .html and .gobj and
     render --mode viewer, the .ply imported into a fresh session and
     rendered by K1 against the trained model's render, ``doctor`` in a
     subprocess, and the native parsers against the Python ones at size.
@@ -3149,7 +3212,8 @@ def product_phase(dev, card) -> dict:
     def fail(why: str):
         raise SystemExit(f"phase 21 failed: {why}")
 
-    phase(f"21. the rest of the product: a JPEG texture, export (.ply, .html, .gobj, render "
+    phase(f"21. the rest of the product: the texture fixtures, an alpha-keyed texture on the "
+          f"card, a JPEG texture, export (.ply, .html, .gobj, render "
           f"--mode viewer), the .ply imported and rendered, doctor, the native parsers ({card})")
     launches: dict[str, int] = {}
     on_card = dev.type == "cuda"
@@ -3163,6 +3227,17 @@ def product_phase(dev, card) -> dict:
               f"{secs:.4f} s (host clock); equal to its Pillow decode (the PNG) {same}")
         if not same:
             fail(f"{name}.jpg does not decode to its PNG")
+    textures = HERE / "tests" / "data" / "textures"
+    for name in TEXTURE_FIXTURES:
+        path = textures / name
+        rgba, secs = timed(lambda: load_texture_rgba(str(path)))
+        same = np.array_equal(rgba, load_texture_rgba(str(pillow_decode(path))))
+        print(f"  load_texture_rgba {name} ({path.stat().st_size:,} B, {rgba.shape[1]}x"
+              f"{rgba.shape[0]}): {secs:.4f} s (host clock); equal to its Pillow decode "
+              f"({pillow_decode(path).name}) {same}")
+        if not same:
+            fail(f"{name} does not decode to its Pillow decode")
+    add_launches(launches, {"mt_intersect": keyed_texture_frames(dev, card, textures, fail)})
 
     (HERE / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_product_", dir=HERE / "build"))

@@ -14,10 +14,13 @@ Coverage: 8-bit Huffman-coded JPEG, baseline (SOF0), extended sequential
 (SOF1) and progressive (SOF2: spectral selection and successive
 approximation); one component (grey, copied into R, G and B) or three
 (YCbCr, or RGB as stored when an Adobe APP14 marker says transform 0, or
-component ids 'R', 'G', 'B'); any integral sampling factors; restart
-intervals, byte stuffing and sizes that are not whole MCUs.  Arithmetic
-coding (SOF9-SOF15), lossless (SOF3), hierarchical (SOF5-SOF7), 12-bit
-samples and four components (CMYK, YCCK) raise ValueError.
+component ids 'R', 'G', 'B') or four (CMYK, stored inverted as Photoshop
+and Pillow write it, with an Adobe APP14 marker of transform 0 or without
+one; YCCK, an APP14 marker of any other transform), converted to RGB as
+Pillow converts CMYK (``cmyk_to_rgb``); any integral sampling factors;
+restart intervals, byte stuffing and sizes that are not whole MCUs.
+Arithmetic coding (SOF9-SOF15), lossless (SOF3), hierarchical (SOF5-SOF7)
+and 12-bit samples raise ValueError.
 
 Entropy decoding runs in Python over table lookups (a 16-bit peek into a
 65,536-entry table per Huffman table); dequantisation, the IDCT,
@@ -379,6 +382,20 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
+def cmyk_to_rgb(planes, ycck: bool) -> np.ndarray:
+    """Four decoded planes -> (..., 3) uint8 as Pillow gives a CMYK JPEG in
+    RGB.  libjpeg hands Pillow CMYK: the planes as stored, or for YCCK
+    (255 - R, 255 - G, 255 - B) of the first three as YCbCr (ycc_to_rgb)
+    and K as stored; Pillow reads them inverted (its ``CMYK;I``, the Adobe
+    convention) and converts each channel as ``nk - nk * c / 255`` with nk
+    = 255 - K, in its rounded integer form."""
+    c = (255 - ycc_to_rgb(*planes[:3]).astype(np.int64) if ycck
+         else np.stack(planes[:3], axis=-1).astype(np.int64))
+    nk = np.asarray(planes[3], np.int64)[..., None]  # 255 - (255 - K) as Pillow holds it
+    t = (255 - c) * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
 # -- markers --
 
 def decode_jpeg(blob: bytes) -> np.ndarray:
@@ -448,10 +465,7 @@ def _decode(blob: bytes) -> np.ndarray:
             name = f"SOF{marker - 0xC0}"
             if precision != 8:
                 raise ValueError(f"JPEG with {precision}-bit samples ({name}) is not supported")
-            if nf == 4:
-                raise ValueError(f"JPEG with four components (CMYK or YCCK, {name}) is "
-                                 "not supported")
-            if nf not in (1, 3):
+            if nf not in (1, 3, 4):
                 raise ValueError(f"JPEG with {nf} components ({name}) is not supported")
             if height == 0 or width == 0:
                 raise ValueError(f"JPEG with an empty frame ({name}: {width}x{height})")
@@ -543,6 +557,9 @@ def _reconstruct(frame, comps, coefs, jfif, adobe, adobe_transform) -> np.ndarra
     rgba = np.full((height, width, 4), 255, np.uint8)
     if len(comps) == 1:
         rgba[..., :3] = planes[0][..., None].astype(np.uint8)
+        return rgba
+    if len(comps) == 4:
+        rgba[..., :3] = cmyk_to_rgb(planes, ycck=adobe and adobe_transform != 0)
         return rgba
     if jfif:
         rgb_stored = False

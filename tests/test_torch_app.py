@@ -184,7 +184,10 @@ def test_texture_loader_matches_jax(tmp_path, fmt, mode):
 
 
 def test_texture_loader_names_what_it_cannot_read(tmp_path):
-    Image.new("CMYK", (4, 4), (0, 0, 0, 0)).save(tmp_path / "t.jpg")
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(tmp_path / "t.jpg")
+    blob = bytearray((tmp_path / "t.jpg").read_bytes())
+    blob[blob.index(b"\xff\xc0") + 1] = 0xC9  # arithmetic-coded sequential (SOF9)
+    (tmp_path / "t.jpg").write_bytes(bytes(blob))
     with pytest.raises(ValueError, match="JPEG"):
         timage.load_texture_rgba(str(tmp_path / "t.jpg"))
     (tmp_path / "t.bmp").write_bytes(b"BM" + bytes(60))

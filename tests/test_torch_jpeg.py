@@ -1,9 +1,10 @@
 """The port's JPEG decoder (io/jpeg.py) against the JAX package's texture
 loader, which decodes through Pillow: equal bytes on Pillow's encodings
 (qualities, subsamplings, grey, progressive, restart markers, optimised
-tables, RGB kept as stored), on streams of any sampling factors written
-by a small baseline encoder here, and on the committed fixtures; the
-variants it does not read raise ValueError naming JPEG."""
+tables, RGB kept as stored, CMYK with and without its Adobe marker), on
+streams of any sampling factors (and YCCK) written by a small baseline
+encoder here, and on the committed fixtures; the variants it does not read
+raise ValueError naming JPEG."""
 
 import io
 import os
@@ -32,6 +33,14 @@ ENCODINGS = {
     "optimize": dict(quality=80, optimize=True),
     "optimize_progressive": dict(quality=80, optimize=True, progressive=True),
     "rgb_as_stored": dict(quality=85, keep_rgb=True),  # Adobe APP14, transform 0
+    # four components: Pillow writes CMYK inverted under an Adobe APP14 marker of
+    # transform 0; YCCK (transform 2) comes from the baseline encoder below
+    "cmyk": dict(quality=90, mode="CMYK"),
+    "cmyk_progressive_420": dict(quality=75, mode="CMYK", subsampling="4:2:0",
+                                 progressive=True),
+    "cmyk_without_app14": dict(quality=90, mode="CMYK", drop_app14=True),
+    "ycck": dict(ycck=[(1, 1)] * 4),
+    "ycck_420": dict(ycck=[(2, 2), (1, 1), (1, 1), (2, 2)]),
 }
 
 
@@ -48,10 +57,22 @@ def _picture(w: int, h: int, seed: int) -> np.ndarray:
 @pytest.mark.parametrize("name", list(ENCODINGS))
 def test_decode_equals_pillow(tmp_path, name, size):
     opts = dict(ENCODINGS[name])
-    img = Image.fromarray(_picture(*size, seed=size[0] + 7 * size[1])).convert(
-        opts.pop("mode", "RGB"))
+    seed = size[0] + 7 * size[1]
     path = str(tmp_path / "t.jpg")
-    img.save(path, "JPEG", **opts)
+    if "ycck" in opts:
+        with open(path, "wb") as fh:
+            fh.write(encode_random_baseline(*size, opts["ycck"], seed, adobe_transform=2))
+    else:
+        drop_app14, mode = opts.pop("drop_app14", False), opts.pop("mode", "RGB")
+        pic = _picture(*size, seed=seed)
+        img = (Image.fromarray(np.concatenate([pic, pic[..., :1] ^ pic[..., 2:]], -1), "CMYK")
+               if mode == "CMYK" else Image.fromarray(pic).convert(mode))
+        img.save(path, "JPEG", **opts)
+        if drop_app14:  # CMYK without the marker: libjpeg takes it as CMYK all the same
+            blob = (tmp_path / "t.jpg").read_bytes()
+            at = blob.index(b"\xff\xee")
+            end = at + 2 + struct.unpack(">H", blob[at + 2:at + 4])[0]
+            (tmp_path / "t.jpg").write_bytes(blob[:at] + blob[end:])
     got = timage.load_texture_rgba(path)
     assert got.shape == (size[1], size[0], 4) and got.dtype == np.float32
     np.testing.assert_array_equal(got, jimage.load_texture_rgba(path))
@@ -71,10 +92,12 @@ def _segment(marker: int, body: bytes) -> bytes:
     return b"\xff" + bytes([marker]) + struct.pack(">H", len(body) + 2) + body
 
 
-def encode_random_baseline(width, height, sampling, seed, restart=0) -> bytes:
+def encode_random_baseline(width, height, sampling, seed, restart=0,
+                           adobe_transform=None) -> bytes:
     """A baseline JPEG (SOF0) whose components have the (h, v) sampling
     factors given, their blocks seeded random quantised coefficients, coded
-    with flat Huffman tables (4-bit DC codes, 8-bit AC codes)."""
+    with flat Huffman tables (4-bit DC codes, 8-bit AC codes); with an
+    Adobe APP14 marker of ``adobe_transform`` if that is given."""
     rng = np.random.default_rng(seed)
     hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
     mx, my = -(-width // (8 * hmax)), -(-height // (8 * vmax))
@@ -142,7 +165,10 @@ def encode_random_baseline(width, height, sampling, seed, restart=0) -> bytes:
     flush()
     nf = len(sampling)
     counts = lambda n, length: bytes(n if i == length - 1 else 0 for i in range(16))  # noqa: E731
-    head = b"\xff\xd8" + _segment(0xDB, bytes([0]) + bytes(rng.integers(1, 40, 64).tolist()))
+    head = b"\xff\xd8"
+    if adobe_transform is not None:
+        head += _segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe_transform))
+    head += _segment(0xDB, bytes([0]) + bytes(rng.integers(1, 40, 64).tolist()))
     head += _segment(0xC0, struct.pack(">BHHB", 8, height, width, nf) + b"".join(
         bytes([i + 1, (h << 4) | v, 0]) for i, (h, v) in enumerate(sampling)))
     head += _segment(0xC4, b"\x00" + counts(12, 4) + bytes(_DC_SYMBOLS))
@@ -195,7 +221,6 @@ def _baseline_blob() -> bytes:
 
 
 @pytest.mark.parametrize("case,match", [
-    ("cmyk", "JPEG with four components"),
     ("lossless", "lossless \\(SOF3\\) JPEG"),
     ("arithmetic", "arithmetic-coded sequential \\(SOF9\\) JPEG"),
     ("arithmetic_progressive", "arithmetic-coded progressive \\(SOF10\\) JPEG"),
@@ -204,9 +229,7 @@ def _baseline_blob() -> bytes:
 ])
 def test_unsupported_variants_raise(tmp_path, case, match):
     path = tmp_path / "t.jpg"
-    if case == "cmyk":
-        Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(path, "JPEG")
-    elif case == "truncated":
+    if case == "truncated":
         path.write_bytes(_baseline_blob()[:400])
     else:
         blob = bytearray(_baseline_blob())
