@@ -366,11 +366,21 @@ K9_OPS_BOX = 6 + 6 + 3 + 3 + 3 + 2 + 1
 JPEG_FIXTURES = ("mushroom1024_q90_420", "mushroom1024_q90_420_progressive")
 # the texture fixtures (tests/data/textures/make_fixtures.py: the 256^2 mushroom
 # texture as an alpha-keyed palette PNG, 16-bit RGBA PNG, Adam7 PNG, colour-mapped
-# RLE TGA and CMYK JPEG, each beside its Pillow decode <stem>.pillow.png); the
-# keyed palette PNG on the north-star mesh, one frame from rig camera 0 at this
-# size, sample count and seed
+# RLE TGA, CMYK JPEG, 32-bit bitfields BMP, LZW TIFF with predictor 2, DXT1 DDS of
+# the keyed PNG, interlaced GIF with a transparent index and PPM, each beside its
+# Pillow decode <stem>.pillow.png; and the 1024^2 JPEG fixture's pixels as an LZW
+# TIFF, whose Pillow decode is that fixture's PNG); the cut-out fixtures (the keyed
+# palette PNG, the DXT1 DDS) on the north-star mesh, one frame from rig camera 0 at
+# this size, sample count and seed; the files decoded by both the native byte
+# loops and their Python twins
 TEXTURE_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_rgba16.png",
-                    "mushroom256_adam7.png", "mushroom256_map_rle.tga", "mushroom256_cmyk.jpg")
+                    "mushroom256_adam7.png", "mushroom256_map_rle.tga", "mushroom256_cmyk.jpg",
+                    "mushroom256_bitfields.bmp", "mushroom256_lzw_pred2.tif",
+                    "mushroom256_dxt1.dds", "mushroom256_trns.gif", "mushroom256.ppm",
+                    "mushroom1024_lzw.tif")
+PILLOW_DECODES = {"mushroom1024_lzw.tif": "../jpeg/mushroom1024_q90_420.png"}
+CUTOUT_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_dxt1.dds")
+BYTE_LOOP_FIXTURES = ("jpeg/mushroom1024_q90_420.png", "textures/mushroom1024_lzw.tif")
 P21_KEYED_RES, P21_KEYED_SAMPLES, P21_KEYED_SEED = 512, 8, 21
 P21_STEPS = 3
 PLY_RENDER_ATOL = 1e-4
@@ -3131,22 +3141,23 @@ def timed(fn):
 
 def pillow_decode(path: Path) -> Path:
     """A texture fixture's committed Pillow decode, an 8-bit RGBA PNG."""
+    if path.name in PILLOW_DECODES:
+        return (path.parent / PILLOW_DECODES[path.name]).resolve()
     return path.with_name(f"{path.name.rsplit('.', 1)[0]}.pillow.png")
 
 
-def keyed_texture_frames(dev, card, textures: Path, fail) -> int:
-    """Phase 21's alpha path: the north-star mesh under the alpha-keyed
-    palette PNG fixture, one frame from rig camera 0 with the same seed
-    three times: the texture loaded by path, given as its committed Pillow
-    decode, and that decode with alpha forced to 1.  The first two must be
-    bit-equal and the third must differ.  Returns K5's launches."""
+def keyed_texture_frames(dev, card, path: Path, fail) -> int:
+    """Phase 21's alpha path: the north-star mesh under a cut-out texture
+    fixture, one frame from rig camera 0 with the same seed three times:
+    the texture loaded by path, given as its committed Pillow decode, and
+    that decode with alpha forced to 1.  The first two must be bit-equal
+    and the third must differ.  Returns K5's launches."""
     from gaussian_splatterer_tpu_torch.io.image import load_texture_rgba
     from gaussian_splatterer_tpu_torch.models.camera import Camera
     from gaussian_splatterer_tpu_torch.rt import RtxHost
     from gaussian_splatterer_tpu_torch.rt import tracer as tr
     from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh
 
-    path = textures / TEXTURE_FIXTURES[0]
     decoded = load_texture_rgba(str(pillow_decode(path)))
     opaque = decoded.copy()
     opaque[..., 3] = 1.0
@@ -3177,15 +3188,43 @@ def keyed_texture_frames(dev, card, textures: Path, fail) -> int:
           f"[{card}]")
     if (not equal or differ == 0 or (dev.type == "cuda" and k5 == 0)
             or not all(bool(torch.isfinite(f).all()) for f in frames)):
-        fail("the alpha-keyed texture's frame is not the frame of its Pillow decode, does not "
-             "differ from the opaque one, or K5 did not run")
+        fail(f"{path.name}'s frame is not the frame of its Pillow decode, does not differ "
+             "from the opaque one, or K5 did not run")
     return k5
+
+
+def byte_loops(card, fixtures: Path, fail) -> None:
+    """Phase 21's native byte loops (native/src/codecs.cpp: PNG's unfilter,
+    TIFF's LZW): each 1024^2 file decoded with the native library and with
+    it hidden (the Python twins), the two results equal and both host times
+    printed."""
+    from unittest import mock
+
+    from gaussian_splatterer_tpu_torch import native
+    from gaussian_splatterer_tpu_torch.io.image import signature_decoder
+
+    if native.lib() is None:
+        fail("the native library (parsers and byte loops) did not build or load")
+    for name in BYTE_LOOP_FIXTURES:
+        blob = (fixtures / name).read_bytes()
+        decode = signature_decoder(blob)
+        got, n_secs = timed(lambda: decode(blob))
+        with mock.patch.object(native, "lib", lambda: None):
+            ref, p_secs = timed(lambda: decode(blob))
+        same = np.array_equal(got, ref)
+        print(f"  {name} ({len(blob):,} B, {got.shape[1]}x{got.shape[0]}): native loops "
+              f"{n_secs:.4f} s, Python twins {p_secs:.4f} s (host clock), "
+              f"{p_secs / n_secs:.1f}x; equal {same}  [{card}]")
+        if not same:
+            fail(f"{name}: the native byte loops and their Python twins disagree")
 
 
 def product_phase(dev, card) -> dict:
     """Phase 21: the rest of the product.  The JPEG and texture fixtures
-    against their Pillow decodes, an alpha-keyed texture's frame through K5
-    (``keyed_texture_frames``), a JPEG-textured north star through the CLI
+    against their Pillow decodes, the cut-out textures' frames through K5
+    (``keyed_texture_frames``: the keyed palette PNG and the DXT1 DDS), the
+    1024^2 PNG and LZW TIFF through the native byte loops and their Python
+    twins (``byte_loops``), a JPEG-textured north star through the CLI
     (new -> train), its export to .ply, .html and .gobj and
     render --mode viewer, the .ply imported into a fresh session and
     rendered by K1 against the trained model's render, ``doctor`` in a
@@ -3212,9 +3251,10 @@ def product_phase(dev, card) -> dict:
     def fail(why: str):
         raise SystemExit(f"phase 21 failed: {why}")
 
-    phase(f"21. the rest of the product: the texture fixtures, an alpha-keyed texture on the "
-          f"card, a JPEG texture, export (.ply, .html, .gobj, render "
-          f"--mode viewer), the .ply imported and rendered, doctor, the native parsers ({card})")
+    phase(f"21. the rest of the product: the texture fixtures, two cut-out textures on the "
+          f"card, the decoders' native byte loops, a JPEG texture, export (.ply, .html, .gobj, "
+          f"render --mode viewer), the .ply imported and rendered, doctor, the native parsers "
+          f"({card})")
     launches: dict[str, int] = {}
     on_card = dev.type == "cuda"
     flag = ("--device", dev.type)
@@ -3234,10 +3274,13 @@ def product_phase(dev, card) -> dict:
         same = np.array_equal(rgba, load_texture_rgba(str(pillow_decode(path))))
         print(f"  load_texture_rgba {name} ({path.stat().st_size:,} B, {rgba.shape[1]}x"
               f"{rgba.shape[0]}): {secs:.4f} s (host clock); equal to its Pillow decode "
-              f"({pillow_decode(path).name}) {same}")
+              f"({pillow_decode(path).name}) {same}  [{card}]")
         if not same:
             fail(f"{name} does not decode to its Pillow decode")
-    add_launches(launches, {"mt_intersect": keyed_texture_frames(dev, card, textures, fail)})
+    for name in CUTOUT_FIXTURES:
+        add_launches(launches, {"mt_intersect": keyed_texture_frames(
+            dev, card, textures / name, fail)})
+    byte_loops(card, HERE / "tests" / "data", fail)
 
     (HERE / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_product_", dir=HERE / "build"))
@@ -3353,8 +3396,6 @@ def product_phase(dev, card) -> dict:
         fail("doctor did not pass on the card")
     add_launches(launches, doc[0])
 
-    if native.lib() is None:
-        fail("the native parser library did not build or load")
     mesh = big_mushroom()
     big = str(work / "mushroom1024.obj")
     _, secs = timed(lambda: write_obj_indexed(mesh, big))

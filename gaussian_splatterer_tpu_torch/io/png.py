@@ -46,6 +46,8 @@ import zlib
 
 import numpy as np
 
+from gaussian_splatterer_tpu_torch import native
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
@@ -63,9 +65,21 @@ def _paeth(a: int, b: int, c: int) -> int:
     return b if pb <= pc else c
 
 
-def _unfilter(buf: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+def unfilter(buf: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
     """The first ``h * (stride + 1)`` bytes of ``buf``: ``h`` filtered rows
-    -> (h, stride) uint8 raw rows."""
+    -> (h, stride) uint8 raw rows; the native loop (native/src/codecs.cpp)
+    where the library is built, else ``unfilter_python``."""
+    got = native.png_unfilter(buf, h, stride, bpp)
+    if got is None:
+        return unfilter_python(buf, h, stride, bpp)
+    rows, bad = got
+    if bad >= 0:
+        raise ValueError(f"unknown PNG filter type {bad}")
+    return rows
+
+
+def unfilter_python(buf: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """The plain twin of ``unfilter``."""
     rows = buf[:h * (stride + 1)].reshape(h, stride + 1)
     out = np.zeros((h, stride), np.uint8)
     prev = np.zeros(stride, np.int64)
@@ -176,7 +190,7 @@ def _read(blob: bytes):
         size = ph * (stride + 1)
         if buf.size < pos + size:
             raise ValueError("PNG image data is too short (truncated file)")
-        rows = _unfilter(buf[pos:], ph, stride, bpp)
+        rows = unfilter(buf[pos:], ph, stride, bpp)
         out[y0::dy, x0::dx] = _samples(rows, pw, ch, depth)
         pos += size
     palette = None

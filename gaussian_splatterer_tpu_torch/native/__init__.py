@@ -1,13 +1,15 @@
-"""Native C++ file parsers (the ``.obj`` mesh and ``.gobj`` splat formats),
-loaded with ctypes (counterpart of gaussian_splatterer_tpu.native).
+"""Native C++ file parsers (the ``.obj`` mesh and ``.gobj`` splat formats)
+and the texture decoders' byte loops (PNG's row unfilter, GIF's and TIFF's
+LZW), loaded with ctypes (counterpart of gaussian_splatterer_tpu.native).
 
-``src/parsers.cpp`` exposes a plain C interface.  At first use it is
-compiled with ``g++`` into ``build/native/`` at the root of the checkout,
-named by a hash of its source and flags (an unchanged source is reused
-across processes, a changed one builds anew), and loaded.  Nothing is
-built at import time.  A failed build prints the compiler's message to
-standard error; ``lib()`` then returns None and io/obj.py and io/gobj.py
-take their pure-Python parsers, which stay as the plain twin of these.
+``src/parsers.cpp`` and ``src/codecs.cpp`` expose a plain C interface.  At
+first use they are compiled with ``g++`` into one library in
+``build/native/`` at the root of the checkout, named by a hash of the
+sources and flags (an unchanged source is reused across processes, a
+changed one builds anew), and loaded.  Nothing is built at import time.  A
+failed build prints the compiler's message to standard error; ``lib()``
+then returns None and io/obj.py, io/gobj.py, io/png.py and io/lzw.py take
+their pure-Python loops, which stay as the plain twins of these.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parent / "src" / "parsers.cpp"
+CODECS_SRC = SRC.with_name("codecs.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
@@ -30,7 +33,8 @@ _state: dict = {}  # "lib": the loaded library or None, once tried
 
 
 def lib_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    text = SRC.read_bytes() + CODECS_SRC.read_bytes() + " ".join(CXX_FLAGS).encode()
+    digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"libgstparsers-{digest}.so"
 
 
@@ -48,10 +52,11 @@ def build() -> Path | None:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, str(SRC), "-o", str(tmp)],
+    proc = subprocess.run([cxx, *CXX_FLAGS, str(SRC), str(CODECS_SRC), "-o", str(tmp)],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
-        print(f"gaussian_splatterer_tpu_torch.native: g++ failed to build {SRC}:\n"
+        print(f"gaussian_splatterer_tpu_torch.native: g++ failed to build "
+              f"{SRC} and {CODECS_SRC}:\n"
               f"{proc.stdout}{proc.stderr}", file=sys.stderr)
         tmp.unlink(missing_ok=True)
         return None
@@ -60,7 +65,7 @@ def build() -> Path | None:
 
 
 def lib() -> ctypes.CDLL | None:
-    """The loaded parser library (built at the first call), or None."""
+    """The loaded library (built at the first call), or None."""
     if "lib" not in _state:
         path = build()
         _state["lib"] = _bind(ctypes.CDLL(str(path))) if path is not None else None
@@ -80,6 +85,12 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     cdll.gst_save_gobj.argtypes = [ctypes.c_char_p, pf, pf, pf, pf, pf,
                                    ctypes.c_int64, ctypes.c_int64]
     cdll.gst_save_gobj.restype = ctypes.c_int
+    pu8 = ctypes.POINTER(ctypes.c_uint8)
+    cdll.gst_png_unfilter.argtypes = [pu8, pu8, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+    cdll.gst_png_unfilter.restype = ctypes.c_int
+    cdll.gst_lzw_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                    pu8, ctypes.c_int64, pi64]
+    cdll.gst_lzw_decode.restype = ctypes.c_int
     return cdll
 
 
@@ -145,3 +156,35 @@ def save_gobj(path: str, means, shs, scales, opacities, rotations) -> bool:
               (means, shs.reshape(n, k3), scales, opacities, rotations)]
     ptrs = [a.ctypes.data_as(ctypes.POINTER(ctypes.c_float)) for a in arrays]
     return cdll.gst_save_gobj(os.fsencode(path), *ptrs, n, k3) == 0
+
+
+def png_unfilter(buf: np.ndarray, h: int, stride: int, bpp: int):
+    """The first ``h * (stride + 1)`` bytes of uint8 ``buf``, ``h`` filtered
+    PNG rows -> ((h, stride) uint8 raw rows, -1 or the first filter type
+    that is not 0-4), or None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    src = np.ascontiguousarray(buf[:h * (stride + 1)], dtype=np.uint8)
+    if src.size < h * (stride + 1):
+        raise ValueError(f"png_unfilter: {src.size} bytes for {h} rows of {stride + 1}")
+    out = np.empty((h, stride), np.uint8)
+    pu8 = ctypes.POINTER(ctypes.c_uint8)
+    bad = cdll.gst_png_unfilter(src.ctypes.data_as(pu8), out.ctypes.data_as(pu8), h, stride, bpp)
+    return out, bad
+
+
+def lzw_decode(data: bytes, min_bits: int, tiff: bool, limit: int):
+    """io/lzw.decode_lzw_python's (bytes, status) from the native loop, or
+    None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    if not 2 <= min_bits <= 8:
+        raise ValueError(f"lzw_decode: literal size {min_bits} bits (2 to 8)")
+    out = np.empty(max(limit, 0), np.uint8)
+    n = ctypes.c_int64()
+    status = cdll.gst_lzw_decode(bytes(data), len(data), min_bits, int(tiff),
+                                 out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                                 max(limit, 0), ctypes.byref(n))
+    return out[:n.value], status

@@ -16,7 +16,20 @@ save_png quantises), and beside each its Pillow decode
   * mushroom256_map_rle.tga: type 9, run-length encoded, 24-bit colour map
     (Pillow);
   * mushroom256_cmyk.jpg: CMYK JPEG with its Adobe APP14 marker (Pillow,
-    quality 90).
+    quality 90);
+  * mushroom256_bitfields.bmp: 32-bit BMP with a V5 header and an alpha
+    mask (BI_BITFIELDS), the spots half transparent;
+  * mushroom256_lzw_pred2.tif: RGBA TIFF, unassociated alpha, LZW with the
+    horizontal predictor, strips of 32 rows;
+  * mushroom256_dxt1.dds: DXT1 of the keyed palette PNG's decode (Pillow),
+    so a quarter of the texels are punched out;
+  * mushroom256_trns.gif: the keyed palette PNG as an interlaced GIF with
+    its transparent index (Pillow);
+  * mushroom256.ppm: raw PPM (P6, Pillow);
+
+and from tests/data/jpeg/mushroom1024_q90_420.png (the 1024^2 JPEG
+fixture's Pillow decode) mushroom1024_lzw.tif, an LZW TIFF of its pixels
+(Pillow), whose Pillow decode is that PNG's.
 
     python tests/data/textures/make_fixtures.py
 """
@@ -32,7 +45,7 @@ TESTS = os.path.dirname(os.path.dirname(HERE))
 sys.path.insert(0, os.path.dirname(TESTS))
 sys.path.insert(0, TESTS)
 
-from texture_writers import png_bytes  # noqa: E402
+from texture_writers import bmp_bytes, bmp_rows, png_bytes, tiff_bytes  # noqa: E402
 
 from gaussian_splatterer_tpu_torch.io.image import float_image_to_u8  # noqa: E402
 from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_texture  # noqa: E402
@@ -75,12 +88,50 @@ def cmyk(rgba: np.ndarray) -> None:
     img.save(os.path.join(HERE, "mushroom256_cmyk.jpg"), quality=90)
 
 
+def bitfields(rgba: np.ndarray) -> None:
+    bgra = rgba[::-1][..., [2, 1, 0, 3]]  # bottom row first
+    with open(os.path.join(HERE, "mushroom256_bitfields.bmp"), "wb") as fh:
+        fh.write(bmp_bytes(bmp_rows(bgra, 32), N, N, 32, 124, 3,
+                           masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000)))
+
+
+def lzw_pred2(rgba: np.ndarray) -> None:
+    with open(os.path.join(HERE, "mushroom256_lzw_pred2.tif"), "wb") as fh:
+        fh.write(tiff_bytes(rgba, 8, 2, compression=5, predictor=2, extra=(2,),
+                            rows_per_strip=32))
+
+
+def keyed() -> Image.Image:
+    return Image.open(os.path.join(HERE, "mushroom256_palette_trns.png"))
+
+
+def dxt1(rgba: np.ndarray) -> None:
+    keyed().convert("RGBA").save(os.path.join(HERE, "mushroom256_dxt1.dds"),
+                                 pixel_format="DXT1")
+
+
+def gif_trns(rgba: np.ndarray) -> None:
+    keyed().save(os.path.join(HERE, "mushroom256_trns.gif"), interlace=True)
+
+
+def ppm(rgba: np.ndarray) -> None:
+    Image.fromarray(rgba[..., :3]).save(os.path.join(HERE, "mushroom256.ppm"))
+
+
+def lzw_1024() -> None:
+    png = os.path.join(TESTS, "data", "jpeg", "mushroom1024_q90_420.png")
+    Image.open(png).convert("RGB").save(os.path.join(HERE, "mushroom1024_lzw.tif"),
+                                        compression="tiff_lzw")
+
+
 def main() -> None:
     rgba = float_image_to_u8(mushroom_texture(n=N, spot_alpha=0.5))
-    for write in (palette_trns, rgba16, adam7, map_rle, cmyk):
+    for write in (palette_trns, rgba16, adam7, map_rle, cmyk, bitfields, lzw_pred2, dxt1,
+                  gif_trns, ppm):
         write(rgba)
+    lzw_1024()
     for name in sorted(os.listdir(HERE)):
-        if name.startswith("mushroom256_") and not name.endswith(".pillow.png"):
+        if name.startswith("mushroom256") and not name.endswith((".pillow.png", ".py")):
             path = os.path.join(HERE, name)
             Image.open(path).convert("RGBA").save(
                 os.path.join(HERE, name.rsplit(".", 1)[0] + ".pillow.png"), optimize=True)

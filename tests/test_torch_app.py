@@ -191,8 +191,11 @@ def test_texture_loader_names_what_it_cannot_read(tmp_path):
     with pytest.raises(ValueError, match="JPEG"):
         timage.load_texture_rgba(str(tmp_path / "t.jpg"))
     (tmp_path / "t.bmp").write_bytes(b"BM" + bytes(60))
-    with pytest.raises(ValueError, match="unknown texture format"):
+    with pytest.raises(ValueError, match="BMP"):
         timage.load_texture_rgba(str(tmp_path / "t.bmp"))
+    Image.new("RGB", (8, 8), (10, 20, 30)).save(tmp_path / "t.webp")
+    with pytest.raises(ValueError, match="unknown texture format"):
+        timage.load_texture_rgba(str(tmp_path / "t.webp"))
 
 
 def test_field_initializers_match_jax():

@@ -1,8 +1,12 @@
-"""Small PNG and TGA writers for the texture tests and their fixtures
-(tests/test_torch_textures.py, tests/data/textures/make_fixtures.py): the
+"""Small PNG, TGA, BMP, TIFF, DDS, GIF and PNM writers for the texture
+tests and their fixtures (tests/test_torch_textures.py,
+tests/test_torch_formats.py, tests/data/textures/make_fixtures.py): the
 variants Pillow does not write (Adam7, 2- and 4-bit grey, 16-bit RGB and
 RGBA, keys at 16 bits, 16-bit TGA, colour maps with a first entry, grey
-with a map), with ``zlib`` and ``struct``."""
+with a map; BMP RLE, bitfields and the other headers; TIFF tiles, planes,
+predictor 2, associated alpha, palettes, big-endian; DDS BC4, BC5S and BC7
+headers; GIF local tables and offset frames; plain PNM and odd maxvals),
+with ``zlib`` and ``struct``."""
 
 from __future__ import annotations
 
@@ -118,3 +122,263 @@ def tga_bytes(pixels: np.ndarray, img_type: int, depth: int, desc: int = 0x20,
     data = (b"".join(_rle_row(px[y]) for y in range(h)) if img_type & 8
             else px.tobytes())
     return head + id_field + (cmap or b"") + data
+
+
+def bmp_rows(samples: np.ndarray, bits: int) -> bytes:
+    """(h, w) indices or (h, w, nb) bytes of each pixel, rows in file order
+    -> the pixel data of a BMP, each row padded to 4 bytes."""
+    h = samples.shape[0]
+    if samples.ndim == 3:
+        rows = samples.reshape(h, -1).astype(np.uint8)
+    else:
+        rows = _pack(samples[..., None], bits) if bits < 8 else samples.astype(np.uint8)
+    return np.pad(rows, ((0, 0), (0, -rows.shape[1] % 4))).tobytes()
+
+
+def bmp_bytes(data: bytes, w: int, h: int, bits: int, header: int = 40, compression: int = 0,
+              palette: bytes = b"", masks=None, colours: int = 0, dib: bool = False) -> bytes:
+    """A BMP (or, with ``dib``, a DIB without the 14-byte file header) of
+    ``data`` as stored; a negative ``h`` is top-down.  ``palette`` is its
+    entries as stored (3 bytes each after a 12-byte header, else 4);
+    ``masks`` go into a header that holds them (52 bytes or more) or after
+    a 40-byte one."""
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h & 0xFFFF, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, h, 1, bits, compression, len(data),
+                           2835, 2835, colours, 0)
+        held = list(masks or ())[:4 if header >= 56 else 3] if header >= 52 else []
+        info += struct.pack(f"<{len(held)}I", *held)
+        info += bytes(header - len(info))
+        if header == 40 and masks is not None:
+            info += struct.pack("<3I", *masks[:3])
+    body = info + palette
+    if dib:
+        return body + data
+    return b"BM" + struct.pack("<IHHI", 14 + len(body) + len(data), 0, 0, 14 + len(body)) \
+        + body + data
+
+
+def lzw_bytes(data: bytes, min_bits: int = 8, tiff: bool = True, clear_every: int = 0,
+              end: bool = True) -> bytes:
+    """``data`` (values below ``2 ** min_bits``) -> LZW codes in TIFF's form
+    (from the high bit, the width growing one code early) or GIF's (from
+    the low bit); a clear code first, and again after ``clear_every``
+    codes (0: only when the table is near full), the end code last where
+    ``end``."""
+    clear = 1 << min_bits
+    codes = []  # (code, width)
+    state = {"j": 0}
+
+    def emit(code):
+        dec_next = min(4096, clear + 2 + max(0, state["j"] - 1))
+        codes.append((code, min(12, (dec_next + 1 if tiff else dec_next).bit_length())))
+        state["j"] = 0 if code == clear else state["j"] + 1
+
+    def reset():
+        emit(clear)
+        return {bytes([i]): i for i in range(clear)}, clear + 2
+
+    table, nxt = reset()
+    w = b""
+    for byte in data:
+        wc = w + bytes([byte])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w])
+        if nxt >= 4000 or (clear_every and state["j"] >= clear_every):
+            table, nxt = reset()
+        else:
+            table[wc], nxt = nxt, nxt + 1
+        w = bytes([byte])
+    if w:
+        emit(table[w])
+    if end:
+        emit(clear + 1)
+    acc = nbits = 0
+    out = bytearray()
+    for code, width in codes:
+        if tiff:
+            acc, nbits = (acc << width) | code, nbits + width
+            while nbits >= 8:
+                nbits -= 8
+                out.append((acc >> nbits) & 0xFF)
+        else:
+            acc, nbits = acc | (code << nbits), nbits + width
+            while nbits >= 8:
+                out.append(acc & 0xFF)
+                acc, nbits = acc >> 8, nbits - 8
+    if nbits:
+        out.append(((acc << (8 - nbits)) if tiff else acc) & 0xFF)
+    return bytes(out)
+
+
+def packbits_bytes(data: bytes) -> bytes:
+    """PackBits: runs of 3 or more equal bytes as repeats, the rest as
+    literals."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _tiff_chunk(s: np.ndarray, bits: int, big_endian: bool, predictor: int) -> bytes:
+    """(h, w, S) samples of one strip or tile -> its bytes, rows packed to
+    whole bytes, with the horizontal predictor where ``predictor`` is 2."""
+    s = s.astype(np.int64)
+    if predictor == 2:
+        s = s.copy()
+        s[:, 1:] = (s[:, 1:] - s[:, :-1]) % (1 << bits)
+    h = s.shape[0]
+    if bits == 16:
+        return s.reshape(h, -1).astype(">u2" if big_endian else "<u2").tobytes()
+    return _pack(s, bits).tobytes()
+
+
+def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, compression: int = 1,
+               predictor: int = 1, planar: int = 1, tile=None, rows_per_strip=None,
+               extra=None, colormap=None, big_endian: bool = False, tags=None) -> bytes:
+    """(H, W, S) samples -> a TIFF of one image: strips of
+    ``rows_per_strip`` rows or ``tile`` (width, height) tiles (padded with
+    zeros at the edges), planar configuration ``planar``, compression 1,
+    5 (LZW), 8 or 32946 (Deflate) or 32773 (PackBits), ``extra`` the
+    ExtraSamples values, ``colormap`` the 3 * 2**bits ColorMap values;
+    ``tags`` overrides or adds IFD entries as {tag: (type, values)}."""
+    h, w, n_s = samples.shape
+    planes = [samples[..., k:k + 1] for k in range(n_s)] if planar == 2 else [samples]
+    chunks = []
+    for plane in planes:
+        if tile:
+            tw, th = tile
+            padded = np.zeros((-(-h // th) * th, -(-w // tw) * tw, plane.shape[2]), np.int64)
+            padded[:h, :w] = plane
+            chunks += [padded[y:y + th, x:x + tw] for y in range(0, h, th)
+                       for x in range(0, w, tw)]
+        else:
+            rps = rows_per_strip or h
+            chunks += [plane[y:y + rps] for y in range(0, h, rps)]
+    encode = {1: lambda b: b, 5: lzw_bytes, 8: zlib.compress, 32946: zlib.compress,
+              32773: packbits_bytes}[compression]
+    datas = [encode(_tiff_chunk(c, bits, big_endian, predictor)) for c in chunks]
+    e = ">" if big_endian else "<"
+    body = bytearray((b"MM\x00\x2a" if big_endian else b"II\x2a\x00") + bytes(4))
+    offsets = []
+    for d in datas:
+        offsets.append(len(body))
+        body += d + bytes(len(d) % 2)
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * n_s), 259: (3, [compression]),
+               262: (3, [photometric]), 277: (3, [n_s]), 284: (3, [planar]),
+               (324 if tile else 273): (4, offsets),
+               (325 if tile else 279): (4, [len(d) for d in datas])}
+    if tile:
+        entries[322], entries[323] = (3, [tile[0]]), (3, [tile[1]])
+    else:
+        entries[278] = (4, [rows_per_strip or h])
+    if predictor != 1:
+        entries[317] = (3, [predictor])
+    if extra is not None:
+        entries[338] = (3, list(extra))
+    if colormap is not None:
+        entries[320] = (3, list(colormap))
+    entries.update(tags or {})
+    size = {1: 1, 2: 1, 3: 2, 4: 4, 7: 1}
+    code = {1: "B", 2: "B", 3: "H", 4: "I", 7: "B"}
+    ifd_at = len(body)
+    ifd = bytearray(struct.pack(e + "H", len(entries)))
+    tail = bytearray()
+    tail_at = ifd_at + 2 + 12 * len(entries) + 4
+    for tag in sorted(entries):
+        kind, values = entries[tag]
+        raw = struct.pack(e + code[kind] * len(values), *values)
+        if len(raw) <= 4:
+            field = raw + bytes(4 - len(raw))
+        else:
+            field = struct.pack(e + "I", tail_at + len(tail))
+            tail += raw + bytes(len(raw) % 2)
+        ifd += struct.pack(e + "HHI", tag, kind, len(values)) + field
+    ifd += bytes(4)
+    body[4:8] = struct.pack(e + "I", ifd_at)
+    return bytes(body + ifd + tail)
+
+
+def dds_bytes(data: bytes, w: int, h: int, fourcc: bytes = b"", dxgi: int | None = None,
+              flags: int = 0x4, bitcount: int = 0, masks=(0, 0, 0, 0)) -> bytes:
+    """A DDS of ``data`` as stored under a 124-byte header: a FourCC (with
+    ``flags`` 0x4), a DX10 header of DXGI format ``dxgi``, or the pixel
+    format ``flags``, ``bitcount`` and ``masks`` of uncompressed data."""
+    if dxgi is not None:
+        fourcc = b"DX10"
+    pf = struct.pack("<II4sI4I", 32, flags, fourcc.ljust(4, b"\0"), bitcount, *masks)
+    head = struct.pack("<7I", 124, 0x1007, h, w, 0, 0, 1) + bytes(44) + pf + bytes(20)
+    dx10 = struct.pack("<5I", dxgi, 3, 0, 1, 0) if dxgi is not None else b""
+    return b"DDS " + head + dx10 + data
+
+
+def _gif_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def gif_bytes(frames, size, palette: bytes | None = None, min_bits: int = 8,
+              version: bytes = b"GIF89a", extensions: bytes = b"") -> bytes:
+    """A GIF of ``size`` (w, h) with an optional global ``palette`` and
+    ``frames``: dicts of ``idx`` (h, w) indices, ``at`` (x, y), ``palette``
+    (a local table), ``interlace``, ``transparency`` (a Graphic Control
+    Extension's index), ``clear_every`` (LZW clear codes); ``extensions``
+    go before the first frame."""
+    def table_bits(p):
+        return max(1, (len(p) // 3 - 1).bit_length()) - 1
+
+    out = bytearray(version + struct.pack("<HH", *size))
+    if palette is not None:
+        out += bytes([0x80 | table_bits(palette), 0, 0]) + palette
+    else:
+        out += b"\0\0\0"
+    out += extensions
+    for f in frames:
+        idx = np.asarray(f["idx"], np.uint8)
+        fh, fw = idx.shape
+        if f.get("transparency") is not None:
+            out += b"!\xf9\x04" + bytes([1, 0, 0, f["transparency"]]) + b"\0"
+        flags = 0x40 if f.get("interlace") else 0
+        local = f.get("palette")
+        if local is not None:
+            flags |= 0x80 | table_bits(local)
+        out += b"," + struct.pack("<4HB", *f.get("at", (0, 0)), fw, fh, flags)
+        out += local or b""
+        rows = idx
+        if f.get("interlace"):
+            rows = idx[np.concatenate([np.arange(0, fh, 8), np.arange(4, fh, 8),
+                                       np.arange(2, fh, 4), np.arange(1, fh, 2)])]
+        out += bytes([min_bits]) + _gif_blocks(
+            lzw_bytes(rows.tobytes(), min_bits, False, f.get("clear_every", 0)))
+    return bytes(out + b";")
+
+
+def pnm_bytes(samples: np.ndarray, magic: bytes, maxval: int = 255, comment: bytes = b"",
+              line: int = 17) -> bytes:
+    """(H, W) or (H, W, 3) samples -> PNM ``magic`` (P1-P6), plain values
+    ``line`` to a line, ``comment`` as a header comment line."""
+    h, w = samples.shape[:2]
+    head = magic + b"\n" + (b"# " + comment + b"\n" if comment else b"") + b"%d %d\n" % (w, h)
+    if magic not in (b"P1", b"P4"):
+        head += b"%d\n" % maxval
+    v = samples.reshape(h, -1).astype(np.int64)
+    if magic == b"P4":
+        return head + np.packbits(v.astype(np.uint8), axis=1).tobytes()
+    if magic in (b"P5", b"P6"):
+        return head + v.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+    flat = [str(x).encode() for x in v.ravel().tolist()]
+    return head + b"\n".join(b" ".join(flat[i:i + line]) for i in range(0, len(flat), line)) + b"\n"
