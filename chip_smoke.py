@@ -367,19 +367,25 @@ JPEG_FIXTURES = ("mushroom1024_q90_420", "mushroom1024_q90_420_progressive")
 # the texture fixtures (tests/data/textures/make_fixtures.py: the 256^2 mushroom
 # texture as an alpha-keyed palette PNG, 16-bit RGBA PNG, Adam7 PNG, colour-mapped
 # RLE TGA, CMYK JPEG, 32-bit bitfields BMP, LZW TIFF with predictor 2, DXT1 DDS of
-# the keyed PNG, interlaced GIF with a transparent index and PPM, each beside its
-# Pillow decode <stem>.pillow.png; and the 1024^2 JPEG fixture's pixels as an LZW
-# TIFF, whose Pillow decode is that fixture's PNG); the cut-out fixtures (the keyed
-# palette PNG, the DXT1 DDS) on the north-star mesh, one frame from rig camera 0 at
-# this size, sample count and seed; the files decoded by both the native byte
-# loops and their Python twins
+# the keyed PNG, interlaced GIF with a transparent index, PPM, and WebP: lossy,
+# lossy with alpha (the keyed PNG), lossless and a two-frame animation, each
+# beside its Pillow decode <stem>.pillow.png; the 1024^2 JPEG fixture's pixels as
+# an LZW TIFF and as lossless WebP, whose Pillow decode is that fixture's PNG, and
+# as lossy WebP beside its Pillow decode); the cut-out fixtures (the keyed palette
+# PNG, the DXT1 DDS, the lossy WebP with alpha) on the north-star mesh, one frame
+# from rig camera 0 at this size, sample count and seed; the files decoded by both
+# the native byte loops and their Python twins
 TEXTURE_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_rgba16.png",
                     "mushroom256_adam7.png", "mushroom256_map_rle.tga", "mushroom256_cmyk.jpg",
                     "mushroom256_bitfields.bmp", "mushroom256_lzw_pred2.tif",
                     "mushroom256_dxt1.dds", "mushroom256_trns.gif", "mushroom256.ppm",
-                    "mushroom1024_lzw.tif")
-PILLOW_DECODES = {"mushroom1024_lzw.tif": "../jpeg/mushroom1024_q90_420.png"}
-CUTOUT_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_dxt1.dds")
+                    "mushroom256_lossy.webp", "mushroom256_lossy_alpha.webp",
+                    "mushroom256_lossless.webp", "mushroom256_anim.webp",
+                    "mushroom1024_lzw.tif", "mushroom1024_lossless.webp", "mushroom1024_q90.webp")
+PILLOW_DECODES = {"mushroom1024_lzw.tif": "../jpeg/mushroom1024_q90_420.png",
+                  "mushroom1024_lossless.webp": "../jpeg/mushroom1024_q90_420.png"}
+CUTOUT_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_dxt1.dds",
+                   "mushroom256_lossy_alpha.webp")
 BYTE_LOOP_FIXTURES = ("jpeg/mushroom1024_q90_420.png", "textures/mushroom1024_lzw.tif")
 P21_KEYED_RES, P21_KEYED_SAMPLES, P21_KEYED_SEED = 512, 8, 21
 P21_STEPS = 3
@@ -3222,7 +3228,8 @@ def byte_loops(card, fixtures: Path, fail) -> None:
 def product_phase(dev, card) -> dict:
     """Phase 21: the rest of the product.  The JPEG and texture fixtures
     against their Pillow decodes, the cut-out textures' frames through K5
-    (``keyed_texture_frames``: the keyed palette PNG and the DXT1 DDS), the
+    (``keyed_texture_frames``: the keyed palette PNG, the DXT1 DDS and the
+    lossy WebP with alpha), the
     1024^2 PNG and LZW TIFF through the native byte loops and their Python
     twins (``byte_loops``), a JPEG-textured north star through the CLI
     (new -> train), its export to .ply, .html and .gobj and
@@ -3251,7 +3258,7 @@ def product_phase(dev, card) -> dict:
     def fail(why: str):
         raise SystemExit(f"phase 21 failed: {why}")
 
-    phase(f"21. the rest of the product: the texture fixtures, two cut-out textures on the "
+    phase(f"21. the rest of the product: the texture fixtures, three cut-out textures on the "
           f"card, the decoders' native byte loops, a JPEG texture, export (.ply, .html, .gobj, "
           f"render --mode viewer), the .ply imported and rendered, doctor, the native parsers "
           f"({card})")

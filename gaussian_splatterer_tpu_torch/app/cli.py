@@ -444,7 +444,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_new.add_argument("project")
     p_new.add_argument("--obj", help="OBJ mesh to trace as truth")
     p_new.add_argument("--texture", help="diffuse texture (PNG, JPEG, TGA, BMP, TIFF, DDS, "
-                       "GIF or PNM)")
+                       "GIF, PNM or WebP)")
     p_new.add_argument("--init-field", choices=["grid", "mono", "model"], default="grid")
     _add_runtime_flags(p_new)
     p_new.set_defaults(fn=cmd_new)

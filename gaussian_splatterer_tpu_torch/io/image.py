@@ -13,8 +13,9 @@ give Pillow's ``Image.open(path).convert("RGBA")`` (or ``"RGB"``) byte for
 byte: PNG of every colour type and bit depth, interlaced or not, with
 ``PLTE`` and ``tRNS`` (io/png.py), TGA of image types 1, 2, 3, 9, 10 and 11
 (io/tga.py), JPEG (io/jpeg.py), BMP and DIB (io/bmp.py), TIFF (io/tiff.py),
-DDS (io/dds.py), GIF (io/gif.py) and PNM (io/pnm.py); each module lists
-what it reads, the quirks of Pillow's it keeps and what it refuses.
+DDS (io/dds.py), GIF (io/gif.py), PNM (io/pnm.py) and WebP, lossy, lossless,
+with alpha or animated (io/webp.py); each module lists what it reads, the
+quirks of Pillow's it keeps and what it refuses.
 
 Textures load to (H, W, 4) float32 RGBA in [0, 1] with row 0 the top of the
 file, as the JAX package loads them (the tracer's texel lookup flips V
@@ -40,6 +41,7 @@ from gaussian_splatterer_tpu_torch.io.png import decode_png, decode_png_rgba
 from gaussian_splatterer_tpu_torch.io.pnm import decode_pnm
 from gaussian_splatterer_tpu_torch.io.tga import decode_tga
 from gaussian_splatterer_tpu_torch.io.tiff import decode_tiff
+from gaussian_splatterer_tpu_torch.io.webp import decode_webp
 
 
 def float_image_to_u8(img: np.ndarray) -> np.ndarray:
@@ -89,14 +91,17 @@ def signature_decoder(blob: bytes):
         return decode_gif
     if blob[:2] in (b"P1", b"P2", b"P3", b"P4", b"P5", b"P6", b"P7", b"Pf", b"PF"):
         return decode_pnm
+    if blob[:4] == b"RIFF" and blob[8:12] == b"WEBP" and blob[12:16] in (b"VP8 ", b"VP8L",
+                                                                         b"VP8X"):
+        return decode_webp
     return None
 
 
 def load_texture_rgba(path: str) -> np.ndarray:
     """Texture file -> (H, W, 4) float32 RGBA in [0, 1], row 0 the top of
-    the file.  PNG, JPEG, BMP, TIFF, DDS, GIF, PNM and TGA; any other
-    format, and the variants of those that their modules do not read, raise
-    ValueError."""
+    the file.  PNG, JPEG, BMP, TIFF, DDS, GIF, PNM, WebP and TGA; any
+    other format, and the variants of those that their modules do not read,
+    raise ValueError."""
     with open(path, "rb") as fh:
         blob = fh.read()
     decode = signature_decoder(blob)
@@ -104,7 +109,7 @@ def load_texture_rgba(path: str) -> np.ndarray:
         decode = decode_tga
     if decode is None:
         raise ValueError(f"{path}: unknown texture format (PNG, JPEG, BMP, TIFF, DDS, GIF, "
-                         "PNM or TGA)")
+                         "PNM, WebP or TGA)")
     try:
         rgba = decode(blob)
     except ValueError as exc:

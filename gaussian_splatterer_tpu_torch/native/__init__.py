@@ -1,15 +1,17 @@
-"""Native C++ file parsers (the ``.obj`` mesh and ``.gobj`` splat formats)
-and the texture decoders' byte loops (PNG's row unfilter, GIF's and TIFF's
-LZW), loaded with ctypes (counterpart of gaussian_splatterer_tpu.native).
+"""Native C++ file parsers (the ``.obj`` mesh and ``.gobj`` splat formats),
+the texture decoders' byte loops (PNG's row unfilter, GIF's and TIFF's
+LZW) and WebP's bit-serial decoders (VP8, VP8L, ALPH), loaded with ctypes
+(counterpart of gaussian_splatterer_tpu.native).
 
-``src/parsers.cpp`` and ``src/codecs.cpp`` expose a plain C interface.  At
-first use they are compiled with ``g++`` into one library in
+``src/parsers.cpp``, ``src/codecs.cpp`` and ``src/webp.cpp`` expose a plain
+C interface.  At first use they are compiled with ``g++`` into one library in
 ``build/native/`` at the root of the checkout, named by a hash of the
 sources and flags (an unchanged source is reused across processes, a
 changed one builds anew), and loaded.  Nothing is built at import time.  A
 failed build prints the compiler's message to standard error; ``lib()``
 then returns None and io/obj.py, io/gobj.py, io/png.py and io/lzw.py take
-their pure-Python loops, which stay as the plain twins of these.
+their pure-Python loops, which stay as the plain twins of these; io/webp.py
+has no Python twin and refuses WebP files then.
 """
 
 from __future__ import annotations
@@ -26,14 +28,20 @@ import numpy as np
 
 SRC = Path(__file__).resolve().parent / "src" / "parsers.cpp"
 CODECS_SRC = SRC.with_name("codecs.cpp")
+WEBP_SRC = SRC.with_name("webp.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _state: dict = {}  # "lib": the loaded library or None, once tried
 
 
+def sources() -> tuple[Path, ...]:
+    """The C++ sources built into the library."""
+    return SRC, CODECS_SRC, WEBP_SRC
+
+
 def lib_path() -> Path:
-    text = SRC.read_bytes() + CODECS_SRC.read_bytes() + " ".join(CXX_FLAGS).encode()
+    text = b"".join(src.read_bytes() for src in sources()) + " ".join(CXX_FLAGS).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"libgstparsers-{digest}.so"
 
@@ -52,11 +60,11 @@ def build() -> Path | None:
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, str(SRC), str(CODECS_SRC), "-o", str(tmp)],
+    proc = subprocess.run([cxx, *CXX_FLAGS, *map(str, sources()), "-o", str(tmp)],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         print(f"gaussian_splatterer_tpu_torch.native: g++ failed to build "
-              f"{SRC} and {CODECS_SRC}:\n"
+              f"{', '.join(map(str, sources()))}:\n"
               f"{proc.stdout}{proc.stderr}", file=sys.stderr)
         tmp.unlink(missing_ok=True)
         return None
@@ -91,6 +99,13 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     cdll.gst_lzw_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                     pu8, ctypes.c_int64, pi64]
     cdll.gst_lzw_decode.restype = ctypes.c_int
+    for name in ("gst_webp_vp8", "gst_webp_vp8l"):
+        getattr(cdll, name).argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int,
+                                        ctypes.c_int, pu8, ctypes.c_int64]
+        getattr(cdll, name).restype = ctypes.c_int
+    cdll.gst_webp_alpha.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                    pu8]
+    cdll.gst_webp_alpha.restype = ctypes.c_int
     return cdll
 
 
@@ -188,3 +203,31 @@ def lzw_decode(data: bytes, min_bits: int, tiff: bool, limit: int):
                                  out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
                                  max(limit, 0), ctypes.byref(n))
     return out[:n.value], status
+
+
+def webp_image(lossless: bool, data: bytes, out: np.ndarray):
+    """A ``VP8 `` (lossy) or ``VP8L`` chunk's payload decoded into ``out``,
+    an (H, W, 4) uint8 view whose rows may be strided (a frame on its
+    canvas): RGBA, alpha 255 for VP8.  The status of native/src/webp.cpp
+    (0 when the image was written), or None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    h, w = out.shape[:2]
+    if out.dtype != np.uint8 or out.shape[2] != 4 or out.strides[1:] != (4, 1):
+        raise ValueError("webp_image wants an (H, W, 4) uint8 view with whole pixels")
+    decode = cdll.gst_webp_vp8l if lossless else cdll.gst_webp_vp8
+    return decode(bytes(data), len(data), w, h,
+                  out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.strides[0])
+
+
+def webp_alpha(data: bytes, w: int, h: int):
+    """An ``ALPH`` chunk's payload -> ((h, w) uint8 alpha plane, status),
+    or None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    plane = np.zeros((h, w), np.uint8)
+    status = cdll.gst_webp_alpha(bytes(data), len(data), w, h,
+                                 plane.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return plane, status

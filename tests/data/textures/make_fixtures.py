@@ -26,10 +26,21 @@ save_png quantises), and beside each its Pillow decode
   * mushroom256_trns.gif: the keyed palette PNG as an interlaced GIF with
     its transparent index (Pillow);
   * mushroom256.ppm: raw PPM (P6, Pillow);
+  * mushroom256_lossy.webp: a simple lossy WebP (VP8, quality 90, Pillow);
+  * mushroom256_lossy_alpha.webp: the keyed palette PNG's decode as lossy
+    WebP with alpha (VP8X, ALPH at Pillow's default alpha quality 100, so
+    lossless, and VP8, quality 90): the WebP cut-out;
+  * mushroom256_lossless.webp: lossless WebP (VP8L, method 6), the spots
+    half transparent;
+  * mushroom256_anim.webp: a two-frame animation, the keyed palette PNG's
+    decode and then that decode rotated a quarter turn (Pillow, lossless
+    and lossy frames mixed), whose first frame Pillow reads;
 
 and from tests/data/jpeg/mushroom1024_q90_420.png (the 1024^2 JPEG
 fixture's Pillow decode) mushroom1024_lzw.tif, an LZW TIFF of its pixels
-(Pillow), whose Pillow decode is that PNG's.
+(Pillow), whose Pillow decode is that PNG's; mushroom1024_lossless.webp,
+lossless WebP of its pixels, likewise; and mushroom1024_q90.webp, lossy
+WebP at quality 90, beside its Pillow decode mushroom1024_q90.pillow.png.
 
     python tests/data/textures/make_fixtures.py
 """
@@ -118,18 +129,39 @@ def ppm(rgba: np.ndarray) -> None:
     Image.fromarray(rgba[..., :3]).save(os.path.join(HERE, "mushroom256.ppm"))
 
 
+def webp(rgba: np.ndarray) -> None:
+    Image.fromarray(rgba[..., :3]).save(os.path.join(HERE, "mushroom256_lossy.webp"),
+                                        quality=90)
+    cut_out = keyed().convert("RGBA")
+    cut_out.save(os.path.join(HERE, "mushroom256_lossy_alpha.webp"), quality=90)
+    Image.fromarray(rgba).save(os.path.join(HERE, "mushroom256_lossless.webp"), lossless=True,
+                               method=6)
+    cut_out.save(os.path.join(HERE, "mushroom256_anim.webp"), save_all=True,
+                 append_images=[cut_out.transpose(Image.Transpose.ROTATE_90)], duration=100,
+                 allow_mixed=True, quality=90)
+
+
 def lzw_1024() -> None:
     png = os.path.join(TESTS, "data", "jpeg", "mushroom1024_q90_420.png")
     Image.open(png).convert("RGB").save(os.path.join(HERE, "mushroom1024_lzw.tif"),
                                         compression="tiff_lzw")
 
 
+def webp_1024() -> None:
+    rgb = Image.open(os.path.join(TESTS, "data", "jpeg", "mushroom1024_q90_420.png")).convert("RGB")
+    rgb.save(os.path.join(HERE, "mushroom1024_lossless.webp"), lossless=True)
+    rgb.save(os.path.join(HERE, "mushroom1024_q90.webp"), quality=90)
+    Image.open(os.path.join(HERE, "mushroom1024_q90.webp")).convert("RGBA").save(
+        os.path.join(HERE, "mushroom1024_q90.pillow.png"), optimize=True)
+
+
 def main() -> None:
     rgba = float_image_to_u8(mushroom_texture(n=N, spot_alpha=0.5))
     for write in (palette_trns, rgba16, adam7, map_rle, cmyk, bitfields, lzw_pred2, dxt1,
-                  gif_trns, ppm):
+                  gif_trns, ppm, webp):
         write(rgba)
     lzw_1024()
+    webp_1024()
     for name in sorted(os.listdir(HERE)):
         if name.startswith("mushroom256") and not name.endswith((".pillow.png", ".py")):
             path = os.path.join(HERE, name)

@@ -1,11 +1,13 @@
-"""Small PNG, TGA, BMP, TIFF, DDS, GIF and PNM writers for the texture
+"""Small PNG, TGA, BMP, TIFF, DDS, GIF, PNM and WebP writers for the texture
 tests and their fixtures (tests/test_torch_textures.py,
 tests/test_torch_formats.py, tests/data/textures/make_fixtures.py): the
 variants Pillow does not write (Adam7, 2- and 4-bit grey, 16-bit RGB and
 RGBA, keys at 16 bits, 16-bit TGA, colour maps with a first entry, grey
 with a map; BMP RLE, bitfields and the other headers; TIFF tiles, planes,
 predictor 2, associated alpha, palettes, big-endian; DDS BC4, BC5S and BC7
-headers; GIF local tables and offset frames; plain PNM and odd maxvals),
+headers; GIF local tables and offset frames; plain PNM and odd maxvals;
+WebP containers assembled by hand: VP8X, ALPH, ANMF, extra chunks; VP8
+frames with chosen headers and random bits),
 with ``zlib`` and ``struct``."""
 
 from __future__ import annotations
@@ -382,3 +384,163 @@ def pnm_bytes(samples: np.ndarray, magic: bytes, maxval: int = 255, comment: byt
         return head + v.astype(">u2" if maxval > 255 else np.uint8).tobytes()
     flat = [str(x).encode() for x in v.ravel().tolist()]
     return head + b"\n".join(b" ".join(flat[i:i + line]) for i in range(0, len(flat), line)) + b"\n"
+
+
+def riff_chunk(fourcc: bytes, payload: bytes, size: int | None = None) -> bytes:
+    """A RIFF chunk: its tag, its little-endian size (``size`` to state
+    another), the payload and a pad byte when the payload is odd."""
+    stated = len(payload) if size is None else size
+    return fourcc + struct.pack("<I", stated) + payload + b"\0" * (len(payload) & 1)
+
+
+def webp_bytes(chunks) -> bytes:
+    """A WebP file of the given chunks."""
+    body = b"WEBP" + b"".join(chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def webp_chunks(blob: bytes) -> dict[bytes, bytes]:
+    """The payloads of a (still) WebP file's chunks by tag."""
+    out, pos = {}, 12
+    while pos + 8 <= len(blob):
+        size = struct.unpack_from("<I", blob, pos + 4)[0]
+        out[blob[pos:pos + 4]] = blob[pos + 8:pos + 8 + size]
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def vp8x_chunk(w: int, h: int, flags: int) -> bytes:
+    """``VP8X``: the flags, three reserved bytes, the canvas size minus one
+    in 24 bits each."""
+    return riff_chunk(b"VP8X", bytes([flags, 0, 0, 0]) + (w - 1).to_bytes(3, "little")
+                      + (h - 1).to_bytes(3, "little"))
+
+
+def anmf_chunk(x: int, y: int, w: int, h: int, frame: bytes, duration: int = 100,
+               bits: int = 0) -> bytes:
+    """``ANMF``: the offset halved and the size minus one in 24 bits each,
+    the duration, the blend and dispose bits, then the frame's chunks."""
+    head = b"".join(v.to_bytes(3, "little") for v in (x // 2, y // 2, w - 1, h - 1, duration))
+    return riff_chunk(b"ANMF", head + bytes([bits]) + frame)
+
+
+def alph_raw(alpha: np.ndarray, filt: int) -> bytes:
+    """An uncompressed ``ALPH`` payload of the (h, w) plane under filter
+    ``filt`` (0 none, 1 horizontal, 2 vertical, 3 gradient)."""
+    a = alpha.astype(np.int64)
+    pred = np.zeros_like(a)
+    if filt:
+        pred[0, 1:] = a[0, :-1]  # the first row predicts from the left for every filter
+        pred[1:, 0] = a[:-1, 0]
+        if filt == 1:
+            pred[1:, 1:] = a[1:, :-1]
+        elif filt == 2:
+            pred[1:, 1:] = a[:-1, 1:]
+        else:
+            pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    return bytes([filt << 2]) + ((a - pred) & 0xFF).astype(np.uint8).tobytes()
+
+
+class BoolWriter:
+    """VP8's boolean encoder (RFC 6386, section 7.3)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.range, self.bottom, self.bit_count = 255, 0, 24
+
+    def _carry(self) -> None:
+        i = len(self.out) - 1
+        while self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def put(self, bit: int, prob: int = 128) -> None:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if not self.bit_count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def value(self, v: int, n: int) -> None:
+        for i in reversed(range(n)):
+            self.put((v >> i) & 1)
+
+    def signed(self, v: int, n: int) -> None:
+        self.value(abs(v), n)
+        self.put(int(v < 0))
+
+    def flush(self) -> bytes:
+        c, v = self.bit_count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7) << (8 * (c >> 3))) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+def vp8_frame(seed: int, w: int, h: int, simple: bool, parts_log2: int, level: int,
+              sharpness: int, segments: bool, q: int) -> bytes:
+    """A VP8 key frame whose header fields up to the entropy-refresh bit
+    are the given ones (the loop filter's type, level and sharpness, the
+    token partitions, segments with their quantisers and filter levels, the
+    filter deltas, the quantiser deltas, the scaling bits) and whose rest
+    is seeded random bits: the coefficient-probability updates, the skip
+    probability, the modes and the tokens then follow the decoder's model,
+    as an encoder's would.  For the paths Pillow cannot ask libwebp for."""
+    rng = np.random.default_rng(seed)
+    bw = BoolWriter()
+    bw.put(0)
+    bw.put(int(rng.integers(0, 2)))  # colour space, clamping type
+    bw.put(int(segments))
+    if segments:
+        bw.put(1)
+        bw.put(1)  # update the map and the data
+        bw.put(int(rng.integers(0, 2)))  # absolute values or deltas
+        for bits, span in ((7, 8), (7, 8), (7, 8), (7, 8), (6, 10), (6, 10), (6, 10), (6, 10)):
+            bw.put(1)
+            bw.signed(int(rng.integers(-span, span + 1)), bits)
+        for _ in range(3):
+            bw.put(1)
+            bw.value(int(rng.integers(1, 256)), 8)
+    bw.put(int(simple))
+    bw.value(level, 6)
+    bw.value(sharpness, 3)
+    bw.put(1)
+    bw.put(1)  # filter deltas, updated
+    for _ in range(8):
+        bw.put(1)
+        bw.signed(int(rng.integers(-15, 16)), 6)
+    bw.value(parts_log2, 2)
+    bw.value(q, 7)
+    for _ in range(5):
+        bw.put(1)
+        bw.signed(int(rng.integers(-3, 4)), 4)
+    bw.put(0)  # refresh_entropy_probs
+    mbs = ((w + 15) // 16) * ((h + 15) // 16)
+    for bit in rng.integers(0, 2, 2000 + 60 * mbs):
+        bw.put(int(bit))
+    first = bw.flush()
+    n = 1 << parts_log2
+    parts = [rng.integers(0, 256, 80 * mbs // n + 200).astype(np.uint8) for _ in range(n)]
+    for part in parts:  # a first byte of 255 is no arithmetic code (the value past the range)
+        part[0] %= 255
+    parts = [part.tobytes() for part in parts]
+    tag = len(first) << 5 | 1 << 4  # a shown key frame, profile 0
+    scale = [int(s) << 14 for s in rng.integers(0, 4, 2)]  # ignored by the decoder
+    return (tag.to_bytes(3, "little") + b"\x9d\x01\x2a"
+            + struct.pack("<HH", w | scale[0], h | scale[1]) + first
+            + b"".join(len(p).to_bytes(3, "little") for p in parts[:-1]) + b"".join(parts))
