@@ -368,11 +368,13 @@ JPEG_FIXTURES = ("mushroom1024_q90_420", "mushroom1024_q90_420_progressive")
 # texture as an alpha-keyed palette PNG, 16-bit RGBA PNG, Adam7 PNG, colour-mapped
 # RLE TGA, CMYK JPEG, 32-bit bitfields BMP, LZW TIFF with predictor 2, DXT1 DDS of
 # the keyed PNG, interlaced GIF with a transparent index, PPM, and WebP: lossy,
-# lossy with alpha (the keyed PNG), lossless and a two-frame animation, each
-# beside its Pillow decode <stem>.pillow.png; the 1024^2 JPEG fixture's pixels as
-# an LZW TIFF and as lossless WebP, whose Pillow decode is that fixture's PNG, and
-# as lossy WebP beside its Pillow decode); the cut-out fixtures (the keyed palette
-# PNG, the DXT1 DDS, the lossy WebP with alpha) on the north-star mesh, one frame
+# lossy with alpha (the keyed PNG), lossless and a two-frame animation, PackBits
+# RGBA PSD of the keyed PNG, QOI, verbatim and RLE SGI, RGB, grey, palette and
+# 1-bit PCX, a PNG-entry ICO, an 8-bit CUR and a grey PFM, each beside its Pillow
+# decode <stem>.pillow.png; the 1024^2 JPEG fixture's pixels as an LZW TIFF, as
+# lossless WebP and as QOI, whose Pillow decode is that fixture's PNG, and as lossy
+# WebP beside its Pillow decode); the cut-out fixtures (the keyed palette PNG, the
+# DXT1 DDS, the lossy WebP with alpha, the PSD) on the north-star mesh, one frame
 # from rig camera 0 at this size, sample count and seed; the files decoded by both
 # the native byte loops and their Python twins
 TEXTURE_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_rgba16.png",
@@ -381,12 +383,20 @@ TEXTURE_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_rgba16.png",
                     "mushroom256_dxt1.dds", "mushroom256_trns.gif", "mushroom256.ppm",
                     "mushroom256_lossy.webp", "mushroom256_lossy_alpha.webp",
                     "mushroom256_lossless.webp", "mushroom256_anim.webp",
-                    "mushroom1024_lzw.tif", "mushroom1024_lossless.webp", "mushroom1024_q90.webp")
+                    "mushroom256_cutout.psd", "mushroom256_rgba.qoi", "mushroom256_verbatim.sgi",
+                    "mushroom256_rle.sgi", "mushroom256_rgb.pcx", "mushroom256_l.pcx",
+                    "mushroom256_p.pcx", "mushroom256_1.pcx", "mushroom256_icon.ico",
+                    "mushroom256_cursor.cur", "mushroom256_grey.pfm",
+                    "mushroom1024_lzw.tif", "mushroom1024_lossless.webp", "mushroom1024_q90.webp",
+                    "mushroom1024.qoi")
 PILLOW_DECODES = {"mushroom1024_lzw.tif": "../jpeg/mushroom1024_q90_420.png",
-                  "mushroom1024_lossless.webp": "../jpeg/mushroom1024_q90_420.png"}
+                  "mushroom1024_lossless.webp": "../jpeg/mushroom1024_q90_420.png",
+                  "mushroom1024.qoi": "../jpeg/mushroom1024_q90_420.png"}
 CUTOUT_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_dxt1.dds",
-                   "mushroom256_lossy_alpha.webp")
-BYTE_LOOP_FIXTURES = ("jpeg/mushroom1024_q90_420.png", "textures/mushroom1024_lzw.tif")
+                   "mushroom256_lossy_alpha.webp", "mushroom256_cutout.psd")
+BYTE_LOOP_FIXTURES = ("jpeg/mushroom1024_q90_420.png", "textures/mushroom1024_lzw.tif",
+                      "textures/mushroom1024.qoi", "textures/mushroom256_cutout.psd",
+                      "textures/mushroom256_rle.sgi", "textures/mushroom256_rgb.pcx")
 P21_KEYED_RES, P21_KEYED_SAMPLES, P21_KEYED_SEED = 512, 8, 21
 P21_STEPS = 3
 PLY_RENDER_ATOL = 1e-4
@@ -3201,22 +3211,21 @@ def keyed_texture_frames(dev, card, path: Path, fail) -> int:
 
 def byte_loops(card, fixtures: Path, fail) -> None:
     """Phase 21's native byte loops (native/src/codecs.cpp: PNG's unfilter,
-    TIFF's LZW): each 1024^2 file decoded with the native library and with
-    it hidden (the Python twins), the two results equal and both host times
-    printed."""
+    TIFF's LZW, QOI's ops, PSD's PackBits, SGI's and PCX's run lengths):
+    each file decoded with the native library and with it hidden (the
+    Python twins), the two results equal and both host times printed."""
     from unittest import mock
 
     from gaussian_splatterer_tpu_torch import native
-    from gaussian_splatterer_tpu_torch.io.image import signature_decoder
+    from gaussian_splatterer_tpu_torch.io.image import decode_texture
 
     if native.lib() is None:
         fail("the native library (parsers and byte loops) did not build or load")
     for name in BYTE_LOOP_FIXTURES:
         blob = (fixtures / name).read_bytes()
-        decode = signature_decoder(blob)
-        got, n_secs = timed(lambda: decode(blob))
+        got, n_secs = timed(lambda: decode_texture(blob))
         with mock.patch.object(native, "lib", lambda: None):
-            ref, p_secs = timed(lambda: decode(blob))
+            ref, p_secs = timed(lambda: decode_texture(blob))
         same = np.array_equal(got, ref)
         print(f"  {name} ({len(blob):,} B, {got.shape[1]}x{got.shape[0]}): native loops "
               f"{n_secs:.4f} s, Python twins {p_secs:.4f} s (host clock), "
@@ -3228,10 +3237,11 @@ def byte_loops(card, fixtures: Path, fail) -> None:
 def product_phase(dev, card) -> dict:
     """Phase 21: the rest of the product.  The JPEG and texture fixtures
     against their Pillow decodes, the cut-out textures' frames through K5
-    (``keyed_texture_frames``: the keyed palette PNG, the DXT1 DDS and the
-    lossy WebP with alpha), the
-    1024^2 PNG and LZW TIFF through the native byte loops and their Python
-    twins (``byte_loops``), a JPEG-textured north star through the CLI
+    (``keyed_texture_frames``: the keyed palette PNG, the DXT1 DDS, the
+    lossy WebP with alpha and the PackBits PSD), the
+    1024^2 PNG, LZW TIFF and QOI and the 256^2 PSD, RLE SGI and PCX through
+    the native byte loops and their Python twins (``byte_loops``), a
+    JPEG-textured north star through the CLI
     (new -> train), its export to .ply, .html and .gobj and
     render --mode viewer, the .ply imported into a fresh session and
     rendered by K1 against the trained model's render, ``doctor`` in a
@@ -3258,7 +3268,7 @@ def product_phase(dev, card) -> dict:
     def fail(why: str):
         raise SystemExit(f"phase 21 failed: {why}")
 
-    phase(f"21. the rest of the product: the texture fixtures, three cut-out textures on the "
+    phase(f"21. the rest of the product: the texture fixtures, four cut-out textures on the "
           f"card, the decoders' native byte loops, a JPEG texture, export (.ply, .html, .gobj, "
           f"render --mode viewer), the .ply imported and rendered, doctor, the native parsers "
           f"({card})")

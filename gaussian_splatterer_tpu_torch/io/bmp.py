@@ -150,11 +150,21 @@ def decode_bmp(blob: bytes, dib: bool = False) -> np.ndarray:
     """BMP bytes (or DIB bytes with ``dib``) -> (H, W, 4) uint8 RGBA, row 0
     the top of the picture."""
     if dib:
-        offset, hpos = 0, 0
-    else:
-        if blob[:2] != b"BM":
-            raise ValueError("not a BMP file")
-        offset, hpos = _u(blob, 10, "<I")[0], 14
+        return decode_bitmap(blob, 0, 0)[0]
+    if blob[:2] != b"BM":
+        raise ValueError("not a BMP file")
+    return decode_bitmap(blob, 14, _u(blob, 10, "<I")[0])[0]
+
+
+def decode_bitmap(blob: bytes, hpos: int, offset: int, halve: bool = False,
+                  bgra: bool = False) -> tuple[np.ndarray, int]:
+    """Pillow's ``BmpImageFile._bitmap`` on the header at ``hpos``, the
+    pixel data at ``offset`` (0: right after the header, masks and
+    palette) -> (the (H, W, 4) uint8 RGBA, the pixel data's offset).  With
+    ``halve`` only the first half of the rows is read, as the ICO and CUR
+    plugins read an icon's colour bitmap; with ``bgra`` a 32-bit BI_RGB
+    pixel keeps its fourth byte as alpha, as the CUR plugin reads a cursor
+    whose bitmap starts at byte 22."""
     size = _u(blob, hpos, "<I")[0]
     if size not in DIB_HEADER_SIZES:
         raise ValueError(f"unsupported BMP header size {size}")
@@ -187,6 +197,10 @@ def decode_bmp(blob: bytes, dib: bool = False) -> np.ndarray:
     if bits not in _RAW_MODES:
         raise ValueError(f"unsupported BMP pixel depth ({bits} bits)")
     mode, raw = ("P" if bits <= 8 else "RGB"), _RAW_MODES[bits]
+    if bgra and bits == 32 and comp == _RAW:
+        mode, raw = "RGBA", "BGRA"
+    if halve:
+        h //= 2
     if comp == _BITFIELDS:
         if bits == 32 and masks in _MASKS32:
             raw = _MASKS32[masks]
@@ -237,14 +251,14 @@ def decode_bmp(blob: bytes, dib: bool = False) -> np.ndarray:
         if raw in ("1", "P;1", "P;4", "P", "L"):
             v = unpack_bits(rows, w, _RAW_BITS[raw])
         else:
-            return _true_colour(rows, w, raw)
+            return _true_colour(rows, w, raw), start
     if mode == "1":
         v = v * 255
     if palette is not None:
-        return palette[v]
+        return palette[v], start
     rgba = np.full(v.shape + (4,), 255, np.uint8)
     rgba[..., :3] = v[..., None].astype(np.uint8)
-    return rgba
+    return rgba, start
 
 
 def _true_colour(rows: np.ndarray, w: int, raw: str) -> np.ndarray:

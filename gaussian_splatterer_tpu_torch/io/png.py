@@ -211,10 +211,12 @@ def _key(trns: bytes, n: int) -> list[int]:
     return list(struct.unpack(f">{n}H", trns[:2 * n]))
 
 
-def decode_png_rgba(blob: bytes) -> np.ndarray:
+def decode_png_rgba(blob: bytes, trns: bool = True) -> np.ndarray:
     """PNG bytes -> (H, W, 4) uint8 RGBA (rows top to bottom as stored),
-    Pillow's ``convert("RGBA")`` of the file."""
-    s, ctype, depth, palette, trns = _read(blob)
+    Pillow's ``convert("RGBA")`` of the file; ``trns=False`` ignores the
+    ``tRNS`` chunk, as Pillow's ICO plugin does with a PNG entry."""
+    s, ctype, depth, palette, key = _read(blob)
+    trns = key if trns else None
     h, w, _ = s.shape
     if ctype == 3:
         if trns is not None:

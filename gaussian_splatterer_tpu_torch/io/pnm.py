@@ -5,7 +5,9 @@ Pillow.
 ``Image.open(path).convert("RGBA")`` gives, byte for byte (Pillow 12).
 
 Coverage: ``P1``-``P6``, plain (ASCII) and raw, with ``#`` comments in the
-header and in plain data; maxval 1-65535.
+header and in plain data; maxval 1-65535; grey PFM (``Pf``, 32-bit floats
+of either byte order); and Pillow's own extensions ``P0CMYK`` (CMYK),
+``PyP`` (indices), ``PyRGBA`` and ``PyCMYK``, raw, maxval 1-65535.
 
 Pillow's conversion is kept with its quirks:
 
@@ -18,25 +20,42 @@ Pillow's conversion is kept with its quirks:
   * RGB of maxval above 255 scales its 16-bit samples to 8 bits;
   * in PBM, 1 is black;
   * a comment ends at a CR or LF, and glues the text on either side of it
-    into one token.
+    into one token;
+  * a PFM's rows are stored bottom-up, little-endian when its scale is
+    negative; the floats convert as Pillow's ``F`` to ``L``: truncated
+    towards zero and clipped to [0, 255], not scaled (0.99 reads as 0,
+    254.9 as 254, NaN as 0), whatever the scale;
+  * CMYK converts as Pillow's ``cmyk2rgb`` (io/jpeg.py's ``cmyk_to_rgb``);
+  * ``PyP`` carries no palette, so each of its pixels reads as opaque
+    black.
 
 Where Pillow refuses a file this module raises ValueError naming PNM: a
-token of more than 10 characters, a maxval of 0 or above 65535, a plain
-value above maxval or not a number, a plain PBM character other than 0 and
-1, data that ends early; ``P7`` (PAM) and ``Pf``/``PF`` (PFM) too.
+token of more than 10 characters, a maxval of 0 or above 65535, a PFM
+scale of 0 or not finite, a plain value above maxval or not a number, a
+plain PBM character other than 0 and 1, data that ends early.  A magic
+number Pillow's PPM plugin does not list (``P7``, PAM, and ``PF``, colour
+PFM, among them) turns the file away (``NotThisFormat``): no other plugin
+of Pillow 12.1 takes it, so Pillow refuses it as an unidentified image.
 """
 
 from __future__ import annotations
 
+import math
 import re
 
 import numpy as np
 
 from gaussian_splatterer_tpu_torch.io.bmp import raw_rows
+from gaussian_splatterer_tpu_torch.io.jpeg import cmyk_to_rgb
+from gaussian_splatterer_tpu_torch.io.pillow_open import NotThisFormat, check_size
 
 _WHITESPACE = b" \t\n\v\f\r"
-_BANDS = {b"P1": 1, b"P2": 1, b"P3": 3, b"P4": 1, b"P5": 1, b"P6": 3}
-_REFUSED = {b"P7": "PAM (P7)", b"Pf": "PFM (Pf)", b"PF": "PFM (PF)"}
+_BANDS = {b"P1": 1, b"P2": 1, b"P3": 3, b"P4": 1, b"P5": 1, b"P6": 3, b"Pf": 1, b"P0CMYK": 4,
+          b"PyP": 1, b"PyRGBA": 4, b"PyCMYK": 4}
+
+
+def accept(prefix: bytes) -> bool:
+    return len(prefix) >= 2 and prefix[0] == ord("P") and prefix[1] in b"0123456fy"
 
 
 def _token(blob: bytes, pos: int) -> tuple[bytes, int]:
@@ -85,22 +104,25 @@ def decode_pnm(blob: bytes) -> np.ndarray:
         if c in _WHITESPACE:
             break
         magic += c
-    if magic in _REFUSED:
-        raise ValueError(f"unsupported PNM ({_REFUSED[magic]})")
     if magic not in _BANDS:
-        raise ValueError(f"not a PNM file Pillow reads (magic {magic[:6]!r})")
+        raise NotThisFormat(f"not a PPM file (magic {magic[:6]!r})")
     bands, plain, bilevel = _BANDS[magic], magic in (b"P1", b"P2", b"P3"), magic in (b"P1", b"P4")
     token, pos = _token(blob, pos)
     w = _int(token)
     token, pos = _token(blob, pos)
     h = _int(token)
+    if magic == b"Pf":
+        return _pfm(blob, pos, w, h)
     maxval = 1
     if not bilevel:
         token, pos = _token(blob, pos)
         maxval = _int(token)
         if not 0 < maxval < 65536:
             raise ValueError(f"PNM maxval {maxval} (1 to 65535)")
-    wide = bands == 1 and maxval > 255  # Pillow's mode I
+    if w <= 0 or h <= 0:
+        raise NotThisFormat("PNM image of no pixels")
+    check_size("PNM", w, h)
+    wide = magic in (b"P2", b"P5") and maxval > 255  # Pillow's mode I
     need = w * h * bands
     if plain:
         text = blob[pos:]
@@ -136,7 +158,35 @@ def decode_pnm(blob: bytes) -> np.ndarray:
         v = rows if size == 1 else (rows[:, 0::2] << 8 | rows[:, 1::2])
         if maxval != 255 and not (wide and maxval == 65535):
             v = _scale(v, maxval, 65535 if wide else 255)
-    v = np.asarray(v).reshape(h, w, bands)
+    v = np.minimum(np.asarray(v).reshape(h, w, bands), 255)
     rgba = np.full((h, w, 4), 255, np.uint8)
-    rgba[..., :3] = np.minimum(v, 255)
+    if magic in (b"P0CMYK", b"PyCMYK"):
+        rgba[..., :3] = cmyk_to_rgb([255 - v[..., c] for c in range(4)], ycck=False)
+    elif magic == b"PyRGBA":
+        rgba[...] = v
+    elif magic != b"PyP":  # PyP: no palette, every index reads as black
+        rgba[..., :3] = v
+    else:
+        rgba[..., :3] = 0
+    return rgba
+
+
+def _pfm(blob: bytes, pos: int, w: int, h: int) -> np.ndarray:
+    """A grey PFM's scale and bottom-up float rows from ``pos``."""
+    token, pos = _token(blob, pos)
+    try:
+        scale = float(token)
+    except ValueError:
+        raise ValueError(f"PFM scale {token!r} is not a number") from None
+    if scale == 0.0 or not math.isfinite(scale):
+        raise ValueError("PFM scale must be finite and non-zero")
+    if w <= 0 or h <= 0:
+        raise NotThisFormat("PFM image of no pixels")
+    check_size("PNM", w, h)
+    rows = raw_rows(blob, pos, h, 4 * w, 0, True, "PNM")
+    with np.errstate(invalid="ignore"):  # signalling NaNs
+        f = rows.view("<f4" if scale < 0 else ">f4").astype(np.float64)
+    v = np.clip(np.trunc(np.nan_to_num(f, nan=0.0)), 0, 255)
+    rgba = np.full((h, w, 4), 255, np.uint8)
+    rgba[..., :3] = v.astype(np.uint8)[..., None]
     return rgba

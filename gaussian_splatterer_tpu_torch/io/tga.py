@@ -38,6 +38,24 @@ import struct
 
 import numpy as np
 
+from gaussian_splatterer_tpu_torch.io.pillow_open import NotThisFormat
+
+
+def opens(blob: bytes) -> None:
+    """TgaImageFile._open's checks: ``NotThisFormat`` where Pillow tries
+    its next plugin.  TGA has no signature; Pillow tries it whatever the
+    file is called."""
+    if len(blob) < 18:
+        raise NotThisFormat("TGA file too short")
+    w, h = struct.unpack_from("<HH", blob, 12)
+    if blob[1] not in (0, 1) or w == 0 or h == 0 or blob[16] not in (1, 8, 16, 24, 32):
+        raise NotThisFormat(f"not a TGA file Pillow reads (colour map type {blob[1]}, {w}x{h}, "
+                            f"{blob[16]} bits a pixel)")
+    if blob[2] not in (1, 2, 3, 9, 10, 11):
+        raise NotThisFormat(f"unsupported TGA (image type {blob[2]}, {blob[16]} bits a pixel)")
+    if blob[1] and blob[7] not in (16, 24, 32):
+        raise NotThisFormat(f"unsupported TGA ({blob[7]}-bit colour map entries)")
+
 
 def _unpack_15z(lo_hi: np.ndarray) -> np.ndarray:
     """(..., 2) uint8 little-endian 16-bit pixels -> (..., 4) uint8 RGBA."""

@@ -91,11 +91,7 @@ class SplatModel(nn.Module):
         return cls(*tensors, count=count, sh_degree=sh_degree)
 
     def to_host(self) -> "SplatModelHost":
-        m = SplatModelHost(self.capacity, self.sh_degree, self.sh_coeffs)
-        m.count = self.count
-        for name in _FIELDS:
-            getattr(m, name)[:] = getattr(self, name).detach().cpu().numpy()
-        return m
+        return SplatModelHost.from_device(self)
 
 
 def _sh_degree_of(k: int) -> int:
@@ -145,11 +141,38 @@ class SplatModelHost:
         m.rotations[:n] = np.asarray(rotations, np.float32).reshape(n, 4)
         return m
 
+    @classmethod
+    def from_device(cls, model: SplatModel) -> "SplatModelHost":
+        """Copy ``model``, on any device, to the host."""
+        m = cls(model.capacity, model.sh_degree, model.sh_coeffs)
+        m.count = int(model.count)
+        for name in _FIELDS:
+            getattr(m, name)[:] = getattr(model, name).detach().cpu().numpy()
+        return m
+
     def to_device(self, device) -> SplatModel:
         return SplatModel.from_numpy(
             self.means, self.shs, self.scales, self.opacities, self.rotations,
             self.count, device, self.sh_degree,
         )
+
+    def push_back(self, mean, shs, scale, opacity, rotation) -> None:
+        if self.count >= self.capacity:
+            raise RuntimeError("Model ran out of capacity!")
+        i = self.count
+        self.means[i] = np.asarray(mean, np.float32)
+        self.shs[i] = np.asarray(shs, np.float32).reshape(self.sh_coeffs, 3)
+        self.scales[i] = np.asarray(scale, np.float32)
+        self.opacities[i] = np.float32(opacity)
+        self.rotations[i] = np.asarray(rotation, np.float32)
+        self.count += 1
+
+    def copy(self, index_to: int, index_from: int) -> None:
+        if not (0 <= index_to < self.count and 0 <= index_from < self.count):
+            raise RuntimeError("Can't copy splat in model, incorrect bounds!")
+        for name in _FIELDS:
+            arr = getattr(self, name)
+            arr[index_to] = arr[index_from]
 
 
 def quat_identity() -> np.ndarray:

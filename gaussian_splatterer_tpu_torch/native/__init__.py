@@ -1,6 +1,7 @@
 """Native C++ file parsers (the ``.obj`` mesh and ``.gobj`` splat formats),
 the texture decoders' byte loops (PNG's row unfilter, GIF's and TIFF's
-LZW) and WebP's bit-serial decoders (VP8, VP8L, ALPH), loaded with ctypes
+LZW, PSD's PackBits rows, SGI's and PCX's run-length rows, QOI's ops) and
+WebP's bit-serial decoders (VP8, VP8L, ALPH), loaded with ctypes
 (counterpart of gaussian_splatterer_tpu.native).
 
 ``src/parsers.cpp``, ``src/codecs.cpp`` and ``src/webp.cpp`` expose a plain
@@ -9,9 +10,10 @@ C interface.  At first use they are compiled with ``g++`` into one library in
 sources and flags (an unchanged source is reused across processes, a
 changed one builds anew), and loaded.  Nothing is built at import time.  A
 failed build prints the compiler's message to standard error; ``lib()``
-then returns None and io/obj.py, io/gobj.py, io/png.py and io/lzw.py take
-their pure-Python loops, which stay as the plain twins of these; io/webp.py
-has no Python twin and refuses WebP files then.
+then returns None and io/obj.py, io/gobj.py, io/png.py, io/lzw.py,
+io/psd.py, io/sgi.py, io/pcx.py and io/qoi.py take their pure-Python
+loops, which stay as the plain twins of these; io/webp.py has no Python
+twin and refuses WebP files then.
 """
 
 from __future__ import annotations
@@ -106,6 +108,15 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     cdll.gst_webp_alpha.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                     pu8]
     cdll.gst_webp_alpha.restype = ctypes.c_int
+    i64 = ctypes.c_int64
+    cdll.gst_packbits_rows.argtypes = [ctypes.c_char_p, i64, i64, i64, pu8]
+    cdll.gst_packbits_rows.restype = i64
+    cdll.gst_sgi_rle.argtypes = [ctypes.c_char_p, i64, i64, i64, i64, i64, pu8]
+    cdll.gst_sgi_rle.restype = ctypes.c_int
+    cdll.gst_pcx_rle.argtypes = [ctypes.c_char_p, i64, i64, i64, pu8]
+    cdll.gst_pcx_rle.restype = ctypes.c_int
+    cdll.gst_qoi_decode.argtypes = [ctypes.c_char_p, i64, i64, ctypes.c_int, pu8]
+    cdll.gst_qoi_decode.restype = ctypes.c_int
     return cdll
 
 
@@ -231,3 +242,48 @@ def webp_alpha(data: bytes, w: int, h: int):
     status = cdll.gst_webp_alpha(bytes(data), len(data), w, h,
                                  plane.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     return plane, status
+
+
+def _u8(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def packbits_rows(data: bytes, row: int, rows: int):
+    """io/psd.packbits_rows_python's (rows, rows completed) from the native
+    loop, or None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    out = np.zeros((rows, row), np.uint8)
+    done = cdll.gst_packbits_rows(bytes(data), len(data), row, rows, _u8(out))
+    return out, int(done)
+
+
+def sgi_rle(data: bytes, w: int, h: int, z: int, bpc: int):
+    """io/sgi.rle_rows_python's (rows, status) from the native loop, or
+    None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    out = np.zeros((h, w * z * bpc), np.uint8)
+    return out, cdll.gst_sgi_rle(bytes(data), len(data), w, h, z, bpc, _u8(out))
+
+
+def pcx_rle(data: bytes, line: int, rows: int):
+    """io/pcx.rle_lines_python's (lines, status) from the native loop, or
+    None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    out = np.zeros((rows, line), np.uint8)
+    return out, cdll.gst_pcx_rle(bytes(data), len(data), line, rows, _u8(out))
+
+
+def qoi_decode(data: bytes, pixels: int, channels: int):
+    """io/qoi.decode_ops_python's (pixels, status) from the native loop, or
+    None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    out = np.zeros((pixels, channels), np.uint8)
+    return out, cdll.gst_qoi_decode(bytes(data), len(data), pixels, channels, _u8(out))

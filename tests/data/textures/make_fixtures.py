@@ -36,11 +36,31 @@ save_png quantises), and beside each its Pillow decode
     decode and then that decode rotated a quarter turn (Pillow, lossless
     and lossy frames mixed), whose first frame Pillow reads;
 
+  * mushroom256_rgba.qoi: QOI of the texture, the spots half transparent
+    (Pillow);
+  * mushroom256_verbatim.sgi and mushroom256_rle.sgi: SGI of the texture, verbatim
+    RGB (Pillow) and run-length encoded RGBA (the writer; Pillow writes
+    verbatim only);
+  * mushroom256_rgb.pcx, mushroom256_l.pcx, mushroom256_p.pcx and
+    mushroom256_1.pcx: PCX of the texture in RGB, grey, a palette of its
+    colours and black and white (Pillow);
+  * mushroom256_icon.ico: an icon of the texture at 256, 48 and 16 pixels, PNG
+    entries (Pillow);
+  * mushroom256_grey.pfm: the texture's grey as a grey PFM (Pf), the floats
+    v * 1.25 - 20.4 so that some clip at 0 and 255 and most carry a
+    fraction (Pillow);
+  * mushroom256_cutout.psd: the keyed palette PNG's decode as an RGBA PSD,
+    PackBits (the writer; Pillow does not write PSD): the PSD cut-out;
+  * mushroom256_cursor.cur: a 256^2 cursor of the keyed palette PNG's pixels,
+    8 bits a pixel through its palette, with its AND mask (the writer);
+
 and from tests/data/jpeg/mushroom1024_q90_420.png (the 1024^2 JPEG
 fixture's Pillow decode) mushroom1024_lzw.tif, an LZW TIFF of its pixels
 (Pillow), whose Pillow decode is that PNG's; mushroom1024_lossless.webp,
 lossless WebP of its pixels, likewise; and mushroom1024_q90.webp, lossy
-WebP at quality 90, beside its Pillow decode mushroom1024_q90.pillow.png.
+WebP at quality 90, beside its Pillow decode mushroom1024_q90.pillow.png;
+and mushroom1024.qoi, QOI of its pixels (Pillow; smaller than a PackBits
+PSD of them), whose Pillow decode is that PNG's.
 
     python tests/data/textures/make_fixtures.py
 """
@@ -56,7 +76,8 @@ TESTS = os.path.dirname(os.path.dirname(HERE))
 sys.path.insert(0, os.path.dirname(TESTS))
 sys.path.insert(0, TESTS)
 
-from texture_writers import bmp_bytes, bmp_rows, png_bytes, tiff_bytes  # noqa: E402
+from texture_writers import (bmp_bytes, bmp_rows, icon_bitmap, icon_dir, png_bytes,  # noqa: E402
+                             psd_bytes, sgi_bytes, tiff_bytes)
 
 from gaussian_splatterer_tpu_torch.io.image import float_image_to_u8  # noqa: E402
 from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_texture  # noqa: E402
@@ -141,6 +162,59 @@ def webp(rgba: np.ndarray) -> None:
                  allow_mixed=True, quality=90)
 
 
+def qoi(rgba: np.ndarray) -> None:
+    Image.fromarray(rgba).save(os.path.join(HERE, "mushroom256_rgba.qoi"))
+
+
+def sgi(rgba: np.ndarray) -> None:
+    Image.fromarray(rgba[..., :3]).save(os.path.join(HERE, "mushroom256_verbatim.sgi"))
+    with open(os.path.join(HERE, "mushroom256_rle.sgi"), "wb") as fh:
+        fh.write(sgi_bytes(rgba, 1, rle=True))
+
+
+def pcx(rgba: np.ndarray) -> None:
+    rgb = Image.fromarray(rgba[..., :3])
+    rgb.save(os.path.join(HERE, "mushroom256_rgb.pcx"))
+    rgb.convert("L").save(os.path.join(HERE, "mushroom256_l.pcx"))
+    keyed().convert("RGB").quantize(256, dither=Image.Dither.NONE).save(
+        os.path.join(HERE, "mushroom256_p.pcx"))
+    rgb.convert("1").save(os.path.join(HERE, "mushroom256_1.pcx"))
+
+
+def ico(rgba: np.ndarray) -> None:
+    Image.fromarray(rgba).save(os.path.join(HERE, "mushroom256_icon.ico"),
+                               sizes=[(256, 256), (48, 48), (16, 16)])
+
+
+def pfm(rgba: np.ndarray) -> None:
+    grey = np.asarray(Image.fromarray(rgba[..., :3]).convert("L"), np.float32)
+    Image.fromarray(grey * np.float32(1.25) - np.float32(20.4), "F").save(
+        os.path.join(HERE, "mushroom256_grey.pfm"))
+
+
+def psd(rgba: np.ndarray) -> None:
+    cut_out = np.asarray(keyed().convert("RGBA"))
+    with open(os.path.join(HERE, "mushroom256_cutout.psd"), "wb") as fh:
+        fh.write(psd_bytes(cut_out.transpose(2, 0, 1), 3, rle=True))
+
+
+def cur(rgba: np.ndarray) -> None:
+    p = keyed()
+    idx = np.asarray(p)
+    plte = np.asarray(p.getpalette(), np.uint8).reshape(-1, 3)
+    table = np.zeros((256, 4), np.uint8)
+    table[:len(plte), :3] = plte[:, ::-1]  # BGR0
+    mask = np.asarray(p.convert("RGBA"))[..., 3] == 0
+    bitmap = icon_bitmap(idx, 8, mask, table.tobytes())
+    with open(os.path.join(HERE, "mushroom256_cursor.cur"), "wb") as fh:
+        fh.write(icon_dir([(0, 0, 0, 128, 128, bitmap)], kind=2))
+
+
+def qoi_1024() -> None:
+    rgb = Image.open(os.path.join(TESTS, "data", "jpeg", "mushroom1024_q90_420.png")).convert("RGB")
+    rgb.save(os.path.join(HERE, "mushroom1024.qoi"))
+
+
 def lzw_1024() -> None:
     png = os.path.join(TESTS, "data", "jpeg", "mushroom1024_q90_420.png")
     Image.open(png).convert("RGB").save(os.path.join(HERE, "mushroom1024_lzw.tif"),
@@ -158,10 +232,11 @@ def webp_1024() -> None:
 def main() -> None:
     rgba = float_image_to_u8(mushroom_texture(n=N, spot_alpha=0.5))
     for write in (palette_trns, rgba16, adam7, map_rle, cmyk, bitfields, lzw_pred2, dxt1,
-                  gif_trns, ppm, webp):
+                  gif_trns, ppm, webp, qoi, sgi, pcx, ico, pfm, psd, cur):
         write(rgba)
     lzw_1024()
     webp_1024()
+    qoi_1024()
     for name in sorted(os.listdir(HERE)):
         if name.startswith("mushroom256") and not name.endswith((".pillow.png", ".py")):
             path = os.path.join(HERE, name)

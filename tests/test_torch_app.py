@@ -193,9 +193,9 @@ def test_texture_loader_names_what_it_cannot_read(tmp_path):
     (tmp_path / "t.bmp").write_bytes(b"BM" + bytes(60))
     with pytest.raises(ValueError, match="BMP"):
         timage.load_texture_rgba(str(tmp_path / "t.bmp"))
-    Image.new("RGB", (8, 8), (10, 20, 30)).save(tmp_path / "t.pcx")
+    Image.new("1", (8, 8)).save(tmp_path / "t.xbm")
     with pytest.raises(ValueError, match="unknown texture format"):
-        timage.load_texture_rgba(str(tmp_path / "t.pcx"))
+        timage.load_texture_rgba(str(tmp_path / "t.xbm"))
 
 
 def test_field_initializers_match_jax():
@@ -387,6 +387,8 @@ def test_port_imports_no_jax_flax_or_pillow():
         "import gaussian_splatterer_tpu_torch.io.ply\n"
         "import gaussian_splatterer_tpu_torch.io.viewer\n"
         "import gaussian_splatterer_tpu_torch.io.webp\n"
+        "import gaussian_splatterer_tpu_torch.io.pillow_open\n"
+        "from gaussian_splatterer_tpu_torch.io import cur, ico, pcx, psd, qoi, sgi\n"
         "import gaussian_splatterer_tpu_torch.native\n"
         "from gaussian_splatterer_tpu_torch.scripts import (\n"
         "    bench, bench_scale, eval_model, quality_run, scenes)\n"

@@ -1,14 +1,18 @@
-"""Small PNG, TGA, BMP, TIFF, DDS, GIF, PNM and WebP writers for the texture
-tests and their fixtures (tests/test_torch_textures.py,
-tests/test_torch_formats.py, tests/data/textures/make_fixtures.py): the
+"""Small PNG, TGA, BMP, TIFF, DDS, GIF, PNM, WebP, PSD, SGI, PCX, ICO and
+CUR writers for the texture tests and their fixtures
+(tests/test_torch_textures.py, tests/test_torch_formats.py,
+tests/test_torch_stb_formats.py, tests/data/textures/make_fixtures.py): the
 variants Pillow does not write (Adam7, 2- and 4-bit grey, 16-bit RGB and
 RGBA, keys at 16 bits, 16-bit TGA, colour maps with a first entry, grey
 with a map; BMP RLE, bitfields and the other headers; TIFF tiles, planes,
 predictor 2, associated alpha, palettes, big-endian; DDS BC4, BC5S and BC7
 headers; GIF local tables and offset frames; plain PNM and odd maxvals;
 WebP containers assembled by hand: VP8X, ALPH, ANMF, extra chunks; VP8
-frames with chosen headers and random bits),
-with ``zlib`` and ``struct``."""
+frames with chosen headers and random bits; PSD, which Pillow does not
+write at all, raw or PackBits; SGI at 16 bits and run-length encoded; PCX
+in one or two 1-bit planes, four 1-bit planes and a 4-bit plane, with a
+chosen stride; ICO with bitmap entries and their AND masks; CUR; Pillow's
+PNM extensions P0CMYK and Py*), with ``zlib`` and ``struct``."""
 
 from __future__ import annotations
 
@@ -544,3 +548,159 @@ def vp8_frame(seed: int, w: int, h: int, simple: bool, parts_log2: int, level: i
     return (tag.to_bytes(3, "little") + b"\x9d\x01\x2a"
             + struct.pack("<HH", w | scale[0], h | scale[1]) + first
             + b"".join(len(p).to_bytes(3, "little") for p in parts[:-1]) + b"".join(parts))
+
+
+def psd_bytes(planes: np.ndarray, mode: int, bits: int = 8, rle: bool = False,
+              colour_data: bytes = b"", resources: bytes = b"", layers: bytes = b"",
+              channels: int | None = None, compression: int | None = None) -> bytes:
+    """(C, H, W) planes as stored (1-bit planes: (C, H, ceil(W / 8)) bytes,
+    with ``width`` taken from ``planes.shape`` otherwise) -> a PSD of
+    colour ``mode`` (0 bitmap, 1 grey, 2 indexed, 3 RGB, 4 CMYK, 7
+    multichannel, 8 duotone, 9 LAB): raw, or PackBits with each row coded
+    on its own and the per-row byte counts first.  ``colour_data``,
+    ``resources`` and ``layers`` fill the three sections before the image
+    data."""
+    c, h, row = planes.shape
+    w = row * 8 if bits == 1 else row
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, channels or c, h, w, bits, mode)
+    body = b"".join(struct.pack(">I", len(x)) + x for x in (colour_data, resources, layers))
+    px = planes.astype(np.uint8)
+    if rle:
+        rows = [packbits_bytes(px[i, y].tobytes()) for i in range(c) for y in range(h)]
+        data = struct.pack(f">{len(rows)}H", *map(len, rows)) + b"".join(rows)
+    else:
+        data = px.tobytes()
+    return head + body + struct.pack(">H", int(rle) if compression is None else compression) \
+        + data
+
+
+def psd_resource(rid: int, data: bytes, name: bytes = b"") -> bytes:
+    """One image resource block: '8BIM', its id, its Pascal name (padded to
+    even) and its data (padded to even)."""
+    pascal = bytes([len(name)]) + name
+    pascal += bytes(len(pascal) % 2)
+    return b"8BIM" + struct.pack(">H", rid) + pascal + struct.pack(">I", len(data)) + data \
+        + bytes(len(data) % 2)
+
+
+def sgi_rle_row(v: bytes, bpc: int) -> bytes:
+    """One SGI channel row of samples (``bpc`` bytes each) -> run-length
+    packets (repeats of 3 or more, literals of the rest, at most 127 a
+    packet) and the zero count that ends the row."""
+    px = [v[i:i + bpc] for i in range(0, len(v), bpc)]
+    out, i, n = bytearray(), 0, len(px)
+    zero = bytes(bpc)
+
+    def count(k: int) -> bytes:
+        return k.to_bytes(bpc, "big")
+
+    while i < n:
+        j = i
+        while j < n and j - i < 127 and px[j] == px[i]:
+            j += 1
+        if j - i >= 3:
+            out += count(j - i) + px[i]
+            i = j
+            continue
+        j = i + 1
+        while j < n and j - i < 127 and not (j + 2 < n and px[j] == px[j + 1] == px[j + 2]):
+            j += 1
+        out += count(0x80 | (j - i)) + b"".join(px[i:j])
+        i = j
+    return bytes(out) + zero
+
+
+def sgi_bytes(samples: np.ndarray, bpc: int = 1, rle: bool = False, dimension: int | None = None,
+              compression: int | None = None) -> bytes:
+    """(H, W, Z) samples, row 0 the top -> an SGI image (rows stored
+    bottom-up, one plane a channel, big-endian 16-bit samples at ``bpc``
+    2): verbatim, or run-length encoded with the offset and length tables
+    after the 512-byte header."""
+    h, w, z = samples.shape
+    dim = dimension or (3 if z > 1 else 2)
+    head = struct.pack(">HBBHHHH", 474, int(rle) if compression is None else compression, bpc,
+                       dim, w, h, z)
+    head += bytes(512 - len(head))
+    planes = samples[::-1].transpose(2, 0, 1).astype(">u2" if bpc == 2 else np.uint8)
+    if not rle:
+        return head + planes.tobytes()
+    rows = [sgi_rle_row(planes[c, y].tobytes(), bpc) for c in range(z) for y in range(h)]
+    starts, at = [], 512 + 8 * z * h
+    for r in rows:
+        starts.append(at)
+        at += len(r)
+    # the tables are indexed row + channel * height, as the rows above
+    return head + struct.pack(f">{len(rows)}I", *starts) \
+        + struct.pack(f">{len(rows)}I", *map(len, rows)) + b"".join(rows)
+
+
+def pcx_rle(data: bytes) -> bytes:
+    """PCX run-length coding: runs of 2 or more equal bytes (at most 63),
+    and every byte of 0xC0 or more, as run packets; the rest as is."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 63 and data[j] == data[i]:
+            j += 1
+        if j - i >= 2 or data[i] >= 0xC0:
+            out += bytes([0xC0 | (j - i), data[i]])
+        else:
+            out.append(data[i])
+        i = j
+    return bytes(out)
+
+
+def pcx_bytes(lines: np.ndarray, w: int, bits: int, planes: int, version: int = 5,
+              palette16: bytes = bytes(48), palette256: bytes | None = None,
+              stride: int | None = None, origin: tuple[int, int] = (0, 0),
+              by_line: bool = True) -> bytes:
+    """(H, planes * stride) line bytes as decoded -> a PCX of ``bits`` a
+    pixel in ``planes`` planes; ``stride`` is the header's bytes a line
+    (the line's own by default), ``palette256`` the 768 bytes after a
+    0x0C at the end.  Each line is coded on its own (``by_line``), or the
+    whole image as one stream, so runs cross lines."""
+    h = lines.shape[0]
+    x0, y0 = origin
+    head = struct.pack("<BBBBHHHHHH", 10, version, 1, bits, x0, y0, x0 + w - 1, y0 + h - 1, 72,
+                       72) + palette16 + bytes([0, planes]) \
+        + struct.pack("<HH", lines.shape[1] // planes if stride is None else stride, 1)
+    head += bytes(128 - len(head))
+    px = lines.astype(np.uint8)
+    data = (b"".join(pcx_rle(px[y].tobytes()) for y in range(h)) if by_line
+            else pcx_rle(px.tobytes()))
+    return head + data + (b"\x0c" + palette256 if palette256 is not None else b"")
+
+
+def icon_dir(entries, kind: int = 1) -> bytes:
+    """An ICO (``kind`` 1) or CUR (2) directory and images: ``entries`` of
+    (width byte, height byte, colours, planes or hotspot x, bits or hotspot
+    y, image bytes); the images follow the directory in order."""
+    out = struct.pack("<HHH", 0, kind, len(entries))
+    at = 6 + 16 * len(entries)
+    for w, h, colours, a, b, data in entries:
+        out += struct.pack("<BBBBHHII", w, h, colours, 0, a, b, len(data), at)
+        at += len(data)
+    return out + b"".join(data for *_, data in entries)
+
+
+def icon_bitmap(colour: np.ndarray, bits: int, mask: np.ndarray | None = None,
+                palette: bytes = b"", header: int = 40) -> bytes:
+    """An icon's DIB: (H, W) indices or grey at 1, 4 or 8 bits, or (H, W,
+    3 or 4) BGR(A) bytes at 24 or 32 bits, row 0 the top, and the AND
+    mask's (H, W) bits (1: transparent), rows bottom-up and padded to 32
+    bits; the header states twice the height."""
+    h, w = colour.shape[:2]
+    data = bmp_rows(colour[::-1].astype(np.int64), bits)
+    if mask is not None:
+        stride = (w + 31) // 32 * 4
+        m = np.packbits(mask[::-1].astype(np.uint8), axis=1)
+        data += np.pad(m, ((0, 0), (0, stride - m.shape[1]))).tobytes()
+    return bmp_bytes(data, w, 2 * h, bits, header, palette=palette, dib=True)
+
+
+def pnm_ext_bytes(samples: np.ndarray, magic: bytes, maxval: int = 255) -> bytes:
+    """(H, W, C) samples -> Pillow's PNM extensions (P0CMYK, PyP, PyRGBA,
+    PyCMYK), raw, one or two bytes a sample."""
+    h, w = samples.shape[:2]
+    head = magic + b"\n%d %d\n%d\n" % (w, h, maxval)
+    return head + samples.astype(">u2" if maxval > 255 else np.uint8).tobytes()
