@@ -165,7 +165,12 @@ Phases:
   the rest of the product (K1, K3 and K5 again):
  21. the committed JPEG fixtures (tests/data/jpeg: the 1024^2 mushroom
      texture, baseline and progressive) decoded on the host, bit-equal to
-     their Pillow decodes, with the seconds; the CLI's new --obj --texture
+     their Pillow decodes, with the seconds; the texture fixtures
+     (tests/data/textures, TEXTURE_FIXTURES) likewise; the cut-out textures
+     and the 1024^2 JPEG-in-TIFF texture on the north-star mesh through K5,
+     each frame bit-equal to the frame under its Pillow decode; the native
+     byte loops (BYTE_LOOP_FIXTURES, the 1024^2 Group 4 TIFF among them)
+     against their Python twins; the CLI's new --obj --texture
      (the JPEG) -> train (3 steps, one capture through K5) on the north
      star; the project's texture on the card equal to the fixture's PNG;
      export to .ply, .html and .gobj and render --mode viewer (in process,
@@ -364,19 +369,21 @@ K9_OPS_BOX = 6 + 6 + 3 + 3 + 3 + 2 + 1
 # CLI cut to 3 steps that capture once; the .ply import's render tolerance
 # (tests/test_torch_export.py); the .gobj size of the native parsers' check
 JPEG_FIXTURES = ("mushroom1024_q90_420", "mushroom1024_q90_420_progressive")
-# the texture fixtures (tests/data/textures/make_fixtures.py: the 256^2 mushroom
-# texture as an alpha-keyed palette PNG, 16-bit RGBA PNG, Adam7 PNG, colour-mapped
-# RLE TGA, CMYK JPEG, 32-bit bitfields BMP, LZW TIFF with predictor 2, DXT1 DDS of
-# the keyed PNG, interlaced GIF with a transparent index, PPM, and WebP: lossy,
-# lossy with alpha (the keyed PNG), lossless and a two-frame animation, PackBits
-# RGBA PSD of the keyed PNG, QOI, verbatim and RLE SGI, RGB, grey, palette and
-# 1-bit PCX, a PNG-entry ICO, an 8-bit CUR and a grey PFM, each beside its Pillow
-# decode <stem>.pillow.png; the 1024^2 JPEG fixture's pixels as an LZW TIFF, as
-# lossless WebP and as QOI, whose Pillow decode is that fixture's PNG, and as lossy
-# WebP beside its Pillow decode); the cut-out fixtures (the keyed palette PNG, the
-# DXT1 DDS, the lossy WebP with alpha, the PSD) on the north-star mesh, one frame
-# from rig camera 0 at this size, sample count and seed; the files decoded by both
-# the native byte loops and their Python twins
+# the texture fixtures (tests/data/textures/make_fixtures.py: the 256^2 mushroom texture
+# as an alpha-keyed palette PNG, 16-bit RGBA PNG, Adam7 PNG, colour-mapped RLE TGA, CMYK
+# JPEG, 32-bit bitfields BMP, LZW TIFF with predictor 2, DXT1 DDS of the keyed PNG,
+# interlaced GIF with a transparent index, PPM, and WebP: lossy, lossy with alpha (the
+# keyed PNG), lossless and a two-frame animation, PackBits RGBA PSD of the keyed PNG,
+# QOI, verbatim and RLE SGI, RGB, grey, palette and 1-bit PCX, a PNG-entry ICO, an 8-bit
+# CUR and a grey PFM, each beside its Pillow decode <stem>.pillow.png; JPEG-in-TIFF
+# (RGB, YCbCr 4:2:0), Group 4 with FillOrder 2, Group 3 2-D, LZMA, BigTIFF, float,
+# signed 16-bit and predictor-3 grey, raw YCbCr and BC6H UF16 and SF16 DDS; the 1024^2
+# JPEG fixture's pixels as an LZW TIFF, as lossless WebP and as QOI, whose Pillow decode
+# is that fixture's PNG, and as lossy WebP, JPEG-in-TIFF and Group 4 beside their Pillow
+# decodes); the cut-out fixtures (the keyed palette PNG, the DXT1 DDS, the lossy WebP
+# with alpha, the PSD) on the north-star mesh, one frame from rig camera 0 at this size,
+# sample count and seed; the files decoded by both the native byte loops and their
+# Python twins
 TEXTURE_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_rgba16.png",
                     "mushroom256_adam7.png", "mushroom256_map_rle.tga", "mushroom256_cmyk.jpg",
                     "mushroom256_bitfields.bmp", "mushroom256_lzw_pred2.tif",
@@ -387,8 +394,13 @@ TEXTURE_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_rgba16.png",
                     "mushroom256_rle.sgi", "mushroom256_rgb.pcx", "mushroom256_l.pcx",
                     "mushroom256_p.pcx", "mushroom256_1.pcx", "mushroom256_icon.ico",
                     "mushroom256_cursor.cur", "mushroom256_grey.pfm",
+                    "mushroom256_jpeg_rgb.tif", "mushroom256_jpeg_ycbcr420.tif",
+                    "mushroom256_g4_fill2.tif", "mushroom256_g3_2d.tif", "mushroom256_lzma.tif",
+                    "mushroom256_bigtiff.tif", "mushroom256_float.tif", "mushroom256_signed16.tif",
+                    "mushroom256_float_pred3.tif", "mushroom256_ycbcr_raw.tif",
+                    "mushroom256_bc6h_uf16.dds", "mushroom256_bc6h_sf16.dds",
                     "mushroom1024_lzw.tif", "mushroom1024_lossless.webp", "mushroom1024_q90.webp",
-                    "mushroom1024.qoi")
+                    "mushroom1024.qoi", "mushroom1024_jpeg.tif", "mushroom1024_g4.tif")
 PILLOW_DECODES = {"mushroom1024_lzw.tif": "../jpeg/mushroom1024_q90_420.png",
                   "mushroom1024_lossless.webp": "../jpeg/mushroom1024_q90_420.png",
                   "mushroom1024.qoi": "../jpeg/mushroom1024_q90_420.png"}
@@ -396,7 +408,12 @@ CUTOUT_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_dxt1.dds",
                    "mushroom256_lossy_alpha.webp", "mushroom256_cutout.psd")
 BYTE_LOOP_FIXTURES = ("jpeg/mushroom1024_q90_420.png", "textures/mushroom1024_lzw.tif",
                       "textures/mushroom1024.qoi", "textures/mushroom256_cutout.psd",
-                      "textures/mushroom256_rle.sgi", "textures/mushroom256_rgb.pcx")
+                      "textures/mushroom256_rle.sgi", "textures/mushroom256_rgb.pcx",
+                      "textures/mushroom1024_g4.tif", "textures/mushroom256_bc6h_sf16.dds")
+# the JPEG-in-TIFF texture on the north-star mesh through K5, as the cut-out
+# ones (an opaque texture: its frame against the frame of the decode flipped
+# upside down, which must differ)
+JPEG_TIFF_TEXTURE = "mushroom1024_jpeg.tif"
 P21_KEYED_RES, P21_KEYED_SAMPLES, P21_KEYED_SEED = 512, 8, 21
 P21_STEPS = 3
 PLY_RENDER_ATOL = 1e-4
@@ -3162,12 +3179,13 @@ def pillow_decode(path: Path) -> Path:
     return path.with_name(f"{path.name.rsplit('.', 1)[0]}.pillow.png")
 
 
-def keyed_texture_frames(dev, card, path: Path, fail) -> int:
+def keyed_texture_frames(dev, card, path: Path, fail, cutout: bool = True) -> int:
     """Phase 21's alpha path: the north-star mesh under a cut-out texture
     fixture, one frame from rig camera 0 with the same seed three times:
     the texture loaded by path, given as its committed Pillow decode, and
-    that decode with alpha forced to 1.  The first two must be bit-equal
-    and the third must differ.  Returns K5's launches."""
+    that decode with alpha forced to 1 (for an opaque texture, ``cutout``
+    False: flipped upside down).  The first two must be bit-equal and the
+    third must differ.  Returns K5's launches."""
     from gaussian_splatterer_tpu_torch.io.image import load_texture_rgba
     from gaussian_splatterer_tpu_torch.models.camera import Camera
     from gaussian_splatterer_tpu_torch.rt import RtxHost
@@ -3175,8 +3193,9 @@ def keyed_texture_frames(dev, card, path: Path, fail) -> int:
     from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_mesh
 
     decoded = load_texture_rgba(str(pillow_decode(path)))
-    opaque = decoded.copy()
-    opaque[..., 3] = 1.0
+    opaque = decoded.copy() if cutout else np.ascontiguousarray(decoded[::-1])
+    if cutout:
+        opaque[..., 3] = 1.0
     host = RtxHost(device=dev)
     host.load_model(mushroom_mesh(*NS_MESH))
     cam = Camera.get_cameras(ns_project())[0]
@@ -3195,13 +3214,13 @@ def keyed_texture_frames(dev, card, path: Path, fail) -> int:
     equal = torch.equal(from_file, from_decode)
     lit = int((from_file.amax(dim=-1) > 0).sum())
     differ = int((from_file != from_opaque).any(dim=-1).sum())
+    other = "with alpha forced to 1" if cutout else "of the decode flipped upside down"
     print(f"  {path.name} ({float((decoded[..., 3] == 0).mean()):.4f} of its texels keyed "
           f"out) on the mushroom ({host.mesh.num_triangles} triangles), rig camera 0, "
           f"{P21_KEYED_SAMPLES} samples at {P21_KEYED_RES}^2, seed {P21_KEYED_SEED}: the frame "
           f"from the file bit-equal to the frame from its Pillow decode {equal}; {differ:,} of "
-          f"{P21_KEYED_RES ** 2:,} pixels ({lit:,} lit) differ from the frame with alpha "
-          f"forced to 1; mt_intersect launches {k5}; three frames {secs:.3f} s (host clock)  "
-          f"[{card}]")
+          f"{P21_KEYED_RES ** 2:,} pixels ({lit:,} lit) differ from the frame {other}; "
+          f"mt_intersect launches {k5}; three frames {secs:.3f} s (host clock)  [{card}]")
     if (not equal or differ == 0 or (dev.type == "cuda" and k5 == 0)
             or not all(bool(torch.isfinite(f).all()) for f in frames)):
         fail(f"{path.name}'s frame is not the frame of its Pillow decode, does not differ "
@@ -3211,7 +3230,8 @@ def keyed_texture_frames(dev, card, path: Path, fail) -> int:
 
 def byte_loops(card, fixtures: Path, fail) -> None:
     """Phase 21's native byte loops (native/src/codecs.cpp: PNG's unfilter,
-    TIFF's LZW, QOI's ops, PSD's PackBits, SGI's and PCX's run lengths):
+    TIFF's LZW, QOI's ops, PSD's PackBits, SGI's and PCX's run lengths,
+    TIFF's CCITT fax decoder, DDS's BC6H blocks):
     each file decoded with the native library and with it hidden (the
     Python twins), the two results equal and both host times printed."""
     from unittest import mock
@@ -3268,8 +3288,9 @@ def product_phase(dev, card) -> dict:
     def fail(why: str):
         raise SystemExit(f"phase 21 failed: {why}")
 
-    phase(f"21. the rest of the product: the texture fixtures, four cut-out textures on the "
-          f"card, the decoders' native byte loops, a JPEG texture, export (.ply, .html, .gobj, "
+    phase(f"21. the rest of the product: the texture fixtures, four cut-out textures and a "
+          f"JPEG-in-TIFF texture on the card, the decoders' native byte loops, a JPEG texture, "
+          f"export (.ply, .html, .gobj, "
           f"render --mode viewer), the .ply imported and rendered, doctor, the native parsers "
           f"({card})")
     launches: dict[str, int] = {}
@@ -3289,14 +3310,17 @@ def product_phase(dev, card) -> dict:
         path = textures / name
         rgba, secs = timed(lambda: load_texture_rgba(str(path)))
         same = np.array_equal(rgba, load_texture_rgba(str(pillow_decode(path))))
+        note = " (JPEG entropy decoding in Python)" if "jpeg" in name else ""
         print(f"  load_texture_rgba {name} ({path.stat().st_size:,} B, {rgba.shape[1]}x"
-              f"{rgba.shape[0]}): {secs:.4f} s (host clock); equal to its Pillow decode "
+              f"{rgba.shape[0]}): {secs:.4f} s (host clock){note}; equal to its Pillow decode "
               f"({pillow_decode(path).name}) {same}  [{card}]")
         if not same:
             fail(f"{name} does not decode to its Pillow decode")
     for name in CUTOUT_FIXTURES:
         add_launches(launches, {"mt_intersect": keyed_texture_frames(
             dev, card, textures / name, fail)})
+    add_launches(launches, {"mt_intersect": keyed_texture_frames(
+        dev, card, textures / JPEG_TIFF_TEXTURE, fail, cutout=False)})
     byte_loops(card, HERE / "tests" / "data", fail)
 
     (HERE / "build").mkdir(exist_ok=True)
@@ -4244,6 +4268,11 @@ def main(argv=None) -> int:
     print("nvcc:", run([cuda_build.find_nvcc(), "--version"]).splitlines()[-1])
     print(f"device: {torch.cuda.get_device_name(0)}  count {torch.cuda.device_count()}")
     print(f"nvidia-smi: {card}")
+    try:
+        import lzma  # noqa: F401  (the LZMA TIFF textures need it)
+        print("lzma imports (LZMA TIFF textures read)")
+    except ImportError as exc:
+        print(f"lzma does not import ({exc}): LZMA TIFF textures are refused")
 
     phase("2. build")
     t0 = time.perf_counter()

@@ -10,9 +10,11 @@ Coverage: the legacy header with uncompressed RGB or RGBA by their bit
 masks, 8-bit luminance, 16-bit luminance and alpha, 8-bit palette (a
 256-entry RGBA table), and the FourCCs ``DXT1``, ``DXT3``, ``DXT5``,
 ``ATI1`` and ``BC4U`` (BC4), ``ATI2`` and ``BC5U`` (BC5), ``BC5S``; the DX10
-header with BC1-BC5 (``TYPELESS`` and ``UNORM``, ``BC5_SNORM``), BC7
-(``TYPELESS``, ``UNORM``, ``UNORM_SRGB``) and ``R8G8B8A8`` (``TYPELESS``,
-``UNORM``, ``UNORM_SRGB``).
+header with BC1-BC5 (``TYPELESS`` and ``UNORM``, ``BC5_SNORM``), BC6H
+(``UF16`` and ``SF16``, opaque RGB), BC7 (``TYPELESS``, ``UNORM``,
+``UNORM_SRGB``) and ``R8G8B8A8`` (``TYPELESS``, ``UNORM``, ``UNORM_SRGB``).
+BC6H's blocks run in C++ (``native/src/codecs.cpp``) where the native
+library is built, else in ``bc6h_python``, their plain twin.
 
 Pillow's decoding is kept with its quirks:
 
@@ -26,11 +28,18 @@ Pillow's decoding is kept with its quirks:
     green with blue 0 (128 for BC5S);
   * BC7 weights at 6 bits, ``((64 - w) a + w b + 32) >> 6``; a block of the
     reserved mode (first byte 0) reads as opaque black;
+  * BC6H: the fourteen modes of the format's bit layouts; its weights
+    without the rounding term, ``((64 - w) a + w b) >> 6``; an SF16
+    endpoint that a delta transforms at fewer than 16 bits is not sign
+    extended again (so a negative one reads as a large positive); each half
+    float clipped to [0, 1] and scaled to 8 bits by truncation,
+    ``int(f * 255)`` in single precision; the reserved modes (first five
+    bits 10011, 10111, 11011, 11111) read as black;
   * an uncompressed mask scales as ``int(v / max * 255)``; data that ends
     inside it reads as zeros.
 
 Where Pillow refuses a file this module raises ValueError naming DDS: a
-header other than 124 bytes, BC6H (``DDS BC6H``) and the other DXGI formats
+header other than 124 bytes, ``BC6H_TYPELESS`` and the other DXGI formats
 and FourCCs, luminance at other depths, unknown pixel format flags, image
 data that ends early.
 """
@@ -41,6 +50,7 @@ import struct
 
 import numpy as np
 
+from gaussian_splatterer_tpu_torch import native
 from gaussian_splatterer_tpu_torch.io.bmp import raw_rows
 
 _ALPHAPIXELS, _FOURCC, _PALETTE8, _RGB, _LUMINANCE = 0x1, 0x4, 0x20, 0x40, 0x20000
@@ -48,7 +58,7 @@ _FOURCCS = {b"DXT1": 1, b"DXT3": 2, b"DXT5": 3, b"BC4U": 4, b"ATI1": 4, b"ATI2":
             b"BC5U": 5, b"BC5S": -5}
 # DXGI format -> BCn (negative: signed), "rgba" for R8G8B8A8
 _DXGI = {70: 1, 71: 1, 73: 2, 74: 2, 76: 3, 77: 3, 79: 4, 80: 4, 82: 5, 83: 5, 84: -5,
-         97: 7, 98: 7, 99: 7, 27: "rgba", 28: "rgba", 29: "rgba"}
+         95: 6, 96: -6, 97: 7, 98: 7, 99: 7, 27: "rgba", 28: "rgba", 29: "rgba"}
 
 # BC7: (subsets, partition bits, rotation bits, index selection bits, colour
 # bits, alpha bits, endpoint p-bits, shared p-bits, index bits, second index
@@ -91,6 +101,167 @@ _BC7_A3C = (15, 8, 8, 3, 15, 15, 3, 8, 15, 15, 15, 15, 15, 15, 15, 8,
             15, 3, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 3, 15, 15, 8)
 _BC7_WEIGHTS = {2: (0, 21, 43, 64), 3: (0, 9, 18, 27, 37, 46, 55, 64),
                 4: (0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64)}
+
+
+# BC6H: the header fields after the mode bits, in stream order, of each
+# mode (by the value of its first two bits, or five where those are 10 or
+# 11); "x[a:b]" holds bits b up to a of field x, "x[a:b]" with a < b its
+# bits from b down to a
+_BC6_LAYOUTS = {
+    0: "gy[4] by[4] bz[4] rw[9:0] gw[9:0] bw[9:0] rx[4:0] gz[4] gy[3:0] gx[4:0] bz[0] gz[3:0] "
+       "bx[4:0] bz[1] by[3:0] ry[4:0] bz[2] rz[4:0] bz[3] d[4:0]",
+    1: "gy[5] gz[4] gz[5] rw[6:0] bz[0] bz[1] by[4] gw[6:0] by[5] bz[2] gy[4] bw[6:0] bz[3] "
+       "bz[5] bz[4] rx[5:0] gy[3:0] gx[5:0] gz[3:0] bx[5:0] by[3:0] ry[5:0] rz[5:0] d[4:0]",
+    2: "rw[9:0] gw[9:0] bw[9:0] rx[4:0] rw[10] gy[3:0] gx[3:0] gw[10] bz[0] gz[3:0] bx[3:0] "
+       "bw[10] bz[1] by[3:0] ry[4:0] bz[2] rz[4:0] bz[3] d[4:0]",
+    6: "rw[9:0] gw[9:0] bw[9:0] rx[3:0] rw[10] gz[4] gy[3:0] gx[4:0] gw[10] gz[3:0] bx[3:0] "
+       "bw[10] bz[1] by[3:0] ry[3:0] bz[0] bz[2] rz[3:0] gy[4] bz[3] d[4:0]",
+    10: "rw[9:0] gw[9:0] bw[9:0] rx[3:0] rw[10] by[4] gy[3:0] gx[3:0] gw[10] bz[0] gz[3:0] "
+        "bx[4:0] bw[10] by[3:0] ry[3:0] bz[1] bz[2] rz[3:0] bz[4] bz[3] d[4:0]",
+    14: "rw[8:0] by[4] gw[8:0] gy[4] bw[8:0] bz[4] rx[4:0] gz[4] gy[3:0] gx[4:0] bz[0] gz[3:0] "
+        "bx[4:0] bz[1] by[3:0] ry[4:0] bz[2] rz[4:0] bz[3] d[4:0]",
+    18: "rw[7:0] gz[4] by[4] gw[7:0] bz[2] gy[4] bw[7:0] bz[3] bz[4] rx[5:0] gy[3:0] gx[4:0] "
+        "bz[0] gz[3:0] bx[4:0] bz[1] by[3:0] ry[5:0] rz[5:0] d[4:0]",
+    22: "rw[7:0] bz[0] by[4] gw[7:0] gy[5] gy[4] bw[7:0] gz[5] bz[4] rx[4:0] gz[4] gy[3:0] "
+        "gx[5:0] gz[3:0] bx[4:0] bz[1] by[3:0] ry[4:0] bz[2] rz[4:0] bz[3] d[4:0]",
+    26: "rw[7:0] bz[1] by[4] gw[7:0] by[5] gy[4] bw[7:0] bz[5] bz[4] rx[4:0] gz[4] gy[3:0] "
+        "gx[4:0] bz[0] gz[3:0] bx[5:0] by[3:0] ry[4:0] bz[2] rz[4:0] bz[3] d[4:0]",
+    30: "rw[5:0] gz[4] bz[0] bz[1] by[4] gw[5:0] gy[5] by[5] bz[2] gy[4] bw[5:0] gz[5] bz[3] "
+        "bz[5] bz[4] rx[5:0] gy[3:0] gx[5:0] gz[3:0] bx[5:0] by[3:0] ry[5:0] rz[5:0] d[4:0]",
+    3: "rw[9:0] gw[9:0] bw[9:0] rx[9:0] gx[9:0] bx[9:0]",
+    7: "rw[9:0] gw[9:0] bw[9:0] rx[8:0] rw[10] gx[8:0] gw[10] bx[8:0] bw[10]",
+    11: "rw[9:0] gw[9:0] bw[9:0] rx[7:0] rw[10:11] gx[7:0] gw[10:11] bx[7:0] bw[10:11]",
+    15: "rw[9:0] gw[9:0] bw[9:0] rx[3:0] rw[10:15] gx[3:0] gw[10:15] bx[3:0] bw[10:15]",
+}
+# mode value -> (endpoint bits, delta bits of red, green and blue, deltas
+# from the first endpoint)
+_BC6_MODES = {0: (10, 5, 5, 5, 1), 1: (7, 6, 6, 6, 1), 2: (11, 5, 4, 4, 1), 6: (11, 4, 5, 4, 1),
+              10: (11, 4, 4, 5, 1), 14: (9, 5, 5, 5, 1), 18: (8, 6, 5, 5, 1),
+              22: (8, 5, 6, 5, 1), 26: (8, 5, 5, 6, 1), 30: (6, 6, 6, 6, 0),
+              3: (10, 10, 10, 10, 0), 7: (11, 9, 9, 9, 1), 11: (12, 8, 8, 8, 1),
+              15: (16, 4, 4, 4, 1)}
+_BC6_FIELDS = ("rw", "gw", "bw", "rx", "gx", "bx", "ry", "gy", "by", "rz", "gz", "bz", "d")
+
+
+def _bc6_pack(layout: str) -> list:
+    """A layout -> [(field index, bit)] in stream order."""
+    out = []
+    for tok in layout.split():
+        name, bits = tok[:-1].split("[")
+        if ":" in bits:
+            a, b = map(int, bits.split(":"))
+            order = range(b, a + 1) if a >= b else range(b, a - 1, -1)
+        else:
+            order = [int(bits)]
+        out += [(_BC6_FIELDS.index(name), k) for k in order]
+    return out
+
+
+_BC6_PACK = {m: _bc6_pack(layout) for m, layout in _BC6_LAYOUTS.items()}
+
+
+def bc6h_table() -> np.ndarray:
+    """BC6H's modes, bit layouts, partitions and weights as one int32 table
+    for the native loop: per mode value 0-31 (valid, endpoint bits, delta
+    bits r g b, transformed, two subsets, header bits after the mode), then
+    per mode value 80 entries field * 16 + bit, then BC7's first 32
+    two-subset partitions and their anchors, the 3- and 4-bit weights."""
+    head = np.zeros((32, 8), np.int32)
+    pack = np.zeros((32, 80), np.int32)
+    for m, (epb, dr, dg, db, tr) in _BC6_MODES.items():
+        head[m] = (1, epb, dr, dg, db, tr, m not in (3, 7, 11, 15), len(_BC6_PACK[m]))
+        pack[m, :len(_BC6_PACK[m])] = [f * 16 + b for f, b in _BC6_PACK[m]]
+    return np.concatenate([head.ravel(), pack.ravel(), _BC7_P2[:32], _BC7_A2[:32],
+                           _BC7_WEIGHTS[3], _BC7_WEIGHTS[4]]).astype(np.int32)
+
+
+def _sext(v: np.ndarray, n: int) -> np.ndarray:
+    return np.where(v & (1 << (n - 1)), v - (1 << n), v)
+
+
+def _bc6_unquantize(v: np.ndarray, n: int, signed: bool) -> np.ndarray:
+    if not signed:
+        if n >= 15:
+            return v
+        return np.where(v == 0, 0, np.where(v == (1 << n) - 1, 0xFFFF,
+                                            ((v << 16) + 0x8000) >> n))
+    if n >= 16:
+        return v
+    a = np.abs(v)
+    u = np.where(a == 0, 0, np.where(a >= (1 << (n - 1)) - 1, 0x7FFF,
+                                     ((a << 15) + 0x4000) >> (n - 1)))
+    return np.where(v < 0, -u, u)
+
+
+def bc6h_python(blocks: np.ndarray, signed: bool) -> np.ndarray:
+    """(N, 16) uint8 BC6H blocks -> (N, 16, 3) uint8 RGB texels, as
+    Pillow's decoder gives them (its quirks in the module's docstring)."""
+    n = len(blocks)
+    out = np.zeros((n, 16, 3), np.uint8)
+    if not n:
+        return out
+    bits = np.unpackbits(blocks, axis=1, bitorder="little").astype(np.int64)
+    low = blocks[:, 0] & 3
+    mode_of = np.where(low < 2, low, blocks[:, 0] & 31).astype(np.int64)
+    texel = np.arange(16)
+    for mode, pack in _BC6_PACK.items():
+        sel = np.nonzero(mode_of == mode)[0]
+        if not sel.size:
+            continue
+        bb = bits[sel]
+        f = np.zeros((len(sel), 13), np.int64)
+        pos = 2 if mode < 2 else 5
+        for i, (fi, k) in enumerate(pack):
+            f[:, fi] |= bb[:, pos + i] << k
+        pos += len(pack)
+        epb, *delta, tr = _BC6_MODES[mode]
+        two = mode not in (3, 7, 11, 15)
+        ne = 4 if two else 2
+        e = f[:, :3 * ne].reshape(-1, ne, 3).copy()
+        if signed:
+            e[:, 0] = _sext(e[:, 0], epb)
+        for j in range(1, ne):
+            for c in range(3):
+                if tr:
+                    v = (e[:, 0, c] + _sext(e[:, j, c], delta[c])) & ((1 << epb) - 1)
+                    e[:, j, c] = _sext(v, epb) if signed and epb == 16 else v
+                elif signed:
+                    e[:, j, c] = _sext(e[:, j, c], epb)
+        e = _bc6_unquantize(e, epb, signed)
+        if two:
+            part = f[:, 12]
+            subset = (np.asarray(_BC7_P2)[part][:, None] >> texel) & 1
+            anchor = texel == np.asarray(_BC7_A2)[part][:, None]
+            ib = 3
+        else:
+            subset = np.zeros((len(sel), 16), np.int64)
+            anchor = np.zeros((len(sel), 16), bool)
+            ib = 4
+        anchor[:, 0] = True
+        width = ib - anchor
+        start = pos + np.cumsum(width, axis=1) - width
+        k = np.arange(ib)
+        grab = np.minimum(start[..., None] + k, 127).reshape(len(sel), -1)
+        picked = np.take_along_axis(bb, grab, axis=1)
+        idx = (picked.reshape(len(sel), 16, ib) * ((1 << k) * (k < width[..., None]))).sum(-1)
+        w = np.asarray(_BC7_WEIGHTS[ib])[idx][..., None]
+        e0 = np.take_along_axis(e, (2 * subset)[..., None], axis=1)
+        e1 = np.take_along_axis(e, (2 * subset + 1)[..., None], axis=1)
+        v = ((64 - w) * e0 + w * e1) >> 6
+        if signed:
+            mag = (np.abs(v) * 31) >> 5
+            half = np.where(v < 0, 0x8000 | mag, mag)
+        else:
+            half = (v * 31) >> 6
+        fl = half.astype(np.uint16).view(np.float16).astype(np.float32)
+        out[sel] = np.where(fl < 0, 0, np.where(fl > 1, 255, (fl * np.float32(255)).astype(
+            np.int64)))
+    return out
+
+
+def _bc6h(b: np.ndarray, signed: bool) -> np.ndarray:
+    got = native.bc6h_decode(b, signed)
+    return got if got is not None else bc6h_python(b, signed)
 
 
 def _unpack565(c: np.ndarray) -> np.ndarray:
@@ -249,6 +420,8 @@ def _bcn(blob: bytes, pos: int, w: int, h: int, n: int) -> np.ndarray:
         rgba[..., 0] = _bc3_alpha(b[:, :8], n < 0)
         rgba[..., 1] = _bc3_alpha(b[:, 8:], n < 0)
         rgba[..., 2] = 128 if n < 0 else 0
+    elif abs(n) == 6:
+        rgba[..., :3] = _bc6h(b, n < 0)
     else:
         rgba = _bc7(b)
     return _tile(rgba.astype(np.uint8), w, h)
@@ -312,9 +485,6 @@ def decode_dds(blob: bytes) -> np.ndarray:
             raise ValueError("DDS DX10 header is too short (truncated file)")
         dxgi = struct.unpack_from("<I", blob, 128)[0]
         pos = 148
-        if dxgi in (95, 96):
-            raise ValueError("unsupported DDS BC6H (DXGI format "
-                             f"{'BC6H_UF16' if dxgi == 95 else 'BC6H_SF16'})")
         if dxgi not in _DXGI:
             raise ValueError(f"unsupported DDS (DXGI format {dxgi})")
         if _DXGI[dxgi] == "rgba":

@@ -4,8 +4,8 @@
 ``Image.open(path).convert("RGBA")`` gives, byte for byte: libjpeg's
 default decode, which is
 
-  * the ``islow`` integer inverse DCT (libjpeg's jidctint.c), with its
-    post-IDCT range-limit table;
+  * the ``islow`` integer inverse DCT (libjpeg's jidctint.c), as
+    libjpeg-turbo's SIMD form saturates and clamps it;
   * "fancy" (triangle-filter) upsampling of h2v1, h1v2 and h2v2 chroma,
     box replication otherwise (jdsample.c), the picture's edges replicated;
   * the integer YCbCr -> RGB tables (jdcolor.c).
@@ -18,7 +18,12 @@ component ids 'R', 'G', 'B') or four (CMYK, stored inverted as Photoshop
 and Pillow write it, with an Adobe APP14 marker of transform 0 or without
 one; YCCK, an APP14 marker of any other transform), converted to RGB as
 Pillow converts CMYK (``cmyk_to_rgb``); any integral sampling factors;
-restart intervals, byte stuffing and sizes that are not whole MCUs.
+restart intervals, byte stuffing and sizes that are not whole MCUs; as
+libjpeg, bytes before a marker are skipped, a marker libjpeg does not know
+(JPG, DHP, EXP, JPGn, the reserved ones, a second SOI) is refused, a bad Huffman code takes 17
+bits and reads as symbol 0, a coefficient past the band goes to the last
+one, and once a restart segment's data runs out the MCUs after it are left
+as they are (zero, mid-grey, in a sequential scan).
 Arithmetic coding (SOF9-SOF15), lossless (SOF3), hierarchical (SOF5-SOF7)
 and 12-bit samples raise ValueError.
 
@@ -51,6 +56,12 @@ _UNSUPPORTED_SOF = {
 }
 
 
+# the markers with a length field that libjpeg reads or refuses by name
+# (the SOFn it does not read); SOI, RSTn, TEM and EOI have no length
+_KNOWN_MARKERS = frozenset([*range(0xC0, 0xD0), 0xDA, 0xDB, 0xDC, 0xDD, *range(0xE0, 0xF0),
+                            0xFE]) - {0xC8}
+
+
 class _Component:
     def __init__(self, cid: int, h: int, v: int, tq: int):
         self.cid, self.h, self.v, self.tq = cid, h, v, tq
@@ -59,8 +70,9 @@ class _Component:
 
 def _huffman_lut(counts, symbols) -> list:
     """65,536 entries indexed by the next 16 bits of the stream:
-    (code length << 8) | symbol, 0 where no code starts."""
-    lut = np.zeros(1 << 16, np.int64)
+    (code length << 8) | symbol; where no code starts, libjpeg's reading of
+    a bad code (17 bits taken, symbol 0)."""
+    lut = np.full(1 << 16, 17 << 8, np.int64)
     code = k = 0
     for length in range(1, 17):
         for _ in range(counts[length - 1]):
@@ -97,164 +109,174 @@ def _segments(blob: bytes, pos: int) -> tuple[list, int]:
     return [s.rstrip(b"\xff").replace(b"\xff\x00", b"\xff") for s in segs], end
 
 
+def _i16(v: int) -> int:
+    """libjpeg's JCOEF, a 16-bit coefficient."""
+    return (v + 0x8000 & 0xFFFF) - 0x8000
+
+
 def _words(seg: bytes) -> list:
     """words[i]: the 32 bits of the segment starting at byte i (zeros past
-    its end, as libjpeg feeds zeros once the data runs out)."""
-    b = np.frombuffer(seg + bytes(12), np.uint8).astype(np.int64)
+    its end, as libjpeg feeds zeros once the data runs out, enough for a
+    block of bad codes)."""
+    b = np.frombuffer(seg + bytes(300), np.uint8).astype(np.int64)
     return ((b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]).tolist()
 
 
-# -- entropy decoding of one restart segment; units is [(component, block base)] --
+# -- entropy decoding of one restart segment: mcus is [[(component, block base)]],
+# limit the segment's bits --
 
-def _seq(words, units, tabs, ncomp):
+def _seq(words, mcus, limit, tabs, ncomp):
     p, pred = 0, [0] * ncomp
-    for ci, base in units:
-        coefs, dc, ac = tabs[ci]
-        e = dc[(words[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
-        if not e:
-            raise ValueError("corrupt JPEG data: bad Huffman code")
-        p += e >> 8
-        s = e & 255
-        if s:
-            v = (words[p >> 3] >> (32 - s - (p & 7))) & ((1 << s) - 1)
-            p += s
-            if v < 1 << (s - 1):
-                v -= (1 << s) - 1
-            pred[ci] += v
-        coefs[base] = pred[ci]
-        k = 1
-        while k < 64:
-            e = ac[(words[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
-            if not e:
-                raise ValueError("corrupt JPEG data: bad Huffman code")
+    for mcu in mcus:
+        if p > limit:  # libjpeg leaves the MCUs after its data ran out
+            break
+        for ci, base in mcu:
+            coefs, dc, ac = tabs[ci]
+            e = dc[(words[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
             p += e >> 8
-            rs = e & 255
-            s = rs & 15
+            s = e & 255
             if s:
-                k += rs >> 4
                 v = (words[p >> 3] >> (32 - s - (p & 7))) & ((1 << s) - 1)
                 p += s
                 if v < 1 << (s - 1):
                     v -= (1 << s) - 1
-                if k < 64:
-                    coefs[base + k] = v
-                k += 1
-            elif rs == 0xF0:
-                k += 16
-            else:
-                break
+                pred[ci] += v
+            coefs[base] = _i16(pred[ci])  # JCOEF
+            k = 1
+            while k < 64:
+                e = ac[(words[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                p += e >> 8
+                rs = e & 255
+                s = rs & 15
+                if s:
+                    k += rs >> 4
+                    v = (words[p >> 3] >> (32 - s - (p & 7))) & ((1 << s) - 1)
+                    p += s
+                    if v < 1 << (s - 1):
+                        v -= (1 << s) - 1
+                    coefs[base + min(k, 63)] = v  # jpeg_natural_order's extra entries
+                    k += 1
+                elif rs == 0xF0:
+                    k += 16
+                else:
+                    break
 
 
-def _dc_first(words, units, tabs, ncomp, al):
+def _dc_first(words, mcus, limit, tabs, ncomp, al):
     p, pred = 0, [0] * ncomp
-    for ci, base in units:
-        coefs, dc, _ = tabs[ci]
-        e = dc[(words[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
-        if not e:
-            raise ValueError("corrupt JPEG data: bad Huffman code")
-        p += e >> 8
-        s = e & 255
-        if s:
-            v = (words[p >> 3] >> (32 - s - (p & 7))) & ((1 << s) - 1)
-            p += s
-            if v < 1 << (s - 1):
-                v -= (1 << s) - 1
-            pred[ci] += v
-        coefs[base] = pred[ci] << al
+    for mcu in mcus:
+        if p > limit:  # libjpeg leaves the MCUs after its data ran out
+            break
+        for ci, base in mcu:
+            coefs, dc, _ = tabs[ci]
+            e = dc[(words[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+            p += e >> 8
+            s = e & 255
+            if s:
+                v = (words[p >> 3] >> (32 - s - (p & 7))) & ((1 << s) - 1)
+                p += s
+                if v < 1 << (s - 1):
+                    v -= (1 << s) - 1
+                pred[ci] += v
+            coefs[base] = _i16(pred[ci] << al)
 
 
-def _dc_refine(words, units, tabs, al):
+def _dc_refine(words, mcus, limit, tabs, al):
     p, p1 = 0, 1 << al
-    for ci, base in units:
-        if (words[p >> 3] >> (31 - (p & 7))) & 1:
-            tabs[ci][0][base] |= p1
-        p += 1
+    for mcu in mcus:
+        if p > limit:  # libjpeg leaves the MCUs after its data ran out
+            break
+        for ci, base in mcu:
+            if (words[p >> 3] >> (31 - (p & 7))) & 1:
+                tabs[ci][0][base] |= p1
+            p += 1
 
 
-def _ac_first(words, units, tabs, ss, se, al):
+def _ac_first(words, mcus, limit, tabs, ss, se, al):
     p = eobrun = 0
-    for ci, base in units:
-        if eobrun:
-            eobrun -= 1
-            continue
-        coefs, _, ac = tabs[ci]
-        k = ss
-        while k <= se:
-            e = ac[(words[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
-            if not e:
-                raise ValueError("corrupt JPEG data: bad Huffman code")
-            p += e >> 8
-            rs = e & 255
-            s, r = rs & 15, rs >> 4
-            if s:
-                k += r
-                v = (words[p >> 3] >> (32 - s - (p & 7))) & ((1 << s) - 1)
-                p += s
-                if v < 1 << (s - 1):
-                    v -= (1 << s) - 1
-                if k <= se:
-                    coefs[base + k] = v << al
-                k += 1
-            elif r == 15:
-                k += 16
-            else:
-                eobrun = 1 << r
-                if r:
-                    eobrun += (words[p >> 3] >> (32 - r - (p & 7))) & ((1 << r) - 1)
-                    p += r
+    for mcu in mcus:
+        if p > limit:  # libjpeg leaves the MCUs after its data ran out
+            break
+        for ci, base in mcu:
+            if eobrun:
                 eobrun -= 1
-                break
-
-
-def _ac_refine(words, units, tabs, ss, se, al):
-    """libjpeg's decode_mcu_AC_refine, statement for statement."""
-    p = eobrun = 0
-    p1, m1 = 1 << al, -1 << al
-    for ci, base in units:
-        coefs, _, ac = tabs[ci]
-        k = ss
-        if not eobrun:
+                continue
+            coefs, _, ac = tabs[ci]
+            k = ss
             while k <= se:
                 e = ac[(words[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
-                if not e:
-                    raise ValueError("corrupt JPEG data: bad Huffman code")
                 p += e >> 8
                 rs = e & 255
                 s, r = rs & 15, rs >> 4
-                if s:  # a newly nonzero coefficient: its size is always 1
-                    s = p1 if (words[p >> 3] >> (31 - (p & 7))) & 1 else m1
-                    p += 1
-                elif r != 15:
+                if s:
+                    k += r
+                    v = (words[p >> 3] >> (32 - s - (p & 7))) & ((1 << s) - 1)
+                    p += s
+                    if v < 1 << (s - 1):
+                        v -= (1 << s) - 1
+                    coefs[base + min(k, 63)] = _i16(v << al)
+                    k += 1
+                elif r == 15:
+                    k += 16
+                else:
                     eobrun = 1 << r
                     if r:
                         eobrun += (words[p >> 3] >> (32 - r - (p & 7))) & ((1 << r) - 1)
                         p += r
+                    eobrun -= 1
                     break
-                # pass over the nonzero coefficients (each takes a correction
-                # bit) and r zero ones
+
+
+def _ac_refine(words, mcus, limit, tabs, ss, se, al):
+    """libjpeg's decode_mcu_AC_refine, statement for statement."""
+    p = eobrun = 0
+    p1, m1 = 1 << al, -1 << al
+    for mcu in mcus:
+        if p > limit:  # libjpeg leaves the MCUs after its data ran out
+            break
+        for ci, base in mcu:
+            coefs, _, ac = tabs[ci]
+            k = ss
+            if not eobrun:
                 while k <= se:
+                    e = ac[(words[p >> 3] >> (16 - (p & 7))) & 0xFFFF]
+                    p += e >> 8
+                    rs = e & 255
+                    s, r = rs & 15, rs >> 4
+                    if s:  # a newly nonzero coefficient: its size is always 1
+                        s = p1 if (words[p >> 3] >> (31 - (p & 7))) & 1 else m1
+                        p += 1
+                    elif r != 15:
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += (words[p >> 3] >> (32 - r - (p & 7))) & ((1 << r) - 1)
+                            p += r
+                        break
+                    # pass over the nonzero coefficients (each takes a correction
+                    # bit) and r zero ones
+                    while k <= se:
+                        c = coefs[base + k]
+                        if c:
+                            if (words[p >> 3] >> (31 - (p & 7))) & 1 and not c & p1:
+                                coefs[base + k] = c + p1 if c >= 0 else c + m1
+                            p += 1
+                        else:
+                            r -= 1
+                            if r < 0:
+                                break
+                        k += 1
+                    if s and k <= se:
+                        coefs[base + k] = s
+                    k += 1
+            if eobrun:
+                while k <= se:  # correction bits for the rest of the band
                     c = coefs[base + k]
                     if c:
                         if (words[p >> 3] >> (31 - (p & 7))) & 1 and not c & p1:
                             coefs[base + k] = c + p1 if c >= 0 else c + m1
                         p += 1
-                    else:
-                        r -= 1
-                        if r < 0:
-                            break
                     k += 1
-                if s and k <= se:
-                    coefs[base + k] = s
-                k += 1
-        if eobrun:
-            while k <= se:  # correction bits for the rest of the band
-                c = coefs[base + k]
-                if c:
-                    if (words[p >> 3] >> (31 - (p & 7))) & 1 and not c & p1:
-                        coefs[base + k] = c + p1 if c >= 0 else c + m1
-                    p += 1
-                k += 1
-            eobrun -= 1
+                eobrun -= 1
 
 
 # -- the islow IDCT (jidctint.c: CONST_BITS 13, PASS1_BITS 2) --
@@ -297,26 +319,18 @@ def _descale(x, n: int):
     return (x + (1 << (n - 1))) >> n
 
 
-def _idct_table() -> np.ndarray:
-    """libjpeg's post-IDCT range limit, indexed by (value & 1023): +128 and
-    clamped to [0, 255] for values in [-512, 511], wrapping beyond."""
-    idx = np.arange(1024)
-    x = np.where(idx < 512, idx, idx - 1024)
-    return np.clip(x + 128, 0, 255).astype(np.uint8)
-
-
-_RANGE = _idct_table()
-
-
 def idct_islow(coefs: np.ndarray) -> np.ndarray:
     """(N, 64) dequantised natural-order int64 coefficients -> (N, 8, 8)
-    uint8 samples, as jpeg_idct_islow computes them."""
-    blk = coefs.reshape(-1, 8, 8)
+    uint8 samples, as libjpeg-turbo's SIMD jpeg_idct_islow computes them
+    for Pillow: the dequantised values kept to 16 bits, the first pass's
+    output saturated to 16 bits, the samples +128 and clamped to [0, 255]
+    (the same as jidctint.c's range limit within [-512, 511])."""
+    blk = ((coefs + 0x8000 & 0xFFFF) - 0x8000).reshape(-1, 8, 8)
     cols = _idct_1d([blk[:, k, :] for k in range(8)], 13)  # pass 1 down the columns
-    ws = np.stack([_descale(c, 13 - 2) for c in cols], axis=1)  # (N, 8 rows, 8 cols)
+    ws = np.stack([np.clip(_descale(c, 13 - 2), -32768, 32767) for c in cols], axis=1)
     rows = _idct_1d([ws[:, :, k] for k in range(8)], 13)  # pass 2 along the rows
     out = np.stack([_descale(r, 13 + 2 + 3) for r in rows], axis=2)
-    return _RANGE[out & 1023]
+    return np.clip(out + 128, 0, 255).astype(np.uint8)
 
 
 # -- upsampling (jdsample.c) and colour conversion (jdcolor.c) --
@@ -403,18 +417,45 @@ def decode_jpeg(blob: bytes) -> np.ndarray:
     A variant this module does not read, or a malformed file, raises
     ValueError."""
     try:
-        return _decode(blob)
+        return _reconstruct(*_decode(blob))
     except (IndexError, KeyError, TypeError, struct.error) as exc:
         # a stream that ends early, a table or component it never defined
         raise ValueError(f"corrupt JPEG data ({type(exc).__name__}: {exc})") from None
 
 
-def _decode(blob: bytes) -> np.ndarray:
+def decode_jpeg_stream(stream: bytes, tables: bytes = b"", ycc: bool = False
+                       ) -> tuple[np.ndarray, list]:
+    """One JPEG stream as libtiff hands a TIFF strip or tile to libjpeg ->
+    ((H, W, C) uint8 samples of its C components, upsampled as libjpeg
+    upsamples them, [(h, v) sampling factors of each component]).
+    ``tables`` is a tables-only stream (TIFF's ``JPEGTables``) read first,
+    whose DQT and DHT tables the stream's own replace; ``ycc`` asks for
+    libjpeg's YCbCr -> RGB of three components (libtiff's
+    ``JPEGCOLORMODE_RGB``), else the components come as stored, whatever
+    the stream's JFIF or Adobe markers say."""
+    try:
+        init = _decode(tables, tables_only=True) if tables else None
+        frame, comps, coefs, *_ = _decode(stream, init)
+        planes = _planes(frame, comps, coefs)
+    except (IndexError, KeyError, TypeError, struct.error) as exc:
+        raise ValueError(f"corrupt JPEG data ({type(exc).__name__}: {exc})") from None
+    if ycc:
+        if len(planes) != 3:
+            raise ValueError(f"JPEG YCbCr -> RGB of {len(planes)} components")
+        out = ycc_to_rgb(*planes)
+    else:
+        out = np.stack(planes, axis=-1).astype(np.uint8)
+    return out, [(c.h, c.v) for c in comps]
+
+
+def _decode(blob: bytes, init=None, tables_only: bool = False):
+    """The marker loop: (frame, components, coefficients, JFIF, Adobe,
+    Adobe transform); with ``tables_only`` the (quantisation, DC, AC)
+    tables a tables-only stream defines, which ``init`` passes to a
+    stream that uses them."""
     if blob[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
-    qtables: dict[int, np.ndarray] = {}
-    dc_luts: dict[int, list] = {}
-    ac_luts: dict[int, list] = {}
+    qtables, dc_luts, ac_luts = (dict(t) for t in init) if init else ({}, {}, {})
     comps: list[_Component] = []
     frame = None  # (height, width, progressive)
     restart = 0
@@ -423,8 +464,9 @@ def _decode(blob: bytes) -> np.ndarray:
     coefs: list[list] = []
     pos = 2
     while pos < len(blob):
-        if blob[pos] != 0xFF:
-            raise ValueError(f"corrupt JPEG data: no marker at byte {pos}")
+        if blob[pos] != 0xFF:  # bytes before a marker, which libjpeg skips
+            pos += 1
+            continue
         marker = blob[pos + 1]
         if marker == 0xFF:  # fill byte
             pos += 1
@@ -434,7 +476,11 @@ def _decode(blob: bytes) -> np.ndarray:
             break
         if 0xD0 <= marker <= 0xD7 or marker == 0x01:  # no length field
             continue
+        if marker not in _KNOWN_MARKERS:  # libjpeg's read_markers refuses the rest
+            raise ValueError(f"corrupt JPEG data: marker 0x{marker:02x} libjpeg does not know")
         (length,) = struct.unpack(">H", blob[pos:pos + 2])
+        if length < 2:
+            raise ValueError("corrupt JPEG data: a marker length below 2")
         seg = blob[pos + 2:pos + length]
         pos += length
         if marker == 0xE0 and seg[:5] == b"JFIF\x00":
@@ -508,20 +554,22 @@ def _decode(blob: bytes) -> np.ndarray:
             segs, pos = _segments(blob, pos)
             step = max(restart or len(units), 1)  # MCUs a restart segment
             for j in range(0, len(units), step):
-                words = _words(segs[j // step] if j // step < len(segs) else b"")
-                chunk = [u for mcu in units[j:j + step] for u in mcu]
+                seg = segs[j // step] if j // step < len(segs) else b""
+                words, limit, chunk = _words(seg), 8 * len(seg), units[j:j + step]
                 if not frame[2]:
-                    _seq(words, chunk, tabs, len(comps))
+                    _seq(words, chunk, limit, tabs, len(comps))
                 elif ss == 0:
-                    (_dc_refine(words, chunk, tabs, al) if ah
-                     else _dc_first(words, chunk, tabs, len(comps), al))
+                    (_dc_refine(words, chunk, limit, tabs, al) if ah
+                     else _dc_first(words, chunk, limit, tabs, len(comps), al))
                 elif ah:
-                    _ac_refine(words, chunk, tabs, ss, se, al)
+                    _ac_refine(words, chunk, limit, tabs, ss, se, al)
                 else:
-                    _ac_first(words, chunk, tabs, ss, se, al)
+                    _ac_first(words, chunk, limit, tabs, ss, se, al)
+    if tables_only:
+        return qtables, dc_luts, ac_luts
     if frame is None:
         raise ValueError("corrupt JPEG data: no frame (SOF marker)")
-    return _reconstruct(frame, comps, coefs, jfif, adobe, adobe_transform)
+    return frame, comps, coefs, jfif, adobe, adobe_transform
 
 
 def _scan_units(comps, scan, mcus) -> list:
@@ -541,7 +589,8 @@ def _scan_units(comps, scan, mcus) -> list:
     return out
 
 
-def _reconstruct(frame, comps, coefs, jfif, adobe, adobe_transform) -> np.ndarray:
+def _planes(frame, comps, coefs) -> list:
+    """Each component's samples after the IDCT and upsampling, (H, W) int64."""
     height, width, _ = frame
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
     planes = []
@@ -554,6 +603,12 @@ def _reconstruct(frame, comps, coefs, jfif, adobe, adobe_transform) -> np.ndarra
         plane = blocks.transpose(0, 2, 1, 3).reshape(c.bh_pad * 8, c.bw_pad * 8)
         plane = _upsample(plane[:c.hgt, :c.w], hmax // c.h, vmax // c.v)
         planes.append(plane[:height, :width])
+    return planes
+
+
+def _reconstruct(frame, comps, coefs, jfif, adobe, adobe_transform) -> np.ndarray:
+    height, width, _ = frame
+    planes = _planes(frame, comps, coefs)
     rgba = np.full((height, width, 4), 255, np.uint8)
     if len(comps) == 1:
         rgba[..., :3] = planes[0][..., None].astype(np.uint8)

@@ -1,123 +1,218 @@
-"""TIFF decoding with ``zlib`` and numpy, for textures on hosts without Pillow.
+"""TIFF decoding with ``zlib``, ``lzma`` and numpy, for textures on hosts
+without Pillow.
 
 ``decode_tiff(blob)`` gives the (H, W, 4) uint8 RGBA that Pillow's
 ``Image.open(path).convert("RGBA")`` gives, byte for byte (Pillow 12, which
 hands compressed files to libtiff and reads uncompressed ones itself).
 
-Coverage: the first image (IFD 0), little- or big-endian; strips or tiles;
-``PlanarConfiguration`` 1 and 2; compression none (1), LZW (5, decoded by
-io/lzw.py), Deflate (8, 32946) and PackBits (32773); predictor 1, and 2 at
-8 and 16 bits; ``Photometric`` 0 and 1 (1, 2, 4, 8 and 16 bits, grey and
-alpha at 8), 2 (RGB at 8 and 16 bits with ``ExtraSamples`` 0, 1 or 2, or
-none), 3 (palette at 1, 2, 4 and 8 bits, and an 8-bit palette index with an
-unused or an alpha sample) and 5 (CMYK at 8 bits, with up to two unused
-samples).
+Coverage: the first image (IFD 0) of a classic TIFF, little- or big-endian,
+or a little-endian BigTIFF (Pillow reads a big-endian one's header as a
+classic TIFF's); strips or tiles; ``PlanarConfiguration`` 1 and 2; ``FillOrder``
+1 and 2; compression none (1), CCITT modified Huffman (2), CCITT Group 3
+(3, one- or two-dimensional by ``T4Options``) and Group 4 (4), decoded by
+io/ccitt.py, LZW (5, decoded by io/lzw.py), JPEG (7, each strip or tile one
+stream over io/jpeg.py's ``decode_jpeg_stream`` with the ``JPEGTables``),
+Deflate (8, 32946), PackBits (32773) and LZMA (34925, an xz stream);
+predictor 1, 2 at 8, 16 and 32 bits, and 3 (floating point); the layouts of
+Pillow's ``OPEN_INFO``: ``Photometric`` 0 and 1 (1, 2, 4, 8 and 16 bits,
+grey and alpha at 8; signed 8-bit; 12-bit, little-endian only; signed
+16-bit; unsigned 32-bit, little-endian only; signed 32-bit; 32-bit
+floating point), 2 (RGB at 8 and 16 bits with ``ExtraSamples`` 0, 1 or 2,
+or none), 3 (palette at 1, 2, 4 and 8 bits, and an 8-bit palette index with
+an unused or an alpha sample), 5 (CMYK at 8 bits, with up to two unused
+samples) and 6 (YCbCr: through libjpeg's YCbCr -> RGB in a JPEG file, read
+raw as Pillow reads it when uncompressed).
 
 Pillow's conversion is kept with its quirks:
 
-  * 16-bit grey is clipped at 255, not scaled (35,485 reads as 255), and
-    white-is-zero 16-bit grey is not inverted;
+  * 16-bit and 12-bit grey is clipped at 255, not scaled (35,485 reads as
+    255), and white-is-zero 16-bit grey is not inverted; signed and 32-bit
+    integer grey is clipped to [0, 255]; floating-point grey is truncated
+    toward zero and clipped (-3.7 -> 0, 300.6 -> 255, 13.5 -> 13, NaN ->
+    0), white-is-zero not inverted; signed 8-bit grey reads its bytes
+    (-1 -> 255);
+  * a compressed big-endian file of signed 16-bit, signed 32-bit or float
+    samples reads each sample byte-swapped (libtiff hands Pillow native
+    order, which Pillow reads with the file's);
   * 16-bit RGB and RGBA keep each sample's high byte;
   * associated alpha (``ExtraSamples`` 1) is un-premultiplied as
     ``min(255, c * 255 // a)``, 0 where alpha is 0;
   * a fourth sample without ``ExtraSamples`` is alpha;
   * the palette is the ``ColorMap`` values // 256;
   * CMYK converts as Pillow's ``cmyk2rgb`` (io/jpeg.py's ``cmyk_to_rgb``);
-  * PackBits and uncompressed files ignore the predictor;
-  * an uncompressed file reads every strip or tile offset it lists, those
+  * ``FillOrder`` 2 reverses the bits of each data byte, before any
+    decompression (libtiff), for the layouts whose ``OPEN_INFO`` key holds
+    it; an uncompressed plane of ``PlanarConfiguration`` 2 is not reversed,
+    and uncompressed white-is-zero 8-bit grey and 1-, 2- and 4-bit palettes
+    are refused (Pillow has no such raw mode);
+  * PackBits, JPEG, CCITT and uncompressed files ignore the predictor;
+  * uncompressed YCbCr is read as Pillow's ``RGBX`` raw mode: four bytes a
+    pixel, the fourth dropped and no colour conversion, whatever the
+    subsampling, so a file without those bytes is refused as truncated;
+  * a JPEG strip or tile is its own stream: chroma is upsampled inside it,
+    an edge tile is decoded whole and cropped, a last strip's stream may be
+    taller than the strip; photometric 6 goes through YCbCr -> RGB, 1 and 2
+    as stored; the stream's sampling factors must be ``YCbCrSubsampling``'s
+    (1, 1 but for YCbCr), and FillOrder does not apply;
+  * a Group 4 strip that ends early (an EOFB or the end of its data after
+    at least one row) keeps the rows after it from the strip before, as
+    Pillow's reused buffer does (zeros in the first strip);
+  * an orientation of 2, 3 or 4 flips the image as Pillow's
+    ``exif_transpose`` does;
+  * the directory is read up to the first entry, or the first tag's
+    values, that runs past the end of the file;
+  * an uncompressed file reads every strip or tile offset it lists (the
+    regions of those it lacks stay zero in Pillow's mode), those
     past the image's last one again from the top, in the order of the
     offsets (so the largest of several offsets of one strip wins); with
     ``PlanarConfiguration`` 2 each plane is read with the band's letter of
-    Pillow's raw mode: 8-bit samples (1-bit for bilevel) whatever the file's
-    depth, and white-is-zero grey not inverted;
+    Pillow's raw mode: 8-bit samples (1-bit for bilevel, 32-bit for ``I``
+    and ``F``) whatever the file's depth, and white-is-zero grey not
+    inverted;
   * a compressed file with ``PlanarConfiguration`` 2 loses the alpha plane
     of grey or palette with alpha (alpha 0), and un-premultiplies RGB by a
     fourth plane that ``ExtraSamples`` does not name.
 
 Where Pillow or libtiff refuses a file, and for the variants not listed
-above, this module raises ValueError naming TIFF and the variant: BigTIFF,
-JPEG, CCITT, LogLuv and the other compressions, floating-point and signed
-samples, YCbCr, CIELab and the other photometric interpretations, 12-bit
-and 32-bit samples, ``FillOrder`` 2, predictor 3, predictor 2 below 8 bits,
-old-style LZW, orientations that swap the axes, data that ends early.
+above, this module raises ValueError naming TIFF and the variant:
+old-style JPEG, Zstandard, WebP, LogLuv and the other compressions, YCbCr
+with a compression other than JPEG or none, CIELab and the other
+photometric interpretations, the layouts ``OPEN_INFO`` lacks (big-endian
+12-bit and unsigned 32-bit grey, float RGB, ...), predictor 3 on integer
+samples, predictor 2 below 8 bits or at 12, a JPEG stream whose size,
+components or sampling factors libtiff refuses, 12-bit JPEG, old-style LZW,
+orientations that swap the axes, data that ends early.
 """
 
 from __future__ import annotations
 
+import lzma
 import struct
 import zlib
 
 import numpy as np
 
 from gaussian_splatterer_tpu_torch.io.bmp import raw_rows, unpack_bits
-from gaussian_splatterer_tpu_torch.io.jpeg import cmyk_to_rgb
+from gaussian_splatterer_tpu_torch.io.ccitt import FaxState, decode_fax
+from gaussian_splatterer_tpu_torch.io.jpeg import cmyk_to_rgb, decode_jpeg_stream
 from gaussian_splatterer_tpu_torch.io.lzw import OK, decode_lzw
+from gaussian_splatterer_tpu_torch.io.pillow_open import check_size
 
 _COMPRESSIONS = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
                  5: "LZW", 6: "old-style JPEG", 7: "JPEG", 8: "Deflate", 32773: "PackBits",
                  32946: "Deflate", 34676: "SGI LogLuv", 34677: "SGI LogLuv24",
                  34925: "LZMA", 50000: "Zstandard", 50001: "WebP"}
-# the integer field types: BYTE, SHORT, LONG, SBYTE, SSHORT, SLONG, IFD, LONG8,
-# SLONG8, IFD8
-_TYPE_CODE = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 13: "I", 16: "Q", 17: "q",
-              18: "Q"}
+_READ = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925)
+# the integer field types: BYTE, SHORT, LONG, SBYTE, UNDEFINED (JPEGTables'
+# bytes), SSHORT, SLONG, IFD, LONG8, SLONG8, IFD8
+_TYPE_CODE = {1: "B", 3: "H", 4: "I", 6: "b", 7: "B", 8: "h", 9: "i", 13: "I", 16: "Q",
+              17: "q", 18: "Q"}
+_REVERSED = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)], np.uint8)
 
 
 def _modes() -> dict:
-    """Pillow's OPEN_INFO for the variants read here: (photometric, bits
-    per sample, extra samples) -> (kind, Pillow's raw mode); kinds "1",
-    "L", "1I" and "LI" (white is zero), "I16", "LA", "RGB", "RGBA", "RGBa"
-    (associated alpha), "P", "PA", "CMYK"."""
-    modes = {}
+    """Pillow's OPEN_INFO for the variants read here: (big-endian,
+    photometric, sample format, fill order, bits per sample, extra samples)
+    -> (kind, Pillow's raw mode); kinds "1", "L", "1I" and "LI" (white is
+    zero), "I16", "I" (signed or 32-bit integers), "F", "LA", "RGB",
+    "RGBA", "RGBa" (associated alpha), "P", "PA", "CMYK"."""
+    both = {}
     for photo, inv in ((0, "I"), (1, "")):
-        modes[(photo, (1,), ())] = ("1" + inv, "1;" + inv if inv else "1")
+        both[(photo, (1,), 1, (1,), ())] = ("1" + inv, "1;" + inv if inv else "1")
+        both[(photo, (1,), 2, (1,), ())] = ("1" + inv, f"1;{inv}R")
         for b in (2, 4):
-            modes[(photo, (b,), ())] = ("L" + inv, f"L;{b}{inv}")
-        modes[(photo, (8,), ())] = ("L" + inv, "L;I" if inv else "L")
-        modes[(photo, (16,), ())] = ("I16", "I;16")
-    modes[(1, (8, 8), (2,))] = ("LA", "LA")
-    for b, suffix in ((8, ""), (16, ";16")):
-        modes[(2, (b,) * 3, ())] = ("RGB", "RGB" + suffix)
-        for extra, kind, raw in (((), "RGBA", "RGBA"), ((0,), "RGB", "RGBX"),
-                                 ((1,), "RGBa", "RGBa"), ((2,), "RGBA", "RGBA")):
-            modes[(2, (b,) * 4, extra)] = (kind, raw + suffix)
-    modes[(2, (8,) * 4, (999,))] = ("RGBA", "RGBA")
+            both[(photo, (1,), 1, (b,), ())] = ("L" + inv, f"L;{b}{inv}")
+            both[(photo, (1,), 2, (b,), ())] = ("L" + inv, f"L;{b}{inv}R")
+        both[(photo, (1,), 1, (8,), ())] = ("L" + inv, "L;I" if inv else "L")
+        both[(photo, (1,), 2, (8,), ())] = ("L" + inv, f"L;{inv}R")
+    both[(1, (2,), 1, (8,), ())] = ("L", "L")
+    both[(1, (1,), 1, (8, 8), (2,))] = ("LA", "LA")
+    both[(6, (1,), 1, (8,), ())] = ("L", "L")
+    both[(6, (1,), 1, (8, 8, 8), ())] = ("RGB", "RGBX")
+    both[(2, (1,), 2, (8, 8, 8), ())] = ("RGB", "RGB;R")
+    for b in (1, 2, 4, 8):
+        both[(3, (1,), 1, (b,), ())] = ("P", "P" if b == 8 else f"P;{b}")
+        both[(3, (1,), 2, (b,), ())] = ("P", "P;R" if b == 8 else f"P;{b}R")
+    both[(3, (1,), 1, (8, 8), (0,))] = ("P", "PX")
+    both[(3, (1,), 1, (8, 8), (2,))] = ("PA", "PA")
+    for tail in ((), (0,), (0, 0)):
+        both[(5, (1,), 1, (8,) * (4 + len(tail)), tail)] = ("CMYK", "CMYK" + "X" * len(tail))
+    both[(2, (1,), 1, (8,) * 4, (999,))] = ("RGBA", "RGBA")
     for tail, kind, raw in (((0, 0), "RGB", "RGBXX"), ((0, 0, 0), "RGB", "RGBXXX"),
                             ((1, 0), "RGBa", "RGBaX"), ((1, 0, 0), "RGBa", "RGBaXX"),
                             ((2, 0), "RGBA", "RGBAX"), ((2, 0, 0), "RGBA", "RGBAXX")):
-        modes[(2, (8,) * (3 + len(tail)), tail)] = (kind, raw)
-    for b in (1, 2, 4, 8):
-        modes[(3, (b,), ())] = ("P", "P" if b == 8 else f"P;{b}")
-    modes[(3, (8, 8), (0,))] = ("P", "PX")
-    modes[(3, (8, 8), (2,))] = ("PA", "PA")
-    for tail in ((), (0,), (0, 0)):
-        modes[(5, (8,) * (4 + len(tail)), tail)] = ("CMYK", "CMYK" + "X" * len(tail))
+        both[(2, (1,), 1, (8,) * (3 + len(tail)), tail)] = (kind, raw)
+    modes = {}
+    for big, order in ((False, "L"), (True, "B")):
+        for key, value in both.items():
+            modes[(big,) + key] = value
+        for b, suffix in ((8, ""), (16, ";16" + order)):
+            modes[(big, 2, (1,), 1, (b,) * 3, ())] = ("RGB", "RGB" + suffix)
+            for extra, kind, raw in (((), "RGBA", "RGBA"), ((0,), "RGB", "RGBX"),
+                                     ((1,), "RGBa", "RGBa"), ((2,), "RGBA", "RGBA")):
+                modes[(big, 2, (1,), 1, (b,) * 4, extra)] = (kind, raw + suffix)
+        modes[(big, 1, (1,), 1, (16,), ())] = ("I16", "I;16B" if big else "I;16")
+        modes[(big, 1, (2,), 1, (16,), ())] = ("I", "I;16BS" if big else "I;16S")
+        modes[(big, 1, (2,), 1, (32,), ())] = ("I", "I;32BS" if big else "I;32S")
+        for photo in (0, 1):
+            modes[(big, photo, (3,), 1, (32,), ())] = ("F", "F;32BF" if big else "F;32F")
+    modes[(False, 0, (1,), 1, (16,), ())] = ("I16", "I;16")
+    modes[(False, 1, (1,), 1, (12,), ())] = ("I16", "I;12")
+    modes[(False, 1, (1,), 2, (16,), ())] = ("I16", "I;16R")
+    modes[(False, 1, (1,), 1, (32,), ())] = ("I", "I;32N")
     return modes
 
 
 _MODES = _modes()
 
 
-def _ifd(blob: bytes, e: str) -> dict:
-    """IFD 0 -> {tag: tuple of ints} for the integer tags."""
-    pos = struct.unpack_from(e + "I", blob, 4)[0]
-    if len(blob) < pos + 2:
+def _header(blob: bytes) -> tuple[str, bool, int]:
+    """(byte order, BigTIFF, offset of IFD 0), as Pillow reads them: it
+    tells a BigTIFF by its third byte, so a big-endian one reads as a
+    classic TIFF whose IFD offset is bytes 4-8."""
+    if blob[:4] in (b"II\x2a\x00", b"MM\x00\x2a", b"MM\x00\x2b") and len(blob) >= 8:
+        e = ">" if blob[:2] == b"MM" else "<"
+        return e, False, struct.unpack_from(e + "I", blob, 4)[0]
+    if blob[:4] == b"II\x2b\x00" and len(blob) >= 16:
+        return "<", True, struct.unpack_from("<Q", blob, 8)[0]
+    raise ValueError("not a TIFF file")
+
+
+# the sizes of the field types Pillow loads; it skips the others
+_TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4,
+              16: 8, 17: 8, 18: 8}
+
+
+def _ifd(blob: bytes, e: str, pos: int, bigtiff: bool, skip: bool = False) -> dict:
+    """The IFD at ``pos`` -> {tag: tuple of ints} for the integer tags, as
+    Pillow loads it: it stops at an entry, or at the values of a tag, that
+    runs past the end of the file, and keeps the tags before; with
+    ``skip``, as libtiff reads the layout of a compressed file, such a tag
+    is passed over."""
+    count_fmt, entry, field = ("Q", 20, 8) if bigtiff else ("H", 12, 4)
+    head = struct.calcsize(count_fmt)
+    if len(blob) < pos + head:
         raise ValueError("TIFF directory past the end of the file (truncated file)")
-    n = struct.unpack_from(e + "H", blob, pos)[0]
-    if len(blob) < pos + 2 + 12 * n:
-        raise ValueError("TIFF directory is cut short (truncated file)")
+    n = struct.unpack_from(e + count_fmt, blob, pos)[0]
     tags = {}
     for i in range(n):
-        tag, kind, count = struct.unpack_from(e + "HHI", blob, pos + 2 + 12 * i)
-        if kind not in _TYPE_CODE:
+        at = pos + head + entry * i
+        if len(blob) < at + entry:
+            break
+        tag, kind = struct.unpack_from(e + "HH", blob, at)
+        count = struct.unpack_from(e + ("Q" if bigtiff else "I"), blob, at + 4)[0]
+        if kind not in _TYPE_SIZE:
             continue
-        size = struct.calcsize(_TYPE_CODE[kind]) * count
-        at = pos + 10 + 12 * i
-        if size > 4:
-            at = struct.unpack_from(e + "I", blob, at)[0]
+        size = _TYPE_SIZE[kind] * count
+        at += entry - field
+        if size > field:
+            at = struct.unpack_from(e + ("Q" if bigtiff else "I"), blob, at)[0]
             if len(blob) < at + size:
-                raise ValueError(f"TIFF tag {tag} past the end of the file (truncated file)")
-        tags[tag] = struct.unpack_from(f"{e}{count}{_TYPE_CODE[kind]}", blob, at)
+                if skip:
+                    continue
+                break
+        if kind in _TYPE_CODE and count:
+            tags[tag] = struct.unpack_from(f"{e}{count}{_TYPE_CODE[kind]}", blob, at)
     return tags
 
 
@@ -141,7 +236,8 @@ def _packbits(data: bytes, size: int) -> bytes:
 
 
 def _inflate(data: bytes, comp: int, size: int) -> np.ndarray:
-    """One compressed strip or tile -> its ``size`` bytes, as libtiff."""
+    """One LZW, PackBits, Deflate or LZMA strip or tile -> its ``size``
+    bytes, as libtiff."""
     if comp == 5:
         if len(data) >= 2 and data[0] == 0 and data[1] & 1:
             raise ValueError("unsupported TIFF (old-style LZW)")
@@ -151,6 +247,12 @@ def _inflate(data: bytes, comp: int, size: int) -> np.ndarray:
                              "TIFF LZW data ends early (truncated file)")
     elif comp == 32773:
         out = np.frombuffer(_packbits(data, size), np.uint8)
+    elif comp == 34925:
+        try:  # libtiff stops once the strip is full, as max_length does
+            out = np.frombuffer(lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(data, size),
+                                np.uint8)
+        except lzma.LZMAError as exc:
+            raise ValueError(f"corrupt TIFF LZMA data ({exc})") from None
     else:
         try:
             out = np.frombuffer(zlib.decompressobj().decompress(data, size), np.uint8)
@@ -161,12 +263,54 @@ def _inflate(data: bytes, comp: int, size: int) -> np.ndarray:
     return out
 
 
+def _jpeg_chunk(data: bytes, tables: bytes, photo: int, spp: int, sub: tuple,
+                seg: tuple, last_strip: bool) -> np.ndarray:
+    """One JPEG strip or tile -> (rows, columns, spp) uint8, after libtiff's
+    JPEGPreDecode checks of its size, components and sampling factors."""
+    out, factors = decode_jpeg_stream(data, tables, ycc=photo == 6)
+    sh, sw = out.shape[:2]
+    gw, gh = seg
+    if sw != gw or sh < gh or (sh > gh and not last_strip):
+        raise ValueError(f"unsupported TIFF (a JPEG stream of {sw}x{sh} for a strip or tile "
+                         f"of {gw}x{gh})")
+    if out.shape[2] != spp:
+        raise ValueError(f"unsupported TIFF (a JPEG stream of {out.shape[2]} components for "
+                         f"{spp} samples a pixel)")
+    if factors[0] != sub or any(f != (1, 1) for f in factors[1:]):
+        raise ValueError(f"unsupported TIFF (JPEG sampling factors {factors} where "
+                         f"YCbCrSubsampling is {sub})")
+    return out[:gh]
+
+
+def _predict_float(rows: np.ndarray, stride: int) -> np.ndarray:
+    """libtiff's fpAcc on (h, row bytes): the bytes summed along the row
+    ``stride`` apart, then the row's four byte planes (the most
+    significant first) put back together -> (h, row bytes // 4) uint32."""
+    h, n = rows.shape
+    acc = rows.astype(np.int64).reshape(h, n // stride, stride).cumsum(axis=1) & 0xFF
+    planes = acc.reshape(h, 4, n // 4)
+    return (planes[:, 0] << 24 | planes[:, 1] << 16 | planes[:, 2] << 8
+            | planes[:, 3]).astype(np.uint32)
+
+
 def _samples(rows: np.ndarray, w: int, n: int, bits: int, big: bool) -> np.ndarray:
     """(h, row bytes) -> (h, w, n) int64 samples at their own depth."""
     h = rows.shape[0]
-    if bits == 16:
-        s = rows[:, :2 * w * n].reshape(h, w * n, 2).astype(np.int64)
-        s = (s[..., 0] << 8 | s[..., 1]) if big else (s[..., 1] << 8 | s[..., 0])
+    if bits in (16, 32):
+        k = bits // 8
+        s = rows[:, :k * w * n].reshape(h, w * n, k).astype(np.int64)
+        order = range(k) if big else range(k - 1, -1, -1)
+        v = np.zeros(s.shape[:2], np.int64)
+        for i in order:
+            v = v << 8 | s[..., i]
+        s = v
+    elif bits == 12:
+        b = rows[:, :-(-w * n * 12 // 8)].astype(np.int64)
+        pairs = np.zeros((h, 3 * -(-(w * n) // 2)), np.int64)
+        pairs[:, :b.shape[1]] = b
+        t = pairs.reshape(h, -1, 3)
+        s = np.stack([t[..., 0] << 4 | t[..., 1] >> 4, (t[..., 1] & 15) << 8 | t[..., 2]],
+                     axis=-1).reshape(h, -1)[:, :w * n]
     else:
         s = unpack_bits(rows, w * n, bits)
     return s.reshape(h, w, n)
@@ -174,78 +318,132 @@ def _samples(rows: np.ndarray, w: int, n: int, bits: int, big: bool) -> np.ndarr
 
 def decode_tiff(blob: bytes) -> np.ndarray:
     """TIFF bytes -> (H, W, 4) uint8 RGBA of its first image, row 0 the top."""
-    if blob[:4] in (b"II\x2b\x00", b"MM\x00\x2b"):
-        raise ValueError("unsupported TIFF (BigTIFF)")
-    if blob[:4] not in (b"II\x2a\x00", b"MM\x00\x2a") or len(blob) < 8:
-        raise ValueError("not a TIFF file")
-    big = blob[:2] == b"MM"
-    tags = _ifd(blob, ">" if big else "<")
+    e, bigtiff, ifd_at = _header(blob)
+    big = e == ">"
+    tags = _ifd(blob, e, ifd_at, bigtiff)
 
     def get(tag, default=None):
         v = tags.get(tag, default)
         return v[0] if isinstance(v, tuple) and len(v) == 1 else v
 
     comp, planar, photo = get(259, 1), get(284, 1), get(262, 0)
-    if comp not in (1, 5, 8, 32773, 32946):
+    if comp not in _READ:
         raise ValueError(f"unsupported TIFF (compression {_COMPRESSIONS.get(comp, comp)})")
+    # libtiff finds a compressed file's strips in its own reading of the
+    # directory; Pillow's decides the mode
+    layout = tags if comp == 1 else {**tags, **{
+        k: v for k, v in _ifd(blob, e, ifd_at, bigtiff, skip=True).items()
+        if k in (273, 278, 279, 292, 317, 322, 323, 324, 325, 347, 530)}}
+
+    def lay(tag, default=None):
+        v = layout.get(tag, default)
+        return v[0] if isinstance(v, tuple) and len(v) == 1 else v
+
+    if comp != 1 and (blob[3] == 0x2B or (bigtiff and blob[4:8] != b"\x08\0\0\0")):
+        raise ValueError("unsupported TIFF (a BigTIFF header libtiff reads otherwise than "
+                         "Pillow)")
     if 256 not in tags or 257 not in tags:
         raise ValueError("TIFF without its dimensions")
     w, h = get(256), get(257)
-    if get(266, 1) != 1:
-        raise ValueError("unsupported TIFF (FillOrder 2)")
-    if get(274, 1) in (5, 6, 7, 8):
-        raise ValueError(f"unsupported TIFF (orientation {get(274)}, axes swapped)")
+    if not isinstance(w, int) or not isinstance(h, int):
+        raise ValueError("TIFF with invalid dimensions")
+    check_size("TIFF", w, h)
+    fill = get(266, 1)
+    orientation = get(274, 1)
+    if orientation in (5, 6, 7, 8):
+        raise ValueError(f"unsupported TIFF (orientation {orientation}, axes swapped)")
     fmt = tuple(tags.get(339, (1,)))
-    if fmt != (1,) * len(fmt):
-        raise ValueError(f"unsupported TIFF (sample format {fmt}: signed or floating point)")
+    if len(fmt) > 1 and fmt == (1,) * len(fmt):
+        fmt = (1,)
     bps, extra = tuple(tags.get(258, (1,))), tuple(tags.get(338, ()))
     spp = get(277, 1)
     if spp < len(bps):
         bps = bps[:spp]
     elif spp > len(bps) == 1:
         bps = bps * spp
-    key = (photo, bps, extra)
-    if len(bps) != spp or key not in _MODES or (big and key == (0, (16,), ())):
-        raise ValueError(f"unsupported TIFF (photometric {photo}, bits per sample {bps}, "
-                         f"extra samples {extra})")
+    key = (big, photo, fmt, fill, bps, extra)
+    if len(bps) != spp or key not in _MODES:
+        raise ValueError(f"unsupported TIFF (photometric {photo}, sample format {fmt}, fill "
+                         f"order {fill}, bits per sample {bps}, extra samples {extra})")
     kind, rawmode = _MODES[key]
+    if comp != 1 and fill == 2:  # libtiff undoes the fill order: Pillow's fill order 1 key
+        kind, rawmode = _MODES[(big, photo, fmt, 1, bps, extra)]
+    elif rawmode in ("L;IR", "P;1R", "P;2R", "P;4R") and planar != 2:
+        raise ValueError(f"unsupported TIFF (Pillow has no raw mode {rawmode})")
     bits = bps[0]
-    # libtiff undoes the predictor for LZW and Deflate only
-    predictor = get(317, 1) if comp in (5, 8, 32946) else 1
-    if predictor not in (1, 2) or (predictor == 2 and bits < 8):
-        raise ValueError(f"unsupported TIFF (predictor {predictor} at {bits} bits)")
-    tiled = 324 in tags
+    # the bytes of a pixel as Pillow's raw mode reads them, for YCbCr's RGBX
+    n_read = 4 if rawmode == "RGBX" and spp == 3 and comp == 1 else spp
+    jpeg = comp == 7
+    if photo == 6 and spp == 3 and comp not in (1, 7):
+        raise ValueError(f"unsupported TIFF (YCbCr with compression "
+                         f"{_COMPRESSIONS.get(comp, comp)}, which Pillow reads through "
+                         f"libtiff's RGBA interface)")
+    if jpeg:
+        if bits != 8 or planar != 1 or (photo == 6 and spp != 3):
+            raise ValueError(f"unsupported TIFF (JPEG with {bits}-bit samples, planar "
+                             f"configuration {planar}, photometric {photo})")
+        if photo == 6:
+            kind = "RGB"  # libjpeg's YCbCr -> RGB, Pillow's raw mode RGB
+    fax = comp in (2, 3, 4)
+    if fax and (bits != 1 or spp != 1):
+        raise ValueError(f"unsupported TIFF (CCITT with {spp} samples of {bits} bits; libtiff "
+                         "reads bilevel only)")
+    # libtiff undoes the predictor for LZW, Deflate and LZMA only
+    predictor = lay(317, 1) if comp in (5, 8, 32946, 34925) else 1
+    if (predictor not in (1, 2, 3) or (predictor == 2 and bits not in (8, 16, 32))
+            or (predictor == 3 and (fmt != (3,) or bits != 32))):
+        raise ValueError(f"unsupported TIFF (predictor {predictor} at {bits} bits, sample "
+                         f"format {fmt})")
+    if 273 not in layout and 324 not in layout:
+        raise ValueError("TIFF without strip or tile offsets (unknown data organization)")
+
+    tiled = 324 in layout
     if tiled:
-        cw, ch = get(322), get(323)
-        offsets, counts = tags[324], tags.get(325, ())
+        cw, ch = lay(322), lay(323)
+        offsets, counts = layout[324], layout.get(325, ())
     else:
-        cw, ch = w, min(get(278, h) or h, h)
-        offsets, counts = tags.get(273, ()), tags.get(279, ())
+        cw, ch = w, min(lay(278, h) or h, h)
+        offsets, counts = layout.get(273, ()), layout.get(279, ())
     if not cw or not ch or not isinstance(cw, int) or not isinstance(ch, int):
         raise ValueError("TIFF strips or tiles of no size")
     planes = spp if planar == 2 else 1
     across, down = -(-w // cw), -(-h // ch)
     per_plane = across * down
-    if len(offsets) < planes * per_plane or (comp != 1 and len(counts) < len(offsets)):
+    if ((len(offsets) < planes * per_plane and (comp != 1 or planar == 2))
+            or (comp != 1 and len(counts) < len(offsets))):
         raise ValueError("TIFF with fewer strip or tile offsets than its image needs")
+    reverse = fill == 2
     if comp == 1 and planar == 2:
-        # Pillow reads each plane with one letter of its raw mode
+        # Pillow reads each plane with one letter of its raw mode, never reversed
         if (kind in ("LA", "PA") or len(offsets) != planes * per_plane
-                or not all(c in "1LPRGBACMYK" for c in rawmode[:planes])):
+                or not all(c in "1LPRGBACMYKIF" for c in rawmode[:planes])):
             raise ValueError(f"unsupported TIFF (uncompressed, planar configuration 2, "
                              f"Pillow's raw mode {rawmode})")
-        bits, kind = (1 if kind[0] == "1" else 8), kind.rstrip("I")
+        letter = rawmode[0]
+        if letter in "IF" and kind != letter:
+            raise ValueError(f"unsupported TIFF (uncompressed, planar configuration 2, "
+                             f"Pillow's raw mode {letter} for its mode {kind})")
+        bits = 1 if kind[0] == "1" else 32 if letter in "IF" else 8
+        n_read, big, reverse = spp, False, False
+        if letter in "IF":
+            rawmode = "I;32S" if letter == "I" else "F;32F"
+        else:
+            kind = kind.rstrip("I")
     elif planar == 2 and "X" in rawmode and (not tiled or kind == "P"):
         raise ValueError(f"unsupported TIFF ({'tiles' if tiled else 'strips'} in planar "
                          f"configuration 2 with unused samples, Pillow's raw mode {rawmode})")
     elif planar == 2 and photo == 2 and not extra and spp == 4:
         kind = "RGBa"  # libtiff's reading of an unlabelled fourth plane
+    tables = bytes(layout.get(347, ()))
+    sub = tuple(layout.get(530, (2, 2)))[:2] if photo == 6 else (1, 1)
+    fax_state = FaxState(cw, comp, lay(292, 0) or 0) if fax else None
     # (index of the strip or tile in the file's list, its region): libtiff
     # reads those the image needs; Pillow reads every offset of an
     # uncompressed file, a strip or tile past the image's last one again
     # over the first, in the order of the offsets, so the largest offset of
     # a region wins
     chunks = [(i, i) for i in range(planes * per_plane)]
+    covered = np.zeros((down * ch, across * cw), bool)
     if comp == 1 and planar != 2:
         last = {}
         for i, off in enumerate(offsets):
@@ -253,11 +451,11 @@ def decode_tiff(blob: bytes) -> np.ndarray:
             if r not in last or off >= offsets[last[r]]:
                 last[r] = i
         chunks = sorted((i, r) for r, i in last.items())
-    n = spp if planar != 2 else 1
+    n = n_read if planar != 2 else 1
     # Pillow's stride of a raw tile at the right edge, in bytes
-    expected = (3 if photo == 2 else 4 if photo == 5 else 1) + len(extra)
+    expected = (3 if photo in (2, 6) else 4 if photo == 5 else 1) + len(extra)
     step = int(cw * sum(bps) / 8 / (expected if planar == 2 else 1))
-    s = np.zeros((down * ch, across * cw, spp), np.int64)
+    s = np.zeros((down * ch, across * cw, n_read), np.int64)
     for i, r in chunks:
         p, (ty, tx) = r // per_plane, divmod(r % per_plane, across)
         x, y, off = tx * cw, ty * ch, offsets[i]
@@ -266,28 +464,65 @@ def decode_tiff(blob: bytes) -> np.ndarray:
         row = -(-rw * n * bits // 8)
         if comp == 1:
             rows = raw_rows(blob, off, rh, row, step if x + cw > w else 0, False, "TIFF")
+            if reverse:
+                rows = _REVERSED[rows]
         else:
             if len(blob) < off + counts[i]:
                 raise ValueError("TIFF strip or tile past the end of the file "
                                  "(truncated file)")
-            rows = _inflate(blob[off:off + counts[i]], comp, rh * row)[:rh * row]
-            rows = rows.reshape(rh, row)
-        v = _samples(rows, rw, n, bits, big)
+            data = blob[off:off + counts[i]]
+            if reverse and not fax and not jpeg:  # libtiff's fax and JPEG codecs read
+                # the data as stored (the fax decoder honours the fill order itself)
+                data = _REVERSED[np.frombuffer(data, np.uint8)].tobytes()
+            if jpeg:
+                rows = _jpeg_chunk(data, tables, photo, spp, sub, (cw, rh), not tiled
+                                   and y + ch >= h).reshape(rh, row)
+            elif fax:
+                rows = decode_fax(data, fax_state, rh, reverse)
+            else:
+                rows = _inflate(data, comp, rh * row)[:rh * row].reshape(rh, row)
+        if predictor == 3:
+            v = _predict_float(rows, n).astype(np.int64).reshape(rh, rw, n)
+        else:
+            v = _samples(rows, rw, n, bits, big)
         if predictor == 2:
             v = np.cumsum(v, axis=1) & ((1 << bits) - 1)
         s[y:y + rh, x:x + rw, p:p + n] = v
-    s = s[:h, :w]
-    rgba = _convert(s, kind, bits, tags)
+        covered[y:y + rh, x:x + rw] = True
+    s, covered = s[:h, :w], covered[:h, :w]
+    if comp != 1 and big and rawmode[-2:] in ("BS", "BF"):
+        # libtiff hands Pillow native (little-endian) order; the raw mode
+        # reads it big-endian
+        k = bits // 8
+        s = sum(((s >> (8 * j)) & 0xFF) << (8 * (k - 1 - j)) for j in range(k))
+    rgba = _convert(s[..., :spp] if n_read != spp else s, kind, bits, rawmode, tags)
     if planar == 2 and comp != 1 and kind in ("LA", "PA"):
         rgba[..., 3] = 0
+    if not covered.all():  # an uncompressed file that lists too few strips or tiles:
+        # the rest is Pillow's new image, zero in its mode
+        rgba[~covered] = (_convert(np.zeros((1, 1, s.shape[2]), np.int64), kind, bits, rawmode,
+                                   tags)[0, 0] if kind in ("P", "PA") else
+                          (255, 255, 255, 255) if kind == "CMYK" else
+                          (0, 0, 0, 0) if kind in ("RGBA", "RGBa", "LA") else (0, 0, 0, 255))
+    if orientation in (2, 3, 4):
+        rgba = np.ascontiguousarray(rgba[:, ::-1] if orientation == 2 else
+                                    rgba[::-1, ::-1] if orientation == 3 else rgba[::-1])
     return rgba
 
 
-def _convert(s: np.ndarray, kind: str, bits: int, tags: dict) -> np.ndarray:
+def _convert(s: np.ndarray, kind: str, bits: int, rawmode: str, tags: dict) -> np.ndarray:
     h, w, _ = s.shape
     rgba = np.full((h, w, 4), 255, np.uint8)
     v8 = s >> 8 if bits == 16 else s
-    if kind in ("1", "1I", "L", "LI", "I16", "LA"):
+    if kind in ("I", "F"):
+        g = s[..., 0]
+        if kind == "F":  # the bits of an IEEE single, truncated toward zero and clipped
+            f = g.astype(np.uint32).view(np.float32).astype(np.float64)
+            g = np.where(f >= 255, 255, np.where(f > 0, np.trunc(np.nan_to_num(f)), 0))
+        elif "S" in rawmode or "N" in rawmode:  # two's complement at the sample's width
+            g = np.where(g >= 1 << (bits - 1), g - (1 << bits), g)
+        rgba[..., :3] = np.clip(g, 0, 255).astype(np.uint8)[..., None]
+    elif kind in ("1", "1I", "L", "LI", "I16", "LA"):
         g = s[..., 0]
         if kind == "I16":
             g = np.minimum(g, 255)

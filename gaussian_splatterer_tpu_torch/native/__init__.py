@@ -1,6 +1,7 @@
 """Native C++ file parsers (the ``.obj`` mesh and ``.gobj`` splat formats),
 the texture decoders' byte loops (PNG's row unfilter, GIF's and TIFF's
-LZW, PSD's PackBits rows, SGI's and PCX's run-length rows, QOI's ops) and
+LZW, PSD's PackBits rows, SGI's and PCX's run-length rows, QOI's ops,
+TIFF's CCITT fax decoder, DDS's BC6H blocks) and
 WebP's bit-serial decoders (VP8, VP8L, ALPH), loaded with ctypes
 (counterpart of gaussian_splatterer_tpu.native).
 
@@ -11,8 +12,8 @@ sources and flags (an unchanged source is reused across processes, a
 changed one builds anew), and loaded.  Nothing is built at import time.  A
 failed build prints the compiler's message to standard error; ``lib()``
 then returns None and io/obj.py, io/gobj.py, io/png.py, io/lzw.py,
-io/psd.py, io/sgi.py, io/pcx.py and io/qoi.py take their pure-Python
-loops, which stay as the plain twins of these; io/webp.py has no Python
+io/psd.py, io/sgi.py, io/pcx.py, io/qoi.py, io/ccitt.py and io/dds.py take
+their pure-Python loops, which stay as the plain twins of these; io/webp.py has no Python
 twin and refuses WebP files then.
 """
 
@@ -117,6 +118,13 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     cdll.gst_pcx_rle.restype = ctypes.c_int
     cdll.gst_qoi_decode.argtypes = [ctypes.c_char_p, i64, i64, ctypes.c_int, pu8]
     cdll.gst_qoi_decode.restype = ctypes.c_int
+    pu32 = ctypes.POINTER(ctypes.c_uint32)
+    cdll.gst_fax_decode.argtypes = [ctypes.c_char_p, i64, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, i64, i64, pu8, i64, pu32, i64, pi, pi, pi,
+                                    pi64]
+    cdll.gst_fax_decode.restype = ctypes.c_int
+    cdll.gst_bc6h_decode.argtypes = [ctypes.c_char_p, i64, ctypes.c_int, pi, pu8]
+    cdll.gst_bc6h_decode.restype = None
     return cdll
 
 
@@ -287,3 +295,41 @@ def qoi_decode(data: bytes, pixels: int, channels: int):
         return None
     out = np.zeros((pixels, channels), np.uint8)
     return out, cdll.gst_qoi_decode(bytes(data), len(data), pixels, channels, _u8(out))
+
+
+def fax_decode(data: bytes, st, rows: int, lsb_first: bool):
+    """io/ccitt.decode_fax_python's (rows, status, rows written) from the
+    native loop, into and with ``st``'s buffer and run arrays, or None
+    when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    from gaussian_splatterer_tpu_torch.io import ccitt
+
+    out = st.rows(rows)[:rows]
+    end = ctypes.c_int64()
+    pi = ctypes.POINTER(ctypes.c_int32)
+    tables = [ccitt.native_table(t) for t in ("main", "white", "black")]
+    status = cdll.gst_fax_decode(
+        bytes(data), len(data), st.comp, int(st.two_d), int(lsb_first), st.width, rows,
+        _u8(out), out.shape[1], st.runs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        st.nruns, *(t.ctypes.data_as(pi) for t in tables), ctypes.byref(end))
+    return out, status, end.value
+
+
+def bc6h_decode(blocks: np.ndarray, signed: bool):
+    """io/dds.bc6h_python's (N, 16, 3) uint8 texels of (N, 16) uint8 BC6H
+    blocks from the native loop, or None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    from gaussian_splatterer_tpu_torch.io import dds
+
+    if "bc6h_table" not in _state:
+        _state["bc6h_table"] = dds.bc6h_table()
+    table = _state["bc6h_table"]
+    src = np.ascontiguousarray(blocks, dtype=np.uint8)
+    out = np.zeros((len(src), 16, 3), np.uint8)
+    cdll.gst_bc6h_decode(src.tobytes(), len(src), int(signed),
+                         table.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), _u8(out))
+    return out

@@ -1,18 +1,302 @@
 // Native byte loops of the texture decoders: PNG's row unfilter, the LZW
 // decoder of GIF and TIFF, PSD's PackBits rows, SGI's and PCX's run-length
-// rows and QOI's ops.  Each is the C++ twin of a Python loop that stays as
-// its plain version (io/png.py's unfilter_python, io/lzw.py's
-// decode_lzw_python, io/psd.py's packbits_rows_python, io/sgi.py's
-// rle_rows_python, io/pcx.py's rle_lines_python, io/qoi.py's
-// decode_ops_python) and gives the same bytes and the same status for
-// every input, broken ones included.  Plain C ABI for ctypes; the caller
-// owns every buffer.
+// rows, QOI's ops, TIFF's CCITT fax decoder and DDS's BC6H blocks.  Each is
+// the C++ twin of a Python loop that stays as its plain version
+// (io/png.py's unfilter_python, io/lzw.py's decode_lzw_python, io/psd.py's
+// packbits_rows_python, io/sgi.py's rle_rows_python, io/pcx.py's
+// rle_lines_python, io/qoi.py's decode_ops_python, io/ccitt.py's
+// decode_fax_python, io/dds.py's bc6h_python) and gives the same bytes and
+// the same status for every input, broken ones included.  Plain C ABI for
+// ctypes; the caller owns every buffer.
 
+#include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
 
 namespace {
+
+// -- CCITT fax: libtiff's tif_fax3.c state machine (io/ccitt.py's _Decoder) --
+
+enum { S_NULL, S_PASS, S_HORIZ, S_V0, S_VR, S_VL, S_EXT, S_TERMW, S_TERMB, S_MAKEUPW,
+       S_MAKEUPB, S_MAKEUP, S_EOL };
+struct FaxEof {};
+struct FaxFail {};
+
+struct Fax {
+    const uint8_t* data;
+    int64_t cp, ep;
+    bool lsb_first;
+    uint32_t acc = 0;
+    int avail = 0;
+    uint32_t* runs;
+    int64_t nruns, thisrun = 0, refruns = 0, pa = 0, pb = 0;
+    int32_t lastx, a0 = 0, run = 0, b1 = 0;
+    int eolcnt = 0;
+    const int32_t *mainT, *whiteT, *blackT;  // (state, width, param) per lookup
+
+    uint32_t byte() {
+        uint32_t b = data[cp++], r = 0;
+        if (lsb_first) return b;
+        for (int i = 0; i < 8; ++i) r |= ((b >> i) & 1u) << (7 - i);
+        return r;
+    }
+    void need8(int n) {
+        if (avail < n) {
+            if (cp >= ep) {
+                if (avail == 0) throw FaxEof();
+                avail = n;
+            } else {
+                acc |= byte() << avail;
+                avail += 8;
+            }
+        }
+    }
+    void need16(int n) {
+        if (avail < n) {
+            if (cp >= ep) {
+                if (avail == 0) throw FaxEof();
+                avail = n;
+            } else {
+                acc |= byte() << avail;
+                avail += 8;
+                if (avail < n) {
+                    if (cp >= ep) {
+                        avail = n;
+                    } else {
+                        acc |= byte() << avail;
+                        avail += 8;
+                    }
+                }
+            }
+        }
+    }
+    uint32_t get(int n) const { return acc & ((1u << n) - 1); }
+    void clr(int n) {
+        avail -= n;
+        acc >>= n;
+    }
+    const int32_t* lookup(const int32_t* table, int width, bool wide) {
+        if (wide) need16(width); else need8(width);
+        const int32_t* e = table + 3 * (acc & ((1u << width) - 1));
+        clr(e[1]);
+        return e;
+    }
+    static int32_t add(int32_t a, int64_t b) {
+        return static_cast<int32_t>(static_cast<uint32_t>(static_cast<int64_t>(a) + b));
+    }
+    void setvalue(int64_t x) {
+        if (pa >= thisrun + nruns) throw FaxFail();
+        runs[pa++] = static_cast<uint32_t>(run + x);
+        a0 = add(a0, x);
+        run = 0;
+    }
+    void cleanup() {
+        if (run) setvalue(0);
+        if (a0 != lastx) {
+            while (a0 > lastx && pa > thisrun) {
+                --pa;
+                a0 = add(a0, -static_cast<int64_t>(runs[pa]));
+            }
+            if (a0 < lastx) {
+                if (a0 < 0) a0 = 0;
+                if ((pa - thisrun) & 1) setvalue(0);
+                setvalue(static_cast<int64_t>(lastx) - a0);
+            } else if (a0 > lastx) {
+                setvalue(lastx);
+                setvalue(0);
+            }
+        }
+    }
+    void sync_eol() {
+        if (eolcnt == 0) {
+            for (;;) {
+                need16(11);
+                if (get(11) == 0) break;
+                clr(1);
+            }
+        }
+        for (;;) {
+            need8(8);
+            if (get(8)) break;
+            clr(8);
+        }
+        while (get(1) == 0) clr(1);
+        clr(1);
+        eolcnt = 0;
+    }
+    bool colour(const int32_t* table, int width, int term) {
+        for (;;) {
+            const int32_t* e = lookup(table, width, true);
+            int state = e[0], param = e[2];
+            if (state == term) {
+                setvalue(param);
+                return true;
+            }
+            if ((state == S_MAKEUPW || state == S_MAKEUPB || state == S_MAKEUP)
+                && state != (term == S_TERMW ? S_MAKEUPB : S_MAKEUPW)) {
+                a0 = add(a0, param);
+                run = add(run, param);
+                continue;
+            }
+            if (state == S_EOL) eolcnt = 1;
+            return false;
+        }
+    }
+    bool expand1d() {
+        try {
+            for (;;) {
+                if (!colour(whiteT, 12, S_TERMW) || a0 >= lastx) break;
+                if (!colour(blackT, 13, S_TERMB) || a0 >= lastx) break;
+                if (runs[pa - 1] == 0 && runs[pa - 2] == 0) pa -= 2;
+            }
+        } catch (const FaxEof&) {
+            cleanup();
+            return false;
+        }
+        cleanup();
+        return true;
+    }
+    void check_b1() {
+        if (pa != thisrun) {
+            while (b1 <= a0 && b1 < lastx) {
+                if (pb + 1 >= refruns + nruns) throw FaxFail();
+                b1 = add(b1, static_cast<int64_t>(runs[pb]) + runs[pb + 1]);
+                pb += 2;
+            }
+        }
+    }
+    void next_b() {
+        if (pb >= refruns + nruns) throw FaxFail();
+        b1 = add(b1, runs[pb++]);
+    }
+    bool expand2d() {
+        try {
+            bool broke = false;
+            while (a0 < lastx) {
+                if (pa >= thisrun + nruns) throw FaxFail();
+                const int32_t* e = lookup(mainT, 7, false);
+                int state = e[0], param = e[2];
+                if (state == S_PASS) {
+                    check_b1();
+                    next_b();
+                    run = add(run, static_cast<int64_t>(b1) - a0);
+                    a0 = b1;
+                    next_b();
+                } else if (state == S_HORIZ) {
+                    bool ok = ((pa - thisrun) & 1)
+                        ? colour(blackT, 13, S_TERMB) && colour(whiteT, 12, S_TERMW)
+                        : colour(whiteT, 12, S_TERMW) && colour(blackT, 13, S_TERMB);
+                    if (!ok) {
+                        eolcnt = 0;
+                        broke = true;
+                        break;
+                    }
+                    check_b1();
+                } else if (state == S_V0) {
+                    check_b1();
+                    setvalue(static_cast<int64_t>(b1) - a0);
+                    next_b();
+                } else if (state == S_VR) {
+                    check_b1();
+                    setvalue(static_cast<int64_t>(b1) - a0 + param);
+                    next_b();
+                } else if (state == S_VL) {
+                    check_b1();
+                    if (b1 < add(a0, param)) {
+                        broke = true;
+                        break;
+                    }
+                    setvalue(static_cast<int64_t>(b1) - a0 - param);
+                    if (pb == 0) throw FaxFail();
+                    --pb;
+                    b1 = add(b1, -static_cast<int64_t>(runs[pb]));
+                } else if (state == S_EXT) {
+                    runs[pa++] = static_cast<uint32_t>(static_cast<int64_t>(lastx) - a0);
+                    broke = true;
+                    break;
+                } else if (state == S_EOL) {
+                    runs[pa++] = static_cast<uint32_t>(static_cast<int64_t>(lastx) - a0);
+                    need8(4);
+                    clr(4);
+                    eolcnt = 1;
+                    broke = true;
+                    break;
+                } else {
+                    broke = true;
+                    break;
+                }
+            }
+            if (!broke && run) {
+                if (static_cast<int64_t>(run) + a0 < lastx) {
+                    need8(1);
+                    if (!get(1)) {
+                        cleanup();
+                        return true;
+                    }
+                    clr(1);
+                }
+                setvalue(0);
+            }
+        } catch (const FaxEof&) {
+            cleanup();
+            return false;
+        }
+        cleanup();
+        return true;
+    }
+    void fill(uint8_t* row) {
+        int64_t erun = pa;
+        if ((erun - thisrun) & 1) runs[erun++] = 0;
+        int64_t x = 0;
+        for (int64_t k = thisrun; k < erun; k += 2) {
+            for (int j = 0; j < 2; ++j) {
+                int64_t r = runs[k + j];
+                if (x + r > lastx || r > lastx) {
+                    r = lastx - x;
+                    runs[k + j] = static_cast<uint32_t>(r);
+                }
+                for (int64_t i = x; i < x + r; ++i) {
+                    uint8_t bit = static_cast<uint8_t>(0x80 >> (i & 7));
+                    if (j) row[i >> 3] |= bit; else row[i >> 3] &= static_cast<uint8_t>(~bit);
+                }
+                x += r;
+            }
+        }
+    }
+    void start_row() {
+        a0 = run = 0;
+        pa = thisrun;
+    }
+};
+
+// -- BC6H (io/dds.py's bc6h_python) --
+
+int64_t sext(int64_t v, int n) { return (v & (int64_t{1} << (n - 1))) ? v - (int64_t{1} << n) : v; }
+
+int64_t bc6_unquantize(int64_t v, int n, bool is_signed) {
+    if (!is_signed) {
+        if (n >= 15) return v;
+        if (v == 0) return 0;
+        if (v == (int64_t{1} << n) - 1) return 0xFFFF;
+        return ((v << 16) + 0x8000) >> n;
+    }
+    if (n >= 16) return v;
+    int64_t a = v < 0 ? -v : v, u;
+    if (a == 0) u = 0;
+    else if (a >= (int64_t{1} << (n - 1)) - 1) u = 0x7FFF;
+    else u = ((a << 15) + 0x4000) >> (n - 1);
+    return v < 0 ? -u : u;
+}
+
+float half_to_float(uint32_t h) {
+    int e = (h >> 10) & 31, m = h & 1023;
+    float f = e == 0 ? std::ldexp(static_cast<float>(m), -24)
+            : e == 31 ? (m ? NAN : INFINITY)
+            : std::ldexp(static_cast<float>(1024 + m), e - 25);
+    return (h & 0x8000) ? -f : f;
+}
+
 
 inline int paeth(int a, int b, int c) {
     int p = a + b - c;
@@ -329,6 +613,167 @@ int gst_qoi_decode(const uint8_t* src, int64_t n, int64_t pixels, int channels, 
         out += channels;
     }
     return 0;
+}
+
+// One CCITT strip or tile (io/ccitt.py's decode_fax_python): ``comp`` 2, 3
+// or 4, ``two_d`` a two-dimensional Group 3 or Group 4, ``lsb_first`` for
+// FillOrder 2; ``rows`` rows of ``rowbytes`` at ``dst`` (kept where the
+// decoder does not write), the run arrays ``runs`` (2 * nruns + 4 entries,
+// kept from strip to strip) and libtiff's tables (3 int32 an entry, 2^7,
+// 2^12 and 2^13 entries).  Returns 1, -1 (libtiff fails the strip) or 0 (a
+// Group 3 strip's data ends early); ``*end`` is the rows written.
+int gst_fax_decode(const uint8_t* src, int64_t n, int comp, int two_d, int lsb_first,
+                   int64_t width, int64_t rows, uint8_t* dst, int64_t rowbytes, uint32_t* runs,
+                   int64_t nruns, const int32_t* mainT, const int32_t* whiteT,
+                   const int32_t* blackT, int64_t* end) {
+    Fax f;
+    f.data = src;
+    f.cp = 0;
+    f.ep = n;
+    f.lsb_first = lsb_first != 0;
+    f.runs = runs;
+    f.nruns = nruns;
+    f.lastx = static_cast<int32_t>(width);
+    f.mainT = mainT;
+    f.whiteT = whiteT;
+    f.blackT = blackT;
+    *end = rows;
+    f.thisrun = 0;
+    f.refruns = nruns;
+    if (two_d) {
+        runs[f.refruns] = static_cast<uint32_t>(width);
+        runs[f.refruns + 1] = 0;
+    }
+    try {
+        for (int64_t line = 0; line < rows; ++line) {
+            uint8_t* row = dst + line * rowbytes;
+            f.start_row();
+            if (comp != 4) {
+                uint32_t one_d = 0;
+                if (comp == 3) {
+                    try {
+                        f.sync_eol();
+                        if (two_d) {
+                            f.need8(1);
+                            one_d = f.get(1);
+                            f.clr(1);
+                        }
+                    } catch (const FaxEof&) {
+                        f.cleanup();
+                        f.fill(row);
+                        return 0;
+                    }
+                }
+                if (two_d) {
+                    f.pb = f.refruns;
+                    f.b1 = static_cast<int32_t>(runs[f.pb++]);
+                }
+                bool whole = (!two_d || one_d) ? f.expand1d() : f.expand2d();
+                f.fill(row);
+                if (!whole) return comp == 2 ? -1 : 0;
+                if (comp == 2) f.clr(f.avail & 7);
+                if (two_d) {
+                    if (f.pa < f.thisrun + nruns) f.setvalue(0);
+                    int64_t t = f.thisrun;
+                    f.thisrun = f.refruns;
+                    f.refruns = t;
+                }
+                continue;
+            }
+            f.pb = f.refruns;
+            f.b1 = static_cast<int32_t>(runs[f.pb++]);
+            if (!f.expand2d() || f.eolcnt) {
+                try {
+                    f.need16(13);
+                } catch (const FaxEof&) {
+                }
+                f.clr(13);
+                f.fill(row);
+                *end = line + 1;
+                return line ? 1 : -1;
+            }
+            f.fill(row);
+            f.setvalue(0);
+            int64_t t = f.thisrun;
+            f.thisrun = f.refruns;
+            f.refruns = t;
+        }
+    } catch (const FaxFail&) {
+        return -1;
+    }
+    return 1;
+}
+
+// ``n`` BC6H blocks of 16 bytes at ``src`` -> (n, 16, 3) RGB texels at
+// ``dst``, with io/dds.py's bc6h_table() (modes, layouts, partitions,
+// weights), ``is_signed`` for BC6H_SF16.
+void gst_bc6h_decode(const uint8_t* src, int64_t n, int is_signed, const int32_t* table,
+                     uint8_t* dst) {
+    const int32_t* head = table;
+    const int32_t* pack = table + 32 * 8;
+    const int32_t* part2 = pack + 32 * 80;
+    const int32_t* anchor2 = part2 + 32;
+    const int32_t* w3 = anchor2 + 32;
+    const int32_t* w4 = w3 + 8;
+    for (int64_t blk = 0; blk < n; ++blk) {
+        const uint8_t* b = src + 16 * blk;
+        uint8_t* out = dst + 48 * blk;
+        std::memset(out, 0, 48);
+        auto bit = [b](int p) -> int64_t { return (b[p >> 3] >> (p & 7)) & 1; };
+        int mode = (b[0] & 3) < 2 ? (b[0] & 3) : (b[0] & 31);
+        const int32_t* h = head + 8 * mode;
+        if (!h[0]) continue;  // a reserved mode: black
+        int epb = h[1], tr = h[5], two = h[6], npack = h[7];
+        int delta[3] = {h[2], h[3], h[4]};
+        int64_t f[13] = {0};
+        int pos = mode < 2 ? 2 : 5;
+        for (int i = 0; i < npack; ++i) {
+            int entry = pack[80 * mode + i];
+            f[entry >> 4] |= bit(pos + i) << (entry & 15);
+        }
+        pos += npack;
+        int ne = two ? 4 : 2;
+        int64_t e[4][3];
+        for (int j = 0; j < ne; ++j)
+            for (int c = 0; c < 3; ++c) e[j][c] = f[3 * j + c];
+        if (is_signed)
+            for (int c = 0; c < 3; ++c) e[0][c] = sext(e[0][c], epb);
+        for (int j = 1; j < ne; ++j) {
+            for (int c = 0; c < 3; ++c) {
+                if (tr) {
+                    int64_t v = (e[0][c] + sext(e[j][c], delta[c])) & ((int64_t{1} << epb) - 1);
+                    e[j][c] = (is_signed && epb == 16) ? sext(v, epb) : v;
+                } else if (is_signed) {
+                    e[j][c] = sext(e[j][c], epb);
+                }
+            }
+        }
+        for (int j = 0; j < ne; ++j)
+            for (int c = 0; c < 3; ++c) e[j][c] = bc6_unquantize(e[j][c], epb, is_signed != 0);
+        int part = two ? static_cast<int>(f[12]) : 0, ib = two ? 3 : 4;
+        const int32_t* wt = two ? w3 : w4;
+        for (int t = 0; t < 16; ++t) {
+            int subset = two ? (part2[part] >> t) & 1 : 0;
+            bool anchor = t == 0 || (two && t == anchor2[part]);
+            int width = ib - (anchor ? 1 : 0), idx = 0;
+            for (int k = 0; k < width; ++k) idx |= static_cast<int>(bit(pos + k)) << k;
+            pos += width;
+            int64_t w = wt[idx];
+            for (int c = 0; c < 3; ++c) {
+                int64_t v = ((64 - w) * e[2 * subset][c] + w * e[2 * subset + 1][c]) >> 6;
+                uint32_t half;
+                if (is_signed) {
+                    int64_t mag = ((v < 0 ? -v : v) * 31) >> 5;
+                    half = static_cast<uint32_t>(v < 0 ? (0x8000 | mag) : mag) & 0xFFFF;
+                } else {
+                    half = static_cast<uint32_t>((v * 31) >> 6) & 0xFFFF;
+                }
+                float fl = half_to_float(half);
+                out[3 * t + c] = fl < 0 ? 0 : fl > 1 ? 255
+                                 : static_cast<uint8_t>(static_cast<int>(fl * 255.0f));
+            }
+        }
+    }
 }
 
 }  // extern "C"

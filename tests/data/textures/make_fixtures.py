@@ -54,8 +54,34 @@ save_png quantises), and beside each its Pillow decode
   * mushroom256_cursor.cur: a 256^2 cursor of the keyed palette PNG's pixels,
     8 bits a pixel through its palette, with its AND mask (the writer);
 
+  * mushroom256_jpeg_rgb.tif: JPEG in TIFF, photometric RGB (Pillow through
+    libtiff, quality 90);
+  * mushroom256_jpeg_ycbcr420.tif: JPEG in TIFF, YCbCr 4:2:0 in strips of 16
+    rows, the tables in JPEGTables (the writer over Pillow's JPEG encoder;
+    Pillow's TIFF writer cannot subsample);
+  * mushroom256_g4_fill2.tif: the texture's black-and-white as CCITT Group 4
+    with FillOrder 2 (Pillow through libtiff);
+  * mushroom256_g3_2d.tif: the same as two-dimensional Group 3 (T4Options 1,
+    Pillow through libtiff);
+  * mushroom256_lzma.tif: LZMA RGB (Pillow through libtiff);
+  * mushroom256_bigtiff.tif: a little-endian BigTIFF, LZW RGB (Pillow);
+  * mushroom256_float.tif: the texture's grey as float samples, v * 1.25 -
+    20.4 (Pillow, uncompressed);
+  * mushroom256_signed16.tif: the grey as signed 16-bit samples, (v - 60) *
+    3, so that some clip at 0 and at 255 (the writer, Deflate);
+  * mushroom256_float_pred3.tif: the float grey with the floating-point
+    predictor, LZW in tiles of 64 (the writer);
+  * mushroom256_ycbcr_raw.tif: uncompressed YCbCr of the texture, with the
+    bytes Pillow's RGBX raw mode reads past the data (the writer);
+  * mushroom256_bc6h_uf16.dds and mushroom256_bc6h_sf16.dds: DX10 DDS of
+    4,096 BC6H blocks each, seeded random bytes (every block is valid);
+
 and from tests/data/jpeg/mushroom1024_q90_420.png (the 1024^2 JPEG
-fixture's Pillow decode) mushroom1024_lzw.tif, an LZW TIFF of its pixels
+fixture's Pillow decode) mushroom1024_jpeg.tif, JPEG in TIFF of its pixels
+(photometric RGB, Pillow through libtiff), beside its Pillow decode
+mushroom1024_jpeg.pillow.png; mushroom1024_g4.tif, Group 4 of its
+black-and-white (Pillow), beside mushroom1024_g4.pillow.png;
+mushroom1024_lzw.tif, an LZW TIFF of its pixels
 (Pillow), whose Pillow decode is that PNG's; mushroom1024_lossless.webp,
 lossless WebP of its pixels, likewise; and mushroom1024_q90.webp, lossy
 WebP at quality 90, beside its Pillow decode mushroom1024_q90.pillow.png;
@@ -76,8 +102,8 @@ TESTS = os.path.dirname(os.path.dirname(HERE))
 sys.path.insert(0, os.path.dirname(TESTS))
 sys.path.insert(0, TESTS)
 
-from texture_writers import (bmp_bytes, bmp_rows, icon_bitmap, icon_dir, png_bytes,  # noqa: E402
-                             psd_bytes, sgi_bytes, tiff_bytes)
+from texture_writers import (bmp_bytes, bmp_rows, dds_bytes, icon_bitmap, icon_dir,  # noqa: E402
+                             png_bytes, psd_bytes, sgi_bytes, tiff_bytes)
 
 from gaussian_splatterer_tpu_torch.io.image import float_image_to_u8  # noqa: E402
 from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_texture  # noqa: E402
@@ -210,6 +236,51 @@ def cur(rgba: np.ndarray) -> None:
         fh.write(icon_dir([(0, 0, 0, 128, 128, bitmap)], kind=2))
 
 
+def tiff_codecs(rgba: np.ndarray) -> None:
+    rgb = Image.fromarray(rgba[..., :3])
+    rgb.save(os.path.join(HERE, "mushroom256_jpeg_rgb.tif"), compression="jpeg", quality=90)
+    with open(os.path.join(HERE, "mushroom256_jpeg_ycbcr420.tif"), "wb") as fh:
+        fh.write(tiff_bytes(rgba[..., :3], 8, 6, compression=7, jpeg_subsampling=2,
+                            rows_per_strip=16))
+    bilevel = rgb.convert("1")
+    bilevel.save(os.path.join(HERE, "mushroom256_g4_fill2.tif"), compression="group4",
+                 tiffinfo={266: 2})
+    bilevel.save(os.path.join(HERE, "mushroom256_g3_2d.tif"), compression="group3",
+                 tiffinfo={292: 1})
+    rgb.save(os.path.join(HERE, "mushroom256_lzma.tif"), compression="lzma")
+    rgb.save(os.path.join(HERE, "mushroom256_bigtiff.tif"), compression="tiff_lzw", big_tiff=True)
+    grey = np.asarray(rgb.convert("L"), np.float32)
+    fgrey = grey * np.float32(1.25) - np.float32(20.4)
+    Image.fromarray(fgrey, "F").save(os.path.join(HERE, "mushroom256_float.tif"))
+    with open(os.path.join(HERE, "mushroom256_signed16.tif"), "wb") as fh:
+        s16 = ((grey.astype(np.int64) - 60) * 3) & 0xFFFF
+        fh.write(tiff_bytes(s16[..., None], 16, 1, compression=8, sample_format=2,
+                            rows_per_strip=32))
+    with open(os.path.join(HERE, "mushroom256_float_pred3.tif"), "wb") as fh:
+        fh.write(tiff_bytes(fgrey[..., None], 32, 1, compression=5, predictor=3, tile=(64, 64),
+                            sample_format=3))
+    with open(os.path.join(HERE, "mushroom256_ycbcr_raw.tif"), "wb") as fh:
+        ycc = np.asarray(rgb.convert("YCbCr")).astype(np.int64)
+        fh.write(tiff_bytes(ycc, 8, 6, pad=bytes(N * N)))
+
+
+def bc6h(rgba: np.ndarray) -> None:
+    rng = np.random.default_rng(22)
+    for name, dxgi in (("uf16", 95), ("sf16", 96)):
+        blocks = rng.integers(0, 256, (N // 4) * (N // 4) * 16).astype(np.uint8).tobytes()
+        with open(os.path.join(HERE, f"mushroom256_bc6h_{name}.dds"), "wb") as fh:
+            fh.write(dds_bytes(blocks, N, N, dxgi=dxgi))
+
+
+def tiff_1024() -> None:
+    rgb = Image.open(os.path.join(TESTS, "data", "jpeg", "mushroom1024_q90_420.png")).convert("RGB")
+    rgb.save(os.path.join(HERE, "mushroom1024_jpeg.tif"), compression="jpeg", quality=90)
+    rgb.convert("1").save(os.path.join(HERE, "mushroom1024_g4.tif"), compression="group4")
+    for name in ("mushroom1024_jpeg", "mushroom1024_g4"):
+        Image.open(os.path.join(HERE, f"{name}.tif")).convert("RGBA").save(
+            os.path.join(HERE, f"{name}.pillow.png"), optimize=True)
+
+
 def qoi_1024() -> None:
     rgb = Image.open(os.path.join(TESTS, "data", "jpeg", "mushroom1024_q90_420.png")).convert("RGB")
     rgb.save(os.path.join(HERE, "mushroom1024.qoi"))
@@ -232,9 +303,10 @@ def webp_1024() -> None:
 def main() -> None:
     rgba = float_image_to_u8(mushroom_texture(n=N, spot_alpha=0.5))
     for write in (palette_trns, rgba16, adam7, map_rle, cmyk, bitfields, lzw_pred2, dxt1,
-                  gif_trns, ppm, webp, qoi, sgi, pcx, ico, pfm, psd, cur):
+                  gif_trns, ppm, webp, qoi, sgi, pcx, ico, pfm, psd, cur, tiff_codecs, bc6h):
         write(rgba)
     lzw_1024()
+    tiff_1024()
     webp_1024()
     qoi_1024()
     for name in sorted(os.listdir(HERE)):

@@ -388,7 +388,7 @@ def test_port_imports_no_jax_flax_or_pillow():
         "import gaussian_splatterer_tpu_torch.io.viewer\n"
         "import gaussian_splatterer_tpu_torch.io.webp\n"
         "import gaussian_splatterer_tpu_torch.io.pillow_open\n"
-        "from gaussian_splatterer_tpu_torch.io import cur, ico, pcx, psd, qoi, sgi\n"
+        "from gaussian_splatterer_tpu_torch.io import ccitt, cur, ico, pcx, psd, qoi, sgi\n"
         "import gaussian_splatterer_tpu_torch.native\n"
         "from gaussian_splatterer_tpu_torch.scripts import (\n"
         "    bench, bench_scale, eval_model, quality_run, scenes)\n"

@@ -350,22 +350,24 @@ REFUSED = {
     "bmp_bitfields_masks": (lambda rng: bmp_bytes(bytes(16), 2, 2, 32, 40, 3,
                                                   masks=(0xF, 0xF0, 0xF00, 0)),
                             "BMP bitfields layout", True),
-    "tiff_bigtiff": (lambda rng: b"II+\x00\x08\x00\x00\x00" + bytes(16), "TIFF \\(BigTIFF\\)",
+    "tiff_bigtiff": (lambda rng: b"II+\x00\x08\x00\x00\x00" + bytes(16), "TIFF without",
                      True),
-    "tiff_jpeg": (_pillow_file("RGB", "TIFF", compression="jpeg"), "TIFF \\(compression JPEG",
-                  False),
-    "tiff_ccitt_group4": (_pillow_file("1", "TIFF", compression="group4"),
-                          "TIFF \\(compression CCITT Group 4", False),
+    "tiff_jpeg": (_tiff_tags({258: (3, [12, 12, 12]), 259: (3, [7])}),
+                  "bits per sample \\(12, 12, 12\\)", True),
+    "tiff_ccitt_group4": (_tiff_tags({259: (3, [4])}, photo=1, n=1), "TIFF \\(CCITT with",
+                          True),
     "tiff_logluv": (_tiff_tags({259: (3, [34676])}), "TIFF \\(compression SGI LogLuv", True),
-    "tiff_float": (_pillow_file("F", "TIFF"), "TIFF \\(sample format", False),
-    "tiff_ycbcr": (_tiff_tags({}, photo=6), "TIFF \\(photometric 6", False),
-    "tiff_12_bit": (_tiff_tags({258: (3, [12])}, bits=8, photo=1, n=1),
-                    "TIFF \\(photometric 1, bits per sample \\(12,\\)", False),
-    "tiff_fill_order_2": (_tiff_tags({266: (3, [2])}), "TIFF \\(FillOrder 2", False),
+    "tiff_float": (_tiff_tags({339: (3, [3, 3, 3])}), "sample format \\(3, 3, 3\\)", True),
+    "tiff_ycbcr": (_pillow_file("YCbCr", "TIFF", compression="tiff_lzw"),
+                   "TIFF \\(YCbCr with compression LZW", False),
+    "tiff_12_bit": (_tiff_tags({258: (3, [12])}, bits=8, photo=1, n=1, big_endian=True),
+                    "bits per sample \\(12,\\)", True),
+    "tiff_fill_order_2": (_tiff_tags({266: (3, [2])}, n=4, extra=(2,)), "fill order 2", True),
     "tiff_predictor_3": (_tiff_tags({317: (3, [3])}, compression=5), "TIFF \\(predictor 3",
                          True),
     "tiff_old_style_lzw": (_old_style_lzw, "TIFF \\(old-style LZW", False),
-    "dds_bc6h": (lambda rng: dds_bytes(bytes(16 * 4), 8, 8, dxgi=95), "DDS BC6H", False),
+    "dds_bc6h": (lambda rng: dds_bytes(bytes(16 * 4), 8, 8, dxgi=94), "DDS \\(DXGI format 94",
+                 True),
     "dds_fourcc_dxt2": (lambda rng: dds_bytes(bytes(16), 4, 4, b"DXT2"), "DDS \\(FourCC",
                         True),
     "dds_header_size": (lambda rng: b"DDS " + struct.pack("<I", 100) + bytes(120),

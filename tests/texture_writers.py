@@ -16,6 +16,7 @@ PNM extensions P0CMYK and Py*), with ``zlib`` and ``struct``."""
 
 from __future__ import annotations
 
+import lzma
 import struct
 import zlib
 
@@ -242,26 +243,80 @@ def packbits_bytes(data: bytes) -> bytes:
 
 def _tiff_chunk(s: np.ndarray, bits: int, big_endian: bool, predictor: int) -> bytes:
     """(h, w, S) samples of one strip or tile -> its bytes, rows packed to
-    whole bytes, with the horizontal predictor where ``predictor`` is 2."""
+    whole bytes, with the horizontal predictor where ``predictor`` is 2 and
+    libtiff's floating-point one (byte planes, the most significant first,
+    then byte differences S apart) where it is 3."""
     s = s.astype(np.int64)
+    h, w, n = s.shape
     if predictor == 2:
         s = s.copy()
         s[:, 1:] = (s[:, 1:] - s[:, :-1]) % (1 << bits)
-    h = s.shape[0]
-    if bits == 16:
-        return s.reshape(h, -1).astype(">u2" if big_endian else "<u2").tobytes()
+    if predictor == 3:
+        v = s.reshape(h, w * n)
+        planes = np.stack([(v >> (8 * (3 - k))) & 0xFF for k in range(4)], axis=1)
+        row = planes.reshape(h, 4 * w * n)
+        diff = row.copy()
+        diff[:, n:] = (row[:, n:] - row[:, :-n]) % 256
+        return diff.astype(np.uint8).tobytes()
+    if bits in (16, 32):
+        dt = {16: "u2", 32: "u4"}[bits]
+        return s.reshape(h, -1).astype((">" if big_endian else "<") + dt).tobytes()
+    if bits == 12:
+        v = s.reshape(h, -1)
+        if v.shape[1] % 2:
+            v = np.concatenate([v, np.zeros((h, 1), np.int64)], axis=1)
+        a, b = v[:, 0::2], v[:, 1::2]
+        trip = np.stack([a >> 4, (a & 15) << 4 | b >> 8, b & 0xFF], axis=-1).reshape(h, -1)
+        return trip[:, :-(-w * n * 12 // 8)].astype(np.uint8).tobytes()
     return _pack(s, bits).tobytes()
+
+
+_REVERSED = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
+
+
+def jpeg_chunks(chunk: np.ndarray, photometric: int, quality: int = 90, subsampling: int = 0
+                ) -> tuple[bytes, bytes]:
+    """(h, w, S) uint8 samples -> (the tables of Pillow's JPEG of them, its
+    abbreviated stream without them), as libtiff stores a strip or tile and
+    its ``JPEGTables``: grey for S 1, YCbCr with ``subsampling`` (Pillow's
+    0 4:4:4, 1 4:2:2, 2 4:2:0) for photometric 6, RGB as stored for 2
+    (YCbCr where subsampled)."""
+    import io
+
+    from PIL import Image
+
+    img = Image.fromarray(chunk[..., 0] if chunk.shape[2] == 1 else chunk)
+    out = io.BytesIO()
+    img.save(out, format="JPEG", quality=quality, subsampling=subsampling,
+             keep_rgb=photometric == 2 and subsampling == 0)
+    blob = out.getvalue()
+    tables, stream, pos = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8"), 2
+    while blob[pos + 1] != 0xDA:
+        size = struct.unpack(">H", blob[pos + 2:pos + 4])[0]
+        seg = blob[pos:pos + 2 + size]
+        (tables if blob[pos + 1] in (0xDB, 0xC4) else stream).extend(seg)
+        pos += 2 + size
+    return bytes(tables + b"\xff\xd9"), bytes(stream + blob[pos:])
 
 
 def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, compression: int = 1,
                predictor: int = 1, planar: int = 1, tile=None, rows_per_strip=None,
-               extra=None, colormap=None, big_endian: bool = False, tags=None) -> bytes:
+               extra=None, colormap=None, big_endian: bool = False, tags=None,
+               big_tiff: bool = False, fill_order: int = 1, sample_format: int = 1,
+               jpeg_subsampling: int = 0, pad: bytes = b"") -> bytes:
     """(H, W, S) samples -> a TIFF of one image: strips of
     ``rows_per_strip`` rows or ``tile`` (width, height) tiles (padded with
     zeros at the edges), planar configuration ``planar``, compression 1,
-    5 (LZW), 8 or 32946 (Deflate) or 32773 (PackBits), ``extra`` the
-    ExtraSamples values, ``colormap`` the 3 * 2**bits ColorMap values;
-    ``tags`` overrides or adds IFD entries as {tag: (type, values)}."""
+    5 (LZW), 7 (JPEG: each strip or tile Pillow's JPEG of it, the tables in
+    ``JPEGTables``), 8 or 32946 (Deflate), 32773 (PackBits) or 34925
+    (LZMA, an xz stream), ``extra`` the ExtraSamples values, ``colormap``
+    the 3 * 2**bits ColorMap values; 1 to 32 bits a sample (float32
+    samples stored as their bits with ``sample_format`` 3); ``fill_order``
+    2 reverses every data byte's bits, as libtiff writes it; ``pad`` follows
+    the data; a BigTIFF where ``big_tiff``; ``tags`` overrides or adds IFD
+    entries as {tag: (type, values)}, or drops one as {tag: None}."""
+    if samples.dtype == np.float32:
+        samples = samples.view(np.uint32)
     h, w, n_s = samples.shape
     planes = [samples[..., k:k + 1] for k in range(n_s)] if planar == 2 else [samples]
     chunks = []
@@ -275,19 +330,35 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, compression: in
         else:
             rps = rows_per_strip or h
             chunks += [plane[y:y + rps] for y in range(0, h, rps)]
-    encode = {1: lambda b: b, 5: lzw_bytes, 8: zlib.compress, 32946: zlib.compress,
-              32773: packbits_bytes}[compression]
-    datas = [encode(_tiff_chunk(c, bits, big_endian, predictor)) for c in chunks]
+    jpeg_tables = b""
+    if compression == 7:
+        datas = []
+        for c in chunks:
+            jpeg_tables, stream = jpeg_chunks(c.astype(np.uint8), photometric,
+                                              subsampling=jpeg_subsampling)
+            datas.append(stream)
+    else:
+        encode = {1: lambda b: b, 5: lzw_bytes, 8: zlib.compress, 32946: zlib.compress,
+                  32773: packbits_bytes,
+                  34925: lambda b: lzma.compress(b, format=lzma.FORMAT_XZ)}[compression]
+        datas = [encode(_tiff_chunk(c, bits, big_endian, predictor)) for c in chunks]
+    if fill_order == 2 and compression != 7:  # libtiff's JPEG codec ignores it
+        datas = [d.translate(_REVERSED) for d in datas]
     e = ">" if big_endian else "<"
-    body = bytearray((b"MM\x00\x2a" if big_endian else b"II\x2a\x00") + bytes(4))
+    magic = (b"MM\x00\x2b" if big_endian else b"II\x2b\x00") if big_tiff else (
+        b"MM\x00\x2a" if big_endian else b"II\x2a\x00")
+    head = struct.pack(e + "HHQ", 8, 0, 0) if big_tiff else bytes(4)
+    body = bytearray(magic + head)
     offsets = []
     for d in datas:
         offsets.append(len(body))
         body += d + bytes(len(d) % 2)
+    body += pad
+    long = 16 if big_tiff else 4
     entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * n_s), 259: (3, [compression]),
                262: (3, [photometric]), 277: (3, [n_s]), 284: (3, [planar]),
-               (324 if tile else 273): (4, offsets),
-               (325 if tile else 279): (4, [len(d) for d in datas])}
+               (324 if tile else 273): (long, offsets),
+               (325 if tile else 279): (long, [len(d) for d in datas])}
     if tile:
         entries[322], entries[323] = (3, [tile[0]]), (3, [tile[1]])
     else:
@@ -298,24 +369,39 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, compression: in
         entries[338] = (3, list(extra))
     if colormap is not None:
         entries[320] = (3, list(colormap))
-    entries.update(tags or {})
-    size = {1: 1, 2: 1, 3: 2, 4: 4, 7: 1}
-    code = {1: "B", 2: "B", 3: "H", 4: "I", 7: "B"}
+    if fill_order != 1:
+        entries[266] = (3, [fill_order])
+    if sample_format != 1:
+        entries[339] = (3, [sample_format] * n_s)
+    if jpeg_tables:
+        entries[347] = (7, list(jpeg_tables))
+    if compression == 7 and photometric == 6:
+        entries[530] = (3, [[1, 1], [2, 1], [2, 2]][jpeg_subsampling])
+    for tag, entry in (tags or {}).items():  # None drops the tag
+        if entry is None:
+            entries.pop(tag, None)
+        else:
+            entries[tag] = entry
+    code = {1: "B", 2: "B", 3: "H", 4: "I", 7: "B", 8: "h", 9: "i", 16: "Q"}
+    field, entry_fmt = (8, "HHQ") if big_tiff else (4, "HHI")
     ifd_at = len(body)
-    ifd = bytearray(struct.pack(e + "H", len(entries)))
+    ifd = bytearray(struct.pack(e + ("Q" if big_tiff else "H"), len(entries)))
     tail = bytearray()
-    tail_at = ifd_at + 2 + 12 * len(entries) + 4
+    tail_at = ifd_at + len(ifd) + (field + 12 if big_tiff else 12) * len(entries) + field
     for tag in sorted(entries):
         kind, values = entries[tag]
         raw = struct.pack(e + code[kind] * len(values), *values)
-        if len(raw) <= 4:
-            field = raw + bytes(4 - len(raw))
+        if len(raw) <= field:
+            value = raw + bytes(field - len(raw))
         else:
-            field = struct.pack(e + "I", tail_at + len(tail))
+            value = struct.pack(e + ("Q" if big_tiff else "I"), tail_at + len(tail))
             tail += raw + bytes(len(raw) % 2)
-        ifd += struct.pack(e + "HHI", tag, kind, len(values)) + field
-    ifd += bytes(4)
-    body[4:8] = struct.pack(e + "I", ifd_at)
+        ifd += struct.pack(e + entry_fmt, tag, kind, len(values)) + value
+    ifd += bytes(field)
+    if big_tiff:
+        body[8:16] = struct.pack(e + "Q", ifd_at)
+    else:
+        body[4:8] = struct.pack(e + "I", ifd_at)
     return bytes(body + ifd + tail)
 
 
