@@ -166,7 +166,8 @@ Phases:
  21. the committed JPEG fixtures (tests/data/jpeg: the 1024^2 mushroom
      texture, baseline and progressive) decoded on the host, bit-equal to
      their Pillow decodes, with the seconds; the texture fixtures
-     (tests/data/textures, TEXTURE_FIXTURES) likewise; the cut-out textures
+     (tests/data/textures, TEXTURE_FIXTURES, the last 19 Pillow readers'
+     among them) likewise; the cut-out textures (the BLP2 DXT5 among them)
      and the 1024^2 JPEG-in-TIFF texture on the north-star mesh through K5,
      each frame bit-equal to the frame under its Pillow decode; the native
      byte loops (BYTE_LOOP_FIXTURES, the 1024^2 Group 4 TIFF among them)
@@ -380,8 +381,9 @@ JPEG_FIXTURES = ("mushroom1024_q90_420", "mushroom1024_q90_420_progressive")
 # signed 16-bit and predictor-3 grey, raw YCbCr and BC6H UF16 and SF16 DDS; the 1024^2
 # JPEG fixture's pixels as an LZW TIFF, as lossless WebP and as QOI, whose Pillow decode
 # is that fixture's PNG, and as lossy WebP, JPEG-in-TIFF and Group 4 beside their Pillow
-# decodes); the cut-out fixtures (the keyed palette PNG, the DXT1 DDS, the lossy WebP
-# with alpha, the PSD) on the north-star mesh, one frame from rig camera 0 at this size,
+# decodes; the last 19 Pillow readers' fixtures, BLP to IPTC); the cut-out fixtures (the
+# keyed palette PNG, the DXT1 DDS, the lossy WebP with alpha, the PSD, the BLP2 DXT5) on
+# the north-star mesh, one frame from rig camera 0 at this size,
 # sample count and seed; the files decoded by both the native byte loops and their
 # Python twins
 TEXTURE_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_rgba16.png",
@@ -400,16 +402,27 @@ TEXTURE_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_rgba16.png",
                     "mushroom256_float_pred3.tif", "mushroom256_ycbcr_raw.tif",
                     "mushroom256_bc6h_uf16.dds", "mushroom256_bc6h_sf16.dds",
                     "mushroom1024_lzw.tif", "mushroom1024_lossless.webp", "mushroom1024_q90.webp",
-                    "mushroom1024.qoi", "mushroom1024_jpeg.tif", "mushroom1024_g4.tif")
+                    "mushroom1024.qoi", "mushroom1024_jpeg.tif", "mushroom1024_g4.tif",
+                    "mushroom256_dxt5_cutout.blp", "mushroom256_blp_palette.blp",
+                    "mushroom256_ftex.ftc", "mushroom256_icns.icns", "mushroom128_icns_rle.icns",
+                    "mushroom256_dcx.dcx", "mushroom256_xbm.xbm", "mushroom256_xpm.xpm",
+                    "mushroom256_gbr.gbr", "mushroom256_sun_rle.ras", "mushroom256_msp.msp",
+                    "mushroom256_im_lut.im", "mushroom256_fli.flc", "mushroom256_spider.spider",
+                    "mushroom256_fits.fits", "mushroom256_mcidas.mcidas",
+                    "mushroom256_pixar.pxr", "mushroom256_imt.imt",
+                    "mushroom256_xvthumb.xvthumb", "mushroom256_iptc.iim")
 PILLOW_DECODES = {"mushroom1024_lzw.tif": "../jpeg/mushroom1024_q90_420.png",
                   "mushroom1024_lossless.webp": "../jpeg/mushroom1024_q90_420.png",
                   "mushroom1024.qoi": "../jpeg/mushroom1024_q90_420.png"}
 CUTOUT_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_dxt1.dds",
-                   "mushroom256_lossy_alpha.webp", "mushroom256_cutout.psd")
+                   "mushroom256_lossy_alpha.webp", "mushroom256_cutout.psd",
+                   "mushroom256_dxt5_cutout.blp")
 BYTE_LOOP_FIXTURES = ("jpeg/mushroom1024_q90_420.png", "textures/mushroom1024_lzw.tif",
                       "textures/mushroom1024.qoi", "textures/mushroom256_cutout.psd",
                       "textures/mushroom256_rle.sgi", "textures/mushroom256_rgb.pcx",
-                      "textures/mushroom1024_g4.tif", "textures/mushroom256_bc6h_sf16.dds")
+                      "textures/mushroom1024_g4.tif", "textures/mushroom256_bc6h_sf16.dds",
+                      "textures/mushroom256_sun_rle.ras", "textures/mushroom256_msp.msp",
+                      "textures/mushroom256_fli.flc", "textures/mushroom128_icns_rle.icns")
 # the JPEG-in-TIFF texture on the north-star mesh through K5, as the cut-out
 # ones (an opaque texture: its frame against the frame of the decode flipped
 # upside down, which must differ)
@@ -3231,7 +3244,8 @@ def keyed_texture_frames(dev, card, path: Path, fail, cutout: bool = True) -> in
 def byte_loops(card, fixtures: Path, fail) -> None:
     """Phase 21's native byte loops (native/src/codecs.cpp: PNG's unfilter,
     TIFF's LZW, QOI's ops, PSD's PackBits, SGI's and PCX's run lengths,
-    TIFF's CCITT fax decoder, DDS's BC6H blocks):
+    TIFF's CCITT fax decoder, DDS's BC6H blocks, SUN's, MSP's and ICNS's
+    run lengths, FLI's frame chunks):
     each file decoded with the native library and with it hidden (the
     Python twins), the two results equal and both host times printed."""
     from unittest import mock
@@ -3258,7 +3272,7 @@ def product_phase(dev, card) -> dict:
     """Phase 21: the rest of the product.  The JPEG and texture fixtures
     against their Pillow decodes, the cut-out textures' frames through K5
     (``keyed_texture_frames``: the keyed palette PNG, the DXT1 DDS, the
-    lossy WebP with alpha and the PackBits PSD), the
+    lossy WebP with alpha, the PackBits PSD and the BLP2 DXT5), the
     1024^2 PNG, LZW TIFF and QOI and the 256^2 PSD, RLE SGI and PCX through
     the native byte loops and their Python twins (``byte_loops``), a
     JPEG-textured north star through the CLI
@@ -3288,7 +3302,7 @@ def product_phase(dev, card) -> dict:
     def fail(why: str):
         raise SystemExit(f"phase 21 failed: {why}")
 
-    phase(f"21. the rest of the product: the texture fixtures, four cut-out textures and a "
+    phase(f"21. the rest of the product: the texture fixtures, five cut-out textures and a "
           f"JPEG-in-TIFF texture on the card, the decoders' native byte loops, a JPEG texture, "
           f"export (.ply, .html, .gobj, "
           f"render --mode viewer), the .ply imported and rendered, doctor, the native parsers "

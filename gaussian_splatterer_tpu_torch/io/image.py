@@ -15,9 +15,15 @@ byte: PNG of every colour type and bit depth, interlaced or not, with
 (io/tga.py), JPEG (io/jpeg.py), BMP and DIB (io/bmp.py), TIFF (io/tiff.py),
 DDS (io/dds.py), GIF (io/gif.py), PNM and grey PFM (io/pnm.py), WebP,
 lossy, lossless, with alpha or animated (io/webp.py), PSD (io/psd.py), QOI
-(io/qoi.py), SGI (io/sgi.py), PCX (io/pcx.py), ICO (io/ico.py) and CUR
-(io/cur.py); each module lists what it reads, the quirks of Pillow's it
-keeps and what it refuses.
+(io/qoi.py), SGI (io/sgi.py), PCX (io/pcx.py), ICO (io/ico.py), CUR
+(io/cur.py), and the last readers Pillow registers: BLP (io/blp.py), FTEX
+(io/ftex.py), ICNS (io/icns.py), DCX (io/dcx.py), XBM (io/xbm.py), XPM
+(io/xpm.py), GBR (io/gbr.py), SUN (io/sun.py), MSP (io/msp.py), IM
+(io/im.py), FLI (io/fli.py), SPIDER (io/spider.py), FITS (io/fits.py),
+McIdas (io/mcidas.py), PIXAR (io/pixar.py), IMT (io/imt.py), XVThumb
+(io/xvthumb.py), PCD (io/pcd.py) and IPTC (io/iptc.py), over Pillow's raw
+modes and conversions (io/rawmode.py); each module lists what it reads,
+the quirks of Pillow's it keeps and what it refuses.
 
 Textures load to (H, W, 4) float32 RGBA in [0, 1] with row 0 the top of the
 file, as the JAX package loads them (the tracer's texel lookup flips V
@@ -25,8 +31,8 @@ itself); a missing texture is an 8x8 mid-grey (0x80) opaque fallback
 (src/rtx/RtxHost.cpp:23-36).
 
 A file's format is found by its content, as ``Image.open`` finds it, never
-by its name: ``FORMATS`` lists Pillow 12.1's plugins in the order of
-``Image.ID`` up to WebP, each with its ``accept`` test of the first 16
+by its name: ``FORMATS`` lists Pillow 12.1's 43 plugins in the order of
+``Image.ID``, each with its ``accept`` test of the first 16
 bytes, the checks of its ``_open`` that turn a file away (``opens``; a
 reader raises ``NotThisFormat`` there, and the next format is tried) and
 the port's decoder, or None for a format Pillow reads and the port does
@@ -35,9 +41,11 @@ the port reads, TGA above all, which has no signature).  A decoder's
 ``ValueError`` refuses the file, as Pillow refuses it.  The readers of
 BMP, DIB, GIF, JPEG, PNG, DDS, TIFF and WebP refuse every file their
 format's ``accept`` takes and they cannot read, where Pillow would try its
-next plugin on some of them; none of the port's readers after theirs
-takes a file that starts with their signatures, and a file that another
-of Pillow's plugins would read is refused either way.
+next plugin on some of them; of the port's readers after theirs only IM,
+IMT, IPTC, PCD and SPIDER, which have no signature, could take a file
+that starts with theirs, and only one contrived to hold their headers
+too, and a file that another of Pillow's plugins would read is refused
+either way.
 """
 
 from __future__ import annotations
@@ -48,7 +56,9 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 
-from gaussian_splatterer_tpu_torch.io import cur, ico, pcx, pnm, psd, qoi, sgi, tga
+from gaussian_splatterer_tpu_torch.io import (blp, cur, dcx, fits, fli, ftex, gbr, icns, ico, im,
+                                              imt, iptc, mcidas, msp, pcd, pcx, pixar, pnm, psd,
+                                              qoi, sgi, spider, sun, tga, xbm, xpm, xvthumb)
 from gaussian_splatterer_tpu_torch.io.bmp import DIB_HEADER_SIZES, decode_bmp
 from gaussian_splatterer_tpu_torch.io.dds import decode_dds
 from gaussian_splatterer_tpu_torch.io.gif import decode_gif
@@ -59,7 +69,9 @@ from gaussian_splatterer_tpu_torch.io.png import decode_png, decode_png_rgba  # 
 from gaussian_splatterer_tpu_torch.io.tiff import decode_tiff
 from gaussian_splatterer_tpu_torch.io.webp import decode_webp
 
-READS = "PNG, JPEG, BMP, DIB, GIF, PNM, PFM, TIFF, DDS, WebP, TGA, PSD, QOI, SGI, PCX, ICO, CUR"
+READS = ("PNG, JPEG, BMP, DIB, GIF, PNM, PFM, TIFF, DDS, WebP, TGA, PSD, QOI, SGI, PCX, ICO, CUR, "
+         "BLP, DCX, FITS, FLI, FTEX, GBR, ICNS, IM, IMT, IPTC, McIdas, MSP, PCD, PIXAR, SPIDER, "
+         "SUN, XBM, XPM, XVThumb")
 
 
 class Format(NamedTuple):
@@ -71,6 +83,10 @@ class Format(NamedTuple):
 
 def _dib_accept(p: bytes) -> bool:
     return len(p) >= 4 and struct.unpack_from("<I", p)[0] in DIB_HEADER_SIZES
+
+
+def _always(p: bytes) -> bool:
+    return True
 
 
 def _webp_accept(p: bytes) -> bool:
@@ -93,8 +109,27 @@ _READERS = {
     "PSD": (lambda p: p[:4] == psd.SIGNATURE, psd.opens, psd.decode_psd),
     "QOI": (lambda p: p[:4] == qoi.SIGNATURE, qoi.opens, qoi.decode_qoi),
     "SGI": (lambda p: len(p) >= 2 and p[0] << 8 | p[1] == sgi.MAGIC, sgi.opens, sgi.decode_sgi),
-    "TGA": (lambda p: True, tga.opens, tga.decode_tga),
+    "TGA": (_always, tga.opens, tga.decode_tga),
     "WEBP": (_webp_accept, None, decode_webp),
+    "BLP": (lambda p: p[:4] in (b"BLP1", b"BLP2"), blp.opens, blp.decode_blp),
+    "DCX": (dcx.accept, dcx.opens, dcx.decode_dcx),
+    "FITS": (lambda p: p[:6] == b"SIMPLE", fits.opens, fits.decode_fits),
+    "FLI": (fli.accept, fli.opens, fli.decode_fli),
+    "FTEX": (lambda p: p[:4] == ftex.MAGIC, ftex.opens, ftex.decode_ftex),
+    "GBR": (gbr.accept, gbr.opens, gbr.decode_gbr),
+    "ICNS": (lambda p: p[:4] == icns.MAGIC, icns.opens, icns.decode_icns),
+    "IM": (_always, im.opens, im.decode_im),
+    "IMT": (_always, imt.opens, imt.decode_imt),
+    "IPTC": (_always, iptc.opens, iptc.decode_iptc),
+    "MCIDAS": (lambda p: p[:8] == mcidas.MAGIC, mcidas.opens, mcidas.decode_mcidas),
+    "MSP": (msp.accept, msp.opens, msp.decode_msp),
+    "PCD": (_always, pcd.opens, pcd.decode_pcd),
+    "PIXAR": (lambda p: p[:4] == pixar.MAGIC, pixar.opens, pixar.decode_pixar),
+    "SPIDER": (_always, spider.opens, spider.decode_spider),
+    "SUN": (sun.accept, sun.opens, sun.decode_sun),
+    "XBM": (xbm.accept, xbm.opens, xbm.decode_xbm),
+    "XPM": (xpm.accept, xpm.opens, xpm.decode_xpm),
+    "XVTHUMB": (lambda p: p[:6] == xvthumb.MAGIC, xvthumb.opens, xvthumb.decode_xvthumb),
 }
 FORMATS = tuple(Format(name, *(_READERS.get(name) or (*FOREIGN[name], None))) for name in ORDER)
 

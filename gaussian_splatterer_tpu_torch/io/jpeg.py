@@ -18,7 +18,10 @@ component ids 'R', 'G', 'B') or four (CMYK, stored inverted as Photoshop
 and Pillow write it, with an Adobe APP14 marker of transform 0 or without
 one; YCCK, an APP14 marker of any other transform), converted to RGB as
 Pillow converts CMYK (``cmyk_to_rgb``); any integral sampling factors;
-restart intervals, byte stuffing and sizes that are not whole MCUs; as
+restart intervals, byte stuffing and sizes that are not whole MCUs; a
+file that ends inside a scan's data, with no marker after them, is
+refused, as Pillow refuses it ("image file is truncated": libjpeg reads
+ahead and finds no more data; fault C-8 where its read-ahead was met); as
 libjpeg, bytes before a marker are skipped, a marker libjpeg does not know
 (JPG, DHP, EXP, JPGn, the reserved ones, a second SOI) is refused, a bad Huffman code takes 17
 bits and reads as symbol 0, a coefficient past the band goes to the last
@@ -116,9 +119,9 @@ def _i16(v: int) -> int:
 
 def _words(seg: bytes) -> list:
     """words[i]: the 32 bits of the segment starting at byte i (zeros past
-    its end, as libjpeg feeds zeros once the data runs out, enough for a
-    block of bad codes)."""
-    b = np.frombuffer(seg + bytes(300), np.uint8).astype(np.int64)
+    its end, as libjpeg feeds zeros once the data runs out, enough for an
+    MCU of ten blocks of bad codes)."""
+    b = np.frombuffer(seg + bytes(4096), np.uint8).astype(np.int64)
     return ((b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]).tolist()
 
 
@@ -412,12 +415,20 @@ def cmyk_to_rgb(planes, ycck: bool) -> np.ndarray:
 
 # -- markers --
 
-def decode_jpeg(blob: bytes) -> np.ndarray:
+def decode_jpeg(blob: bytes, cmyk: bool = False) -> np.ndarray:
     """JPEG bytes -> (H, W, 4) uint8 RGBA, row 0 the top of the picture.
-    A variant this module does not read, or a malformed file, raises
-    ValueError."""
+    ``cmyk`` reads four components as CMYK even where an Adobe marker
+    says YCCK (libjpeg's colour space set to CMYK, as Pillow's BLP plugin
+    sets it).  A variant this module does not read, or a malformed file,
+    raises ValueError."""
     try:
-        return _reconstruct(*_decode(blob))
+        frame, comps, coefs, jfif, adobe, transform, unterminated = _decode(blob)
+        if unterminated:  # Pillow's suspending source reads ahead, finds no more data
+            raise ValueError("corrupt JPEG data: the data end inside a scan (image file is "
+                             "truncated)")
+        if cmyk and len(comps) == 4:
+            transform = 0
+        return _reconstruct(frame, comps, coefs, jfif, adobe, transform)
     except (IndexError, KeyError, TypeError, struct.error) as exc:
         # a stream that ends early, a table or component it never defined
         raise ValueError(f"corrupt JPEG data ({type(exc).__name__}: {exc})") from None
@@ -434,8 +445,8 @@ def decode_jpeg_stream(stream: bytes, tables: bytes = b"", ycc: bool = False
     ``JPEGCOLORMODE_RGB``), else the components come as stored, whatever
     the stream's JFIF or Adobe markers say."""
     try:
-        init = _decode(tables, tables_only=True) if tables else None
-        frame, comps, coefs, *_ = _decode(stream, init)
+        init = _decode(tables, tables_only=True, eoi_fill=True) if tables else None
+        frame, comps, coefs, *_ = _decode(stream, init, eoi_fill=True)
         planes = _planes(frame, comps, coefs)
     except (IndexError, KeyError, TypeError, struct.error) as exc:
         raise ValueError(f"corrupt JPEG data ({type(exc).__name__}: {exc})") from None
@@ -448,11 +459,18 @@ def decode_jpeg_stream(stream: bytes, tables: bytes = b"", ycc: bool = False
     return out, [(c.h, c.v) for c in comps]
 
 
-def _decode(blob: bytes, init=None, tables_only: bool = False):
+def _decode(blob: bytes, init=None, tables_only: bool = False, eoi_fill: bool = False):
     """The marker loop: (frame, components, coefficients, JFIF, Adobe,
-    Adobe transform); with ``tables_only`` the (quantisation, DC, AC)
+    Adobe transform, whether the last scan's data run to the blob's end
+    with no marker after them); with ``tables_only`` the (quantisation, DC, AC)
     tables a tables-only stream defines, which ``init`` passes to a
-    stream that uses them."""
+    stream that uses them.  A marker segment longer than the blob reads
+    on into fake EOI markers (FF D9) with ``eoi_fill``, as libtiff's data
+    source feeds libjpeg, and refuses the file otherwise (Pillow's source
+    suspends and finds no more data).  Segment lengths are held to
+    libjpeg's rules (jdmarker.c): SOF and SOS exactly their components'
+    bytes, DRI 4, DQT and DHT exactly their tables'; a DQT table cut short
+    keeps 1 in its missing entries."""
     if blob[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     qtables, dc_luts, ac_luts = (dict(t) for t in init) if init else ({}, {}, {})
@@ -461,6 +479,7 @@ def _decode(blob: bytes, init=None, tables_only: bool = False):
     restart = 0
     jfif = adobe = False
     adobe_transform = None
+    unterminated = False  # the last scan's data run to the end of the blob
     coefs: list[list] = []
     pos = 2
     while pos < len(blob):
@@ -482,33 +501,50 @@ def _decode(blob: bytes, init=None, tables_only: bool = False):
         if length < 2:
             raise ValueError("corrupt JPEG data: a marker length below 2")
         seg = blob[pos + 2:pos + length]
+        if len(seg) < length - 2:
+            if not eoi_fill:
+                raise ValueError("corrupt JPEG data: a marker segment past the end of the data "
+                                 "(image file is truncated)")
+            seg = (seg + b"\xff\xd9" * (length // 2))[:length - 2]
         pos += length
         if marker == 0xE0 and seg[:5] == b"JFIF\x00":
             jfif = True
         elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
             adobe, adobe_transform = True, seg[11]
-        elif marker == 0xDB:  # DQT
+        elif marker == 0xDB:  # DQT (get_dqt)
             i = 0
             while i < len(seg):
                 pq, tq = seg[i] >> 4, seg[i] & 15
-                n = 128 if pq else 64
-                q = np.frombuffer(seg[i + 1:i + 1 + n], ">u2" if pq else "u1").astype(np.int64)
+                if tq >= 4:
+                    raise ValueError(f"corrupt JPEG data: DQT table index {tq}")
+                left = len(seg) - i - 1
+                n = min(64, left >> 1 if pq else left)
+                q = np.ones(64, np.int64)
+                q[:n] = np.frombuffer(seg, ">u2" if pq else "u1", n, i + 1)
                 table = np.empty(64, np.int64)
                 table[NATURAL_ORDER] = q
                 qtables[tq] = table
-                i += 1 + n
-        elif marker == 0xC4:  # DHT
-            i = 0
-            while i < len(seg):
+                i += 1 + (2 * n if pq else n)
+        elif marker == 0xC4:  # DHT (get_dht)
+            i, left = 0, len(seg)
+            while left > 16:
                 tc, th = seg[i] >> 4, seg[i] & 15
                 counts = seg[i + 1:i + 17]
                 total = sum(counts)
+                left -= 17
+                if total > 256 or total > left:
+                    raise ValueError("corrupt JPEG data: bogus Huffman table definition")
                 lut = _huffman_lut(counts, seg[i + 17:i + 17 + total])
                 (ac_luts if tc else dc_luts)[th] = lut
                 i += 17 + total
+                left -= total
+            if left:
+                raise ValueError("corrupt JPEG data: bogus marker length (DHT)")
         elif marker in (0xC0, 0xC1, 0xC2):
             precision, height, width, nf = struct.unpack(">BHHB", seg[:6])
             name = f"SOF{marker - 0xC0}"
+            if len(seg) != 6 + 3 * nf:
+                raise ValueError(f"corrupt JPEG data: bogus marker length ({name})")
             if precision != 8:
                 raise ValueError(f"JPEG with {precision}-bit samples ({name}) is not supported")
             if nf not in (1, 3, 4):
@@ -532,6 +568,8 @@ def _decode(blob: bytes, init=None, tables_only: bool = False):
         elif marker in _UNSUPPORTED_SOF:
             raise ValueError(f"{_UNSUPPORTED_SOF[marker]} JPEG is not supported")
         elif marker == 0xDD:  # DRI
+            if length != 4:
+                raise ValueError("corrupt JPEG data: bogus marker length (DRI)")
             (restart,) = struct.unpack(">H", seg[:2])
         elif marker == 0xDC:
             raise ValueError("JPEG with a DNL marker is not supported")
@@ -539,6 +577,8 @@ def _decode(blob: bytes, init=None, tables_only: bool = False):
             if frame is None:
                 raise ValueError("corrupt JPEG data: SOS before SOF")
             ns = seg[0]
+            if length != 2 * ns + 6 or not 1 <= ns <= 4:
+                raise ValueError("corrupt JPEG data: bogus marker length (SOS)")
             by_id = {c.cid: i for i, c in enumerate(comps)}
             sel = [(by_id[seg[1 + 2 * i]], seg[2 + 2 * i] >> 4, seg[2 + 2 * i] & 15)
                    for i in range(ns)]
@@ -552,6 +592,7 @@ def _decode(blob: bytes, init=None, tables_only: bool = False):
                 tabs[ci] = (coefs[ci], dc_luts.get(td), ac_luts.get(ta))
             units = _scan_units(comps, [ci for ci, _, _ in sel], mcus)
             segs, pos = _segments(blob, pos)
+            unterminated = pos >= len(blob)
             step = max(restart or len(units), 1)  # MCUs a restart segment
             for j in range(0, len(units), step):
                 seg = segs[j // step] if j // step < len(segs) else b""
@@ -569,7 +610,7 @@ def _decode(blob: bytes, init=None, tables_only: bool = False):
         return qtables, dc_luts, ac_luts
     if frame is None:
         raise ValueError("corrupt JPEG data: no frame (SOF marker)")
-    return frame, comps, coefs, jfif, adobe, adobe_transform
+    return frame, comps, coefs, jfif, adobe, adobe_transform, unterminated
 
 
 def _scan_units(comps, scan, mcus) -> list:

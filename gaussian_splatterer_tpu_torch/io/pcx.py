@@ -52,9 +52,12 @@ def accept(prefix: bytes) -> bool:
     return len(prefix) >= 2 and prefix[0] == 10 and prefix[1] in (0, 2, 3, 5)
 
 
-def opens(blob: bytes) -> dict:
+def opens(blob: bytes, whole: bytes | None = None) -> dict:
     """PcxImageFile._open's header: the mode, size, planes, line bytes and
-    palette (768 RGB bytes or None)."""
+    palette (768 RGB bytes or None).  ``whole`` is the file when ``blob``
+    is a page of it (a DCX page), whose 256-colour palette Pillow still
+    seeks from the file's end."""
+    whole = blob if whole is None else whole
     s = blob[:68]
     if not accept(s):
         raise NotThisFormat("not a PCX file")
@@ -74,9 +77,9 @@ def opens(blob: bytes) -> dict:
         raw, palette = f"P;{planes}L", s[16:64] + bytes(768 - 48)
     elif version == 5 and bits == 8 and planes == 1:
         raw = "L"
-        if len(blob) < 769:
+        if len(whole) < 769:
             raise ValueError("PCX file shorter than its 769-byte palette (invalid seek)")
-        tail = blob[-769:]
+        tail = whole[-769:]
         if tail[0] == 12 and tail[1:] != bytes(np.repeat(np.arange(256, dtype=np.uint8), 3)):
             raw, palette = "P", tail[1:]
     elif version == 5 and bits == 8 and planes == 3:
@@ -126,9 +129,10 @@ def rle_lines(data: bytes, line: int, rows: int) -> tuple[np.ndarray, int]:
     return got if got is not None else rle_lines_python(data, line, rows)
 
 
-def decode_pcx(blob: bytes) -> np.ndarray:
-    """PCX bytes -> (H, W, 4) uint8 RGBA, row 0 the top of the picture."""
-    head = opens(blob)
+def decode_pcx(blob: bytes, whole: bytes | None = None) -> np.ndarray:
+    """PCX bytes -> (H, W, 4) uint8 RGBA, row 0 the top of the picture;
+    ``whole`` as for ``opens``."""
+    head = opens(blob, whole)
     raw, w, h, line = head["raw"], head["w"], head["h"], head["line"]
     if (w * _BITS[raw] + 7) // 8 > line:
         raise ValueError("PCX line shorter than its pixels (buffer overrun)")

@@ -235,6 +235,33 @@ def _packbits(data: bytes, size: int) -> bytes:
     return bytes(out[:size])
 
 
+def _unxz(data: bytes, size: int) -> bytes:
+    """libtiff's LZMA decode of a strip: up to ``size`` bytes.  libtiff asks
+    liblzma for the strip's bytes and keeps them if they all came, even
+    when the same call then meets damage further on (the stream's end
+    marker, check or index); a prefix of the data that gives them all
+    without an error is what it reads."""
+    def run(n):
+        return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(data[:n], size)
+
+    try:
+        return run(len(data))
+    except lzma.LZMAError as exc:
+        error = exc
+    lo, hi = 0, len(data)  # run(lo) gives fewer than size bytes; run(hi) raises
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        try:
+            got = run(mid)
+        except lzma.LZMAError:
+            hi = mid
+            continue
+        if len(got) >= size:
+            return got
+        lo = mid
+    raise ValueError(f"corrupt TIFF LZMA data ({error})")
+
+
 def _inflate(data: bytes, comp: int, size: int) -> np.ndarray:
     """One LZW, PackBits, Deflate or LZMA strip or tile -> its ``size``
     bytes, as libtiff."""
@@ -248,11 +275,7 @@ def _inflate(data: bytes, comp: int, size: int) -> np.ndarray:
     elif comp == 32773:
         out = np.frombuffer(_packbits(data, size), np.uint8)
     elif comp == 34925:
-        try:  # libtiff stops once the strip is full, as max_length does
-            out = np.frombuffer(lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(data, size),
-                                np.uint8)
-        except lzma.LZMAError as exc:
-            raise ValueError(f"corrupt TIFF LZMA data ({exc})") from None
+        out = np.frombuffer(_unxz(data, size), np.uint8)
     else:
         try:
             out = np.frombuffer(zlib.decompressobj().decompress(data, size), np.uint8)
@@ -342,6 +365,14 @@ def decode_tiff(blob: bytes) -> np.ndarray:
     if comp != 1 and (blob[3] == 0x2B or (bigtiff and blob[4:8] != b"\x08\0\0\0")):
         raise ValueError("unsupported TIFF (a BigTIFF header libtiff reads otherwise than "
                          "Pillow)")
+    if comp != 1:  # libtiff's TIFFFetchDirectory reads the whole directory
+        count_fmt, entry = ("Q", 20) if bigtiff else ("H", 12)
+        n = struct.unpack_from(e + count_fmt, blob, ifd_at)[0]
+        if n > 4096:
+            raise ValueError("TIFF directory of more than 4096 entries (libtiff's sanity check "
+                             "on the directory count)")
+        if ifd_at + struct.calcsize(count_fmt) + entry * n > len(blob):
+            raise ValueError("TIFF directory past the end of the file (libtiff cannot read it)")
     if 256 not in tags or 257 not in tags:
         raise ValueError("TIFF without its dimensions")
     w, h = get(256), get(257)

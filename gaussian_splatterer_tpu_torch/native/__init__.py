@@ -1,7 +1,8 @@
 """Native C++ file parsers (the ``.obj`` mesh and ``.gobj`` splat formats),
 the texture decoders' byte loops (PNG's row unfilter, GIF's and TIFF's
-LZW, PSD's PackBits rows, SGI's and PCX's run-length rows, QOI's ops,
-TIFF's CCITT fax decoder, DDS's BC6H blocks) and
+LZW, PSD's PackBits rows, SGI's, PCX's, SUN's, MSP's and ICNS's run-length
+rows, QOI's ops, TIFF's CCITT fax decoder, DDS's BC6H blocks, FLI's frame
+chunks) and
 WebP's bit-serial decoders (VP8, VP8L, ALPH), loaded with ctypes
 (counterpart of gaussian_splatterer_tpu.native).
 
@@ -12,7 +13,8 @@ sources and flags (an unchanged source is reused across processes, a
 changed one builds anew), and loaded.  Nothing is built at import time.  A
 failed build prints the compiler's message to standard error; ``lib()``
 then returns None and io/obj.py, io/gobj.py, io/png.py, io/lzw.py,
-io/psd.py, io/sgi.py, io/pcx.py, io/qoi.py, io/ccitt.py and io/dds.py take
+io/psd.py, io/sgi.py, io/pcx.py, io/qoi.py, io/ccitt.py, io/dds.py, io/sun.py,
+io/msp.py, io/icns.py and io/fli.py take
 their pure-Python loops, which stay as the plain twins of these; io/webp.py has no Python
 twin and refuses WebP files then.
 """
@@ -125,6 +127,14 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     cdll.gst_fax_decode.restype = ctypes.c_int
     cdll.gst_bc6h_decode.argtypes = [ctypes.c_char_p, i64, ctypes.c_int, pi, pu8]
     cdll.gst_bc6h_decode.restype = None
+    cdll.gst_sun_rle.argtypes = [ctypes.c_char_p, i64, i64, i64, pu8]
+    cdll.gst_sun_rle.restype = ctypes.c_int
+    cdll.gst_msp_rle.argtypes = [ctypes.c_char_p, i64, i64, i64, pu8, i64, pi64]
+    cdll.gst_msp_rle.restype = ctypes.c_int
+    cdll.gst_icns_rle.argtypes = [ctypes.c_char_p, i64, i64, pu8]
+    cdll.gst_icns_rle.restype = ctypes.c_int
+    cdll.gst_fli_frame.argtypes = [ctypes.c_char_p, i64, i64, i64, pu8, pi]
+    cdll.gst_fli_frame.restype = i64
     return cdll
 
 
@@ -333,3 +343,52 @@ def bc6h_decode(blocks: np.ndarray, signed: bool):
     cdll.gst_bc6h_decode(src.tobytes(), len(src), int(signed),
                          table.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), _u8(out))
     return out
+
+
+def sun_rle(data: bytes, line: int, rows: int):
+    """io/sun.rle_rows_python's (rows, status) from the native loop, or
+    None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    out = np.zeros((rows, line), np.uint8)
+    return out, cdll.gst_sun_rle(bytes(data), len(data), line, rows, _u8(out))
+
+
+def msp_rle(data: bytes, w: int, h: int):
+    """io/msp.rle_rows_python's (bytes, status) from the native loop, or
+    None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    blank = (w + 7) // 8
+    out = np.zeros(blank * h, np.uint8)
+    written = ctypes.c_int64()
+    status = cdll.gst_msp_rle(bytes(data), len(data), h, blank, _u8(out), out.size,
+                              ctypes.byref(written))
+    return out[:min(written.value, out.size)].tobytes(), status
+
+
+def icns_rle(data: bytes, pixels: int):
+    """io/icns.rle_channels_python's (channels, status) from the native
+    loop, or None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    out = np.zeros((3, pixels), np.uint8)
+    return out, cdll.gst_icns_rle(bytes(data), len(data), pixels, _u8(out))
+
+
+def fli_frame(buf: bytes, img: np.ndarray):
+    """io/fli.frame_python's (consumed, error) from the native loop, into
+    the (H, W) uint8 C-contiguous ``img``, or None when the library is
+    missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    if img.dtype != np.uint8 or not img.flags.c_contiguous:
+        raise ValueError("fli_frame wants a C-contiguous uint8 image")
+    err = ctypes.c_int()
+    n = cdll.gst_fli_frame(bytes(buf), len(buf), img.shape[1], img.shape[0], _u8(img),
+                           ctypes.byref(err))
+    return int(n), err.value

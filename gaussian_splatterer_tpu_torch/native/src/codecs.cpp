@@ -1,11 +1,14 @@
 // Native byte loops of the texture decoders: PNG's row unfilter, the LZW
 // decoder of GIF and TIFF, PSD's PackBits rows, SGI's and PCX's run-length
-// rows, QOI's ops, TIFF's CCITT fax decoder and DDS's BC6H blocks.  Each is
-// the C++ twin of a Python loop that stays as its plain version
-// (io/png.py's unfilter_python, io/lzw.py's decode_lzw_python, io/psd.py's
+// rows, QOI's ops, TIFF's CCITT fax decoder, DDS's BC6H blocks, SUN's, MSP's
+// and ICNS's run-length rows and FLI's frame chunks.  Each is the C++ twin
+// of a Python loop that stays as its plain version (io/png.py's
+// unfilter_python, io/lzw.py's decode_lzw_python, io/psd.py's
 // packbits_rows_python, io/sgi.py's rle_rows_python, io/pcx.py's
 // rle_lines_python, io/qoi.py's decode_ops_python, io/ccitt.py's
-// decode_fax_python, io/dds.py's bc6h_python) and gives the same bytes and
+// decode_fax_python, io/dds.py's bc6h_python, io/sun.py's rle_rows_python,
+// io/msp.py's rle_rows_python, io/icns.py's rle_channels_python, io/fli.py's
+// frame_python) and gives the same bytes and
 // the same status for every input, broken ones included.  Plain C ABI for
 // ctypes; the caller owns every buffer.
 
@@ -774,6 +777,262 @@ void gst_bc6h_decode(const uint8_t* src, int64_t n, int is_signed, const int32_t
             }
         }
     }
+}
+
+// SUN's run-length rows (Pillow's SunRleDecode) from ``src`` -> ``rows``
+// lines of ``line`` bytes at ``dst``: 0x80 0 is a 0x80 byte, 0x80 n v a run
+// of n + 1 bytes v that goes on into the next lines, any other byte itself.
+// Returns 0, or 1 when the data end before the last line.
+int gst_sun_rle(const uint8_t* src, int64_t n, int64_t line, int64_t rows, uint8_t* dst) {
+    const int64_t total = line * rows;
+    int64_t x = 0, pos = 0;
+    while (x < total) {
+        if (pos >= n) return 1;
+        int b = src[pos];
+        if (b == 0x80) {
+            if (pos + 1 >= n) return 1;
+            int64_t count = src[pos + 1];
+            if (count == 0) {
+                dst[x++] = 0x80;
+                pos += 2;
+                continue;
+            }
+            if (pos + 2 >= n) return 1;
+            ++count;
+            int64_t take = count < total - x ? count : total - x;
+            std::memset(dst + x, src[pos + 2], static_cast<size_t>(take));
+            x += count;
+            pos += 3;
+        } else {
+            dst[x++] = static_cast<uint8_t>(b);
+            ++pos;
+        }
+    }
+    return 0;
+}
+
+// MSP version 2 (Pillow's MspDecoder): the row map of ``rows`` 16-bit
+// lengths and the rows after it in ``src`` -> the bytes the runs write, at
+// most ``cap`` of them at ``dst`` (``*written`` counts them all; a row of
+// length 0 writes ``blank`` bytes of 0xFF).  Returns 0, 1 when the map or a
+// row ends early, 2 when a run is cut by its row's end.
+int gst_msp_rle(const uint8_t* src, int64_t n, int64_t rows, int64_t blank, uint8_t* dst,
+                int64_t cap, int64_t* written) {
+    int64_t out = 0, pos = 2 * rows;
+    int status = 0;
+    auto put = [&](const uint8_t* p, int64_t count, bool run) {
+        for (int64_t k = 0; k < count; ++k, ++out)
+            if (out < cap) dst[out] = run ? p[0] : p[k];
+    };
+    const uint8_t ff = 0xFF;
+    if (n < 2 * rows) {
+        *written = 0;
+        return 1;
+    }
+    for (int64_t r = 0; r < rows && !status; ++r) {
+        int64_t rowlen = src[2 * r] | (src[2 * r + 1] << 8);
+        if (rowlen == 0) {
+            put(&ff, blank, true);
+            continue;
+        }
+        if (pos + rowlen > n) {
+            status = 1;
+            break;
+        }
+        const uint8_t* row = src + pos;
+        pos += rowlen;
+        int64_t idx = 0;
+        while (idx < rowlen) {
+            int runtype = row[idx++];
+            if (runtype == 0) {
+                if (idx + 2 > rowlen) {
+                    status = 2;
+                    break;
+                }
+                put(row + idx + 1, row[idx], true);
+                idx += 2;
+            } else {
+                int64_t take = runtype < rowlen - idx ? runtype : rowlen - idx;
+                put(row + idx, take, false);
+                idx += runtype;
+            }
+        }
+    }
+    *written = out;
+    return status;
+}
+
+// ICNS's run-length channels (IcnsImagePlugin.read_32): three channels of
+// ``pixels`` bytes from ``src`` into ``dst`` (channel-major).  Returns 0, 1
+// when the data end first or a literal comes short, 2 when a run or a
+// literal passes a channel's end.
+int gst_icns_rle(const uint8_t* src, int64_t n, int64_t pixels, uint8_t* dst) {
+    int64_t pos = 0;
+    for (int band = 0; band < 3; ++band) {
+        uint8_t* out = dst + band * pixels;
+        int64_t x = 0, left = pixels;
+        while (left > 0) {
+            if (pos >= n) return 1;
+            int b = src[pos++];
+            int64_t count;
+            if (b & 0x80) {
+                count = b - 125;
+                if (pos >= n) return 1;
+                int64_t take = count < pixels - x ? count : pixels - x;
+                if (take > 0) std::memset(out + x, src[pos], static_cast<size_t>(take));
+                ++pos;
+            } else {
+                count = b + 1;
+                int64_t got = count < n - pos ? count : n - pos;
+                int64_t take = got < pixels - x ? got : pixels - x;
+                if (take > 0) std::memcpy(out + x, src + pos, static_cast<size_t>(take));
+                pos += got;
+                if (got < count) return 1;
+            }
+            x += count;
+            left -= count;
+        }
+        if (left != 0) return 2;
+    }
+    return 0;
+}
+
+// One call of Pillow's FliDecode on ``buf`` (``nb`` bytes) into the
+// ``ysize`` x ``xsize`` 8-bit image ``img`` (row-major): the frame's chunks
+// BLACK, BRUN, COPY, LC, SS2 (colour and stamp chunks skipped).  Returns
+// the bytes consumed (0: the frame is not all there yet; a COPY chunk
+// whose pixels pass the buffer returns the offset of its chunk), or -1 at
+// the frame's end with ``*err`` 0, or -1 with ``*err`` < 0 (-1 overrun, -2
+// a chunk size of 0, -3 an unknown chunk).
+int64_t gst_fli_frame(const uint8_t* buf, int64_t nb, int64_t xsize, int64_t ysize,
+                      uint8_t* img, int* err) {
+    auto i16 = [&](int64_t o) -> int64_t { return buf[o] | (buf[o + 1] << 8); };
+    auto i32 = [&](int64_t o) -> uint32_t {
+        return static_cast<uint32_t>(buf[o]) | (static_cast<uint32_t>(buf[o + 1]) << 8) |
+               (static_cast<uint32_t>(buf[o + 2]) << 16) | (static_cast<uint32_t>(buf[o + 3]) << 24);
+    };
+    *err = 0;
+    if (nb < 4) return 0;
+    int64_t framesize = static_cast<int32_t>(i32(0));  // a C int, as Pillow reads it
+    if (nb + nb % 2 < framesize) return 0;
+    if (nb < 8) { *err = -1; return -1; }
+    if (i16(4) != 0xF1FA) { *err = -3; return -1; }
+    int64_t chunks = i16(6), ptr = 16, left = nb - 16;
+    for (int64_t c = 0; c < chunks; ++c) {
+        if (left < 10) { *err = -1; return -1; }
+        int64_t data = ptr + 6, end = ptr + left;
+        int64_t kind = i16(ptr + 4);
+        if (kind == 4 || kind == 11 || kind == 18) {
+        } else if (kind == 7) {  // SS2
+            int64_t lines = i16(data), l = 0, y = 0;
+            data += 2;
+            for (; l < lines && y < ysize; ++l, ++y) {
+                uint8_t* row = img + y * xsize;
+                if (data + 2 > end) { *err = -1; return -1; }
+                int64_t packets = i16(data);
+                data += 2;
+                while (packets & 0x8000) {
+                    if (packets & 0x4000) {
+                        y += 65536 - packets;
+                        if (y >= ysize) { *err = -1; return -1; }
+                        row = img + y * xsize;
+                    } else {
+                        row[xsize - 1] = static_cast<uint8_t>(packets);
+                    }
+                    if (data + 2 > end) { *err = -1; return -1; }
+                    packets = i16(data);
+                    data += 2;
+                }
+                int64_t p = 0, x = 0;
+                for (; p < packets; ++p) {
+                    if (data + 2 > end) { *err = -1; return -1; }
+                    x += buf[data];
+                    if (buf[data + 1] >= 128) {
+                        if (data + 4 > end) { *err = -1; return -1; }
+                        int64_t i = 256 - buf[data + 1];
+                        if (x + i + i > xsize) break;
+                        for (int64_t j = 0; j < i; ++j) {
+                            row[x++] = buf[data + 2];
+                            row[x++] = buf[data + 3];
+                        }
+                        data += 4;
+                    } else {
+                        int64_t i = 2 * static_cast<int64_t>(buf[data + 1]);
+                        if (x + i > xsize) break;
+                        if (data + 2 + i > end) { *err = -1; return -1; }
+                        std::memcpy(row + x, buf + data + 2, static_cast<size_t>(i));
+                        data += 2 + i;
+                        x += i;
+                    }
+                }
+                if (p < packets) break;
+            }
+            if (l < lines) { *err = -1; return -1; }
+        } else if (kind == 12) {  // LC
+            int64_t y = i16(data), ymax = y + i16(data + 2);
+            data += 4;
+            for (; y < ymax && y < ysize; ++y) {
+                uint8_t* row = img + y * xsize;
+                if (data + 1 > end) { *err = -1; return -1; }
+                int64_t packets = buf[data++], p = 0, x = 0, i = 0;
+                for (; p < packets; ++p, x += i) {
+                    if (data + 2 > end) { *err = -1; return -1; }
+                    x += buf[data];
+                    if (buf[data + 1] & 0x80) {
+                        i = 256 - buf[data + 1];
+                        if (x + i > xsize) break;
+                        if (data + 3 > end) { *err = -1; return -1; }
+                        std::memset(row + x, buf[data + 2], static_cast<size_t>(i));
+                        data += 3;
+                    } else {
+                        i = buf[data + 1];
+                        if (x + i > xsize) break;
+                        if (data + 2 + i > end) { *err = -1; return -1; }
+                        std::memcpy(row + x, buf + data + 2, static_cast<size_t>(i));
+                        data += i + 2;
+                    }
+                }
+                if (p < packets) break;
+            }
+            if (y < ymax) { *err = -1; return -1; }
+        } else if (kind == 13) {  // BLACK
+            std::memset(img, 0, static_cast<size_t>(xsize * ysize));
+        } else if (kind == 15) {  // BRUN
+            for (int64_t y = 0; y < ysize; ++y) {
+                uint8_t* row = img + y * xsize;
+                data += 1;
+                int64_t x = 0, i = 0;
+                for (; x < xsize; x += i) {
+                    if (data + 2 > end) { *err = -1; return -1; }
+                    if (buf[data] & 0x80) {
+                        i = 256 - buf[data];
+                        if (x + i > xsize) break;
+                        if (data + i + 1 > end) { *err = -1; return -1; }
+                        std::memcpy(row + x, buf + data + 1, static_cast<size_t>(i));
+                        data += i + 1;
+                    } else {
+                        i = buf[data];
+                        if (x + i > xsize) break;
+                        std::memset(row + x, buf[data + 1], static_cast<size_t>(i));
+                        data += 2;
+                    }
+                }
+                if (x != xsize) { *err = -1; return -1; }
+            }
+        } else if (kind == 16) {  // COPY
+            if (data + xsize * ysize > end) return ptr;
+            std::memcpy(img, buf + data, static_cast<size_t>(xsize * ysize));
+        } else {
+            *err = -3;
+            return -1;
+        }
+        int64_t advance = i32(ptr);
+        if (advance == 0) { *err = -2; return -1; }
+        if (advance > left) { *err = -1; return -1; }
+        ptr += advance;
+        left -= advance;
+    }
+    return -1;
 }
 
 }  // extern "C"

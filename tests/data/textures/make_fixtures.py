@@ -91,7 +91,9 @@ PSD of them), whose Pillow decode is that PNG's.
     python tests/data/textures/make_fixtures.py
 """
 
+import io
 import os
+import struct
 import sys
 
 import numpy as np
@@ -102,8 +104,12 @@ TESTS = os.path.dirname(os.path.dirname(HERE))
 sys.path.insert(0, os.path.dirname(TESTS))
 sys.path.insert(0, TESTS)
 
-from texture_writers import (bmp_bytes, bmp_rows, dds_bytes, icon_bitmap, icon_dir,  # noqa: E402
-                             png_bytes, psd_bytes, sgi_bytes, tiff_bytes)
+from texture_writers import (blp_bytes, bmp_bytes, bmp_rows, dds_bytes, dxt_bytes,  # noqa: E402
+                             fits_bytes, fli_brun, fli_bytes, fli_colour, ftex_bytes, gbr_bytes,
+                             icns_bytes, icns_rgb, icon_bitmap, icon_dir, im_bytes, imt_bytes,
+                             iptc_bytes, mcidas_bytes, msp_bytes, pixar_bytes, png_bytes,
+                             psd_bytes, sgi_bytes, sun_bytes, tiff_bytes, xpm_bytes,
+                             xvthumb_bytes)
 
 from gaussian_splatterer_tpu_torch.io.image import float_image_to_u8  # noqa: E402
 from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_texture  # noqa: E402
@@ -236,6 +242,62 @@ def cur(rgba: np.ndarray) -> None:
         fh.write(icon_dir([(0, 0, 0, 128, 128, bitmap)], kind=2))
 
 
+def _write(name: str, blob: bytes) -> None:
+    with open(os.path.join(HERE, name), "wb") as fh:
+        fh.write(blob)
+
+
+def pillow_readers(rgba: np.ndarray) -> None:
+    """The fixtures of tests/test_torch_pillow_readers.py (the last 19
+    formats Pillow registers that the port reads)."""
+    rgb = Image.fromarray(rgba[..., :3])
+    grey = np.asarray(rgb.convert("L"))
+    p = keyed().convert("RGB").quantize(256, dither=Image.Dither.NONE)
+    idx, plte = np.asarray(p), np.asarray(p.getpalette()[:768], np.uint8).reshape(-1, 3)
+    plte = np.concatenate([plte, np.zeros((256 - len(plte), 3), np.uint8)])
+    cut_out = np.asarray(keyed().convert("RGBA"))
+    _write("mushroom256_dxt5_cutout.blp", blp_bytes(2, N, N, dxt_bytes(cut_out, "dxt5"),
+                                                    encoding=2, alpha=8, alpha_encoding=7))
+    p.save(os.path.join(HERE, "mushroom256_blp_palette.blp"))
+    _write("mushroom256_ftex.ftc", ftex_bytes(N, N, 0, dxt_bytes(rgba, "dxt1")))
+    small = np.asarray(rgb.resize((32, 32)))
+    icon = Image.fromarray(np.asarray(keyed().convert("RGB"))).quantize(
+        64, dither=Image.Dither.NONE).convert("RGBA")
+    buf = io.BytesIO()
+    icon.save(buf, format="PNG", optimize=True)
+    _write("mushroom256_icns.icns", icns_bytes([(b"il32", icns_rgb(small)),
+                                                (b"l8mk", bytes([255]) * 1024),
+                                                (b"ic08", buf.getvalue())]))
+    cut128 = np.asarray(Image.fromarray(cut_out).resize((128, 128), Image.Resampling.NEAREST))
+    _write("mushroom128_icns_rle.icns", icns_bytes([(b"it32", bytes(4) + icns_rgb(cut128[..., :3])),
+                                                    (b"t8mk", cut128[..., 3].tobytes())]))
+    buf = io.BytesIO()
+    p.save(buf, format="PCX")
+    _write("mushroom256_dcx.dcx", struct.pack("<II", 0x3ADE68B1, 12) + bytes(4) + buf.getvalue())
+    rgb.convert("1").save(os.path.join(HERE, "mushroom256_xbm.xbm"))
+    _write("mushroom256_xpm.xpm", xpm_bytes(idx, [tuple(c) for c in plte[:idx.max() + 1]]))
+    _write("mushroom256_gbr.gbr", gbr_bytes(grey, 2))
+    _write("mushroom256_sun_rle.ras", sun_bytes(idx.astype(np.uint8).tobytes(), N, N, 8, 2,
+                                                plte.T.tobytes()))
+    _write("mushroom256_msp.msp", msp_bytes(np.asarray(rgb.convert("1")) > 0, 2))
+    _write("mushroom256_im_lut.im", im_bytes(b"Greyscale image", N, N,
+                                             idx[::-1].astype(np.uint8).tobytes(),
+                                             plte.T.tobytes()))
+    _write("mushroom256_fli.flc", fli_bytes(N, N, [fli_colour(plte, six_bit=True),
+                                                   fli_brun(idx)]))
+    Image.fromarray(grey.astype(np.float32) * np.float32(1.25) - np.float32(20.4), "F").save(
+        os.path.join(HERE, "mushroom256_spider.spider"), format="SPIDER")
+    _write("mushroom256_fits.fits", fits_bytes(grey, 8))
+    _write("mushroom256_mcidas.mcidas", mcidas_bytes(grey, 1))
+    _write("mushroom256_pixar.pxr", pixar_bytes(rgba[..., :3]))
+    _write("mushroom256_imt.imt", imt_bytes(grey))
+    r, g, b = (rgba[..., c].astype(np.int64) for c in range(3))
+    _write("mushroom256_xvthumb.xvthumb", xvthumb_bytes((r >> 5) << 5 | (g >> 5) << 2 | b >> 6))
+    buf = io.BytesIO()
+    rgb.convert("L").save(buf, format="JPEG", quality=90)
+    _write("mushroom256_iptc.iim", iptc_bytes(N, N, 1, buf.getvalue(), compression=5))
+
+
 def tiff_codecs(rgba: np.ndarray) -> None:
     rgb = Image.fromarray(rgba[..., :3])
     rgb.save(os.path.join(HERE, "mushroom256_jpeg_rgb.tif"), compression="jpeg", quality=90)
@@ -303,14 +365,16 @@ def webp_1024() -> None:
 def main() -> None:
     rgba = float_image_to_u8(mushroom_texture(n=N, spot_alpha=0.5))
     for write in (palette_trns, rgba16, adam7, map_rle, cmyk, bitfields, lzw_pred2, dxt1,
-                  gif_trns, ppm, webp, qoi, sgi, pcx, ico, pfm, psd, cur, tiff_codecs, bc6h):
+                  gif_trns, ppm, webp, qoi, sgi, pcx, ico, pfm, psd, cur, tiff_codecs, bc6h,
+                  pillow_readers):
         write(rgba)
     lzw_1024()
     tiff_1024()
     webp_1024()
     qoi_1024()
     for name in sorted(os.listdir(HERE)):
-        if name.startswith("mushroom256") and not name.endswith((".pillow.png", ".py")):
+        if name.startswith(("mushroom256", "mushroom128")) and not name.endswith(
+                (".pillow.png", ".py")):
             path = os.path.join(HERE, name)
             Image.open(path).convert("RGBA").save(
                 os.path.join(HERE, name.rsplit(".", 1)[0] + ".pillow.png"), optimize=True)

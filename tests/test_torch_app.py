@@ -193,9 +193,16 @@ def test_texture_loader_names_what_it_cannot_read(tmp_path):
     (tmp_path / "t.bmp").write_bytes(b"BM" + bytes(60))
     with pytest.raises(ValueError, match="BMP"):
         timage.load_texture_rgba(str(tmp_path / "t.bmp"))
-    Image.new("1", (8, 8)).save(tmp_path / "t.xbm")
+    Image.new("1", (8, 8)).save(tmp_path / "t.xbm")  # read since XBM joined the readers
+    np.testing.assert_array_equal(timage.load_texture_rgba(str(tmp_path / "t.xbm")),
+                                  np.asarray(Image.open(tmp_path / "t.xbm").convert("RGBA"),
+                                             np.float32) / 255.0)
+    (tmp_path / "t.wmf").write_bytes(b"\x01\x00\x00\x00" + bytes(60))
+    with pytest.raises(ValueError, match="WMF"):
+        timage.load_texture_rgba(str(tmp_path / "t.wmf"))
+    (tmp_path / "t.bin").write_bytes(b"\x01" * 40)
     with pytest.raises(ValueError, match="unknown texture format"):
-        timage.load_texture_rgba(str(tmp_path / "t.xbm"))
+        timage.load_texture_rgba(str(tmp_path / "t.bin"))
 
 
 def test_field_initializers_match_jax():
@@ -389,6 +396,8 @@ def test_port_imports_no_jax_flax_or_pillow():
         "import gaussian_splatterer_tpu_torch.io.webp\n"
         "import gaussian_splatterer_tpu_torch.io.pillow_open\n"
         "from gaussian_splatterer_tpu_torch.io import ccitt, cur, ico, pcx, psd, qoi, sgi\n"
+        "from gaussian_splatterer_tpu_torch.io import (blp, dcx, fits, fli, ftex, gbr, icns, im,\n"
+        "    imt, iptc, mcidas, msp, pcd, pixar, rawmode, spider, sun, xbm, xpm, xvthumb)\n"
         "import gaussian_splatterer_tpu_torch.native\n"
         "from gaussian_splatterer_tpu_torch.scripts import (\n"
         "    bench, bench_scale, eval_model, quality_run, scenes)\n"

@@ -411,10 +411,9 @@ MUTANT_SOURCES = {
 }
 # the mutants at these seeds that fall in a recorded fault (ROADMAP C): C-5,
 # CCITT data that ends early, where Pillow returns rows it never wrote; C-7,
-# the rest (a corrupt JPEG stream libjpeg-turbo decodes or refuses
-# otherwise, an xz stream whose damage libtiff does not reach, a directory
-# libtiff parses otherwise than Pillow)
-KNOWN = {"jpeg": {"C-7": 4}, "ccitt": {"C-5": 9, "C-7": 1}, "lzma": {"C-7": 1}, "fill2": {"C-5": 2}}
+# the rest (an xz strip whose damage liblzma reports in the call that writes
+# its last bytes, which libtiff keeps)
+KNOWN = {"ccitt": {"C-5": 9}, "lzma": {"C-7": 1}, "fill2": {"C-5": 2}}
 
 
 @pytest.mark.parametrize("group", list(MUTANT_SOURCES))

@@ -1,8 +1,8 @@
 """Small PNG, TGA, BMP, TIFF, DDS, GIF, PNM, WebP, PSD, SGI, PCX, ICO and
 CUR writers for the texture tests and their fixtures
 (tests/test_torch_textures.py, tests/test_torch_formats.py,
-tests/test_torch_stb_formats.py, tests/data/textures/make_fixtures.py): the
-variants Pillow does not write (Adam7, 2- and 4-bit grey, 16-bit RGB and
+tests/test_torch_stb_formats.py, tests/test_torch_pillow_readers.py,
+tests/data/textures/make_fixtures.py): the variants Pillow does not write (Adam7, 2- and 4-bit grey, 16-bit RGB and
 RGBA, keys at 16 bits, 16-bit TGA, colour maps with a first entry, grey
 with a map; BMP RLE, bitfields and the other headers; TIFF tiles, planes,
 predictor 2, associated alpha, palettes, big-endian; DDS BC4, BC5S and BC7
@@ -12,7 +12,10 @@ frames with chosen headers and random bits; PSD, which Pillow does not
 write at all, raw or PackBits; SGI at 16 bits and run-length encoded; PCX
 in one or two 1-bit planes, four 1-bit planes and a 4-bit plane, with a
 chosen stride; ICO with bitmap entries and their AND masks; CUR; Pillow's
-PNM extensions P0CMYK and Py*), with ``zlib`` and ``struct``."""
+PNM extensions P0CMYK and Py*; of the last 19 Pillow readers, BLP2's DXT
+blocks and BLP1's JPEG, FTEX, ICNS's run lengths, XPM, GBR, SUN, MSP
+version 2, IM headers, FLI chunks, FITS with a gzip tile, McIdas, PIXAR,
+IMT, XVThumb, PCD and IPTC), with ``zlib`` and ``struct``."""
 
 from __future__ import annotations
 
@@ -790,3 +793,346 @@ def pnm_ext_bytes(samples: np.ndarray, magic: bytes, maxval: int = 255) -> bytes
     h, w = samples.shape[:2]
     head = magic + b"\n%d %d\n%d\n" % (w, h, maxval)
     return head + samples.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+# -- the formats of io/blp.py ... io/xvthumb.py that Pillow does not write --
+
+def dxt_block(rgba: np.ndarray, kind: str) -> bytes:
+    """One 4 x 4 block of (16, 4) uint8 RGBA as DXT1, DXT3 or DXT5: the
+    colour end points are the darkest and the brightest texel in 5:6:5,
+    each texel the nearer of the four codes (c0 > c1, the four-colour
+    mode); DXT5's alpha end points are 255 and 0 (codes 0 and 1, so a
+    texel of alpha 0 or 255 keeps it), the others the nearest of the eight
+    codes; DXT1 punches no texel out."""
+    px = rgba.astype(np.int64)
+    c565 = (px[:, 0] >> 3) << 11 | (px[:, 1] >> 2) << 5 | px[:, 2] >> 3
+    lum = px[:, :3].sum(axis=1)
+    c0, c1 = int(c565[lum.argmax()]), int(c565[lum.argmin()])
+    if c0 <= c1:
+        c0, c1 = max(c0, c1, 1), min(c0, c1, max(c0, c1, 1) - 1)
+    ends = np.array([[(c >> 11) << 3, ((c >> 5) & 63) << 2, (c & 31) << 3] for c in (c0, c1)])
+    codes = np.array([ends[0], ends[1], (2 * ends[0] + ends[1]) // 3, (ends[0] + 2 * ends[1]) // 3])
+    idx = ((px[:, None, :3] - codes[None]) ** 2).sum(axis=2).argmin(axis=1)
+    colour = struct.pack("<HHI", c0, c1, int((idx << (2 * np.arange(16))).sum()))
+    if kind == "dxt1":
+        return colour
+    if kind == "dxt3":
+        nib = px[:, 3] >> 4
+        return bytes(int(nib[2 * i] | nib[2 * i + 1] << 4) for i in range(8)) + colour
+    levels = np.array([255, 0] + [((7 - k) * 255 + k * 0) // 7 for k in range(1, 7)])
+    acode = np.abs(px[:, 3:4] - levels[None]).argmin(axis=1)
+    bits = int((acode << (3 * np.arange(16))).sum())
+    return bytes([255, 0]) + bits.to_bytes(6, "little") + colour
+
+
+def dxt_bytes(rgba: np.ndarray, kind: str) -> bytes:
+    """(H, W, 4) uint8, sides multiples of 4 -> the blocks row by row."""
+    h, w, _ = rgba.shape
+    blocks = rgba.reshape(h // 4, 4, w // 4, 4, 4).transpose(0, 2, 1, 3, 4).reshape(-1, 16, 4)
+    return b"".join(dxt_block(b, kind) for b in blocks)
+
+
+def blp_bytes(version: int, w: int, h: int, mipmap: bytes, compression: int = 1,
+              encoding: int = 1, alpha: int = 0, alpha_encoding: int = 0,
+              palette: bytes = b"", jpeg_header: bytes = b"") -> bytes:
+    """BLP1 (compression 0: JPEG, whose ``jpeg_header`` is the shared
+    header; 1: palette indices, encoding 4 or 5) or BLP2 (encoding 1:
+    palette, 2: DXT), the one mipmap after the palette."""
+    if version == 1:
+        head = b"BLP1" + struct.pack("<iIIIiI", compression, alpha, w, h, encoding, 0)
+    else:
+        head = b"BLP2" + struct.pack("<ibbbbII", compression, encoding, alpha, alpha_encoding, 0,
+                                     w, h)
+    extra = (struct.pack("<I", len(jpeg_header)) + jpeg_header if compression == 0 and
+             version == 1 else palette.ljust(1024, b"\0"))
+    start = len(head) + 128 + len(extra)
+    offsets = struct.pack("<16I", start, *([0] * 15))
+    lengths = struct.pack("<16I", len(mipmap), *([0] * 15))
+    return head + offsets + lengths + extra + mipmap
+
+
+def ftex_bytes(w: int, h: int, fmt: int, data: bytes) -> bytes:
+    return (b"FTEX" + struct.pack("<i2i2i2i", 1, w, h, 1, 1, fmt, 32)
+            + struct.pack("<i", len(data)) + data)
+
+
+def icns_rle(channel: bytes) -> bytes:
+    """One channel in ICNS's PackBits-like run-length code."""
+    out, i, n = bytearray(), 0, len(channel)
+    while i < n:
+        j = i
+        while j < n and j - i < 130 and channel[j] == channel[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([j - i + 125, channel[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and channel[j] == channel[j + 1]
+                                              == channel[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + channel[i:j]
+        i = j
+    return bytes(out)
+
+
+def icns_bytes(elements) -> bytes:
+    """[(kind, payload)] -> an icns file."""
+    body = b"".join(k + struct.pack(">I", 8 + len(p)) + p for k, p in elements)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def icns_rgb(rgb: np.ndarray, rle: bool = True) -> bytes:
+    if not rle:
+        return rgb.astype(np.uint8).tobytes()
+    return b"".join(icns_rle(rgb[..., c].astype(np.uint8).tobytes()) for c in range(3))
+
+
+def xpm_bytes(indices: np.ndarray, colours: list, cpp: int = 1, none_key: bool = False,
+              comment: bool = True) -> bytes:
+    """indices (H, W) into ``colours`` [(r, g, b)] -> XPM 3 text, keys of
+    ``cpp`` characters; ``none_key`` adds a ``c None`` colour first."""
+    h, w = indices.shape
+    alphabet = [bytes([c]) for c in range(35, 127) if c not in (34, 92)]
+    keys = []
+    for i in range(len(colours) + 1):
+        k, v = b"", i
+        for _ in range(cpp):
+            k, v = k + alphabet[v % len(alphabet)], v // len(alphabet)
+        keys.append(k)
+    lines = [b"/* XPM */", b"static char *t[] = {",
+             b'"%d %d %d %d",' % (w, h, len(colours) + none_key, cpp)]
+    if none_key:
+        lines.append(b'"' + keys[-1] + b' c None",')
+    lines += [b'"' + keys[i] + b' c #%02x%02x%02x",' % tuple(c) for i, c in enumerate(colours)]
+    if comment:
+        lines.append(b"/* pixels */")
+    lines += [b'"' + b"".join(keys[v] for v in row) + b'",' for row in indices]
+    return b"\n".join(lines) + b"\n};\n"
+
+
+def gbr_bytes(pixels: np.ndarray, version: int = 2, comment: bytes = b"brush\0") -> bytes:
+    h, w = pixels.shape[:2]
+    depth = 1 if pixels.ndim == 2 else pixels.shape[2]
+    extra = b"GIMP" + struct.pack(">I", 25) if version == 2 else b""
+    head = struct.pack(">5I", 20 + len(extra) + len(comment), version, w, h, depth)
+    return head + extra + comment + pixels.astype(np.uint8).tobytes()
+
+
+def sun_rle(data: bytes) -> bytes:
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 256 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3 or data[i] == 0x80:
+            out += bytes([0x80, j - i - 1, data[i]]) if j - i > 1 or data[i] != 0x80 \
+                else b"\x80\x00"
+            i = j
+        else:
+            out.append(data[i])
+            i += 1
+    return bytes(out)
+
+
+def sun_bytes(rows: bytes, w: int, h: int, depth: int, file_type: int = 1,
+              colour_map: bytes = b"") -> bytes:
+    """Rows already laid out (padded for raw types) -> a Sun raster."""
+    data = sun_rle(rows) if file_type == 2 else rows
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(data), file_type,
+                       1 if colour_map else 0, len(colour_map)) + colour_map + data
+
+
+def msp_rle_row(row: bytes) -> bytes:
+    out, i, n = bytearray(), 0, len(row)
+    while i < n:
+        j = i
+        while j < n and j - i < 255 and row[j] == row[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([0, j - i, row[i]])
+            i = j
+        else:
+            j = min(n, i + 127)
+            out += bytes([j - i]) + row[i:j]
+            i = j
+    return bytes(out)
+
+
+def msp_bytes(bits: np.ndarray, version: int = 2) -> bytes:
+    """(H, W) 0/1 -> MSP version 1 (raw) or 2 (run-length rows, a row of
+    all ones written as length 0)."""
+    h, w = bits.shape
+    rows = np.packbits(bits.astype(np.uint8), axis=1)
+    head = list(struct.unpack("<2H", b"DanM" if version == 1 else b"LinS")) + [w, h] + [0] * 12
+    check = 0
+    for v in head:
+        check ^= v
+    head[12] = check  # any word will do: the XOR of all 16 must be 0
+    header = struct.pack("<16H", *head)
+    if version == 1:
+        return header + rows.tobytes()
+    packed = [b"" if not (r ^ 0xFF).any() and w % 8 == 0 else msp_rle_row(r.tobytes())
+              for r in rows]
+    return header + struct.pack(f"<{h}H", *map(len, packed)) + b"".join(packed)
+
+
+def im_bytes(image_type: bytes, w: int, h: int, data: bytes, lut: bytes = b"",
+             extra: bytes = b"") -> bytes:
+    head = b"Image type: " + image_type + b"\r\nName: t\r\nImage size (x*y): %d*%d\r\n" % (w, h)
+    head += extra + (b"Lut: 1\r\n" if lut else b"")
+    return head.ljust(512, b"\0")[:511] + b"\x1a" + lut + data
+
+
+def fli_chunk(kind: int, payload: bytes) -> bytes:
+    if len(payload) % 2:
+        payload += b"\0"
+    return struct.pack("<IH", 6 + len(payload), kind) + payload
+
+
+def fli_bytes(w: int, h: int, chunks, magic: int = 0xAF12) -> bytes:
+    body = b"".join(chunks)
+    frame = struct.pack("<IHH8x", 16 + len(body), 0xF1FA, len(chunks)) + body
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHHI", head, 0, 128 + len(frame), magic, 1, w, h, 8, 0, 5)
+    return bytes(head) + frame
+
+
+def fli_colour(palette: np.ndarray, six_bit: bool = False) -> bytes:
+    p = (palette >> 2) if six_bit else palette
+    return fli_chunk(11 if six_bit else 4,
+                     struct.pack("<HBB", 1, 0, 0) + p.astype(np.uint8).tobytes())
+
+
+def fli_brun(img: np.ndarray) -> bytes:
+    out = bytearray()
+    for row in img:
+        out.append(0)
+        x, w = 0, len(row)
+        while x < w:
+            j = x
+            while j < w and j - x < 127 and row[j] == row[x]:
+                j += 1
+            if j - x >= 2:
+                out += bytes([j - x, row[x]])
+            else:
+                j = min(w, x + 127)
+                out += bytes([256 - (j - x)]) + row[x:j].astype(np.uint8).tobytes()
+            x = j
+    return fli_chunk(15, bytes(out))
+
+
+def fli_lc(img: np.ndarray, y0: int) -> bytes:
+    """Rows from ``y0``: each row one skip and literal packets of 100."""
+    out = bytearray(struct.pack("<HH", y0, img.shape[0]))
+    for row in img:
+        packs = [row[i:i + 100] for i in range(0, len(row), 100)]
+        out.append(len(packs))
+        for p in packs:
+            out += bytes([0, len(p)]) + p.astype(np.uint8).tobytes()
+    return fli_chunk(12, bytes(out))
+
+
+def fli_ss2(img: np.ndarray) -> bytes:
+    """Word-delta lines, even width: a run packet then literal words."""
+    out = bytearray(struct.pack("<H", img.shape[0]))
+    for row in img:
+        words = row.astype(np.uint8).tobytes()
+        out += struct.pack("<H", 2)
+        out += bytes([0, 256 - 1]) + words[:2]
+        out += bytes([0, (len(words) - 2) // 2]) + words[2:]
+    return fli_chunk(7, bytes(out))
+
+
+def fits_bytes(samples: np.ndarray, bitpix: int, cards: list | None = None,
+               gzip_tile: bool = False) -> bytes:
+    """(H, W) samples, stored as FITS stores them (big-endian, rows from
+    the bottom) with the header cards; ``gzip_tile`` writes a tile-
+    compressed BINTABLE extension holding the pixels in 4-byte words."""
+    import gzip as _gzip
+
+    h, w = samples.shape
+
+    def card(k, v):
+        return (k.ljust(8) + "= " + str(v).rjust(20)).ljust(80).encode()
+
+    def header(cs):
+        out = b"".join(card(k, v) if v is not None else k.ljust(80).encode() for k, v in cs)
+        out += b"END".ljust(80)
+        return out.ljust(-(-len(out) // 2880) * 2880, b" ")
+
+    dt = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    if not gzip_tile:
+        cs = [("SIMPLE", "T"), ("BITPIX", bitpix), ("NAXIS", 2), ("NAXIS1", w), ("NAXIS2", h)]
+        data = samples[::-1].astype(dt).tobytes()
+        return header(cs + (cards or [])) + data.ljust(-(-len(data) // 2880) * 2880, b"\0")
+    primary = header([("SIMPLE", "T"), ("BITPIX", 8), ("NAXIS", 0)])
+    words = samples[::-1].astype(">i4").tobytes()
+    stream = _gzip.compress(words)
+    cs = [("XTENSION", "'BINTABLE'"), ("BITPIX", 8), ("NAXIS", 2), ("NAXIS1", 8),
+          ("NAXIS2", 1), ("ZIMAGE", "T"), ("ZCMPTYPE", "'GZIP_1  '"), ("ZBITPIX", bitpix),
+          ("ZNAXIS", 2), ("ZNAXIS1", w), ("ZNAXIS2", h)]
+    return primary + header(cs + (cards or [])) + bytes(8) + stream
+
+
+def mcidas_bytes(samples: np.ndarray, size: int, prefix: int = 0) -> bytes:
+    h, w = samples.shape
+    words = [0] * 64
+    words[1], words[8], words[9], words[10], words[13], words[14] = 4, h, w, size, 1, prefix
+    words[33] = 256
+    dt = {1: ">u1", 2: ">u2", 4: ">i4"}[size]
+    rows = np.ascontiguousarray(samples.astype(dt)).view(np.uint8).reshape(h, w * size)
+    data = np.concatenate([np.zeros((h, prefix), np.uint8), rows], axis=1)
+    return struct.pack(">64i", *words) + data.tobytes()
+
+
+def pixar_bytes(rgb: np.ndarray) -> bytes:
+    h, w, _ = rgb.shape
+    head = bytearray(1024)
+    head[:4] = b"\200\350\000\000"
+    struct.pack_into("<HH", head, 416, h, w)
+    struct.pack_into("<HH", head, 424, 14, 2)
+    return bytes(head) + rgb.astype(np.uint8).tobytes()
+
+
+def imt_bytes(grey: np.ndarray, comment: bytes = b"* an IM Tools image") -> bytes:
+    h, w = grey.shape
+    head = comment + b"\nwidth %d\nheight %d\npixel n8\n\x0c" % (w, h)
+    return head + grey.astype(np.uint8).tobytes()
+
+
+def xvthumb_bytes(indices: np.ndarray) -> bytes:
+    h, w = indices.shape
+    return (b"P7 332\n#XVVERSION:Version 2.28\n#BUILTIN:STOP\n%d %d 255\n" % (w, h)
+            + indices.astype(np.uint8).tobytes())
+
+
+def pcd_bytes(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, orientation: int = 0) -> bytes:
+    """(512, 768) luma and (256, 384) chroma -> a PCD of the base image
+    only, what Pillow reads."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    d = np.zeros((256, 3 * 768), np.uint8)
+    d[:, :2 * 768] = y.reshape(256, 2 * 768)
+    d[:, 1536:1920] = cb
+    d[:, 1920:] = cr
+    return bytes(head) + d.tobytes()
+
+
+def iptc_field(record: int, tag: int, data: bytes) -> bytes:
+    if len(data) < 0x8000:
+        return struct.pack(">BBBH", 0x1C, record, tag, len(data)) + data
+    return struct.pack(">BBBHI", 0x1C, record, tag, 0x8004, len(data)) + data
+
+
+def iptc_bytes(w: int, h: int, layers: int, data: bytes, compression: int = 1,
+               band: int | None = None, chunk: int = 30000) -> bytes:
+    fields = [iptc_field(2, 0, b"\0\x04"), iptc_field(3, 20, struct.pack(">H", w)),
+              iptc_field(3, 30, struct.pack(">H", h)),
+              iptc_field(3, 60, bytes([layers, 0 if layers == 1 else 1])),
+              iptc_field(3, 120, bytes([compression]))]
+    if band is not None:
+        fields.append(iptc_field(3, 65, bytes([band])))
+    fields += [iptc_field(8, 10, data[i:i + chunk]) for i in range(0, len(data), chunk)]
+    return b"".join(fields) + bytes(5)
