@@ -167,11 +167,13 @@ Phases:
      texture, baseline and progressive) decoded on the host, bit-equal to
      their Pillow decodes, with the seconds; the texture fixtures
      (tests/data/textures, TEXTURE_FIXTURES, the last 19 Pillow readers'
-     among them) likewise; the cut-out textures (the BLP2 DXT5 among them)
-     and the 1024^2 JPEG-in-TIFF texture on the north-star mesh through K5,
-     each frame bit-equal to the frame under its Pillow decode; the native
-     byte loops (BYTE_LOOP_FIXTURES, the 1024^2 Group 4 TIFF among them)
-     against their Python twins; the CLI's new --obj --texture
+     among them, and the arithmetic-coded and lossless JPEGs) likewise;
+     the cut-out textures (the BLP2 DXT5 among them), the 1024^2
+     JPEG-in-TIFF texture and an arithmetic-coded JPEG texture on the
+     north-star mesh through K5, each frame bit-equal to the frame under its
+     Pillow decode; the native byte loops (BYTE_LOOP_FIXTURES, the 1024^2
+     Group 4 TIFF and the QM decoder on the largest arithmetic-coded
+     fixture among them) against their Python twins; the CLI's new --obj --texture
      (the JPEG) -> train (3 steps, one capture through K5) on the north
      star; the project's texture on the card equal to the fixture's PNG;
      export to .ply, .html and .gobj and render --mode viewer (in process,
@@ -410,7 +412,10 @@ TEXTURE_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_rgba16.png",
                     "mushroom256_im_lut.im", "mushroom256_fli.flc", "mushroom256_spider.spider",
                     "mushroom256_fits.fits", "mushroom256_mcidas.mcidas",
                     "mushroom256_pixar.pxr", "mushroom256_imt.imt",
-                    "mushroom256_xvthumb.xvthumb", "mushroom256_iptc.iim")
+                    "mushroom256_xvthumb.xvthumb", "mushroom256_iptc.iim",
+                    "mushroom256_arith_420.jpg", "mushroom256_arith_progressive.jpg",
+                    "mushroom256_lossless_p6.jpg", "mushroom256_lossless_grey_p7.jpg",
+                    "mushroom256_arith.tif")
 PILLOW_DECODES = {"mushroom1024_lzw.tif": "../jpeg/mushroom1024_q90_420.png",
                   "mushroom1024_lossless.webp": "../jpeg/mushroom1024_q90_420.png",
                   "mushroom1024.qoi": "../jpeg/mushroom1024_q90_420.png"}
@@ -422,11 +427,15 @@ BYTE_LOOP_FIXTURES = ("jpeg/mushroom1024_q90_420.png", "textures/mushroom1024_lz
                       "textures/mushroom256_rle.sgi", "textures/mushroom256_rgb.pcx",
                       "textures/mushroom1024_g4.tif", "textures/mushroom256_bc6h_sf16.dds",
                       "textures/mushroom256_sun_rle.ras", "textures/mushroom256_msp.msp",
-                      "textures/mushroom256_fli.flc", "textures/mushroom128_icns_rle.icns")
+                      "textures/mushroom256_fli.flc", "textures/mushroom128_icns_rle.icns",
+                      "textures/mushroom256_arith_progressive.jpg",
+                      "textures/mushroom256_lossless_p6.jpg")
 # the JPEG-in-TIFF texture on the north-star mesh through K5, as the cut-out
 # ones (an opaque texture: its frame against the frame of the decode flipped
 # upside down, which must differ)
 JPEG_TIFF_TEXTURE = "mushroom1024_jpeg.tif"
+# and an arithmetic-coded JPEG texture (4:2:0, DAC, restarts) likewise
+ARITH_TEXTURE = "mushroom256_arith_420.jpg"
 P21_KEYED_RES, P21_KEYED_SAMPLES, P21_KEYED_SEED = 512, 8, 21
 P21_STEPS = 3
 PLY_RENDER_ATOL = 1e-4
@@ -3245,7 +3254,8 @@ def byte_loops(card, fixtures: Path, fail) -> None:
     """Phase 21's native byte loops (native/src/codecs.cpp: PNG's unfilter,
     TIFF's LZW, QOI's ops, PSD's PackBits, SGI's and PCX's run lengths,
     TIFF's CCITT fax decoder, DDS's BC6H blocks, SUN's, MSP's and ICNS's
-    run lengths, FLI's frame chunks):
+    run lengths, FLI's frame chunks; native/src/jpeg.cpp: the arithmetic
+    (QM) decoder and lossless JPEG's difference and predictor loops):
     each file decoded with the native library and with it hidden (the
     Python twins), the two results equal and both host times printed."""
     from unittest import mock
@@ -3272,9 +3282,11 @@ def product_phase(dev, card) -> dict:
     """Phase 21: the rest of the product.  The JPEG and texture fixtures
     against their Pillow decodes, the cut-out textures' frames through K5
     (``keyed_texture_frames``: the keyed palette PNG, the DXT1 DDS, the
-    lossy WebP with alpha, the PackBits PSD and the BLP2 DXT5), the
-    1024^2 PNG, LZW TIFF and QOI and the 256^2 PSD, RLE SGI and PCX through
-    the native byte loops and their Python twins (``byte_loops``), a
+    lossy WebP with alpha, the PackBits PSD and the BLP2 DXT5) and those of
+    the opaque JPEG-in-TIFF and arithmetic-coded JPEG textures, the
+    1024^2 PNG, LZW TIFF and QOI, the 256^2 PSD, RLE SGI and PCX and the
+    arithmetic-coded and lossless JPEGs through the native byte loops and
+    their Python twins (``byte_loops``), a
     JPEG-textured north star through the CLI
     (new -> train), its export to .ply, .html and .gobj and
     render --mode viewer, the .ply imported into a fresh session and
@@ -3302,8 +3314,9 @@ def product_phase(dev, card) -> dict:
     def fail(why: str):
         raise SystemExit(f"phase 21 failed: {why}")
 
-    phase(f"21. the rest of the product: the texture fixtures, five cut-out textures and a "
-          f"JPEG-in-TIFF texture on the card, the decoders' native byte loops, a JPEG texture, "
+    phase(f"21. the rest of the product: the texture fixtures, five cut-out textures, a "
+          f"JPEG-in-TIFF and an arithmetic-coded JPEG texture on the card, the decoders' "
+          f"native byte loops, a JPEG texture, "
           f"export (.ply, .html, .gobj, "
           f"render --mode viewer), the .ply imported and rendered, doctor, the native parsers "
           f"({card})")
@@ -3333,8 +3346,9 @@ def product_phase(dev, card) -> dict:
     for name in CUTOUT_FIXTURES:
         add_launches(launches, {"mt_intersect": keyed_texture_frames(
             dev, card, textures / name, fail)})
-    add_launches(launches, {"mt_intersect": keyed_texture_frames(
-        dev, card, textures / JPEG_TIFF_TEXTURE, fail, cutout=False)})
+    for name in (JPEG_TIFF_TEXTURE, ARITH_TEXTURE):
+        add_launches(launches, {"mt_intersect": keyed_texture_frames(
+            dev, card, textures / name, fail, cutout=False)})
     byte_loops(card, HERE / "tests" / "data", fail)
 
     (HERE / "build").mkdir(exist_ok=True)

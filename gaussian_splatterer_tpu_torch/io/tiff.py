@@ -57,8 +57,9 @@ Pillow's conversion is kept with its quirks:
   * a Group 4 strip that ends early (an EOFB or the end of its data after
     at least one row) keeps the rows after it from the strip before, as
     Pillow's reused buffer does (zeros in the first strip);
-  * an orientation of 2, 3 or 4 flips the image as Pillow's
-    ``exif_transpose`` does;
+  * an orientation of 2-8 flips or turns the image as Pillow's
+    ``exif_transpose`` does after decoding it at the size the file gives
+    (5-8 swap its axes);
   * the directory is read up to the first entry, or the first tag's
     values, that runs past the end of the file;
   * an uncompressed file reads every strip or tile offset it lists (the
@@ -81,7 +82,7 @@ photometric interpretations, the layouts ``OPEN_INFO`` lacks (big-endian
 12-bit and unsigned 32-bit grey, float RGB, ...), predictor 3 on integer
 samples, predictor 2 below 8 bits or at 12, a JPEG stream whose size,
 components or sampling factors libtiff refuses, 12-bit JPEG, old-style LZW,
-orientations that swap the axes, data that ends early.
+data that ends early.
 """
 
 from __future__ import annotations
@@ -92,6 +93,7 @@ import zlib
 
 import numpy as np
 
+from gaussian_splatterer_tpu_torch.io import xz
 from gaussian_splatterer_tpu_torch.io.bmp import raw_rows, unpack_bits
 from gaussian_splatterer_tpu_torch.io.ccitt import FaxState, decode_fax
 from gaussian_splatterer_tpu_torch.io.jpeg import cmyk_to_rgb, decode_jpeg_stream
@@ -237,29 +239,17 @@ def _packbits(data: bytes, size: int) -> bytes:
 
 def _unxz(data: bytes, size: int) -> bytes:
     """libtiff's LZMA decode of a strip: up to ``size`` bytes.  libtiff asks
-    liblzma for the strip's bytes and keeps them if they all came, even
-    when the same call then meets damage further on (the stream's end
-    marker, check or index); a prefix of the data that gives them all
-    without an error is what it reads."""
-    def run(n):
-        return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(data[:n], size)
-
+    liblzma for the strip's bytes in one call and keeps them if they all
+    came, even when that call then reports damage (io/xz.py); the clean
+    path is Python's ``lzma``, and where it raises io/xz.py gives the bytes
+    liblzma wrote before its error."""
     try:
-        return run(len(data))
+        return lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(data, size)
     except lzma.LZMAError as exc:
-        error = exc
-    lo, hi = 0, len(data)  # run(lo) gives fewer than size bytes; run(hi) raises
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        try:
-            got = run(mid)
-        except lzma.LZMAError:
-            hi = mid
-            continue
+        got = xz.decode_until_error(data, size)
         if len(got) >= size:
             return got
-        lo = mid
-    raise ValueError(f"corrupt TIFF LZMA data ({error})")
+        raise ValueError(f"corrupt TIFF LZMA data ({exc})") from None
 
 
 def _inflate(data: bytes, comp: int, size: int) -> np.ndarray:
@@ -287,10 +277,10 @@ def _inflate(data: bytes, comp: int, size: int) -> np.ndarray:
 
 
 def _jpeg_chunk(data: bytes, tables: bytes, photo: int, spp: int, sub: tuple,
-                seg: tuple, last_strip: bool) -> np.ndarray:
+                seg: tuple, last_strip: bool, state: dict) -> np.ndarray:
     """One JPEG strip or tile -> (rows, columns, spp) uint8, after libtiff's
     JPEGPreDecode checks of its size, components and sampling factors."""
-    out, factors = decode_jpeg_stream(data, tables, ycc=photo == 6)
+    out, factors = decode_jpeg_stream(data, tables, ycc=photo == 6, state=state)
     sh, sw = out.shape[:2]
     gw, gh = seg
     if sw != gw or sh < gh or (sh > gh and not last_strip):
@@ -381,13 +371,13 @@ def decode_tiff(blob: bytes) -> np.ndarray:
     check_size("TIFF", w, h)
     fill = get(266, 1)
     orientation = get(274, 1)
-    if orientation in (5, 6, 7, 8):
-        raise ValueError(f"unsupported TIFF (orientation {orientation}, axes swapped)")
     fmt = tuple(tags.get(339, (1,)))
     if len(fmt) > 1 and fmt == (1,) * len(fmt):
         fmt = (1,)
     bps, extra = tuple(tags.get(258, (1,))), tuple(tags.get(338, ()))
     spp = get(277, 1)
+    if not isinstance(spp, int):  # several values: Pillow's mode lookup fails
+        raise ValueError("TIFF with a SamplesPerPixel of several values")
     if spp < len(bps):
         bps = bps[:spp]
     elif spp > len(bps) == 1:
@@ -433,7 +423,10 @@ def decode_tiff(blob: bytes) -> np.ndarray:
         cw, ch = lay(322), lay(323)
         offsets, counts = layout[324], layout.get(325, ())
     else:
-        cw, ch = w, min(lay(278, h) or h, h)
+        rows = lay(278, h)
+        if not isinstance(rows, int):  # several values: Pillow's strip setup fails
+            raise ValueError("TIFF with a RowsPerStrip of several values")
+        cw, ch = w, min(rows or h, h)
         offsets, counts = layout.get(273, ()), layout.get(279, ())
     if not cw or not ch or not isinstance(cw, int) or not isinstance(ch, int):
         raise ValueError("TIFF strips or tiles of no size")
@@ -468,6 +461,7 @@ def decode_tiff(blob: bytes) -> np.ndarray:
     tables = bytes(layout.get(347, ()))
     sub = tuple(layout.get(530, (2, 2)))[:2] if photo == 6 else (1, 1)
     fax_state = FaxState(cw, comp, lay(292, 0) or 0) if fax else None
+    jpeg_state: dict = {}  # the tables libtiff's one decompressor keeps across strips
     # (index of the strip or tile in the file's list, its region): libtiff
     # reads those the image needs; Pillow reads every offset of an
     # uncompressed file, a strip or tile past the image's last one again
@@ -507,7 +501,7 @@ def decode_tiff(blob: bytes) -> np.ndarray:
                 data = _REVERSED[np.frombuffer(data, np.uint8)].tobytes()
             if jpeg:
                 rows = _jpeg_chunk(data, tables, photo, spp, sub, (cw, rh), not tiled
-                                   and y + ch >= h).reshape(rh, row)
+                                   and y + ch >= h, jpeg_state).reshape(rh, row)
             elif fax:
                 rows = decode_fax(data, fax_state, rh, reverse)
             else:
@@ -535,10 +529,18 @@ def decode_tiff(blob: bytes) -> np.ndarray:
                                    tags)[0, 0] if kind in ("P", "PA") else
                           (255, 255, 255, 255) if kind == "CMYK" else
                           (0, 0, 0, 0) if kind in ("RGBA", "RGBa", "LA") else (0, 0, 0, 255))
-    if orientation in (2, 3, 4):
-        rgba = np.ascontiguousarray(rgba[:, ::-1] if orientation == 2 else
-                                    rgba[::-1, ::-1] if orientation == 3 else rgba[::-1])
+    if orientation in _TRANSPOSES:
+        rgba = np.ascontiguousarray(_TRANSPOSES[orientation](rgba))
     return rgba
+
+
+# Pillow's exif_transpose of an orientation, applied after the decode at the
+# file's own size: FLIP_LEFT_RIGHT, ROTATE_180, FLIP_TOP_BOTTOM, and for 5-8,
+# which swap the axes, TRANSPOSE, ROTATE_270, TRANSVERSE and ROTATE_90
+_TRANSPOSES = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
+               5: lambda a: a.transpose(1, 0, 2), 6: lambda a: a[::-1].transpose(1, 0, 2),
+               7: lambda a: a[::-1, ::-1].transpose(1, 0, 2),
+               8: lambda a: a[:, ::-1].transpose(1, 0, 2)}
 
 
 def _convert(s: np.ndarray, kind: str, bits: int, rawmode: str, tags: dict) -> np.ndarray:

@@ -2,20 +2,21 @@
 the texture decoders' byte loops (PNG's row unfilter, GIF's and TIFF's
 LZW, PSD's PackBits rows, SGI's, PCX's, SUN's, MSP's and ICNS's run-length
 rows, QOI's ops, TIFF's CCITT fax decoder, DDS's BC6H blocks, FLI's frame
-chunks) and
-WebP's bit-serial decoders (VP8, VP8L, ALPH), loaded with ctypes
-(counterpart of gaussian_splatterer_tpu.native).
+chunks, JPEG's arithmetic (QM) decoder and lossless loops, the xz decoder
+of damaged LZMA strips) and WebP's bit-serial decoders (VP8, VP8L, ALPH),
+loaded with ctypes (counterpart of gaussian_splatterer_tpu.native).
 
-``src/parsers.cpp``, ``src/codecs.cpp`` and ``src/webp.cpp`` expose a plain
-C interface.  At first use they are compiled with ``g++`` into one library in
-``build/native/`` at the root of the checkout, named by a hash of the
-sources and flags (an unchanged source is reused across processes, a
-changed one builds anew), and loaded.  Nothing is built at import time.  A
-failed build prints the compiler's message to standard error; ``lib()``
-then returns None and io/obj.py, io/gobj.py, io/png.py, io/lzw.py,
-io/psd.py, io/sgi.py, io/pcx.py, io/qoi.py, io/ccitt.py, io/dds.py, io/sun.py,
-io/msp.py, io/icns.py and io/fli.py take
-their pure-Python loops, which stay as the plain twins of these; io/webp.py has no Python
+``src/parsers.cpp``, ``src/codecs.cpp``, ``src/jpeg.cpp``, ``src/xz.cpp`` and
+``src/webp.cpp`` expose a plain C interface.  At first use they are compiled
+with ``g++`` into one library in ``build/native/`` at the root of the
+checkout, named by a hash of the sources and flags (an unchanged source is
+reused across processes, a changed one builds anew), and loaded.  Nothing is
+built at import time.  A failed build prints the compiler's message to
+standard error; ``lib()`` then returns None and io/obj.py, io/gobj.py,
+io/png.py, io/lzw.py, io/psd.py, io/sgi.py, io/pcx.py, io/qoi.py,
+io/ccitt.py, io/dds.py, io/sun.py, io/msp.py, io/icns.py, io/fli.py,
+io/jpeg_arith.py, io/jpeg_lossless.py and io/xz.py take their pure-Python
+loops, which stay as the plain twins of these; io/webp.py has no Python
 twin and refuses WebP files then.
 """
 
@@ -34,6 +35,8 @@ import numpy as np
 SRC = Path(__file__).resolve().parent / "src" / "parsers.cpp"
 CODECS_SRC = SRC.with_name("codecs.cpp")
 WEBP_SRC = SRC.with_name("webp.cpp")
+JPEG_SRC = SRC.with_name("jpeg.cpp")
+XZ_SRC = SRC.with_name("xz.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
@@ -42,7 +45,7 @@ _state: dict = {}  # "lib": the loaded library or None, once tried
 
 def sources() -> tuple[Path, ...]:
     """The C++ sources built into the library."""
-    return SRC, CODECS_SRC, WEBP_SRC
+    return SRC, CODECS_SRC, WEBP_SRC, JPEG_SRC, XZ_SRC
 
 
 def lib_path() -> Path:
@@ -135,6 +138,19 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     cdll.gst_icns_rle.restype = ctypes.c_int
     cdll.gst_fli_frame.argtypes = [ctypes.c_char_p, i64, i64, i64, pu8, pi]
     cdll.gst_fli_frame.restype = i64
+    vp = ctypes.c_void_p
+    cdll.gst_jpeg_arith_segment.argtypes = [ctypes.c_char_p, i64, i64, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int, vp, i64, i64, vp, vp, vp, vp, vp,
+                                            pi64, pi]
+    cdll.gst_jpeg_arith_segment.restype = ctypes.c_int
+    cdll.gst_jpeg_lossless_diffs.argtypes = [ctypes.c_char_p, i64, ctypes.c_int, ctypes.c_int,
+                                             i64, i64, i64, pi, pi, pi, pi]
+    cdll.gst_jpeg_lossless_diffs.restype = i64
+    cdll.gst_jpeg_undifference.argtypes = [pi, pu8, i64, i64, ctypes.c_int, ctypes.c_int, pi]
+    cdll.gst_jpeg_undifference.restype = None
+    cdll.gst_xz_until_error.argtypes = [ctypes.c_char_p, i64, i64, pu8]
+    cdll.gst_xz_until_error.restype = i64
     return cdll
 
 
@@ -392,3 +408,86 @@ def fli_frame(buf: bytes, img: np.ndarray):
     n = cdll.gst_fli_frame(bytes(buf), len(buf), img.shape[1], img.shape[0], _u8(img),
                            ctypes.byref(err))
     return int(n), err.value
+
+
+def jpeg_arith_prepare(data: bytes, units: np.ndarray, slots: np.ndarray, dc_tbl: np.ndarray,
+                       ac_tbl: np.ndarray, cond: np.ndarray, coef: np.ndarray):
+    """One arithmetic-coded scan's arrays checked and laid out for
+    ``jpeg_arith_run`` (io/jpeg_arith.decode_segment_python's arguments
+    but the interval's), or None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    if coef.dtype != np.int16 or not coef.flags.c_contiguous:
+        raise ValueError("jpeg_arith_prepare wants a C-contiguous int16 coefficient array")
+    u = np.ascontiguousarray(units, dtype=np.int64)
+    if u.ndim != 2 or (u.size and (u.min() < 0 or u.max() + 64 > coef.size)):
+        raise ValueError("jpeg_arith_prepare: block offsets outside the coefficients")
+    arrays = [u, *(np.ascontiguousarray(a, dtype=np.int32) for a in (slots, dc_tbl, ac_tbl,
+                                                                       cond)), coef]
+    return cdll, bytes(data), arrays, [a.ctypes.data for a in arrays]
+
+
+def jpeg_arith_run(prep, pos: int, stop: int, marker: int, kind: int, ss: int, se: int,
+                   al: int, first: int, count: int) -> tuple[int, int, int]:
+    """The restart interval of MCUs ``first`` to ``first + count`` of a
+    prepared scan through the native loop -> (end, marker, status)."""
+    cdll, data, arrays, addr = prep
+    n = max(0, min(count, arrays[0].shape[0] - first))
+    bpm = arrays[0].shape[1]
+    end, mark = ctypes.c_int64(), ctypes.c_int()
+    status = cdll.gst_jpeg_arith_segment(data, pos, min(stop, len(data)), marker, kind, ss, se,
+                                         al, addr[0] + 8 * first * bpm, n, bpm, *addr[1:],
+                                         ctypes.byref(end), ctypes.byref(mark))
+    return end.value, mark.value, status
+
+
+def jpeg_lossless_diffs(seg: bytes, terminated: bool, flag: bool, rows: int, per_row: int,
+                        tabsel: np.ndarray, luts: np.ndarray):
+    """io/jpeg_lossless.decode_diffs_python's result from the native loop,
+    or None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    sel = np.ascontiguousarray(tabsel, dtype=np.int32)
+    lut = np.ascontiguousarray(luts, dtype=np.int32)
+    if lut.ndim != 2 or lut.shape[1] != 65536 or (sel.size and (sel.min() < 0 or
+                                                                 sel.max() >= len(lut))):
+        raise ValueError("jpeg_lossless_diffs: tables of 65,536 entries and indices into them")
+    out = np.zeros((rows, per_row, len(sel)), np.int32)
+    pi = ctypes.POINTER(ctypes.c_int32)
+    flag_out = ctypes.c_int()
+    got = cdll.gst_jpeg_lossless_diffs(bytes(seg), len(seg), int(terminated), int(flag), rows,
+                                       per_row, len(sel), sel.ctypes.data_as(pi),
+                                       lut.ctypes.data_as(pi), out.ctypes.data_as(pi),
+                                       ctypes.byref(flag_out))
+    return (out, rows, bool(flag_out.value), True) if got < 0 else (
+        out, int(got), bool(flag_out.value), False)
+
+
+def jpeg_undifference(diffs: np.ndarray, first: np.ndarray, predictor: int, initial: int):
+    """io/jpeg_lossless.undifference_python's result from the native loop,
+    or None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    d = np.ascontiguousarray(diffs, dtype=np.int32)
+    f = np.ascontiguousarray(first, dtype=np.uint8)
+    if d.ndim != 2 or f.shape != (d.shape[0],):
+        raise ValueError("jpeg_undifference wants (rows, w) differences and (rows,) flags")
+    out = np.zeros_like(d)
+    pi = ctypes.POINTER(ctypes.c_int32)
+    cdll.gst_jpeg_undifference(d.ctypes.data_as(pi), _u8(f), d.shape[0], d.shape[1],
+                               predictor, initial, out.ctypes.data_as(pi))
+    return out.astype(np.int64)
+
+
+def xz_until_error(data: bytes, size: int):
+    """io/xz.decode_until_error_python's bytes from the native decoder, or
+    None when the library is missing."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    out = np.zeros(max(size, 0), np.uint8)
+    n = cdll.gst_xz_until_error(bytes(data), len(data), max(size, 0), _u8(out))
+    return out[:n].tobytes()

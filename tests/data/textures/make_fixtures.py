@@ -54,6 +54,10 @@ save_png quantises), and beside each its Pillow decode
   * mushroom256_cursor.cur: a 256^2 cursor of the keyed palette PNG's pixels,
     8 bits a pixel through its palette, with its AND mask (the writer);
 
+  * mushroom256_arith_420.jpg, mushroom256_arith_progressive.jpg,
+    mushroom256_lossless_p6.jpg, mushroom256_lossless_grey_p7.jpg and
+    mushroom256_arith.tif: arithmetic-coded and lossless JPEG (the
+    writers; Pillow writes neither), see ``jpeg_codings``;
   * mushroom256_jpeg_rgb.tif: JPEG in TIFF, photometric RGB (Pillow through
     libtiff, quality 90);
   * mushroom256_jpeg_ycbcr420.tif: JPEG in TIFF, YCbCr 4:2:0 in strips of 16
@@ -104,12 +108,12 @@ TESTS = os.path.dirname(os.path.dirname(HERE))
 sys.path.insert(0, os.path.dirname(TESTS))
 sys.path.insert(0, TESTS)
 
-from texture_writers import (blp_bytes, bmp_bytes, bmp_rows, dds_bytes, dxt_bytes,  # noqa: E402
-                             fits_bytes, fli_brun, fli_bytes, fli_colour, ftex_bytes, gbr_bytes,
-                             icns_bytes, icns_rgb, icon_bitmap, icon_dir, im_bytes, imt_bytes,
-                             iptc_bytes, mcidas_bytes, msp_bytes, pixar_bytes, png_bytes,
-                             psd_bytes, sgi_bytes, sun_bytes, tiff_bytes, xpm_bytes,
-                             xvthumb_bytes)
+from texture_writers import (arith_jpeg_bytes, blp_bytes, bmp_bytes, bmp_rows,  # noqa: E402
+                             dds_bytes, dxt_bytes, fits_bytes, fli_brun, fli_bytes, fli_colour,
+                             ftex_bytes, gbr_bytes, icns_bytes, icns_rgb, icon_bitmap, icon_dir,
+                             im_bytes, imt_bytes, iptc_bytes, lossless_jpeg_bytes, mcidas_bytes,
+                             msp_bytes, pixar_bytes, png_bytes, psd_bytes, sgi_bytes, sun_bytes,
+                             tiff_bytes, xpm_bytes, xvthumb_bytes)
 
 from gaussian_splatterer_tpu_torch.io.image import float_image_to_u8  # noqa: E402
 from gaussian_splatterer_tpu_torch.scripts.scenes import mushroom_texture  # noqa: E402
@@ -326,6 +330,26 @@ def tiff_codecs(rgba: np.ndarray) -> None:
         fh.write(tiff_bytes(ycc, 8, 6, pad=bytes(N * N)))
 
 
+def jpeg_codings(rgba: np.ndarray) -> None:
+    """The JPEG codings Pillow reads and does not write (the writers):
+    arithmetic-coded sequential 4:2:0 with a DAC segment and restarts,
+    arithmetic-coded progressive, lossless RGB (predictor 6) and grey
+    (predictor 7, point transform 1), and an arithmetic-coded JPEG-in-TIFF."""
+    rgb = rgba[..., :3]
+    grey = np.asarray(Image.fromarray(rgb).convert("L"))[..., None]
+    _write("mushroom256_arith_420.jpg", arith_jpeg_bytes(
+        rgb, sampling=[(2, 2), (1, 1), (1, 1)], quality=90, restart=16,
+        dac=[(0x00, 0x21), (0x01, 0x10), (0x10, 8), (0x11, 3)]))
+    _write("mushroom256_arith_progressive.jpg", arith_jpeg_bytes(rgb, quality=85,
+                                                                 progressive=True))
+    _write("mushroom256_lossless_p6.jpg", lossless_jpeg_bytes(rgb, 6))
+    _write("mushroom256_lossless_grey_p7.jpg", lossless_jpeg_bytes(grey, 7, pt=1,
+                                                                   restart_rows=32))
+    _write("mushroom256_arith.tif", tiff_bytes(
+        rgb.astype(np.int64), 8, 6, compression=7, rows_per_strip=64,
+        jpeg_encoder=lambda c: arith_jpeg_bytes(c, quality=90, jfif=False)))
+
+
 def bc6h(rgba: np.ndarray) -> None:
     rng = np.random.default_rng(22)
     for name, dxgi in (("uf16", 95), ("sf16", 96)):
@@ -366,7 +390,7 @@ def main() -> None:
     rgba = float_image_to_u8(mushroom_texture(n=N, spot_alpha=0.5))
     for write in (palette_trns, rgba16, adam7, map_rle, cmyk, bitfields, lzw_pred2, dxt1,
                   gif_trns, ppm, webp, qoi, sgi, pcx, ico, pfm, psd, cur, tiff_codecs, bc6h,
-                  pillow_readers):
+                  pillow_readers, jpeg_codings):
         write(rgba)
     lzw_1024()
     tiff_1024()

@@ -186,7 +186,9 @@ def test_texture_loader_matches_jax(tmp_path, fmt, mode):
 def test_texture_loader_names_what_it_cannot_read(tmp_path):
     Image.new("RGB", (8, 8), (10, 20, 30)).save(tmp_path / "t.jpg")
     blob = bytearray((tmp_path / "t.jpg").read_bytes())
-    blob[blob.index(b"\xff\xc0") + 1] = 0xC9  # arithmetic-coded sequential (SOF9)
+    # arithmetic-coded lossless (SOF11), which libjpeg-turbo refuses (SOF9,
+    # arithmetic-coded sequential, is read, as Pillow reads it)
+    blob[blob.index(b"\xff\xc0") + 1] = 0xCB
     (tmp_path / "t.jpg").write_bytes(bytes(blob))
     with pytest.raises(ValueError, match="JPEG"):
         timage.load_texture_rgba(str(tmp_path / "t.jpg"))
@@ -396,6 +398,7 @@ def test_port_imports_no_jax_flax_or_pillow():
         "import gaussian_splatterer_tpu_torch.io.webp\n"
         "import gaussian_splatterer_tpu_torch.io.pillow_open\n"
         "from gaussian_splatterer_tpu_torch.io import ccitt, cur, ico, pcx, psd, qoi, sgi\n"
+        "from gaussian_splatterer_tpu_torch.io import jpeg_arith, jpeg_lossless, xz\n"
         "from gaussian_splatterer_tpu_torch.io import (blp, dcx, fits, fli, ftex, gbr, icns, im,\n"
         "    imt, iptc, mcidas, msp, pcd, pixar, rawmode, spider, sun, xbm, xpm, xvthumb)\n"
         "import gaussian_splatterer_tpu_torch.native\n"

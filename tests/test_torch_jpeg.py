@@ -228,6 +228,11 @@ def _baseline_blob() -> bytes:
     ("truncated", "corrupt JPEG data"),
 ])
 def test_unsupported_variants_raise(tmp_path, case, match):
+    """A baseline file relabelled as another coding, a 12-bit one and a cut
+    one, each refused as Pillow refuses it (the lossless and progressive
+    labels, whose scan parameters libjpeg-turbo rejects); the relabelled
+    arithmetic-coded sequential file Pillow reads, its Huffman bits
+    decoded as arithmetic-coded data, and so does the port."""
     path = tmp_path / "t.jpg"
     if case == "truncated":
         path.write_bytes(_baseline_blob()[:400])
@@ -239,6 +244,10 @@ def test_unsupported_variants_raise(tmp_path, case, match):
         if case == "12bit":
             blob[sof + 4] = 12
         path.write_bytes(bytes(blob))
+    if case == "arithmetic":
+        np.testing.assert_array_equal(timage.load_texture_rgba(str(path)),
+                                      jimage.load_texture_rgba(str(path)))
+        return
     with pytest.raises(ValueError, match=match):
         timage.load_texture_rgba(str(path))
 

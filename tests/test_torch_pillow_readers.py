@@ -571,10 +571,10 @@ def _mutant(rng, blob: bytes) -> bytes:
 
 FORMATS = ("blp", "ftex", "icns", "dcx", "xbm", "xpm", "gbr", "sun", "msp", "im_", "fli",
            "spider", "fits", "mcidas", "pixar", "imt", "xvthumb", "pcd", "iptc")
-# fault C-8 (ROADMAP): a JPEG inside BLP1 or IPTC that is cut short or
-# damaged, which Pillow's libjpeg-turbo refuses or decodes otherwise than
-# io/jpeg.py, held at the test's seeds
-KNOWN = {"blp": {"C-8": 1}}
+# fault C-8 (ROADMAP, fixed): a JPEG inside BLP1 or IPTC that is cut short or
+# damaged, which Pillow's libjpeg-turbo refused or decoded otherwise than
+# io/jpeg.py; none is left at the test's seeds
+KNOWN: dict = {}
 
 
 @pytest.mark.parametrize("fmt", FORMATS)

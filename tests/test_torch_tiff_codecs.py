@@ -13,6 +13,7 @@ counted; the CCITT loop in C++ equal to its Python twin and never crashing
 the process."""
 
 import io
+import lzma
 import os
 import shutil
 import struct
@@ -108,6 +109,28 @@ def _patch_short(blob: bytes, tag: int, value: int) -> bytes:
     raise KeyError(tag)
 
 
+def _first_strip_tables():
+    """A JPEG strip encoder whose strips after the first carry no DQT or
+    DHT segment (Pillow's JPEG of each strip, its tables cut out)."""
+    seen = []
+
+    def encode(chunk):
+        out = io.BytesIO()
+        Image.fromarray(chunk).save(out, format="JPEG", quality=90, subsampling=0)
+        blob = out.getvalue()
+        if not seen:
+            seen.append(True)
+            return blob
+        keep, pos = bytearray(blob[:2]), 2
+        while blob[pos + 1] != 0xDA:
+            size = struct.unpack(">H", blob[pos + 2:pos + 4])[0]
+            if blob[pos + 1] not in (0xDB, 0xC4):
+                keep += blob[pos:pos + 2 + size]
+            pos += 2 + size
+        return bytes(keep + blob[pos:])
+    return encode
+
+
 def _photometric_0(make):
     return lambda rng: _patch_short(make(rng), 262, 0)
 
@@ -198,9 +221,21 @@ CASES = {
     "group4_strips_pillow": _pillow("1", compression="group4", tiffinfo={278: 6}),
     "group4_white_is_zero": _photometric_0(_pillow("1", compression="group4")),
     "group3_white_is_zero": _photometric_0(_pillow("1", compression="group3")),
-    # orientations Pillow flips (fault C-6)
-    **{f"orientation_{o}": _tiff(8, 2, 3, tags={274: (3, [o])}) for o in (2, 3, 4)},
+    # orientations Pillow flips (fault C-6) or turns (5-8 swap the axes of
+    # the 37 x 29 picture), raw, in LZW tiles and in JPEG strips
+    **{f"orientation_{o}": _tiff(8, 2, 3, tags={274: (3, [o])}) for o in (2, 3, 4, 5, 7, 8)},
+    "orientation_6_swaps_axes": _tiff(8, 2, 3, tags={274: (3, [6])}),
     "orientation_3_lzw": _tiff(8, 1, compression=5, tags={274: (3, [3])}),
+    **{f"orientation_{o}_lzw_tiles": _tiff(8, 2, 3, compression=5, tile=(16, 16),
+                                           tags={274: (3, [o])}) for o in (5, 6, 7, 8)},
+    **{f"orientation_{o}_jpeg_strips": _tiff(8, 6, 3, compression=7, rows_per_strip=16,
+                                             tags={274: (3, [o])}) for o in (5, 6, 7, 8)},
+    "orientation_6_grey_raw_strips": _tiff(8, 1, rows_per_strip=5, tags={274: (3, [6])}),
+    # libtiff decodes every strip with one decompressor: tables the first
+    # strip defines serve the strips without them
+    "jpeg_tables_kept_across_strips": lambda rng: tiff_bytes(
+        _runs(rng, (H, W, 3)), 8, 6, compression=7, rows_per_strip=8,
+        jpeg_encoder=_first_strip_tables()),
 }
 
 
@@ -254,7 +289,6 @@ REFUSED = {
     "logluv": (_tiff(16, 32844, 3, tags={259: (3, [34676])}), "TIFF \\(compression SGI LogLuv",
                True),
     "cielab": (_tiff(8, 8, 3), "TIFF \\(photometric 8", False),
-    "orientation_6_swaps_axes": (_tiff(8, 2, 3, tags={274: (3, [6])}), "orientation 6", False),
     "ycbcr_lzw_rgba_interface": (_pillow("YCbCr", compression="tiff_lzw"),
                                  "YCbCr with compression LZW", False),
     "ycbcr_raw_truncated": (_tiff(8, 6, 3), "truncated", True),
@@ -311,8 +345,8 @@ def _patch_long(blob: bytes, tag: int, value: int) -> bytes:
 def test_refused_variants(tmp_path, name):
     """The variants the port refuses with ValueError naming them: where
     Pillow refuses too, so does the JAX package; where it reads them
-    (Zstandard, CIELab, YCbCr through libtiff's RGBA interface, the
-    orientations that swap the axes), ROADMAP A-6b and A-6c list them."""
+    (Zstandard, CIELab, YCbCr through libtiff's RGBA interface), ROADMAP
+    A-6b and A-6c list them."""
     make, match, jax_refuses = REFUSED[name]
     path = tmp_path / f"{name}.tif"
     path.write_bytes(make(_rng(name)))
@@ -410,10 +444,9 @@ MUTANT_SOURCES = {
     "ycbcr": ("ycbcr_raw_padded", "ycbcr_raw_subsampled_padded"),
 }
 # the mutants at these seeds that fall in a recorded fault (ROADMAP C): C-5,
-# CCITT data that ends early, where Pillow returns rows it never wrote; C-7,
-# the rest (an xz strip whose damage liblzma reports in the call that writes
-# its last bytes, which libtiff keeps)
-KNOWN = {"ccitt": {"C-5": 9}, "lzma": {"C-7": 1}, "fill2": {"C-5": 2}}
+# CCITT data that ends early, where Pillow returns rows it never wrote; C-7
+# (fixed: none is left), the rest
+KNOWN = {"ccitt": {"C-5": 9}, "fill2": {"C-5": 2}}
 
 
 @pytest.mark.parametrize("group", list(MUTANT_SOURCES))
@@ -434,6 +467,41 @@ def test_mutants_agree_with_jax(tmp_path, group):
         fault = "C-5" if want is not None and "fault C-5" in why else "C-7"
         faults[fault] = faults.get(fault, 0) + 1
     assert faults == KNOWN.get(group, {})
+
+
+@needs_gxx
+def test_xz_decoder_equals_its_twin_and_lzma():
+    """io/xz.py's C++ decoder against its Python twin, and both against
+    ``lzma`` where ``lzma`` decodes: LZMA strips of the writer's and
+    Pillow's cases (libtiff's delta + LZMA2 chain), whole and with 60
+    seeded byte flips and cuts each."""
+    from gaussian_splatterer_tpu_torch.io import xz
+
+    rng = _rng("xz twin")
+    for name in MUTANT_SOURCES["lzma"]:
+        blob = CASES[name](_rng(name))
+        im = Image.open(io.BytesIO(blob))
+        offsets, counts = im.tag_v2.get(273) or im.tag_v2[324], im.tag_v2.get(279) or \
+            im.tag_v2[325]
+        for off, n in zip(offsets, counts):
+            data = blob[off:off + n]
+            size = len(lzma.decompress(data))
+            assert xz.decode_until_error_python(data, size) == native.xz_until_error(data, size) \
+                == lzma.decompress(data)
+            for _ in range(60):
+                m = bytearray(data)
+                if rng.integers(0, 2):
+                    m = m[:rng.integers(1, len(m))]
+                else:
+                    m[rng.integers(0, len(m))] ^= int(rng.integers(1, 256))
+                m = bytes(m)
+                want = xz.decode_until_error_python(m, size)
+                assert native.xz_until_error(m, size) == want
+                try:
+                    ref = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(m, size)
+                except lzma.LZMAError:
+                    continue
+                assert want[:len(ref)] == ref
 
 
 CRASH_SCRIPT = r"""

@@ -15,7 +15,8 @@ chosen stride; ICO with bitmap entries and their AND masks; CUR; Pillow's
 PNM extensions P0CMYK and Py*; of the last 19 Pillow readers, BLP2's DXT
 blocks and BLP1's JPEG, FTEX, ICNS's run lengths, XPM, GBR, SUN, MSP
 version 2, IM headers, FLI chunks, FITS with a gzip tile, McIdas, PIXAR,
-IMT, XVThumb, PCD and IPTC), with ``zlib`` and ``struct``."""
+IMT, XVThumb, PCD and IPTC; arithmetic-coded and lossless JPEG, which
+Pillow reads and does not write), with ``zlib`` and ``struct``."""
 
 from __future__ import annotations
 
@@ -306,7 +307,7 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, compression: in
                predictor: int = 1, planar: int = 1, tile=None, rows_per_strip=None,
                extra=None, colormap=None, big_endian: bool = False, tags=None,
                big_tiff: bool = False, fill_order: int = 1, sample_format: int = 1,
-               jpeg_subsampling: int = 0, pad: bytes = b"") -> bytes:
+               jpeg_subsampling: int = 0, pad: bytes = b"", jpeg_encoder=None) -> bytes:
     """(H, W, S) samples -> a TIFF of one image: strips of
     ``rows_per_strip`` rows or ``tile`` (width, height) tiles (padded with
     zeros at the edges), planar configuration ``planar``, compression 1,
@@ -317,7 +318,9 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, compression: in
     samples stored as their bits with ``sample_format`` 3); ``fill_order``
     2 reverses every data byte's bits, as libtiff writes it; ``pad`` follows
     the data; a BigTIFF where ``big_tiff``; ``tags`` overrides or adds IFD
-    entries as {tag: (type, values)}, or drops one as {tag: None}."""
+    entries as {tag: (type, values)}, or drops one as {tag: None};
+    ``jpeg_encoder`` (the (h, w, S) uint8 strip or tile -> a whole JPEG
+    stream) writes the JPEG strips instead of Pillow, without JPEGTables."""
     if samples.dtype == np.float32:
         samples = samples.view(np.uint32)
     h, w, n_s = samples.shape
@@ -334,7 +337,9 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, compression: in
             rps = rows_per_strip or h
             chunks += [plane[y:y + rps] for y in range(0, h, rps)]
     jpeg_tables = b""
-    if compression == 7:
+    if compression == 7 and jpeg_encoder is not None:
+        datas = [jpeg_encoder(c.astype(np.uint8)) for c in chunks]
+    elif compression == 7:
         datas = []
         for c in chunks:
             jpeg_tables, stream = jpeg_chunks(c.astype(np.uint8), photometric,
@@ -1136,3 +1141,568 @@ def iptc_bytes(w: int, h: int, layers: int, data: bytes, compression: int = 1,
         fields.append(iptc_field(3, 65, bytes([band])))
     fields += [iptc_field(8, 10, data[i:i + chunk]) for i in range(0, len(data), chunk)]
     return b"".join(fields) + bytes(5)
+
+
+# -- arithmetic-coded and lossless JPEG (Pillow writes neither) --
+
+# libjpeg's jpeg_aritab (jaricom.c, Table D.2 of T.81): Qe << 16 | next index
+# after an MPS << 8 | switch << 7 | next index after an LPS; entry 113 is the
+# fixed probability 0.5
+ARITAB = [
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719,
+    0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b,
+    0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36,
+    0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320,
+    0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e,
+    0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a,
+    0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171,
+]
+
+ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+])
+_STD_Q = (np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69,
+    56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81,
+    104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]),
+    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99,
+              99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99, *[99] * 32]))
+
+
+class QMEncoder:
+    """libjpeg's arithmetic encoder (jcarith.c: arith_encode, finish_pass)
+    over statistics bins held in bytearrays."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.reset()
+
+    def reset(self):
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _emit(self, v):
+        self.out.append(v)
+
+    def _zeros(self):
+        while self.zc:
+            self._emit(0)
+            self.zc -= 1
+
+    def encode(self, st: bytearray, i: int, val: int) -> None:
+        sv = st[i]
+        qe = ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        self.a -= qe
+        if val != sv >> 7:
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    if self.buffer >= 0:
+                        self._zeros()
+                        self._emit(self.buffer + 1)
+                        if self.buffer + 1 == 0xFF:
+                            self._emit(0)
+                    self.zc += self.sc
+                    self.sc = 0
+                    self.buffer = temp & 0xFF
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._flush_stacked()
+                    self.buffer = temp & 0xFF
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def _flush_stacked(self):
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            self._zeros()
+            self._emit(self.buffer)
+        if self.sc:
+            self._zeros()
+            for _ in range(self.sc):
+                self._emit(0xFF)
+                self._emit(0)
+            self.sc = 0
+
+    def finish(self) -> None:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._zeros()
+                self._emit(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self._emit(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            self._flush_stacked()
+        if self.c & 0x7FFF800:
+            self._zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if (self.c >> 19) & 0xFF == 0xFF:
+                self._emit(0)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+                if (self.c >> 11) & 0xFF == 0xFF:
+                    self._emit(0)
+
+
+def _segment(marker: int, payload: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
+
+
+def _jfif() -> bytes:
+    return _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+
+
+def _planes(pixels: np.ndarray, sampling, ycc: bool) -> list:
+    """(H, W, C) uint8 -> each component's samples (YCbCr where ``ycc``),
+    box-averaged down by its sampling factors, as float64 planes of
+    ceil(W * h / hmax) x ceil(H * v / vmax)."""
+    px = pixels.astype(np.float64)
+    if ycc:
+        r, g, b = px[..., 0], px[..., 1], px[..., 2]
+        px = np.stack([0.299 * r + 0.587 * g + 0.114 * b,
+                       -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                       0.5 * r - 0.418688 * g - 0.081312 * b + 128], axis=-1)
+    h, w = px.shape[:2]
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    out = []
+    for c, (sh, sv) in enumerate(sampling):
+        fx, fy = hmax // sh, vmax // sv
+        cw, ch = -(-w * sh // hmax), -(-h * sv // vmax)
+        p = np.pad(px[..., c], ((0, ch * fy - h), (0, cw * fx - w)), mode="edge")
+        out.append(p.reshape(ch, fy, cw, fx).mean(axis=(1, 3)))
+    return out
+
+
+def dct_blocks(pixels: np.ndarray, sampling, quality: int = 85, ycc: bool = True):
+    """(H, W, C) uint8 -> ([each component's quantised coefficients, (rows
+    of MCU blocks, columns, 64) int64 in zigzag order, the picture's edge
+    replicated into the padding], [its quantisation table in zigzag
+    order]), a float forward DCT of the samples less 128."""
+    h, w = pixels.shape[:2]
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    mx, my = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    k = np.arange(8)
+    d = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) / 2
+    d[0] /= np.sqrt(2)
+    scale = 5000 / quality if quality < 50 else 200 - 2 * quality
+    blocks, tables = [], []
+    for c, plane in enumerate(_planes(pixels, sampling, ycc)):
+        sh, sv = sampling[c]
+        rows, cols = my * sv * 8, mx * sh * 8
+        p = np.pad(plane, ((0, rows - plane.shape[0]), (0, cols - plane.shape[1])), mode="edge")
+        t = p.reshape(rows // 8, 8, cols // 8, 8).transpose(0, 2, 1, 3) - 128
+        f = np.einsum("ux,abxy,vy->abuv", d, t, d).reshape(rows // 8, cols // 8, 64)
+        q = np.clip((_STD_Q[min(c, 1)] * scale + 50) // 100, 1, 255)
+        blocks.append(np.rint(f / q)[..., ZIGZAG].astype(np.int64))
+        tables.append(q[ZIGZAG].astype(np.int64))
+    return blocks, tables
+
+
+def _mcus(blocks, sampling, comps, own_shapes):
+    """The (component, block row, block column) of each block of each MCU
+    of a scan over ``comps``: MCU order for several components, the
+    component's own (block rows, columns) ``own_shapes`` (not the MCU
+    padding) for one."""
+    if len(comps) == 1:
+        c = comps[0]
+        bh, bw = own_shapes[c]
+        return [[(c, y, x)] for y in range(bh) for x in range(bw)]
+    my, mx = blocks[comps[0]].shape[0] // sampling[comps[0]][1], \
+        blocks[comps[0]].shape[1] // sampling[comps[0]][0]
+    return [[(c, y * sampling[c][1] + v, x * sampling[c][0] + u) for c in comps
+             for v in range(sampling[c][1]) for u in range(sampling[c][0])]
+            for y in range(my) for x in range(mx)]
+
+
+# libjpeg's jpeg_simple_progression for YCbCr (and its grey form):
+# (components, Ss, Se, Ah, Al)
+PROGRESSION_3 = [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+                 ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                 ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+                 ((0,), 1, 63, 1, 0)]
+PROGRESSION_1 = [((0,), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((0,), 6, 63, 0, 2),
+                 ((0,), 1, 63, 2, 1), ((0,), 0, 0, 1, 0), ((0,), 1, 63, 1, 0)]
+
+
+def _arith_scan(blocks, sampling, comp_shapes, comps, ss, se, ah, al, progressive, restart,
+                dc_l, dc_u, ac_k, tbl) -> bytes:
+    """One scan's entropy-coded data, jcarith.c's encode_mcu (sequential)
+    or its four progressive procedures, with RSTn every ``restart`` MCUs."""
+    enc = QMEncoder()
+    fixed = bytearray([113])
+    state = {}
+
+    def reset():
+        # the statistics areas are the conditioning tables', shared by the
+        # components that name one
+        state["dc"] = {tbl[c][0]: bytearray(64) for c in comps}
+        state["ac"] = {tbl[c][1]: bytearray(256) for c in comps}
+        state["last"] = {c: 0 for c in comps}
+        state["ctx"] = {c: 0 for c in comps}
+
+    def dc_diff(c, v):
+        t = tbl[c][0]
+        st, i = state["dc"][t], state["ctx"][c]
+        if v == 0:
+            enc.encode(st, i, 0)
+            state["ctx"][c] = 0
+            return
+        enc.encode(st, i, 1)
+        if v > 0:
+            enc.encode(st, i + 1, 0)
+            i += 2
+            state["ctx"][c] = 4
+        else:
+            v = -v
+            enc.encode(st, i + 1, 1)
+            i += 3
+            state["ctx"][c] = 8
+        m = 0
+        v -= 1
+        if v:
+            enc.encode(st, i, 1)
+            m, v2, i = 1, v, 20
+            while v2 >> 1:
+                v2 >>= 1
+                enc.encode(st, i, 1)
+                m <<= 1
+                i += 1
+        enc.encode(st, i, 0)
+        if m < (1 << dc_l[t]) >> 1:
+            state["ctx"][c] = 0
+        elif m > (1 << dc_u[t]) >> 1:
+            state["ctx"][c] += 8
+        i += 14
+        m >>= 1
+        while m:
+            enc.encode(st, i, 1 if m & v else 0)
+            m >>= 1
+
+    def ac_value(st, i, v, k, t):
+        """The sign is coded by the caller; the magnitude category and
+        bits of |v| here, from the SN/SP bin ``i``."""
+        m = 0
+        v -= 1
+        if v:
+            enc.encode(st, i, 1)
+            m, v2 = 1, v >> 1
+            if v2:
+                enc.encode(st, i, 1)
+                m <<= 1
+                i = 189 if k <= ac_k[t] else 217
+                while v2 >> 1:
+                    v2 >>= 1
+                    enc.encode(st, i, 1)
+                    m <<= 1
+                    i += 1
+        enc.encode(st, i, 0)
+        i += 14
+        m >>= 1
+        while m:
+            enc.encode(st, i, 1 if m & v else 0)
+            m >>= 1
+
+    def shifted(x, s):
+        return x >> s if x >= 0 else -((-x) >> s)
+
+    reset()
+    units = _mcus(blocks, sampling, comps, comp_shapes)
+    out = bytearray()
+    for n, mcu in enumerate(units):
+        if restart and n and n % restart == 0:
+            enc.finish()
+            out += enc.out + bytes([0xFF, 0xD0 + (n // restart - 1) % 8])
+            enc.out = bytearray()
+            enc.reset()
+            reset()
+        for c, y, x in mcu:
+            blk = blocks[c][y, x]
+            if not progressive or (ss == 0 and ah == 0):
+                dcv = blk[0] >> al if progressive else blk[0]
+                dc_diff(c, dcv - state["last"][c])
+                state["last"][c] = dcv
+            elif ss == 0:
+                enc.encode(fixed, 0, (blk[0] >> al) & 1)
+            if progressive and ss == 0:
+                continue
+            t = tbl[c][1]
+            st = state["ac"][t]
+            lo, hi = (1, 63) if not progressive else (ss, se)
+            vals = [shifted(int(blk[k]), al) for k in range(64)]
+            ke = hi
+            while ke > 0 and not vals[ke]:
+                ke -= 1
+            if progressive and ah:
+                prev = [shifted(int(blk[k]), ah) for k in range(64)]
+                kex = ke
+                while kex > 0 and not prev[kex]:
+                    kex -= 1
+            k = lo
+            while k <= ke:
+                i = 3 * (k - 1)
+                if not (progressive and ah) or k > kex:
+                    enc.encode(st, i, 0)
+                while True:
+                    v = vals[k]
+                    if v:
+                        a = abs(v)
+                        if progressive and ah and a >> 1:
+                            enc.encode(st, i + 2, a & 1)
+                        else:
+                            enc.encode(st, i + 1, 1)
+                            enc.encode(fixed, 0, 0 if v > 0 else 1)
+                            if not (progressive and ah):
+                                ac_value(st, i + 2, a, k, t)
+                        break
+                    enc.encode(st, i + 1, 0)
+                    i += 3
+                    k += 1
+                k += 1
+            if k <= hi:
+                enc.encode(st, 3 * (k - 1), 1)
+    enc.finish()
+    return bytes(out + enc.out)
+
+
+def arith_jpeg_bytes(pixels: np.ndarray, sampling=None, quality: int = 85,
+                     progressive: bool = False, restart: int = 0, dac=None, jfif: bool = True,
+                     scans=None, tables=None, ycc: bool = True) -> bytes:
+    """(H, W, C) uint8, C 1 or 3 -> an arithmetic-coded JPEG (SOF9, or SOF10
+    with ``progressive``) as libjpeg's jcarith.c writes one: YCbCr of RGB
+    (``ycc``), each component's (h, v) ``sampling``, a DRI of ``restart``
+    MCUs, a DAC segment of ``dac`` ((table class << 4 | index, value)
+    pairs) whose conditioning the coder then uses, ``scans`` the
+    progression (libjpeg's simple progression by default), ``tables``
+    each component's (DC, AC) conditioning table indices."""
+    nc = pixels.shape[2]
+    sampling = sampling or [(1, 1)] * nc
+    blocks, qt = dct_blocks(pixels, sampling, quality, ycc and nc == 3)
+    h, w = pixels.shape[:2]
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    shapes = [(-(-(-(-h * sv // vmax)) // 8), -(-(-(-w * sh // hmax)) // 8))
+              for sh, sv in sampling]
+    tbl = tables or [(0, 0)] + [(1, 1)] * (nc - 1)
+    dc_l, dc_u, ac_k = [0] * 16, [1] * 16, [5] * 16
+    for index, value in dac or ():
+        if index >> 4:
+            ac_k[index & 15] = value
+        else:
+            dc_l[index & 15], dc_u[index & 15] = value & 15, value >> 4
+    out = bytearray(b"\xff\xd8")
+    if jfif:
+        out += _jfif()
+    for i in range(min(nc, 2)):
+        out += _segment(0xDB, bytes([i]) + bytes(qt[i].tolist()))
+    out += _segment(0xCA if progressive else 0xC9, struct.pack(">BHHB", 8, h, w, nc) + b"".join(
+        bytes([i + 1, sampling[i][0] << 4 | sampling[i][1], min(i, 1)]) for i in range(nc)))
+    if dac:
+        out += _segment(0xCC, b"".join(bytes(p) for p in dac))
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    if not progressive:
+        scans = [(tuple(range(nc)), 0, 63, 0, 0)]
+    elif scans is None:
+        scans = PROGRESSION_3 if nc == 3 else PROGRESSION_1
+    for comps, ss, se, ah, al in scans:
+        out += _segment(0xDA, bytes([len(comps)]) + b"".join(
+            bytes([c + 1, tbl[c][0] << 4 | tbl[c][1]]) for c in comps) + bytes([ss, se,
+                                                                                  ah << 4 | al]))
+        out += _arith_scan(blocks, sampling, shapes, list(comps), ss, se, ah, al, progressive,
+                           restart, dc_l, dc_u, ac_k, tbl)
+    return bytes(out + b"\xff\xd9")
+
+
+def _huffman_table(freq) -> tuple[list, list]:
+    """(counts by code length 1-16, symbols in code order) of a Huffman
+    code for the symbols of ``freq`` (symbol -> count), at most 16 bits,
+    never all ones (libjpeg's reserved code point)."""
+    import heapq
+
+    syms = sorted(s for s, f in freq.items() if f) or [0]
+    heap = [(freq.get(s, 0) or 1, i, [s]) for i, s in enumerate(syms + [256])]
+    heapq.heapify(heap)
+    depth = {s: 0 for s in syms + [256]}
+    n = len(heap)
+    while len(heap) > 1:
+        fa, _, a = heapq.heappop(heap)
+        fb, _, b = heapq.heappop(heap)
+        for s in a + b:
+            depth[s] += 1
+        heapq.heappush(heap, (fa + fb, n, a + b))
+        n += 1
+    counts = [0] * 33
+    for s in syms + [256]:
+        counts[max(depth[s], 1)] += 1
+    for i in range(32, 16, -1):  # libjpeg's jpeg_gen_optimal_table limit to 16 bits
+        while counts[i] > 0:
+            j = i - 2
+            while counts[j] == 0:
+                j -= 1
+            counts[i] -= 2
+            counts[i - 1] += 1
+            counts[j + 1] += 2
+            counts[j] -= 1
+    i = 16
+    while counts[i] == 0:
+        i -= 1
+    counts[i] -= 1  # the reserved symbol 256 takes the longest code
+    order = sorted(syms, key=lambda s: (depth[s], s))
+    return counts[1:17], order
+
+
+def lossless_jpeg_bytes(samples: np.ndarray, predictor: int, pt: int = 0, sampling=None,
+                        restart_rows: int = 0, jfif: bool = False, adobe=None,
+                        cids=None, precision: int = 8, separate: bool = False) -> bytes:
+    """(H, W, C) integer samples (C 1, 3 or 4, below 2**precision) -> a
+    lossless JPEG (SOF3) as libjpeg-turbo's jclossls.c and jclhuff.c write
+    one: each component's samples (already at its (h, v) ``sampling``,
+    ceil(W h / hmax) x ceil(H v / vmax), taken from the top left) shifted
+    right by the point transform ``pt``, the differences from
+    ``predictor`` 1-7 (the first row from its left neighbour, the first
+    sample from 2**(precision - pt - 1), the first column from above) in
+    one interleaved scan of optimal Huffman tables, a DRI of
+    ``restart_rows`` MCU rows (the predictor restarts as on the first
+    row); an APP0 JFIF with ``jfif``, an APP14 Adobe of transform
+    ``adobe``, component ids ``cids`` (1, 2, ... by default); with
+    ``separate`` one scan a component, its samples in raster order."""
+    h, w, nc = samples.shape
+    sampling = sampling or [(1, 1)] * nc
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    mx, my = -(-w // hmax), -(-h // vmax)
+    restart = restart_rows * mx
+    diffs = []
+    for c, (sh, sv) in enumerate(sampling):
+        cw, ch = -(-w * sh // hmax), -(-h * sv // vmax)
+        x = samples[:ch, :cw, c].astype(np.int64) >> pt
+        d = np.zeros((my * sv, mx * sh), np.int64)
+        for r in range(ch):
+            first = restart_rows and r % (restart_rows * sv) == 0 or r == 0
+            for col in range(cw):
+                if first:
+                    p = (1 << (precision - pt - 1)) if col == 0 else x[r, col - 1]
+                elif col == 0:
+                    p = x[r - 1, 0]
+                else:
+                    ra, rb, rc = x[r, col - 1], x[r - 1, col], x[r - 1, col - 1]
+                    p = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1), rb + ((ra - rc) >> 1),
+                         (ra + rb) >> 1)[predictor - 1]
+                d[r, col] = ((x[r, col] - p + 0x8000) & 0xFFFF) - 0x8000
+        diffs.append(d)
+    if separate:  # a scan a component, its own samples (an MCU a sample)
+        assert not restart, "one restart interval cannot fit every component's rows"
+        scans = [([c], [(c, int(v)) for v in diffs[c][:-(-h * sv // vmax),
+                                                     :-(-w * sh // hmax)].ravel()])
+                 for c, (sh, sv) in enumerate(sampling)]
+    else:
+        seq = []  # (component, difference) in stream order
+        for y in range(my):
+            for xx in range(mx):
+                for c, (sh, sv) in enumerate(sampling):
+                    for v in range(sv):
+                        for u in range(sh):
+                            seq.append((c, int(diffs[c][y * sv + v, xx * sh + u])))
+        scans = [(list(range(nc)), seq)]
+    tables = [0] + [1] * (nc - 1) if nc == 3 else list(range(nc)) if nc <= 2 else [0] * nc
+    freq = [{}, {}]
+    for c, d in (item for _, seq in scans for item in seq):
+        s = abs(d).bit_length()
+        freq[tables[c]][s] = freq[tables[c]].get(s, 0) + 1
+    codes = []
+    dht = b""
+    for t in sorted(set(tables)):
+        counts, order = _huffman_table(freq[t])
+        code, k, table = 0, 0, {}
+        for length in range(1, 17):
+            for _ in range(counts[length - 1]):
+                table[order[k]] = (code, length)
+                code += 1
+                k += 1
+            code <<= 1
+        codes.append(table)
+        dht += bytes([t]) + bytes(counts) + bytes(order)
+    out = bytearray(b"\xff\xd8")
+    if jfif:
+        out += _jfif()
+    if adobe is not None:
+        out += _segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe))
+    cids = cids or list(range(1, nc + 1))
+    out += _segment(0xC3, struct.pack(">BHHB", precision, h, w, nc) + b"".join(
+        bytes([cids[i], sampling[i][0] << 4 | sampling[i][1], 0]) for i in range(nc)))
+    out += _segment(0xC4, dht)
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    for comps, seq in scans:
+        out += _segment(0xDA, bytes([len(comps)]) + b"".join(
+            bytes([cids[i], tables[i] << 4]) for i in comps) + bytes([predictor, 0, pt]))
+        per_mcu = sum(sampling[i][0] * sampling[i][1] for i in comps) if len(comps) > 1 else 1
+        out += _lossless_data(seq, codes, tables, restart * per_mcu)
+    return bytes(out + b"\xff\xd9")
+
+
+def _lossless_data(seq, codes, tables, every: int) -> bytes:
+    """A lossless scan's Huffman-coded differences, RSTn after every
+    ``every`` of them."""
+    acc, nbits, data = 0, 0, bytearray()
+
+    def flush_bytes(final=False):
+        nonlocal acc, nbits
+        if final and nbits % 8:
+            pad = 8 - nbits % 8
+            acc, nbits = acc << pad | ((1 << pad) - 1), nbits + pad
+        while nbits >= 8:
+            b = (acc >> (nbits - 8)) & 0xFF
+            data.append(b)
+            if b == 0xFF:
+                data.append(0)
+            nbits -= 8
+        acc &= (1 << nbits) - 1
+
+    for n, (c, d) in enumerate(seq):
+        if every and n and n % every == 0:
+            flush_bytes(final=True)
+            data += bytes([0xFF, 0xD0 + (n // every - 1) % 8])
+        s = abs(d).bit_length()
+        code, length = codes[sorted(set(tables)).index(tables[c])][s]
+        acc, nbits = acc << length | code, nbits + length
+        if s:
+            acc, nbits = acc << s | ((d if d >= 0 else d - 1) & ((1 << s) - 1)), nbits + s
+        flush_bytes()
+    flush_bytes(final=True)
+    return bytes(data)
