@@ -167,11 +167,12 @@ Phases:
      texture, baseline and progressive) decoded on the host, bit-equal to
      their Pillow decodes, with the seconds; the texture fixtures
      (tests/data/textures, TEXTURE_FIXTURES, the last 19 Pillow readers'
-     among them, and the arithmetic-coded and lossless JPEGs) likewise;
+     among them, the arithmetic-coded and lossless JPEGs, and the
+     compressed YCbCr TIFFs, the CIELab TIFF and the LAB PSD) likewise;
      the cut-out textures (the BLP2 DXT5 among them), the 1024^2
-     JPEG-in-TIFF texture and an arithmetic-coded JPEG texture on the
-     north-star mesh through K5, each frame bit-equal to the frame under its
-     Pillow decode; the native byte loops (BYTE_LOOP_FIXTURES, the 1024^2
+     JPEG-in-TIFF texture, an arithmetic-coded JPEG texture and the CIELab
+     TIFF on the north-star mesh through K5, each frame bit-equal to the
+     frame under its Pillow decode; the native byte loops (BYTE_LOOP_FIXTURES, the 1024^2
      Group 4 TIFF and the QM decoder on the largest arithmetic-coded
      fixture among them) against their Python twins; the CLI's new --obj --texture
      (the JPEG) -> train (3 steps, one capture through K5) on the north
@@ -415,7 +416,9 @@ TEXTURE_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_rgba16.png",
                     "mushroom256_xvthumb.xvthumb", "mushroom256_iptc.iim",
                     "mushroom256_arith_420.jpg", "mushroom256_arith_progressive.jpg",
                     "mushroom256_lossless_p6.jpg", "mushroom256_lossless_grey_p7.jpg",
-                    "mushroom256_arith.tif")
+                    "mushroom256_arith.tif", "mushroom256_ycbcr420_lzw.tif",
+                    "mushroom256_ycbcr422_tiles.tif", "mushroom256_cielab.tif",
+                    "mushroom256_lab.psd")
 PILLOW_DECODES = {"mushroom1024_lzw.tif": "../jpeg/mushroom1024_q90_420.png",
                   "mushroom1024_lossless.webp": "../jpeg/mushroom1024_q90_420.png",
                   "mushroom1024.qoi": "../jpeg/mushroom1024_q90_420.png"}
@@ -434,8 +437,10 @@ BYTE_LOOP_FIXTURES = ("jpeg/mushroom1024_q90_420.png", "textures/mushroom1024_lz
 # ones (an opaque texture: its frame against the frame of the decode flipped
 # upside down, which must differ)
 JPEG_TIFF_TEXTURE = "mushroom1024_jpeg.tif"
-# and an arithmetic-coded JPEG texture (4:2:0, DAC, restarts) likewise
+# and an arithmetic-coded JPEG texture (4:2:0, DAC, restarts) likewise, and a
+# CIELab TIFF (io/lab.py's littleCMS transform)
 ARITH_TEXTURE = "mushroom256_arith_420.jpg"
+LAB_TEXTURE = "mushroom256_cielab.tif"
 P21_KEYED_RES, P21_KEYED_SAMPLES, P21_KEYED_SEED = 512, 8, 21
 P21_STEPS = 3
 PLY_RENDER_ATOL = 1e-4
@@ -486,8 +491,13 @@ P22_SIZES = ("TRAIN_SPLATS", "TRAIN_CAPACITY", "TRAIN_RES", "TRAIN_TILE", "TRAIN
              "K9_MESH", "P22_CAPTURE_SAMPLES", "P22_TIMED_STEPS")
 
 
+_START = time.perf_counter()
+
+
 def phase(title: str) -> None:
-    print(f"\n== {title}", flush=True)
+    """A phase's heading, with the seconds since the script began (the full
+    run has 1200 s)."""
+    print(f"\n== {title}  [{time.perf_counter() - _START:.1f} s into the run]", flush=True)
 
 
 def run(cmd: list[str]) -> str:
@@ -3315,7 +3325,8 @@ def product_phase(dev, card) -> dict:
         raise SystemExit(f"phase 21 failed: {why}")
 
     phase(f"21. the rest of the product: the texture fixtures, five cut-out textures, a "
-          f"JPEG-in-TIFF and an arithmetic-coded JPEG texture on the card, the decoders' "
+          f"JPEG-in-TIFF, an arithmetic-coded JPEG and a CIELab texture on the card, the "
+          f"decoders' "
           f"native byte loops, a JPEG texture, "
           f"export (.ply, .html, .gobj, "
           f"render --mode viewer), the .ply imported and rendered, doctor, the native parsers "
@@ -3346,7 +3357,7 @@ def product_phase(dev, card) -> dict:
     for name in CUTOUT_FIXTURES:
         add_launches(launches, {"mt_intersect": keyed_texture_frames(
             dev, card, textures / name, fail)})
-    for name in (JPEG_TIFF_TEXTURE, ARITH_TEXTURE):
+    for name in (JPEG_TIFF_TEXTURE, ARITH_TEXTURE, LAB_TEXTURE):
         add_launches(launches, {"mt_intersect": keyed_texture_frames(
             dev, card, textures / name, fail, cutout=False)})
     byte_loops(card, HERE / "tests" / "data", fail)

@@ -25,9 +25,12 @@ Pillow's conversion is kept with its quirks:
   * a palette of grey entries (entry i is (i, i, i), or black and white
     for a 2-entry palette) is no palette: the pixel data is read as 8-bit
     grey, or as 1-bit where the palette has 2 entries, whatever the bit
-    depth says (a grey palette of more than 2 entries below 8 bits is
-    refused); an index past a real palette's entries reads as opaque
-    black;
+    depth says; below 8 bits (a grey palette of more than 2 entries) Pillow
+    maps the file and reads a row of ``w`` bytes at each narrow row's
+    start, so the rows overlap: read so where those bytes lie in the file,
+    refused where the last row runs past its end (Pillow then shows memory
+    past the file, which no port can know); an index past a real palette's
+    entries reads as opaque black;
   * in RLE, skipped pixels (end-of-line and delta escapes) take index 0, a
     delta escape skips two bytes before its two offsets, an absolute run
     of an odd count in RLE4 drops its last pixel, and the runs re-align to
@@ -219,6 +222,7 @@ def decode_bitmap(blob: bytes, hpos: int, offset: int, halve: bool = False,
         raise ValueError(f"unsupported BMP compression "
                          f"({_COMPRESSIONS.get(comp, comp)})")
     palette = None
+    overlap = False
     if mode == "P":
         if not 0 < colours <= 256:
             raise ValueError(f"unsupported BMP palette of {colours} entries")
@@ -228,10 +232,10 @@ def decode_bitmap(blob: bytes, hpos: int, offset: int, halve: bool = False,
         if all(table[i * pad:i * pad + 3] == bytes([v]) * 3 for i, v in enumerate(grey)):
             mode = raw = "1" if colours == 2 else "L"
             if mode == "L" and bits < 8:
-                # Pillow reads 8-bit rows from the narrower ones, which
-                # overlap where it maps the file and run past it
-                raise ValueError(f"unsupported BMP (a grey palette of {colours} entries at "
-                                 f"{bits} bits a pixel)")
+                # Pillow maps the file and reads a row of w bytes at each
+                # narrower row's start: the rows overlap, and the last runs on
+                # past its own bytes
+                overlap = True
         else:
             n = len(table) // pad
             palette = np.zeros((256, 4), np.uint8)
@@ -244,6 +248,16 @@ def decode_bitmap(blob: bytes, hpos: int, offset: int, halve: bool = False,
         px = _rle(blob, start, w, h, comp == _RLE4)
         px = px[::-1] if not top_down else px
         v = px.astype(np.int64)
+    elif overlap:
+        stride = ((w * bits + 31) >> 3) & ~3
+        if h and (start + h * stride > len(blob) or start + (h - 1) * stride + w > len(blob)):
+            raise ValueError(f"unsupported BMP (a grey palette of {colours} entries at {bits} "
+                             "bits a pixel, whose 8-bit rows Pillow reads past the end of "
+                             "the file)")
+        buf = np.frombuffer(blob, np.uint8)
+        rows = np.lib.stride_tricks.as_strided(buf[start:], (h, w), (stride, 1)) if h else \
+            np.zeros((0, w), np.uint8)
+        v = np.ascontiguousarray(rows if top_down else rows[::-1]).astype(np.int64)
     else:
         stride = ((w * bits + 31) >> 3) & ~3
         row = (w * (_RAW_BITS.get(raw, 32)) + 7) // 8

@@ -16,7 +16,8 @@ Pillow's conversion is kept with its quirks:
     the frame take index 0, or the transparent index where there is one;
   * a colour table whose every entry i is (i, i, i), and a frame without
     one, read as grey: the index is the grey level; but a grey local table
-    under a global one reads through the global one;
+    under a global one reads through the global one, and with a
+    transparent index Pillow's conversion fails (refused by both);
   * an index past the colour table reads as opaque black; the transparent
     index reads as alpha 0 (its colour stays);
   * the frame ends at its last pixel: codes after it, the end code
@@ -121,11 +122,11 @@ def decode_gif(blob: bytes) -> np.ndarray:
         idx[y0:y0 + fh, x0:x0 + fw] = px
     if local is False and table is not None:
         # a grey frame under the global table: Pillow's image takes the
-        # table's colours but keeps its grey mode, which has no conversion
-        # of a transparent index
+        # table's colours but keeps its grey mode, and its conversion of a
+        # transparent index then fails (convert_transparent has no P -> RGBA)
         if transparency is not None:
             raise ValueError("unsupported GIF (a grey local table under a global one, "
-                             "with a transparent index)")
+                             "with a transparent index: Pillow cannot convert it)")
     elif local is not None:
         table = local or None
     if table is None:

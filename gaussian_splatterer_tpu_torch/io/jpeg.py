@@ -923,7 +923,11 @@ def _decode(blob: bytes, init=None, tables_only: bool = False, eoi_fill: bool = 
     Segment lengths are held to libjpeg's rules (jdmarker.c): SOF and SOS
     exactly their components' bytes, DRI 4, DQT and DHT exactly their
     tables', DAC whole pairs; a DQT table cut short keeps 1 in its missing
-    entries."""
+    entries, but under ``eoi_fill`` takes 64 entries from the bytes after
+    it, as libjpeg-turbo does, and is refused.  Under ``eoi_fill`` a stream
+    without a scan is refused (a tables-only stream with one), and once a
+    single scan is decoded what the markers after it would refuse is
+    ignored: libtiff ignores jpeg_finish_decompress's failure."""
     if blob[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     qtables, dc_luts, ac_luts, defs = ((dict(t) for t in init) if init else
@@ -938,192 +942,215 @@ def _decode(blob: bytes, init=None, tables_only: bool = False, eoi_fill: bool = 
     data = blob + b"\xff\xd9" if eoi_fill else blob
     scans, multi, single_done = 0, False, False
     pos = 2
-    while pos < len(blob):
-        if blob[pos] != 0xFF:  # bytes before a marker, which libjpeg skips
-            pos += 1
-            continue
-        if pos + 1 >= len(blob):
-            if eoi_fill or single_done:
+    try:
+        while pos < len(blob):
+            if blob[pos] != 0xFF:  # bytes before a marker, which libjpeg skips
+                pos += 1
+                continue
+            if pos + 1 >= len(blob):
+                if eoi_fill or single_done:
+                    break
+                raise _truncated("the data end inside a marker")
+            marker = blob[pos + 1]
+            if marker in (0xFF, 0x00):  # fill byte; FF 00, which next_marker discards
+                pos += 1 if marker == 0xFF else 2
+                continue
+            pos += 2
+            if marker == 0xD9:  # EOI
                 break
-            raise _truncated("the data end inside a marker")
-        marker = blob[pos + 1]
-        if marker in (0xFF, 0x00):  # fill byte; FF 00, which next_marker discards
-            pos += 1 if marker == 0xFF else 2
-            continue
-        pos += 2
-        if marker == 0xD9:  # EOI
-            break
-        if marker == 0x01 and not scans and not eoi_fill:  # Pillow's _open: "no marker found"
-            raise ValueError("JPEG with a TEM marker before its scan (Pillow's parser knows "
-                             "no such marker)")
-        if 0xD0 <= marker <= 0xD7 or marker == 0x01:  # no length field
-            continue
-        if marker not in _KNOWN_MARKERS:  # libjpeg's read_markers refuses the rest
-            raise ValueError(f"corrupt JPEG data: marker 0x{marker:02x} libjpeg does not know")
-        if marker in _UNSUPPORTED_SOF:  # refused before its length is read
-            raise ValueError(f"{_UNSUPPORTED_SOF[marker]} JPEG is not supported (libjpeg-turbo "
-                             "refuses it)")
-        if pos + 2 > len(blob) and not eoi_fill:
-            if single_done:
-                _partial_checks(marker, blob[pos:], comps, frame)
-                break
-            raise _truncated("a marker segment past the end of the data")
-        (length,) = struct.unpack(">H", data[pos:pos + 2])
-        if length < 2:
-            raise ValueError("corrupt JPEG data: a marker length below 2")
-        seg = blob[pos + 2:pos + length]
-        if len(seg) < length - 2:
-            if single_done:  # Pillow has every line; libjpeg suspends in the trailer
-                _partial_checks(marker, blob[pos:], comps, frame)
-                break
-            if not eoi_fill:
+            if marker == 0x01 and not scans and not eoi_fill:  # Pillow's _open: "no marker found"
+                raise ValueError("JPEG with a TEM marker before its scan (Pillow's parser knows "
+                                 "no such marker)")
+            if 0xD0 <= marker <= 0xD7 or marker == 0x01:  # no length field
+                continue
+            if marker not in _KNOWN_MARKERS:  # libjpeg's read_markers refuses the rest
+                raise ValueError(f"corrupt JPEG data: marker 0x{marker:02x} libjpeg does not know")
+            if marker in _UNSUPPORTED_SOF:  # refused before its length is read
+                raise ValueError(f"{_UNSUPPORTED_SOF[marker]} JPEG is not supported (libjpeg-turbo "
+                                 "refuses it)")
+            if pos + 2 > len(blob) and not eoi_fill:
+                if single_done:
+                    _partial_checks(marker, blob[pos:], comps, frame)
+                    break
                 raise _truncated("a marker segment past the end of the data")
-            seg = (seg + b"\xff\xd9" * (length // 2))[:length - 2]
-        pos += length
-        if not scans and not eoi_fill:
-            _pillow_open_checks(marker, seg)
-        if marker == 0xE0 and seg[:5] == b"JFIF\x00" and len(seg) >= 14:  # examine_app0
-            jfif = True
-        elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
-            adobe, adobe_transform = True, seg[11]
-        elif marker == 0xDB:  # DQT (get_dqt)
-            i = 0
-            while i < len(seg):
-                pq, tq = seg[i] >> 4, seg[i] & 15
-                if tq >= 4:
-                    raise ValueError(f"corrupt JPEG data: DQT table index {tq}")
-                left = len(seg) - i - 1
-                n = min(64, left >> 1 if pq else left)
-                q = np.ones(64, np.int64)
-                q[:n] = np.frombuffer(seg, ">u2" if pq else "u1", n, i + 1)
-                table = np.empty(64, np.int64)
-                table[NATURAL_ORDER] = q
-                qtables[tq] = table
-                i += 1 + (2 * n if pq else n)
-        elif marker == 0xC4:  # DHT (get_dht)
-            i, left = 0, len(seg)
-            while left > 16:
-                tc, th = seg[i] >> 4, seg[i] & 15
-                if tc > 1 or th >= 4:  # jdmarker.c: JERR_DHT_INDEX
-                    raise ValueError(f"corrupt JPEG data: DHT table index 0x{seg[i]:02x}")
-                counts = seg[i + 1:i + 17]
-                total = sum(counts)
-                left -= 17
-                if total > 256 or total > left:
-                    raise ValueError("corrupt JPEG data: bogus Huffman table definition")
-                symbols = seg[i + 17:i + 17 + total]
-                (ac_luts if tc else dc_luts)[th] = _huffman_lut(counts, symbols)
-                defs[tc, th] = (list(counts), bytes(symbols))
-                i += 17 + total
-                left -= total
-            if left:
-                raise ValueError("corrupt JPEG data: bogus marker length (DHT)")
-        elif marker == 0xCC:  # DAC (get_dac)
-            if len(seg) % 2:
-                raise ValueError("corrupt JPEG data: bogus marker length (DAC)")
-            for index, val in zip(seg[::2], seg[1::2]):
-                if index >= 32:
-                    raise ValueError(f"corrupt JPEG data: DAC table index {index}")
-                if index >= 16:
-                    cond[2, index - 16] = val
+            (length,) = struct.unpack(">H", data[pos:pos + 2])
+            if length < 2:
+                raise ValueError("corrupt JPEG data: a marker length below 2")
+            seg_at = pos + 2
+            seg = blob[seg_at:pos + length]
+            if len(seg) < length - 2:
+                if single_done:  # Pillow has every line; libjpeg suspends in the trailer
+                    _partial_checks(marker, blob[pos:], comps, frame)
+                    break
+                if not eoi_fill:
+                    raise _truncated("a marker segment past the end of the data")
+                seg = (seg + b"\xff\xd9" * (length // 2))[:length - 2]
+            pos += length
+            if not scans and not eoi_fill:
+                _pillow_open_checks(marker, seg)
+            if marker == 0xE0 and seg[:5] == b"JFIF\x00" and len(seg) >= 14:  # examine_app0
+                jfif = True
+            elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
+                adobe, adobe_transform = True, seg[11]
+            elif marker == 0xDB:  # DQT (get_dqt)
+                i = 0
+                while i < len(seg):
+                    pq, tq = seg[i] >> 4, seg[i] & 15
+                    if tq >= 4:
+                        raise ValueError(f"corrupt JPEG data: DQT table index {tq}")
+                    left = len(seg) - i - 1
+                    n = min(64, left >> 1 if pq else left)
+                    q = np.ones(64, np.int64)
+                    if eoi_fill:  # libjpeg-turbo reads all 64 entries, past the segment
+                        # if need be (libtiff's fake EOI markers after the data), and
+                        # then refuses the length they overran
+                        size = 128 if pq else 64
+                        raw = (data[seg_at + i + 1:seg_at + i + 1 + size]
+                               + b"\xff\xd9" * 64)[:size]
+                        q[:] = np.frombuffer(raw, ">u2" if pq else "u1", 64)
+                        n = 64 if size <= left else n
+                    else:
+                        q[:n] = np.frombuffer(seg, ">u2" if pq else "u1", n, i + 1)
+                    table = np.empty(64, np.int64)
+                    table[NATURAL_ORDER] = q
+                    qtables[tq] = table
+                    if n < 64:
+                        if eoi_fill:
+                            raise ValueError("corrupt JPEG data: bogus marker length (DQT)")
+                    i += 1 + (2 * n if pq else n)
+            elif marker == 0xC4:  # DHT (get_dht)
+                i, left = 0, len(seg)
+                while left > 16:
+                    tc, th = seg[i] >> 4, seg[i] & 15
+                    if tc > 1 or th >= 4:  # jdmarker.c: JERR_DHT_INDEX
+                        raise ValueError(f"corrupt JPEG data: DHT table index 0x{seg[i]:02x}")
+                    counts = seg[i + 1:i + 17]
+                    total = sum(counts)
+                    left -= 17
+                    if total > 256 or total > left:
+                        raise ValueError("corrupt JPEG data: bogus Huffman table definition")
+                    symbols = seg[i + 17:i + 17 + total]
+                    (ac_luts if tc else dc_luts)[th] = _huffman_lut(counts, symbols)
+                    defs[tc, th] = (list(counts), bytes(symbols))
+                    i += 17 + total
+                    left -= total
+                if left:
+                    raise ValueError("corrupt JPEG data: bogus marker length (DHT)")
+            elif marker == 0xCC:  # DAC (get_dac)
+                if len(seg) % 2:
+                    raise ValueError("corrupt JPEG data: bogus marker length (DAC)")
+                for index, val in zip(seg[::2], seg[1::2]):
+                    if index >= 32:
+                        raise ValueError(f"corrupt JPEG data: DAC table index {index}")
+                    if index >= 16:
+                        cond[2, index - 16] = val
+                    else:
+                        cond[0, index], cond[1, index] = val & 15, val >> 4
+                        if val & 15 > val >> 4:
+                            raise ValueError(f"corrupt JPEG data: DAC value 0x{val:02x}")
+            elif marker in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
+                precision, height, width, nf = struct.unpack(">BHHB", seg[:6])
+                name = f"SOF{marker - 0xC0}"
+                if frame is not None:
+                    raise ValueError(f"corrupt JPEG data: a second frame ({name})")
+                if len(seg) != 6 + 3 * nf:
+                    raise ValueError(f"corrupt JPEG data: bogus marker length ({name})")
+                if precision != 8:  # Pillow's SOF handler: "cannot handle N-bit layers"
+                    raise ValueError(f"JPEG with {precision}-bit samples ({name}) is not supported")
+                if nf not in (1, 3, 4):
+                    raise ValueError(f"JPEG with {nf} components ({name}) is not supported")
+                if height == 0 or width == 0:
+                    raise ValueError(f"JPEG with an empty frame ({name}: {width}x{height})")
+                comps = [_Component(seg[6 + 3 * i], seg[7 + 3 * i] >> 4, seg[7 + 3 * i] & 15,
+                                     seg[8 + 3 * i]) for i in range(nf)]
+                frame = _Frame(marker, height, width)
+                frame.scanned = set()  # the components a lossless scan decoded
+                # Al of each coefficient's last scan
+                frame.coef_bits = [[-1] * 64 for _ in range(nf)]
+                unit = 1 if frame.lossless else 8  # a lossless data unit is one sample
+                for c in comps:
+                    if not (1 <= c.h <= 4 and 1 <= c.v <= 4):  # jdinput.c's initial_setup
+                        raise ValueError(f"corrupt JPEG data: bogus sampling factors ({name})")
+                hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
+                mcusx, mcusy = -(-width // (unit * hmax)), -(-height // (unit * vmax))
+                for c in comps:
+                    if hmax % c.h or vmax % c.v:
+                        raise ValueError(f"JPEG with fractional sampling factors ({name}) is "
+                                         "not supported")
+                    c.w, c.hgt = -(-width * c.h // hmax), -(-height * c.v // vmax)
+                    c.bw, c.bh = -(-c.w // unit), -(-c.hgt // unit)
+                    c.bw_pad, c.bh_pad = mcusx * c.h, mcusy * c.v
+                mcus = (mcusx, mcusy)
+                if frame.lossless:
+                    coefs = [np.zeros((c.hgt, c.w), np.int64) for c in comps]
+                elif frame.arith:
+                    sizes = [64 * c.bw_pad * c.bh_pad for c in comps]
+                    frame.offsets = np.cumsum([0] + sizes)
+                    frame.flat = np.zeros(frame.offsets[-1], np.int16)
+                    coefs = [frame.flat[o:o + n] for o, n in zip(frame.offsets, sizes)]
                 else:
-                    cond[0, index], cond[1, index] = val & 15, val >> 4
-                    if val & 15 > val >> 4:
-                        raise ValueError(f"corrupt JPEG data: DAC value 0x{val:02x}")
-        elif marker in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
-            precision, height, width, nf = struct.unpack(">BHHB", seg[:6])
-            name = f"SOF{marker - 0xC0}"
-            if frame is not None:
-                raise ValueError(f"corrupt JPEG data: a second frame ({name})")
-            if len(seg) != 6 + 3 * nf:
-                raise ValueError(f"corrupt JPEG data: bogus marker length ({name})")
-            if precision != 8:  # Pillow's SOF handler: "cannot handle N-bit layers"
-                raise ValueError(f"JPEG with {precision}-bit samples ({name}) is not supported")
-            if nf not in (1, 3, 4):
-                raise ValueError(f"JPEG with {nf} components ({name}) is not supported")
-            if height == 0 or width == 0:
-                raise ValueError(f"JPEG with an empty frame ({name}: {width}x{height})")
-            comps = [_Component(seg[6 + 3 * i], seg[7 + 3 * i] >> 4, seg[7 + 3 * i] & 15,
-                                 seg[8 + 3 * i]) for i in range(nf)]
-            frame = _Frame(marker, height, width)
-            frame.scanned = set()  # the components a lossless scan decoded
-            frame.coef_bits = [[-1] * 64 for _ in range(nf)]  # Al of each coefficient's last scan
-            unit = 1 if frame.lossless else 8  # a lossless data unit is one sample
-            for c in comps:
-                if not (1 <= c.h <= 4 and 1 <= c.v <= 4):  # jdinput.c's initial_setup
-                    raise ValueError(f"corrupt JPEG data: bogus sampling factors ({name})")
-            hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
-            mcusx, mcusy = -(-width // (unit * hmax)), -(-height // (unit * vmax))
-            for c in comps:
-                if hmax % c.h or vmax % c.v:
-                    raise ValueError(f"JPEG with fractional sampling factors ({name}) is "
-                                     "not supported")
-                c.w, c.hgt = -(-width * c.h // hmax), -(-height * c.v // vmax)
-                c.bw, c.bh = -(-c.w // unit), -(-c.hgt // unit)
-                c.bw_pad, c.bh_pad = mcusx * c.h, mcusy * c.v
-            mcus = (mcusx, mcusy)
-            if frame.lossless:
-                coefs = [np.zeros((c.hgt, c.w), np.int64) for c in comps]
-            elif frame.arith:
-                sizes = [64 * c.bw_pad * c.bh_pad for c in comps]
-                frame.offsets = np.cumsum([0] + sizes)
-                frame.flat = np.zeros(frame.offsets[-1], np.int16)
-                coefs = [frame.flat[o:o + n] for o, n in zip(frame.offsets, sizes)]
-            else:
-                coefs = [[0] * (64 * c.bw_pad * c.bh_pad) for c in comps]
-        elif marker == 0xDD:  # DRI
-            if length != 4:
-                raise ValueError("corrupt JPEG data: bogus marker length (DRI)")
-            (restart,) = struct.unpack(">H", seg[:2])
-        elif marker == 0xDA:  # SOS
-            if frame is None:
-                raise ValueError("corrupt JPEG data: SOS before SOF")
-            if single_done:  # jdinput.c: a second scan in a single-scan file
-                raise ValueError("corrupt JPEG data: a second scan where EOI was expected")
-            ns = seg[0]
-            if length != 2 * ns + 6 or not 1 <= ns <= 4:
-                raise ValueError("corrupt JPEG data: bogus marker length (SOS)")
-            by_id = {c.cid: i for i, c in enumerate(comps)}
-            sel = [(by_id[seg[1 + 2 * i]], seg[2 + 2 * i] >> 4, seg[2 + 2 * i] & 15)
-                   for i in range(ns)]
-            ss, se, ahal = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
-            ah, al = ahal >> 4, ahal & 15
-            if ns > 1 and sum(comps[ci].h * comps[ci].v for ci, _, _ in sel) > 10:
-                raise ValueError("corrupt JPEG data: more than 10 blocks in an MCU (libjpeg's "
-                                 "D_MAX_BLOCKS_IN_MCU)")
-            scans += 1
-            if scans == 1:
-                multi = frame.progressive or ns < len(comps)
-            _check_progression(frame, ns, ss, se, ah, al)
-            if frame.progressive:
-                for ci, _, _ in sel:
-                    frame.coef_bits[ci][ss:se + 1] = [al] * (se - ss + 1)
-            sos_end = pos
-            if frame.lossless:
-                frame.scanned.update(ci for ci, _, _ in sel)
-                pos, done = _lossless_scan(data, pos, eoi_fill, frame, comps, coefs, sel, restart,
-                                           mcus, ss, al, (dc_luts, ac_luts), defs)
-            elif frame.arith:
-                pos = _arith_scan(data, pos, len(data) if eoi_fill else
-                                  min(len(blob), BLOCK * max(1, -(-sos_end // BLOCK))),
-                                  frame, comps, qtables, sel, restart, mcus, ss, se, ah, al, cond)
-                done = True
-            else:
-                pos, done = _huffman_scan(data, pos, eoi_fill, multi, sos_end, comps, coefs,
-                                          qtables, (dc_luts, ac_luts), defs, sel, restart,
-                                          mcus, frame.progressive, ss, se, ah, al)
-            if not done:
-                raise _truncated("the data end inside a scan, where libjpeg's read-ahead "
-                                 "wants more")
-            single_done = not multi
-    else:
-        if not eoi_fill and multi:  # jpeg_start_decompress reads a multi-scan file to its EOI
-            raise _truncated("a multi-scan file without its EOI marker")
+                    coefs = [[0] * (64 * c.bw_pad * c.bh_pad) for c in comps]
+            elif marker == 0xDD:  # DRI
+                if length != 4:
+                    raise ValueError("corrupt JPEG data: bogus marker length (DRI)")
+                (restart,) = struct.unpack(">H", seg[:2])
+            elif marker == 0xDA:  # SOS
+                if tables_only:  # libtiff: "Bogus JPEGTables field"
+                    raise ValueError("a JPEGTables stream with a scan")
+                if frame is None:
+                    raise ValueError("corrupt JPEG data: SOS before SOF")
+                if single_done:  # jdinput.c: a second scan in a single-scan file
+                    raise ValueError("corrupt JPEG data: a second scan where EOI was expected")
+                ns = seg[0]
+                if length != 2 * ns + 6 or not 1 <= ns <= 4:
+                    raise ValueError("corrupt JPEG data: bogus marker length (SOS)")
+                by_id = {c.cid: i for i, c in enumerate(comps)}
+                sel = [(by_id[seg[1 + 2 * i]], seg[2 + 2 * i] >> 4, seg[2 + 2 * i] & 15)
+                       for i in range(ns)]
+                ss, se, ahal = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
+                ah, al = ahal >> 4, ahal & 15
+                if ns > 1 and sum(comps[ci].h * comps[ci].v for ci, _, _ in sel) > 10:
+                    raise ValueError("corrupt JPEG data: more than 10 blocks in an MCU (libjpeg's "
+                                     "D_MAX_BLOCKS_IN_MCU)")
+                scans += 1
+                if scans == 1:
+                    multi = frame.progressive or ns < len(comps)
+                _check_progression(frame, ns, ss, se, ah, al)
+                if frame.progressive:
+                    for ci, _, _ in sel:
+                        frame.coef_bits[ci][ss:se + 1] = [al] * (se - ss + 1)
+                sos_end = pos
+                if frame.lossless:
+                    frame.scanned.update(ci for ci, _, _ in sel)
+                    pos, done = _lossless_scan(data, pos, eoi_fill, frame, comps, coefs, sel,
+                                               restart, mcus, ss, al, (dc_luts, ac_luts), defs)
+                elif frame.arith:
+                    pos = _arith_scan(data, pos, len(data) if eoi_fill else
+                                      min(len(blob), BLOCK * max(1, -(-sos_end // BLOCK))),
+                                      frame, comps, qtables, sel, restart, mcus, ss, se, ah,
+                                      al, cond)
+                    done = True
+                else:
+                    pos, done = _huffman_scan(data, pos, eoi_fill, multi, sos_end, comps, coefs,
+                                              qtables, (dc_luts, ac_luts), defs, sel, restart,
+                                              mcus, frame.progressive, ss, se, ah, al)
+                if not done:
+                    raise _truncated("the data end inside a scan, where libjpeg's read-ahead "
+                                     "wants more")
+                single_done = not multi
+        else:
+            if not eoi_fill and multi:  # jpeg_start_decompress reads a multi-scan file to its EOI
+                raise _truncated("a multi-scan file without its EOI marker")
+    except (ValueError, IndexError, KeyError, struct.error):
+        # libtiff ignores what jpeg_finish_decompress refuses: once a single
+        # scan's last line is out, the markers after it cannot fail a strip
+        if not (eoi_fill and single_done):
+            raise
     if tables_only:
         return qtables, dc_luts, ac_luts, defs
     if frame is None:
         raise ValueError("corrupt JPEG data: no frame (SOF marker)")
-    if not scans and not eoi_fill:
+    if not scans:  # libjpeg's JERR_NO_IMAGE, as libtiff's jpeg_read_header meets it
         raise ValueError("corrupt JPEG data: no scan (SOS marker)")
     if frame.lossless and scans and len(frame.scanned) < len(comps):
         raise ValueError("lossless JPEG with a component no scan decoded (libjpeg-turbo "

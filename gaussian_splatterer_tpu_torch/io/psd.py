@@ -6,7 +6,7 @@ the merged image of the image-data section, which Pillow opens as the
 file's first frame whatever layers the file holds.
 
 Coverage: 8-bit grey, duotone and multichannel (read as grey), indexed,
-RGB and CMYK, and 1-bit bitmap; raw or PackBits (RLE) image data, with
+RGB, CMYK and LAB, and 1-bit bitmap; raw or PackBits (RLE) image data, with
 its per-row byte counts.  The PackBits rows run in C++ (native/src/
 codecs.cpp) when the native library is built; ``packbits_rows_python`` is
 their plain twin.
@@ -19,6 +19,9 @@ Pillow's reading is kept with its quirks:
   * CMYK channels are stored inverted and convert to RGB as Pillow's
     ``cmyk2rgb`` (io/jpeg.py's ``cmyk_to_rgb``);
   * a bitmap pixel of 1 reads as white;
+  * LAB converts through io/lab.py (littleCMS's transform, the stored
+    channels as it is handed them) and reads alpha 0: the fourth byte of
+    Pillow's pixel, which its band unpackers leave unset;
   * an indexed image reads its colours from a 768-byte colour-mode section
     (256 reds, then greens, then blues); without one every pixel is black;
   * the per-row byte counts only place each channel's data: the PackBits
@@ -29,9 +32,7 @@ Where Pillow refuses a file this module raises ValueError naming PSD:
 fewer channels than the mode needs, image data compressed other than raw
 or PackBits (ZIP; Pillow makes no tile of it and cannot load the image),
 image data that ends early, a file
-above Pillow's pixel limit, and LAB, which Pillow converts through
-littleCMS (``ImageCms``), whose interpolated 8-bit transform the port
-does not reproduce.  A version other than 1, 16- and 32-bit channels and
+above Pillow's pixel limit.  A version other than 1, 16- and 32-bit channels and
 any mode Pillow lacks turn the file away (``NotThisFormat``): Pillow then
 tries its other plugins, and no other takes a PSD.
 """
@@ -45,6 +46,7 @@ import numpy as np
 
 from gaussian_splatterer_tpu_torch import native
 from gaussian_splatterer_tpu_torch.io.jpeg import cmyk_to_rgb
+from gaussian_splatterer_tpu_torch.io.lab import lab_to_rgb
 from gaussian_splatterer_tpu_torch.io.pillow_open import check_size, falls_through
 
 SIGNATURE = b"8BPS"
@@ -121,8 +123,6 @@ def opens(blob: bytes) -> dict:
     its next plugin, ValueError where it refuses the file."""
     head = falls_through(_open, blob)
     check_size("PSD", head["w"], head["h"])
-    if head["mode"] == "LAB":
-        raise ValueError("unsupported PSD (LAB: Pillow converts it through littleCMS)")
     return head
 
 
@@ -195,6 +195,10 @@ def decode_psd(blob: bytes) -> np.ndarray:
         rgba = table[planes[0]]
     elif mode == "CMYK":
         rgba[..., :3] = cmyk_to_rgb(planes[:4], ycck=False)
+    elif mode == "LAB":  # the stored channels, through littleCMS's transform; alpha is
+        # the fourth byte of Pillow's pixel, which its band unpackers leave 0
+        rgba[..., :3] = lab_to_rgb(np.stack(planes[:3], axis=-1))
+        rgba[..., 3] = 0
     else:
         for c, plane in enumerate(planes):
             rgba[..., c] = plane

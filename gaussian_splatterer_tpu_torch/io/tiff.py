@@ -20,8 +20,10 @@ grey and alpha at 8; signed 8-bit; 12-bit, little-endian only; signed
 floating point), 2 (RGB at 8 and 16 bits with ``ExtraSamples`` 0, 1 or 2,
 or none), 3 (palette at 1, 2, 4 and 8 bits, and an 8-bit palette index with
 an unused or an alpha sample), 5 (CMYK at 8 bits, with up to two unused
-samples) and 6 (YCbCr: through libjpeg's YCbCr -> RGB in a JPEG file, read
-raw as Pillow reads it when uncompressed).
+samples), 6 (YCbCr: through libjpeg's YCbCr -> RGB in a JPEG file, read
+raw as Pillow reads it when uncompressed, and through libtiff's RGBA
+interface under LZW, Deflate, PackBits or LZMA, io/tiff_rgba.py) and 8
+(CIELab at 8 bits, through io/lab.py's littleCMS transform).
 
 Pillow's conversion is kept with its quirks:
 
@@ -72,14 +74,39 @@ Pillow's conversion is kept with its quirks:
     inverted;
   * a compressed file with ``PlanarConfiguration`` 2 loses the alpha plane
     of grey or palette with alpha (alpha 0), and un-premultiplies RGB by a
-    fourth plane that ``ExtraSamples`` does not name.
+    fourth plane that ``ExtraSamples`` does not name;
+  * CIELab's a* and b* are stored signed and Pillow's LAB unpacker flips
+    their sign bit, and sets alpha 255; in ``PlanarConfiguration`` 2 its
+    band unpackers copy the planes as stored and leave alpha 0;
+  * compressed YCbCr is libtiff's RGBA conversion (io/tiff_rgba.py): each
+    strip, or row of tiles, read into a buffer libtiff zeroes, a strip it
+    cannot read or decode reads as what its codec wrote, then zeros; where
+    Pillow's mode has one sample its unpacker takes the first bytes of each
+    row of libtiff's RGBA raster;
+  * a compressed file's layout is libtiff's reading of the directory
+    (``_Libtiff``): the first entry of a tag, the strip and tile arrays
+    read up to the image's count and padded with zeros, byte counts
+    estimated where they are missing, ``YCbCrSubsampling`` from the first
+    JPEG strip's SOF where the tag cannot be fetched, and refused where
+    libtiff refuses a tag (the dimensions, SamplesPerPixel, Compression,
+    PlanarConfiguration, RowsPerStrip, ExtraSamples, BitsPerSample,
+    SampleFormat) or Pillow's decoder finds libtiff's strips wider than
+    its mode;
+  * a JPEG strip's markers after its scan cannot fail it (libtiff ignores
+    ``jpeg_finish_decompress``'s result); a stream smaller than its strip
+    or tile is read where it covers the image, and refused where it does
+    not (fault C-9: Pillow shows its buffer's earlier, uninitialised
+    bytes there).
 
 Where Pillow or libtiff refuses a file, and for the variants not listed
 above, this module raises ValueError naming TIFF and the variant:
 old-style JPEG, Zstandard, WebP, LogLuv and the other compressions, YCbCr
-with a compression other than JPEG or none, CIELab and the other
-photometric interpretations, the layouts ``OPEN_INFO`` lacks (big-endian
-12-bit and unsigned 32-bit grey, float RGB, ...), predictor 3 on integer
+subsamplings libtiff's RGBA interface has no routine for, ICCLab, ITULab
+and the other photometric interpretations, the layouts ``OPEN_INFO`` lacks
+(big-endian 12-bit and unsigned 32-bit grey, float RGB, 16-bit LAB, ...),
+planar strips with unused samples (Pillow's decoder refuses them) and
+planar palette tiles with one (Pillow's PX unpacker reads two bytes a
+pixel from the one-byte plane, past libtiff's tile buffer), predictor 3 on integer
 samples, predictor 2 below 8 bits or at 12, a JPEG stream whose size,
 components or sampling factors libtiff refuses, 12-bit JPEG, old-style LZW,
 data that ends early.
@@ -93,10 +120,11 @@ import zlib
 
 import numpy as np
 
-from gaussian_splatterer_tpu_torch.io import xz
+from gaussian_splatterer_tpu_torch.io import tiff_rgba, xz
 from gaussian_splatterer_tpu_torch.io.bmp import raw_rows, unpack_bits
 from gaussian_splatterer_tpu_torch.io.ccitt import FaxState, decode_fax
 from gaussian_splatterer_tpu_torch.io.jpeg import cmyk_to_rgb, decode_jpeg_stream
+from gaussian_splatterer_tpu_torch.io.lab import lab_to_rgb
 from gaussian_splatterer_tpu_torch.io.lzw import OK, decode_lzw
 from gaussian_splatterer_tpu_torch.io.pillow_open import check_size
 
@@ -109,6 +137,7 @@ _READ = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925)
 # bytes), SSHORT, SLONG, IFD, LONG8, SLONG8, IFD8
 _TYPE_CODE = {1: "B", 3: "H", 4: "I", 6: "b", 7: "B", 8: "h", 9: "i", 13: "I", 16: "Q",
               17: "q", 18: "Q"}
+_AB = np.array([0, 1, 1], np.uint8)  # the a* and b* samples of a CIELab pixel
 _REVERSED = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)], np.uint8)
 
 
@@ -131,6 +160,7 @@ def _modes() -> dict:
     both[(1, (1,), 1, (8, 8), (2,))] = ("LA", "LA")
     both[(6, (1,), 1, (8,), ())] = ("L", "L")
     both[(6, (1,), 1, (8, 8, 8), ())] = ("RGB", "RGBX")
+    both[(8, (1,), 1, (8, 8, 8), ())] = ("LAB", "LAB")
     both[(2, (1,), 2, (8, 8, 8), ())] = ("RGB", "RGB;R")
     for b in (1, 2, 4, 8):
         both[(3, (1,), 1, (b,), ())] = ("P", "P" if b == 8 else f"P;{b}")
@@ -218,22 +248,244 @@ def _ifd(blob: bytes, e: str, pos: int, bigtiff: bool, skip: bool = False) -> di
     return tags
 
 
-def _packbits(data: bytes, size: int) -> bytes:
-    out, pos = bytearray(), 0
-    while len(out) < size:
+# the integer types libtiff's TIFFReadDirEntry* take for an integer tag:
+# BYTE, SHORT, LONG, SBYTE, SSHORT, SLONG, LONG8, SLONG8
+_LIBTIFF_INT = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q", 17: "q"}
+_U16, _U32 = 0xFFFF, 0xFFFFFFFF
+
+
+class _Libtiff:
+    """IFD 0 as libtiff 4.7's TIFFReadDirectory reads it for a compressed
+    file (Pillow hands those to libtiff): each tag's first entry; the tags
+    it fetches without recovery (SamplesPerPixel, Compression, the
+    dimensions, PlanarConfiguration, RowsPerStrip, ExtraSamples,
+    BitsPerSample, SampleFormat, Min/MaxSampleValue), whose wrong type,
+    count or value refuses the file; the strip or tile offsets and byte
+    counts read up to the number the image has and padded with zeros
+    (TIFFFetchStripThing), the byte counts estimated where they are
+    missing from a one-strip image (EstimateStripByteCounts)."""
+
+    def __init__(self, blob: bytes, e: str, pos: int, bigtiff: bool):
+        self.blob, self.e, self.bigtiff = blob, e, bigtiff
+        count_fmt, entry = ("Q", 20) if bigtiff else ("H", 12)
+        head = struct.calcsize(count_fmt)
+        n = struct.unpack_from(e + count_fmt, blob, pos)[0]
+        self.kinds = []  # every entry's type, for the estimate of byte counts
+        self.ents = {}  # tag -> (type, count, position of the value field, entry index)
+        for i in range(n):
+            at = pos + head + entry * i
+            tag, kind = struct.unpack_from(e + "HH", blob, at)
+            count = struct.unpack_from(e + ("Q" if bigtiff else "I"), blob, at + 4)[0]
+            self.kinds.append((kind, count))
+            self.ents.setdefault(tag, (kind, count, at + entry - (8 if bigtiff else 4), i))
+        self.spp = self.one(277, _U16, 1)
+        if self.spp == 0:
+            raise ValueError("TIFF with SamplesPerPixel 0 (libtiff refuses it)")
+        self.per_sample(259)
+        for tag in (256, 257, 32997, 322, 323, 32998):
+            self.one(tag, _U32)
+        if self.one(284, _U16, 1) not in (1, 2):
+            raise ValueError("TIFF with a PlanarConfiguration libtiff refuses")
+        if self.one(278, _U32) == 0:
+            raise ValueError("TIFF with RowsPerStrip 0 (libtiff refuses it)")
+        if 338 in self.ents:
+            extra = self.values(338)
+            if len(extra) > self.spp or any(v > 2 for v in extra):
+                raise ValueError("TIFF with ExtraSamples libtiff refuses")
+        for tag in (258, 339, 280, 281):
+            v = self.per_sample(tag)
+            if tag == 339 and v is not None and not 1 <= v <= 6:
+                raise ValueError(f"TIFF with SampleFormat {v} (libtiff refuses it)")
+            if tag == 258:
+                self.bits = 1 if v is None else v
+
+    def values(self, tag: int, limit: int | None = None) -> tuple:
+        """The tag's values as TIFFReadDirEntry*Array reads them (at most
+        ``limit``); ValueError where the read fails."""
+        kind, count, at, _ = self.ents[tag]
+        if kind not in _LIBTIFF_INT:
+            raise ValueError(f"TIFF tag {tag} of type {kind} (libtiff: incompatible type)")
+        size = _TYPE_SIZE[kind]
+        n = count if limit is None else min(count, limit)
+        if size * count > (8 if self.bigtiff else 4):
+            at = struct.unpack_from(self.e + ("Q" if self.bigtiff else "I"), self.blob, at)[0]
+        if at + size * n > len(self.blob):
+            raise ValueError(f"TIFF tag {tag}'s values past the end of the file (libtiff "
+                             "cannot read them)")
+        v = struct.unpack_from(f"{self.e}{n}{_LIBTIFF_INT[kind]}", self.blob, at)
+        if any(x < 0 for x in v):
+            raise ValueError(f"TIFF tag {tag} with a negative value (libtiff refuses it)")
+        return v
+
+    def one(self, tag: int, top: int, default=None):
+        """A tag of one value (TIFFReadDirEntryShort or Long)."""
+        if tag not in self.ents:
+            return default
+        if self.ents[tag][1] != 1:
+            raise ValueError(f"TIFF tag {tag} of {self.ents[tag][1]} values (libtiff refuses "
+                             "it)")
+        (v,) = self.values(tag)
+        if v > top:
+            raise ValueError(f"TIFF tag {tag} of value {v} (libtiff refuses it)")
+        return v
+
+    def per_sample(self, tag: int):
+        """A tag of one value, or of one a sample, all the same."""
+        if tag not in self.ents or self.ents[tag][1] == 1:
+            return self.one(tag, _U16)
+        if self.ents[tag][1] < self.spp:
+            raise ValueError(f"TIFF tag {tag} of fewer values than samples (libtiff refuses "
+                             "it)")
+        v = self.values(tag)
+        if max(v) > _U16 or len(set(v[:self.spp])) > 1:
+            raise ValueError(f"TIFF tag {tag} of different values a sample (libtiff cannot "
+                             "handle them)")
+        return v[0]
+
+    def strips(self, n: int, tiled: bool, planar: int) -> tuple[list, list]:
+        """(offsets, byte counts) of the image's ``n`` strips or tiles."""
+        def last(*tags):  # StripOffsets and TileOffsets fill one slot: the later entry's
+            got = [t for t in tags if t in self.ents]
+            return max(got, key=lambda t: self.ents[t][3]) if got else None
+
+        def read(tag):
+            v = list(self.values(tag, n))
+            return v + [0] * (n - len(v))
+
+        offsets_tag, counts_tag = last(273, 324), last(279, 325)
+        if offsets_tag is None:
+            raise ValueError("TIFF without strip or tile offsets (unknown data organization)")
+        offsets = read(offsets_tag)
+        if counts_tag is None:
+            if (planar == 1 and n > 1) or (planar == 2 and n != self.spp):
+                raise ValueError("TIFF without the byte counts of its strips or tiles")
+            return offsets, self._estimate(offsets, planar)
+        counts = read(counts_tag)
+        if n == 1 and not tiled and offsets[0] and not counts[0]:
+            counts = self._estimate(offsets, planar)
+        return offsets, counts
+
+    def _estimate(self, offsets: list, planar: int) -> list:
+        """EstimateStripByteCounts of a compressed file: the file's bytes
+        less the header, the directory and the values it points to, and the
+        last strip cut at the end of the file."""
+        space = (16 + 8 + 20 * len(self.kinds) + 8 if self.bigtiff else
+                 8 + 2 + 12 * len(self.kinds) + 4)
+        for kind, count in self.kinds:
+            if kind not in _TYPE_SIZE:
+                raise ValueError(f"TIFF entry of unknown type {kind} (libtiff cannot size it)")
+            size = _TYPE_SIZE[kind] * count
+            space += size if size > (8 if self.bigtiff else 4) else 0
+        size = len(self.blob)
+        space = size if size < space else size - space
+        if planar == 2:
+            space //= self.spp
+        counts = [space] * len(offsets)
+        if offsets[-1] + counts[-1] > size:
+            counts[-1] = 0 if offsets[-1] >= size else size - offsets[-1]
+        return counts
+
+    def floats(self, tag: int, n: int, default: tuple) -> tuple:
+        """A float tag of ``n`` values (YCbCrCoefficients,
+        ReferenceBlackWhite) as TIFFReadDirEntryFloatArray reads it: a
+        RATIONAL as float numerator over float denominator (0 where that
+        is 0); ``default`` where the tag is absent or libtiff passes it
+        over."""
+        if tag not in self.ents or self.ents[tag][1] != n:
+            return default
+        kind, count, at, _ = self.ents[tag]
+        codes = {**_LIBTIFF_INT, 5: "I", 10: "i", 11: "f", 12: "d"}
+        if kind not in codes:
+            return default
+        size = _TYPE_SIZE[kind]
+        if size * count > (8 if self.bigtiff else 4):
+            at = struct.unpack_from(self.e + ("Q" if self.bigtiff else "I"), self.blob, at)[0]
+        k = 2 * n if kind in (5, 10) else n
+        if at + size * n > len(self.blob):
+            return default
+        v = np.array(struct.unpack_from(f"{self.e}{k}{codes[kind]}", self.blob, at), np.float64)
+        if kind in (5, 10):
+            num, den = v[0::2].astype(np.float32), v[1::2].astype(np.float32)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                v = np.where(den == 0, np.float32(0), num / np.where(den == 0, 1, den))
+        return tuple(float(np.float32(x)) for x in v)
+
+    def ycbcr_subsampling(self, jpeg: bool, offsets: list, counts: list) -> tuple:
+        """YCbCrSubsampling as libtiff holds it: the tag where it fetches it
+        (two values), else for JPEG the first strip's SOF factors
+        (JPEGFixupTagsSubsampling), else (2, 2)."""
+        if 530 in self.ents and self.ents[530][1] == 2:
+            try:
+                v = self.values(530)
+                if max(v) <= _U16:
+                    return v
+            except ValueError:
+                pass
+        if jpeg and offsets:
+            got = _sof_sampling(self.blob[offsets[0]:offsets[0] + counts[0]], self.spp)
+            if got:
+                return got
+        return (2, 2)
+
+
+def _sof_sampling(data: bytes, spp: int):
+    """JPEGFixupTagsSubsamplingSec: the luma sampling factors of the first
+    SOF in a strip's bytes, where its other components are 1x1 and the
+    factors are 1, 2 or 4; None where it finds none."""
+    pos = 0
+    while True:
+        while pos < len(data) and data[pos] != 0xFF:
+            pos += 1
+        while pos < len(data) and data[pos] == 0xFF:
+            pos += 1
         if pos >= len(data):
-            raise ValueError("TIFF PackBits data ends early (truncated file)")
+            return None
+        m = data[pos]
+        pos += 1
+        if m == 0xD8:
+            continue
+        if m in (0xFE, 0xDB, 0xDA, 0xC4, 0xDD) or 0xE0 <= m <= 0xEF:
+            if pos + 2 > len(data):
+                return None
+            n = data[pos] << 8 | data[pos + 1]
+            if n < 2:
+                return None
+            pos += n
+            continue
+        if m not in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+            return None
+        if pos + 2 > len(data) or (data[pos] << 8 | data[pos + 1]) != 8 + 3 * spp:
+            return None
+        at = pos + 9
+        if at >= len(data):
+            return None
+        ph, pv = data[at] >> 4, data[at] & 15
+        for o in range(1, spp):
+            if at + 3 * o >= len(data):
+                return None
+            if data[at + 3 * o] != 0x11:
+                return None
+        if ph not in (1, 2, 4) or pv not in (1, 2, 4):
+            return None
+        return ph, pv
+
+
+def _packbits(data: bytes, size: int, partial: bool = False) -> bytes:
+    """``size`` bytes of PackBits; with ``partial`` the bytes before the
+    data end, else ValueError there."""
+    out, pos = bytearray(), 0
+    while len(out) < size and pos < len(data):
         n = data[pos]
         if n < 128:
             out += data[pos + 1:pos + 2 + n]
             pos += 2 + n
-        elif n > 128:
-            if pos + 1 >= len(data):
-                raise ValueError("TIFF PackBits data ends early (truncated file)")
+        elif n > 128 and pos + 1 < len(data):
             out += data[pos + 1:pos + 2] * (257 - n)
             pos += 2
         else:
             pos += 1
+    if len(out) < size and not partial:
+        raise ValueError("TIFF PackBits data ends early (truncated file)")
     return bytes(out[:size])
 
 
@@ -278,12 +530,14 @@ def _inflate(data: bytes, comp: int, size: int) -> np.ndarray:
 
 def _jpeg_chunk(data: bytes, tables: bytes, photo: int, spp: int, sub: tuple,
                 seg: tuple, last_strip: bool, state: dict) -> np.ndarray:
-    """One JPEG strip or tile -> (rows, columns, spp) uint8, after libtiff's
-    JPEGPreDecode checks of its size, components and sampling factors."""
+    """One JPEG strip or tile -> ((rows, columns, spp) uint8, the rows and
+    columns the stream wrote), after libtiff's JPEGPreDecode checks of its
+    size, components and sampling factors: a stream smaller than its strip
+    or tile only warns, and leaves the rest of libtiff's buffer as it was."""
     out, factors = decode_jpeg_stream(data, tables, ycc=photo == 6, state=state)
     sh, sw = out.shape[:2]
     gw, gh = seg
-    if sw != gw or sh < gh or (sh > gh and not last_strip):
+    if sw > gw or (sh > gh and not (last_strip and sw == gw)):
         raise ValueError(f"unsupported TIFF (a JPEG stream of {sw}x{sh} for a strip or tile "
                          f"of {gw}x{gh})")
     if out.shape[2] != spp:
@@ -292,7 +546,9 @@ def _jpeg_chunk(data: bytes, tables: bytes, photo: int, spp: int, sub: tuple,
     if factors[0] != sub or any(f != (1, 1) for f in factors[1:]):
         raise ValueError(f"unsupported TIFF (JPEG sampling factors {factors} where "
                          f"YCbCrSubsampling is {sub})")
-    return out[:gh]
+    rows = np.zeros((gh, gw, spp), np.uint8)
+    rows[:min(sh, gh), :sw] = out[:gh]
+    return rows, (min(sh, gh), sw)
 
 
 def _predict_float(rows: np.ndarray, stride: int) -> np.ndarray:
@@ -346,7 +602,7 @@ def decode_tiff(blob: bytes) -> np.ndarray:
     # directory; Pillow's decides the mode
     layout = tags if comp == 1 else {**tags, **{
         k: v for k, v in _ifd(blob, e, ifd_at, bigtiff, skip=True).items()
-        if k in (273, 278, 279, 292, 317, 322, 323, 324, 325, 347, 530)}}
+        if k in (292, 317, 347)}}
 
     def lay(tag, default=None):
         v = layout.get(tag, default)
@@ -363,6 +619,7 @@ def decode_tiff(blob: bytes) -> np.ndarray:
                              "on the directory count)")
         if ifd_at + struct.calcsize(count_fmt) + entry * n > len(blob):
             raise ValueError("TIFF directory past the end of the file (libtiff cannot read it)")
+    lt = _Libtiff(blob, e, ifd_at, bigtiff) if comp != 1 else None
     if 256 not in tags or 257 not in tags:
         raise ValueError("TIFF without its dimensions")
     w, h = get(256), get(257)
@@ -370,7 +627,7 @@ def decode_tiff(blob: bytes) -> np.ndarray:
         raise ValueError("TIFF with invalid dimensions")
     check_size("TIFF", w, h)
     fill = get(266, 1)
-    orientation = get(274, 1)
+    orientation = tags.get(274, (1,))[0]  # Pillow keeps the first of several values
     fmt = tuple(tags.get(339, (1,)))
     if len(fmt) > 1 and fmt == (1,) * len(fmt):
         fmt = (1,)
@@ -395,10 +652,17 @@ def decode_tiff(blob: bytes) -> np.ndarray:
     # the bytes of a pixel as Pillow's raw mode reads them, for YCbCr's RGBX
     n_read = 4 if rawmode == "RGBX" and spp == 3 and comp == 1 else spp
     jpeg = comp == 7
-    if photo == 6 and spp == 3 and comp not in (1, 7):
-        raise ValueError(f"unsupported TIFF (YCbCr with compression "
-                         f"{_COMPRESSIONS.get(comp, comp)}, which Pillow reads through "
-                         f"libtiff's RGBA interface)")
+    # YCbCr under a coding other than JPEG or none: libtiff's RGBA interface
+    rgba = photo == 6 and comp not in (1, 7)
+    if rgba and (lt.spp != 3 or lt.bits != 8 or extra or kind not in ("RGB", "L")):
+        raise ValueError(f"unsupported TIFF (YCbCr of {lt.spp} samples of {lt.bits} bits "
+                         f"under compression {_COMPRESSIONS.get(comp, comp)}; libtiff's RGBA "
+                         "interface has no routine for it)")
+    if (lt is not None and not rgba and planar == 1
+            and lt.spp * lt.bits > sum(bps)):  # Pillow's libtiff decoder: TIFFStripSize
+        # over the rows its mode reads
+        raise ValueError(f"TIFF whose strips libtiff reads as {lt.spp} samples of {lt.bits} "
+                         f"bits, more than Pillow's mode {kind} reads (Pillow refuses it)")
     if jpeg:
         if bits != 8 or planar != 1 or (photo == 6 and spp != 3):
             raise ValueError(f"unsupported TIFF (JPEG with {bits}-bit samples, planar "
@@ -415,26 +679,33 @@ def decode_tiff(blob: bytes) -> np.ndarray:
             or (predictor == 3 and (fmt != (3,) or bits != 32))):
         raise ValueError(f"unsupported TIFF (predictor {predictor} at {bits} bits, sample "
                          f"format {fmt})")
-    if 273 not in layout and 324 not in layout:
-        raise ValueError("TIFF without strip or tile offsets (unknown data organization)")
-
-    tiled = 324 in layout
-    if tiled:
-        cw, ch = lay(322), lay(323)
-        offsets, counts = layout[324], layout.get(325, ())
+    if lt is not None:  # libtiff's layout
+        tiled = 322 in lt.ents or 323 in lt.ents
+        if tiled:
+            cw, ch = lt.one(322, _U32, 0), lt.one(323, _U32, 0)
+        else:
+            cw, ch = w, min(lt.one(278, _U32, _U32), h)
     else:
-        rows = lay(278, h)
-        if not isinstance(rows, int):  # several values: Pillow's strip setup fails
-            raise ValueError("TIFF with a RowsPerStrip of several values")
-        cw, ch = w, min(rows or h, h)
-        offsets, counts = layout.get(273, ()), layout.get(279, ())
+        if 273 not in layout and 324 not in layout:
+            raise ValueError("TIFF without strip or tile offsets (unknown data organization)")
+        tiled = 324 in layout
+        if tiled:
+            cw, ch = lay(322), lay(323)
+            offsets, counts = layout[324], layout.get(325, ())
+        else:
+            rows = lay(278, h)
+            if not isinstance(rows, int):  # several values: Pillow's strip setup fails
+                raise ValueError("TIFF with a RowsPerStrip of several values")
+            cw, ch = w, min(rows or h, h)
+            offsets, counts = layout.get(273, ()), layout.get(279, ())
     if not cw or not ch or not isinstance(cw, int) or not isinstance(ch, int):
         raise ValueError("TIFF strips or tiles of no size")
     planes = spp if planar == 2 else 1
     across, down = -(-w // cw), -(-h // ch)
     per_plane = across * down
-    if ((len(offsets) < planes * per_plane and (comp != 1 or planar == 2))
-            or (comp != 1 and len(counts) < len(offsets))):
+    if lt is not None:
+        offsets, counts = lt.strips(planes * per_plane, tiled, planar)
+    elif len(offsets) < planes * per_plane and planar == 2:
         raise ValueError("TIFF with fewer strip or tile offsets than its image needs")
     reverse = fill == 2
     if comp == 1 and planar == 2:
@@ -453,13 +724,31 @@ def decode_tiff(blob: bytes) -> np.ndarray:
             rawmode = "I;32S" if letter == "I" else "F;32F"
         else:
             kind = kind.rstrip("I")
-    elif planar == 2 and "X" in rawmode and (not tiled or kind == "P"):
+    elif planar == 2 and "X" in rawmode and (not tiled or kind == "P") and not rgba:
+        # strips: Pillow's libtiff decoder refuses them; palette tiles: its PX
+        # unpacker reads two bytes a pixel from the one-byte plane, so the
+        # lower half of a tile comes from past libtiff's tile buffer
         raise ValueError(f"unsupported TIFF ({'tiles' if tiled else 'strips'} in planar "
                          f"configuration 2 with unused samples, Pillow's raw mode {rawmode})")
     elif planar == 2 and photo == 2 and not extra and spp == 4:
         kind = "RGBa"  # libtiff's reading of an unlabelled fourth plane
     tables = bytes(layout.get(347, ()))
-    sub = tuple(layout.get(530, (2, 2)))[:2] if photo == 6 else (1, 1)
+    sub = (1, 1)
+    if photo == 6:
+        sub = (lt.ycbcr_subsampling(jpeg, offsets, counts) if lt is not None else
+               tuple(layout.get(530, (2, 2)))[:2])
+        if (lt is not None and spp == 3 and planar == 1
+                and not {*sub} <= {1, 2, 4}):  # TIFFScanlineSize64's check
+            raise ValueError(f"TIFF with YCbCrSubsampling {sub} (libtiff refuses it)")
+    if rgba:
+        rgba_px = np.full((h, w, 4), 255, np.uint8)
+        rgba_px[..., :3] = _ycbcr_rgba(blob, comp, fill, predictor, planar, sub, lt, (w, h),
+                                       (tiled, cw, ch, across, down), offsets, counts)
+        if kind == "L":  # Pillow's mode of one sample: its L unpacker takes the first
+            # w bytes of each row of libtiff's RGBA raster
+            rgba_px[..., :3] = rgba_px.reshape(h, 4 * w)[:, :w, None]
+            rgba_px[..., 3] = 255
+        return _orient_rgba(rgba_px, orientation)
     fax_state = FaxState(cw, comp, lay(292, 0) or 0) if fax else None
     jpeg_state: dict = {}  # the tables libtiff's one decompressor keeps across strips
     # (index of the strip or tile in the file's list, its region): libtiff
@@ -492,6 +781,8 @@ def decode_tiff(blob: bytes) -> np.ndarray:
             if reverse:
                 rows = _REVERSED[rows]
         else:
+            if not counts[i]:
+                raise ValueError("TIFF strip or tile of 0 bytes (libtiff refuses it)")
             if len(blob) < off + counts[i]:
                 raise ValueError("TIFF strip or tile past the end of the file "
                                  "(truncated file)")
@@ -500,8 +791,13 @@ def decode_tiff(blob: bytes) -> np.ndarray:
                 # the data as stored (the fax decoder honours the fill order itself)
                 data = _REVERSED[np.frombuffer(data, np.uint8)].tobytes()
             if jpeg:
-                rows = _jpeg_chunk(data, tables, photo, spp, sub, (cw, rh), not tiled
-                                   and y + ch >= h, jpeg_state).reshape(rh, row)
+                rows, (dh, dw) = _jpeg_chunk(data, tables, photo, spp, sub, (cw, rh),
+                                             not tiled and y + ch >= h, jpeg_state)
+                if dh < min(rh, h - y) or dw < min(cw, w - x):
+                    raise ValueError(f"TIFF JPEG stream of {dw}x{dh} in strip or tile {i} of "
+                                     f"{cw}x{rh}: Pillow shows bytes of libtiff's buffer "
+                                     "that no decoder wrote (fault C-9)")
+                rows = rows.reshape(rh, row)
             elif fax:
                 rows = decode_fax(data, fax_state, rh, reverse)
             else:
@@ -520,6 +816,8 @@ def decode_tiff(blob: bytes) -> np.ndarray:
         # reads it big-endian
         k = bits // 8
         s = sum(((s >> (8 * j)) & 0xFF) << (8 * (k - 1 - j)) for j in range(k))
+    if kind == "LAB" and planar == 2:  # Pillow's band unpackers "L", "A", "B"
+        rawmode = "L"
     rgba = _convert(s[..., :spp] if n_read != spp else s, kind, bits, rawmode, tags)
     if planar == 2 and comp != 1 and kind in ("LA", "PA"):
         rgba[..., 3] = 0
@@ -527,8 +825,114 @@ def decode_tiff(blob: bytes) -> np.ndarray:
         # the rest is Pillow's new image, zero in its mode
         rgba[~covered] = (_convert(np.zeros((1, 1, s.shape[2]), np.int64), kind, bits, rawmode,
                                    tags)[0, 0] if kind in ("P", "PA") else
+                          (*lab_to_rgb(np.zeros((1, 3), np.uint8))[0], 0) if kind == "LAB" else
                           (255, 255, 255, 255) if kind == "CMYK" else
                           (0, 0, 0, 0) if kind in ("RGBA", "RGBa", "LA") else (0, 0, 0, 255))
+    if orientation in _TRANSPOSES:
+        rgba = np.ascontiguousarray(_TRANSPOSES[orientation](rgba))
+    return rgba
+
+
+def _inflate_partial(data: bytes, comp: int, size: int) -> np.ndarray:
+    """One strip or tile as libtiff's codec writes it into the buffer: at
+    most ``size`` bytes of LZW, PackBits, Deflate or LZMA, where the data
+    are damaged the bytes it wrote before its error (libtiff zeroes the
+    rest).  libtiff's LZW table starts below its first entry, so a first
+    code other than Clear fails before any output."""
+    if comp == 5:
+        if len(data) >= 2 and data[0] == 0 and data[1] & 1:
+            raise ValueError("unsupported TIFF (old-style LZW)")
+        if len(data) < 2 or (data[0] << 1 | data[1] >> 7) != 256:
+            return np.zeros(0, np.uint8)
+        return decode_lzw(data, 8, True, size)[0][:size]
+    if comp == 32773:
+        return np.frombuffer(_packbits(data, size, partial=True), np.uint8)
+    if comp == 34925:
+        return np.frombuffer(xz.decode_until_error(data, size), np.uint8)[:size]
+    d, out = zlib.decompressobj(), bytearray()
+    try:
+        out += d.decompress(data, size)
+    except zlib.error:  # the bytes inflate wrote before the error, fed a byte at a time
+        d, out = zlib.decompressobj(), bytearray()
+        try:
+            for i in range(len(data)):
+                out += d.decompress(data[i:i + 1], size - len(out))
+                if len(out) >= size:
+                    break
+        except zlib.error:
+            pass
+    return np.frombuffer(bytes(out[:size]), np.uint8)
+
+
+def _ycbcr_rgba(blob: bytes, comp: int, fill: int, predictor: int, planar: int, sub: tuple,
+                lt: _Libtiff, size: tuple, grid: tuple, offsets, counts) -> np.ndarray:
+    """A YCbCr TIFF under LZW, Deflate, PackBits or LZMA as Pillow reads it
+    through libtiff's TIFFRGBAImageGet -> (H, W, 3) uint8, before the
+    orientation: Pillow asks for a strip or a row of tiles at a time, and
+    libtiff reads each strip (the rows it asks for: whole blocks, at most
+    ``TIFFScanlineSize`` times their rows) or tile into a buffer it zeroes
+    at the first and reuses for the rest of the row (one a plane in planar
+    configuration 2, 1x1 only); io/tiff_rgba.py converts the blocks.  A
+    strip or tile libtiff cannot read fails the first read of a row and
+    reads as zeros after it; one whose data are damaged reads as what its
+    codec wrote before the error, then zeros, undifferenced
+    (``_inflate_partial``)."""
+    w, h = size
+    tiled, cw, ch, across, down = grid
+    if planar != 1 and sub != (1, 1):
+        raise ValueError(f"unsupported TIFF (YCbCr in planar configuration {planar} with "
+                         f"subsampling {sub}; libtiff's RGBA interface has no routine for it)")
+    if sub not in tiff_rgba.SUBSAMPLINGS:
+        raise ValueError(f"unsupported TIFF (YCbCr subsampling {sub}; libtiff's RGBA "
+                         "interface has no routine for it)")
+    tables = tiff_rgba.ycbcr_tables(lt.floats(529, 3, tiff_rgba.DEFAULT_COEFFICIENTS),
+                                    lt.floats(532, 6, tiff_rgba.DEFAULT_REFERENCE))
+    hs, vs = sub
+    planes = 3 if planar == 2 else 1
+    block = 1 if planes == 3 else hs * vs + 2
+    srs = -(-cw // hs) * block  # a row of blocks
+    # the predictor's rows (PredictorDecodeTile) and its step (horAcc8)
+    rowsize = (cw * (1 if planes == 3 else 3)) if tiled else srs // vs
+    step = 1 if planes == 3 else 3
+    out = np.zeros((h, w, 3), np.uint8)
+    bufs: list = []
+    for i in range(across * down):
+        ty, tx = divmod(i, across)
+        x, y = tx * cw, ty * ch
+        rows, cols = min(ch, h - y), min(cw, w - x)
+        want = (-(-ch // vs) * srs if tiled else
+                min(-(-rows // vs) * vs * (srs // vs), -(-rows // vs) * srs))
+        if tx == 0 or not tiled:  # Pillow's next TIFFRGBAImageGet: a strip, a row of tiles
+            bufs = []
+        for p in range(planes):
+            off, count = offsets[p * across * down + i], counts[p * across * down + i]
+            if not bufs and not (count and off + count <= len(blob)):  # TIFFFillStrip
+                raise ValueError("TIFF strip or tile libtiff cannot read (the first of one "
+                                 "of Pillow's RGBA reads)")
+            if not bufs:
+                bufs = [np.zeros(-(-ch // vs) * srs, np.uint8) for _ in range(planes)]
+            bufs[p][:want] = 0  # libtiff zeroes what it was asked for where it fails
+            if not (count and off + count <= len(blob)):
+                continue
+            data = blob[off:off + count]
+            if fill == 2:
+                data = _REVERSED[np.frombuffer(data, np.uint8)].tobytes()
+            got = _inflate_partial(data, comp, want)
+            if (got.size == want and predictor == 2 and comp != 32773
+                    and not (want % rowsize or rowsize % step)):
+                got = (got.reshape(-1, rowsize // step, step).astype(np.int64).cumsum(axis=1)
+                       & 0xFF).astype(np.uint8).reshape(-1)
+            bufs[p][:got.size] = got
+        if planes == 3:
+            ycc = [b[:rows * cw].reshape(rows, cw)[:, :cols] for b in bufs]
+            out[y:y + rows, x:x + cols] = tiff_rgba.ycbcr_to_rgb(*ycc, tables)
+        else:
+            out[y:y + rows, x:x + cols] = tiff_rgba.blocks_to_rgb(
+                bufs[0], rows, cols, tiff_rgba.row_bytes(cols, cw, sub), sub, tables)
+    return out
+
+
+def _orient_rgba(rgba: np.ndarray, orientation: int) -> np.ndarray:
     if orientation in _TRANSPOSES:
         rgba = np.ascontiguousarray(_TRANSPOSES[orientation](rgba))
     return rgba
@@ -575,6 +979,13 @@ def _convert(s: np.ndarray, kind: str, bits: int, rawmode: str, tags: dict) -> n
             rgba[..., 3] = s[..., 1]
     elif kind == "CMYK":
         rgba[..., :3] = cmyk_to_rgb([255 - s[..., c] for c in range(4)], ycck=False)
+    elif kind == "LAB":  # Pillow's LAB unpacker flips a* and b* to littleCMS's offset
+        # bytes and sets the pixel's fourth byte, which the conversion copies
+        # to alpha; a plane a band (planar configuration 2) is copied as
+        # stored and leaves that byte 0
+        contig = rawmode == "LAB"
+        rgba[..., :3] = lab_to_rgb(s[..., :3].astype(np.uint8) ^ np.uint8(128) * contig * _AB)
+        rgba[..., 3] = 255 if contig else 0
     else:
         rgba[..., :3] = v8[..., :3]
         if kind == "RGBA":

@@ -77,6 +77,11 @@ save_png quantises), and beside each its Pillow decode
     predictor, LZW in tiles of 64 (the writer);
   * mushroom256_ycbcr_raw.tif: uncompressed YCbCr of the texture, with the
     bytes Pillow's RGBX raw mode reads past the data (the writer);
+  * mushroom256_ycbcr420_lzw.tif, mushroom256_ycbcr422_tiles.tif,
+    mushroom256_cielab.tif and mushroom256_lab.psd: YCbCr 4:2:0 (LZW strips)
+    and 4:2:2 (Deflate tiles) in libtiff's subsampled layout, and the
+    texture's L*a*b* as a CIELab TIFF and a PackBits LAB PSD (the writers),
+    see ``lab_ycbcr``;
   * mushroom256_bc6h_uf16.dds and mushroom256_bc6h_sf16.dds: DX10 DDS of
     4,096 BC6H blocks each, seeded random bytes (every block is valid);
 
@@ -330,6 +335,24 @@ def tiff_codecs(rgba: np.ndarray) -> None:
         fh.write(tiff_bytes(ycc, 8, 6, pad=bytes(N * N)))
 
 
+def lab_ycbcr(rgba: np.ndarray) -> None:
+    """YCbCr TIFFs in libtiff's subsampled layout and LAB textures (the
+    writer; Pillow's TIFF writer cannot subsample and Pillow writes no LAB
+    file): LZW 4:2:0 strips of 16 rows, Deflate 4:2:2 tiles of 64, a
+    CIELab TIFF (LZW, a* and b* stored signed) and a PackBits LAB PSD of
+    the texture's L*a*b* (Pillow's conversion through littleCMS)."""
+    rgb = Image.fromarray(rgba[..., :3])
+    ycc = np.asarray(rgb.convert("YCbCr")).astype(np.int64)
+    _write("mushroom256_ycbcr420_lzw.tif", tiff_bytes(ycc, 8, 6, 5, ycbcr_subsampling=(2, 2),
+                                                      rows_per_strip=16))
+    _write("mushroom256_ycbcr422_tiles.tif", tiff_bytes(ycc, 8, 6, 8, ycbcr_subsampling=(2, 1),
+                                                        tile=(64, 64)))
+    lab = np.asarray(rgb.convert("LAB"))  # L*, a* + 128, b* + 128
+    _write("mushroom256_cielab.tif", tiff_bytes(lab.astype(np.int64) ^ np.array([0, 128, 128]),
+                                                8, 8, 5, rows_per_strip=32))
+    _write("mushroom256_lab.psd", psd_bytes(lab.transpose(2, 0, 1), 9, rle=True))
+
+
 def jpeg_codings(rgba: np.ndarray) -> None:
     """The JPEG codings Pillow reads and does not write (the writers):
     arithmetic-coded sequential 4:2:0 with a DAC segment and restarts,
@@ -390,7 +413,7 @@ def main() -> None:
     rgba = float_image_to_u8(mushroom_texture(n=N, spot_alpha=0.5))
     for write in (palette_trns, rgba16, adam7, map_rle, cmyk, bitfields, lzw_pred2, dxt1,
                   gif_trns, ppm, webp, qoi, sgi, pcx, ico, pfm, psd, cur, tiff_codecs, bc6h,
-                  pillow_readers, jpeg_codings):
+                  pillow_readers, jpeg_codings, lab_ycbcr):
         write(rgba)
     lzw_1024()
     tiff_1024()

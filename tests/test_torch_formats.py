@@ -128,6 +128,12 @@ BMP_CASES = {
     "os2_v2_header_64": _bmp(8, header=64),
     "dib_v5_24": _bmp(24, header=124, dib=True),
     "dib_pal4": _bmp(4, dib=True),
+    # a grey palette below 8 bits: Pillow maps the file and reads a row of W
+    # bytes at each narrow row's start; the bytes after the data hold the
+    # last row's rest
+    "grey4_palette_rows_overlap": lambda rng: bmp_bytes(
+        bmp_rows(_runs(rng, (H, W), 16), 4) + _runs(rng, (1, W), 256).astype(np.uint8).tobytes(),
+        W, H, 4, palette=b"".join(bytes([i, i, i, 0]) for i in range(16))),
 }
 
 
@@ -323,14 +329,6 @@ def _tiff_tags(tags, bits=8, photo=2, n=3, **kw):
     return lambda rng: tiff_bytes(np.zeros((4, 5, n), np.int64), bits, photo, tags=tags, **kw)
 
 
-def _pillow_file(mode, fmt, **save):
-    def make(rng):
-        out = io.BytesIO()
-        Image.new(mode, (8, 8)).save(out, format=fmt, **save)
-        return out.getvalue()
-    return make
-
-
 def _old_style_lzw(rng):
     """An LZW TIFF whose strip (at offset 8) starts as old-style LZW does."""
     blob = tiff_bytes(np.zeros((4, 5, 3), np.int64), 8, 2, compression=5)
@@ -358,8 +356,8 @@ REFUSED = {
                           True),
     "tiff_logluv": (_tiff_tags({259: (3, [34676])}), "TIFF \\(compression SGI LogLuv", True),
     "tiff_float": (_tiff_tags({339: (3, [3, 3, 3])}), "sample format \\(3, 3, 3\\)", True),
-    "tiff_ycbcr": (_pillow_file("YCbCr", "TIFF", compression="tiff_lzw"),
-                   "TIFF \\(YCbCr with compression LZW", False),
+    "tiff_ycbcr": (_tiff_tags({530: (3, [2, 4])}, photo=6, compression=5),
+                   "TIFF \\(YCbCr subsampling \\(2, 4\\)", True),
     "tiff_12_bit": (_tiff_tags({258: (3, [12])}, bits=8, photo=1, n=1, big_endian=True),
                     "bits per sample \\(12,\\)", True),
     "tiff_fill_order_2": (_tiff_tags({266: (3, [2])}, n=4, extra=(2,)), "fill order 2", True),
@@ -377,6 +375,11 @@ REFUSED = {
                         "GIF \\(LZW minimum code size 9", False),
     "gif_without_image": (lambda rng: b"GIF89a\x02\x00\x02\x00\x00\x00\x00;",
                           "GIF without an image", True),
+    "gif_grey_local_table_under_global_transparent": (
+        lambda rng: gif_bytes([dict(idx=_runs(rng, (H, W), 256), transparency=5,
+                                    palette=bytes(v for i in range(256) for v in (i, i, i)))],
+                              (W, H), rng.integers(0, 256, 768).astype(np.uint8).tobytes()),
+        "GIF \\(a grey local table under a global one", True),
     "pnm_pam": (lambda rng: b"P7\nWIDTH 2\nHEIGHT 2\nDEPTH 1\nMAXVAL 255\nENDHDR\n"
                 + bytes(4), "unknown texture format", True),
     "pnm_pfm": (lambda rng: b"Pf\n2 2\n0.0\n" + bytes(16), "PFM scale must be finite", True),

@@ -361,7 +361,7 @@ REFUSED = {  # name -> (bytes, message, the JAX package refuses it too)
     "psd_16_bit": (psd_bytes(np.zeros((3, 2, 2)), 3, 16), "unknown texture format", True),
     "psd_too_few_channels": (psd_bytes(np.zeros((2, 2, 2)), 3, channels=2), "channels", True),
     "psd_zip": (psd_bytes(np.zeros((3, 2, 2)), 3, compression=2), "PSD", True),
-    "psd_lab": (psd_bytes(np.zeros((3, 2, 2)), 9), "LAB", False),
+    "psd_lab": (psd_bytes(np.zeros((3, 2, 2)), 9, 16), "PSD: \\(9, 16\\)", True),
     "psd_truncated_rle": (psd_bytes(np.zeros((3, 4, 9)), 3, rle=True)[:-3], "PSD", True),
     "sgi_la": (sgi_bytes(np.zeros((2, 2, 2))), "SGI image mode", True),
     "sgi_compression_2": (sgi_bytes(np.zeros((2, 2, 3)), compression=2), "SGI", True),
@@ -381,8 +381,7 @@ REFUSED = {  # name -> (bytes, message, the JAX package refuses it too)
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_refused_variants_raise(tmp_path, name):
     """A variant the port does not read raises ValueError naming it; where
-    Pillow refuses it too, so does the JAX package.  LAB is the one the
-    port refuses and Pillow reads (through littleCMS)."""
+    Pillow refuses it too, so does the JAX package."""
     blob, match, jax_refuses = REFUSED[name]
     path = tmp_path / f"{name}.bin"
     path.write_bytes(blob)

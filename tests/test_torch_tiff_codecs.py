@@ -6,11 +6,12 @@ the port reads, the grey sample formats (signed 8-bit, 12-bit, signed
 16-bit, 32-bit integer and float), predictor 2 at 32 bits and 3, JPEG in
 strips and tiles at photometric 1, 2 and 6, raw YCbCr, LZMA and CCITT 2, 3
 and 4, each byte-equal on its writer cases and fixtures; the variants both
-refuse, and those Pillow reads and the port leaves to ROADMAP A-6b and
-A-6c; seeded mutants equal to Pillow or refused by both, but for fault C-5
-(CCITT data that ends early, where Pillow leaves rows uninitialised),
-counted; the CCITT loop in C++ equal to its Python twin and never crashing
-the process."""
+refuse, and those Pillow reads and the port leaves to ROADMAP A-6c or
+refuses on purpose; seeded mutants equal to Pillow or refused by both, but
+for faults C-5 (CCITT data that ends early, where Pillow leaves rows
+uninitialised) and C-9 (a JPEG stream smaller than its strip), counted,
+with 120 three-flip JPEG-in-TIFF mutants among them; the CCITT loop in C++
+equal to its Python twin and never crashing the process."""
 
 import io
 import lzma
@@ -236,6 +237,9 @@ CASES = {
     "jpeg_tables_kept_across_strips": lambda rng: tiff_bytes(
         _runs(rng, (H, W, 3)), 8, 6, compression=7, rows_per_strip=8,
         jpeg_encoder=_first_strip_tables()),
+    # Pillow keeps the first of an Orientation's several values
+    "orientation_of_two_values_jpeg": _tiff(8, 6, 3, compression=7, rows_per_strip=16,
+                                            tags={274: (3, [6, 1])}),
 }
 
 
@@ -288,10 +292,20 @@ REFUSED = {
                      True),
     "logluv": (_tiff(16, 32844, 3, tags={259: (3, [34676])}), "TIFF \\(compression SGI LogLuv",
                True),
-    "cielab": (_tiff(8, 8, 3), "TIFF \\(photometric 8", False),
-    "ycbcr_lzw_rgba_interface": (_pillow("YCbCr", compression="tiff_lzw"),
-                                 "YCbCr with compression LZW", False),
+    "cielab": (_tiff(8, 9, 3), "TIFF \\(photometric 9", True),
+    "ycbcr_lzw_rgba_interface": (_tiff(8, 6, 3, compression=5, ycbcr_subsampling=(1, 4)),
+                                 "YCbCr subsampling \\(1, 4\\)", True),
     "ycbcr_raw_truncated": (_tiff(8, 6, 3), "truncated", True),
+    # planar configuration 2 with an unused sample: Pillow's libtiff decoder
+    # refuses strips; its PX unpacker reads two bytes a pixel from a palette
+    # tile's one-byte plane, past libtiff's tile buffer in the tile's lower half
+    "planar2_strips_unused_sample": (_tiff(8, 2, 4, compression=5, planar=2, extra=[0],
+                                           rows_per_strip=8), "planar configuration 2 with "
+                                     "unused samples", True),
+    "planar2_palette_tiles_unused_sample": (
+        lambda rng: tiff_bytes(_runs(rng, (H, W, 2)), 8, 3, 8, planar=2, extra=[0],
+                               tile=(16, 16), colormap=rng.integers(0, 65536, 768).tolist()),
+        "tiles in planar configuration 2 with unused samples", False),
     "ycbcr_pillow_raw_truncated": (_pillow("YCbCr"), "truncated", True),
     "grey12_big_endian": (_tiff(12, 1, high=4096, big_endian=True), "bits per sample \\(12,",
                           True),
@@ -345,8 +359,7 @@ def _patch_long(blob: bytes, tag: int, value: int) -> bytes:
 def test_refused_variants(tmp_path, name):
     """The variants the port refuses with ValueError naming them: where
     Pillow refuses too, so does the JAX package; where it reads them
-    (Zstandard, CIELab, YCbCr through libtiff's RGBA interface), ROADMAP
-    A-6b and A-6c list them."""
+    (Zstandard), ROADMAP A-6c lists them."""
     make, match, jax_refuses = REFUSED[name]
     path = tmp_path / f"{name}.tif"
     path.write_bytes(make(_rng(name)))
@@ -433,9 +446,19 @@ def _mutant(rng, blob: bytes) -> bytes:
     return bytes(b)
 
 
+def _flips(rng, blob: bytes) -> bytes:
+    """Three seeded byte flips past the 8-byte header."""
+    b = bytearray(blob)
+    for _ in range(3):
+        b[rng.integers(8, len(b))] = rng.integers(0, 256)
+    return bytes(b)
+
+
 MUTANT_SOURCES = {
     "bigtiff": ("bigtiff_pillow_lzw", "bigtiff_tiles_deflate", "bigtiff_pillow_raw"),
     "jpeg": ("jpeg_pillow_ycbcr", "jpeg_ycbcr_420_tiles", "jpeg_rgb_tiles", "jpeg_pillow_grey"),
+    "jpeg_flips": ("jpeg_pillow_ycbcr", "jpeg_ycbcr_420_tiles", "jpeg_rgb_tiles",
+                   "jpeg_pillow_grey"),
     "ccitt": ("group4_pillow", "group3_2d_pillow", "ccitt_rle_pillow", "group3_pillow"),
     "lzma": ("lzma_pillow_rgb", "lzma_pred2_rgba_tiles"),
     "grey": ("float_pred3_lzw", "signed16_raw", "grey12_raw", "float_raw",
@@ -443,28 +466,37 @@ MUTANT_SOURCES = {
     "fill2": ("fill2_tiff_lzw", "fill2_group4", "fill2_raw"),
     "ycbcr": ("ycbcr_raw_padded", "ycbcr_raw_subsampled_padded"),
 }
+# (mutants, mutation) of a group other than the 60 mixed mutants
+MUTATIONS = {"jpeg_flips": (120, _flips)}
 # the mutants at these seeds that fall in a recorded fault (ROADMAP C): C-5,
-# CCITT data that ends early, where Pillow returns rows it never wrote; C-7
-# (fixed: none is left), the rest
-KNOWN = {"ccitt": {"C-5": 9}, "fill2": {"C-5": 2}}
+# CCITT data that ends early, where Pillow returns rows it never wrote; C-9,
+# a JPEG stream smaller than its strip or tile, where Pillow shows what
+# libtiff's buffer held before (uninitialised, or an earlier strip's bytes);
+# C-7 (fixed: none is left), the rest
+KNOWN = {"ccitt": {"C-5": 9}, "fill2": {"C-5": 2}, "jpeg_flips": {"C-9": 0}}
 
 
 @pytest.mark.parametrize("group", list(MUTANT_SOURCES))
 def test_mutants_agree_with_jax(tmp_path, group):
     """60 seeded mutants (truncations, byte flips, insertions) of the
-    group's writer cases: each is read to the JAX package's bytes or refused
-    by both (the port with ValueError), but for the recorded faults, whose
-    counts at this seed are held exactly."""
+    group's writer cases, or the group's own number and mutation
+    (``MUTATIONS``: 120 JPEG-in-TIFFs with three byte flips each, where
+    libtiff's handling of damaged JPEG strips and directories shows): each
+    is read to the JAX package's bytes or refused by both (the port with
+    ValueError), but for the recorded faults, whose counts at this seed are
+    held exactly."""
     rng = _rng(group)
     sources = [CASES[n](_rng(n)) for n in MUTANT_SOURCES[group]]
+    n, mutate = MUTATIONS.get(group, (60, _mutant))
     path = tmp_path / "m.tif"
-    faults = {}
-    for i in range(60):
-        path.write_bytes(_mutant(rng, sources[i % len(sources)]))
+    faults = {k: 0 for k in KNOWN.get(group, {})}
+    for i in range(n):
+        path.write_bytes(mutate(rng, sources[i % len(sources)]))
         want, got, why = _both(path)
         if (want is None) == (got is None) and (want is None or np.array_equal(got, want)):
             continue
-        fault = "C-5" if want is not None and "fault C-5" in why else "C-7"
+        fault = next((f for f in ("C-5", "C-9") if want is not None and f"fault {f}" in why),
+                     "C-7")
         faults[fault] = faults.get(fault, 0) + 1
     assert faults == KNOWN.get(group, {})
 

@@ -303,11 +303,35 @@ def jpeg_chunks(chunk: np.ndarray, photometric: int, quality: int = 90, subsampl
     return bytes(tables + b"\xff\xd9"), bytes(stream + blob[pos:])
 
 
+def ycbcr_blocks(s: np.ndarray, sub: tuple, predictor: int = 1) -> bytes:
+    """(h, w, 3) Y, Cb, Cr samples of one strip or tile -> libtiff's
+    subsampled layout: block rows of ``sub`` = (h, v) blocks, each its h x v
+    Y samples row by row, then the Cb and Cr of its top-left pixel; the
+    edge blocks filled by repeating the last row and column.  With
+    ``predictor`` 2, libtiff's horizontal differencing over rows of
+    TIFFScanlineSize bytes, 3 apart."""
+    hs, vs = sub
+    rows, cols = -(-s.shape[0] // vs) * vs, -(-s.shape[1] // hs) * hs
+    s = np.pad(s.astype(np.uint8), ((0, rows - s.shape[0]), (0, cols - s.shape[1]), (0, 0)),
+               mode="edge")
+    y = s[..., 0].reshape(rows // vs, vs, cols // hs, hs).transpose(0, 2, 1, 3)
+    blocks = np.concatenate([y.reshape(rows // vs, cols // hs, hs * vs),
+                             s[::vs, ::hs, 1:]], axis=-1)
+    raw = blocks.astype(np.int64).reshape(-1)
+    if predictor == 2:
+        row = (cols // hs) * (hs * vs + 2) // vs
+        r = raw.reshape(-1, row // 3, 3)
+        r[:, 1:] = (r[:, 1:] - r[:, :-1]) % 256
+        raw = r.reshape(-1)
+    return raw.astype(np.uint8).tobytes()
+
+
 def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, compression: int = 1,
                predictor: int = 1, planar: int = 1, tile=None, rows_per_strip=None,
                extra=None, colormap=None, big_endian: bool = False, tags=None,
                big_tiff: bool = False, fill_order: int = 1, sample_format: int = 1,
-               jpeg_subsampling: int = 0, pad: bytes = b"", jpeg_encoder=None) -> bytes:
+               jpeg_subsampling: int = 0, pad: bytes = b"", jpeg_encoder=None,
+               ycbcr_subsampling=None) -> bytes:
     """(H, W, S) samples -> a TIFF of one image: strips of
     ``rows_per_strip`` rows or ``tile`` (width, height) tiles (padded with
     zeros at the edges), planar configuration ``planar``, compression 1,
@@ -320,7 +344,12 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, compression: in
     the data; a BigTIFF where ``big_tiff``; ``tags`` overrides or adds IFD
     entries as {tag: (type, values)}, or drops one as {tag: None};
     ``jpeg_encoder`` (the (h, w, S) uint8 strip or tile -> a whole JPEG
-    stream) writes the JPEG strips instead of Pillow, without JPEGTables."""
+    stream) writes the JPEG strips instead of Pillow, without JPEGTables;
+    ``ycbcr_subsampling`` (h, v) writes Y, Cb, Cr samples in libtiff's
+    subsampled blocks (``ycbcr_blocks``) with their ``YCbCrSubsampling``.
+    CIELab (photometric 8) samples are written as given: L*, then a* and
+    b* as two's-complement bytes.  ``tags`` values of type 5 or 10
+    (RATIONAL) are numerator, denominator pairs."""
     if samples.dtype == np.float32:
         samples = samples.view(np.uint32)
     h, w, n_s = samples.shape
@@ -349,7 +378,8 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, compression: in
         encode = {1: lambda b: b, 5: lzw_bytes, 8: zlib.compress, 32946: zlib.compress,
                   32773: packbits_bytes,
                   34925: lambda b: lzma.compress(b, format=lzma.FORMAT_XZ)}[compression]
-        datas = [encode(_tiff_chunk(c, bits, big_endian, predictor)) for c in chunks]
+        datas = [encode(ycbcr_blocks(c, ycbcr_subsampling, predictor) if ycbcr_subsampling
+                        else _tiff_chunk(c, bits, big_endian, predictor)) for c in chunks]
     if fill_order == 2 and compression != 7:  # libtiff's JPEG codec ignores it
         datas = [d.translate(_REVERSED) for d in datas]
     e = ">" if big_endian else "<"
@@ -385,12 +415,14 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, compression: in
         entries[347] = (7, list(jpeg_tables))
     if compression == 7 and photometric == 6:
         entries[530] = (3, [[1, 1], [2, 1], [2, 2]][jpeg_subsampling])
+    if ycbcr_subsampling:
+        entries[530] = (3, list(ycbcr_subsampling))
     for tag, entry in (tags or {}).items():  # None drops the tag
         if entry is None:
             entries.pop(tag, None)
         else:
             entries[tag] = entry
-    code = {1: "B", 2: "B", 3: "H", 4: "I", 7: "B", 8: "h", 9: "i", 16: "Q"}
+    code = {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 7: "B", 8: "h", 9: "i", 10: "i", 16: "Q"}
     field, entry_fmt = (8, "HHQ") if big_tiff else (4, "HHI")
     ifd_at = len(body)
     ifd = bytearray(struct.pack(e + ("Q" if big_tiff else "H"), len(entries)))
@@ -404,7 +436,8 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, compression: in
         else:
             value = struct.pack(e + ("Q" if big_tiff else "I"), tail_at + len(tail))
             tail += raw + bytes(len(raw) % 2)
-        ifd += struct.pack(e + entry_fmt, tag, kind, len(values)) + value
+        count = len(values) // 2 if kind in (5, 10) else len(values)
+        ifd += struct.pack(e + entry_fmt, tag, kind, count) + value
     ifd += bytes(field)
     if big_tiff:
         body[8:16] = struct.pack(e + "Q", ifd_at)
