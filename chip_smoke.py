@@ -146,17 +146,17 @@ Phases:
      --mode rtx, as phase 10; times:
      the 32-sample 1024^2 capture frame at rig camera 0 through K9, its
      busy share and K9's launches by size, the same frame through the brute
-     force (K5, accel_min 10^9), and through K9's first design
-     (scripts/variants/mt_culled_thread_per_ray.cu) and the shipped kernel in the
-     order first, shipped, shipped, first; the frame at mesh-res 1024
-     (1,046,528 triangles) through K9 with the brute force's primaries
-     estimated from one K5 launch, and its two designs side by side; K9 at
-     2^10, 2^13, 2^16 and 2^20 bounce rays and on a 8-sample primary batch
-     (the main path's), each held against its plain twin (phase 9's gate,
-     and bit for bit; the first design too) and timed beside it, its chunks
-     visited a ray, its steps and rays a bin (the launch's stats, whose
-     rays summed over the steps must equal the plain twin's visits), its
-     bound, K5 on the same rays and the two designs side by side; at 2^20
+     force (K5, accel_min 10^9), and once through K9's first design
+     (scripts/variants/mt_culled_thread_per_ray.cu, after a warm-up frame);
+     the frame at mesh-res 1024 (1,046,528 triangles) through K9 with the
+     brute force's primaries estimated from one K5 launch, and once
+     through the first design; K9 at 2^10, 2^13, 2^16 and 2^20 bounce rays
+     and on a 8-sample primary batch (the main path's), each held against
+     its plain twin (phase 9's gate, and bit for bit; the first design too)
+     and timed beside it, its chunks visited a ray, its steps and rays a
+     bin (the launch's stats, whose rays summed over the steps must equal
+     the plain twin's visits), its bound, K5 on the same rays and the first
+     design (one queued round of 10 calls); at 2^20
      the first design on the rays as they come and sorted by their first
      chunk (pairs/s and triangle bytes/s at 48 B a pair); K9 against its
      plain twin on the mesh-res 1024 mushroom (2,044 chunks: boxes in the
@@ -168,13 +168,16 @@ Phases:
      their Pillow decodes, with the seconds; the texture fixtures
      (tests/data/textures, TEXTURE_FIXTURES, the last 19 Pillow readers'
      among them, the arithmetic-coded and lossless JPEGs, and the
-     compressed YCbCr TIFFs, the CIELab TIFF and the LAB PSD) likewise;
-     the cut-out textures (the BLP2 DXT5 among them), the 1024^2
-     JPEG-in-TIFF texture, an arithmetic-coded JPEG texture and the CIELab
-     TIFF on the north-star mesh through K5, each frame bit-equal to the
-     frame under its Pillow decode; the native byte loops (BYTE_LOOP_FIXTURES, the 1024^2
-     Group 4 TIFF and the QM decoder on the largest arithmetic-coded
-     fixture among them) against their Python twins; the CLI's new --obj --texture
+     compressed YCbCr TIFFs, the CIELab TIFF, the LAB PSD and the 256^2
+     and 1024^2 Zstandard TIFFs) likewise; the cut-out textures (the BLP2
+     DXT5 among them), the 1024^2 JPEG-in-TIFF texture, an
+     arithmetic-coded JPEG texture, the CIELab TIFF and the 256^2
+     Zstandard TIFF on the north-star mesh through K5, each frame
+     bit-equal to the frame under its Pillow decode; the native byte loops
+     (BYTE_LOOP_FIXTURES, the 1024^2 Group 4 TIFF, the QM decoder on the
+     largest arithmetic-coded fixture and the Zstandard decoder on both
+     Zstandard TIFFs among them) against their Python twins, with the
+     ratio of their host times; the CLI's new --obj --texture
      (the JPEG) -> train (3 steps, one capture through K5) on the north
      star; the project's texture on the card equal to the fixture's PNG;
      export to .ply, .html and .gobj and render --mode viewer (in process,
@@ -418,7 +421,8 @@ TEXTURE_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_rgba16.png",
                     "mushroom256_lossless_p6.jpg", "mushroom256_lossless_grey_p7.jpg",
                     "mushroom256_arith.tif", "mushroom256_ycbcr420_lzw.tif",
                     "mushroom256_ycbcr422_tiles.tif", "mushroom256_cielab.tif",
-                    "mushroom256_lab.psd")
+                    "mushroom256_lab.psd", "mushroom256_zstd_pred2.tif",
+                    "mushroom1024_zstd.tif")
 PILLOW_DECODES = {"mushroom1024_lzw.tif": "../jpeg/mushroom1024_q90_420.png",
                   "mushroom1024_lossless.webp": "../jpeg/mushroom1024_q90_420.png",
                   "mushroom1024.qoi": "../jpeg/mushroom1024_q90_420.png"}
@@ -432,15 +436,18 @@ BYTE_LOOP_FIXTURES = ("jpeg/mushroom1024_q90_420.png", "textures/mushroom1024_lz
                       "textures/mushroom256_sun_rle.ras", "textures/mushroom256_msp.msp",
                       "textures/mushroom256_fli.flc", "textures/mushroom128_icns_rle.icns",
                       "textures/mushroom256_arith_progressive.jpg",
-                      "textures/mushroom256_lossless_p6.jpg")
+                      "textures/mushroom256_lossless_p6.jpg",
+                      "textures/mushroom256_zstd_pred2.tif", "textures/mushroom1024_zstd.tif")
 # the JPEG-in-TIFF texture on the north-star mesh through K5, as the cut-out
 # ones (an opaque texture: its frame against the frame of the decode flipped
 # upside down, which must differ)
 JPEG_TIFF_TEXTURE = "mushroom1024_jpeg.tif"
-# and an arithmetic-coded JPEG texture (4:2:0, DAC, restarts) likewise, and a
-# CIELab TIFF (io/lab.py's littleCMS transform)
+# and an arithmetic-coded JPEG texture (4:2:0, DAC, restarts) likewise, a
+# CIELab TIFF (io/lab.py's littleCMS transform) and a Zstandard TIFF
+# (io/zstd.py; RGBA, predictor 2)
 ARITH_TEXTURE = "mushroom256_arith_420.jpg"
 LAB_TEXTURE = "mushroom256_cielab.tif"
+ZSTD_TEXTURE = "mushroom256_zstd_pred2.tif"
 P21_KEYED_RES, P21_KEYED_SAMPLES, P21_KEYED_SEED = 512, 8, 21
 P21_STEPS = 3
 PLY_RENDER_ATOL = 1e-4
@@ -2962,24 +2969,19 @@ def culled_frame_s(host, cam, warmup: int = 1, reps: int = 2) -> float:
                    warmup=warmup, reps=reps) / 1e3
 
 
-def culled_forms_frames(host, cam) -> list[float]:
+def culled_first_design_frame(host, cam, warm: bool) -> float:
     """Seconds of one capture frame from ``cam`` through K9's first design
-    (scripts/variants/mt_culled_thread_per_ray.cu) and through the shipped kernel, in
-    the order first, shipped, shipped, first: one frame each, after a
-    warm-up frame of the first design."""
+    (scripts/variants/mt_culled_thread_per_ray.cu), after a warm-up frame
+    where ``warm`` (its first use builds it)."""
     from gaussian_splatterer_tpu_torch.rt import tracer as tr
     from gaussian_splatterer_tpu_torch.scripts.redesign_variants import first_design_intersect
 
-    real, out = tr.intersect_culled, []
+    real = tr.intersect_culled
     try:
-        for i, form in enumerate((first_design_intersect, first_design_intersect, real, real, first_design_intersect)):
-            tr.intersect_culled = form
-            s = culled_frame_s(host, cam, warmup=0, reps=1)
-            if i:
-                out.append(s)
+        tr.intersect_culled = first_design_intersect
+        return culled_frame_s(host, cam, warmup=int(warm), reps=1)
     finally:
         tr.intersect_culled = real
-    return out
 
 
 def culled_stats(o, d, tris, tc: int, visits) -> str:
@@ -3044,10 +3046,10 @@ def culled_times(dev, card, host, launches: int, gate_err: float) -> dict:
     print(f"  brute-force route (accel_min 10^9, K5), {t_mesh:,} triangles: {s5:.4f} s per "
           f"frame (one frame); K9's route {s5 / s9:.2f}x faster  [{card}]", flush=True)
     del brute
-    sides = culled_forms_frames(host, cam)
-    print(f"  K9's first design (thread a ray) / shipped (chunk-binned) / shipped / first, "
-          f"{t_mesh:,} triangles: {' / '.join(f'{x:.4f}' for x in sides)} s a frame (one frame "
-          f"each)  [{card}]", flush=True)
+    first = culled_first_design_frame(host, cam, warm=True)
+    print(f"  K9's first design (thread a ray), {t_mesh:,} triangles: {first:.4f} s a frame "
+          f"(one frame after a warm-up), the shipped kernel (chunk-binned) {s9:.4f} s (above)"
+          f"  [{card}]", flush=True)
 
     # K9 by launch size on the mesh-res 256 mushroom, and on a primary batch
     tris, tc = host._tris, host.tri_chunk
@@ -3085,22 +3087,21 @@ def culled_times(dev, card, host, launches: int, gate_err: float) -> dict:
                         warmup=1, reps=3)
         if not all(torch.equal(a, b) for a, b in zip(rv.first_design_intersect(ro, rd, tris, tc), plain)):
             raise SystemExit(f"phase 20 failed: R = {r}: K9's first design differs from plain")
-        sides = [queued_ms(lambda: rv.first_design_intersect(ro, rd, tris, tc)), dev_ms,
-                 queued_ms(lambda: tr.intersect_culled(ro, rd, tris, tc)),
-                 queued_ms(lambda: rv.first_design_intersect(ro, rd, tris, tc))]
+        first_ms = queued_ms(lambda: rv.first_design_intersect(ro, rd, tris, tc), reps=1)
         launch = culled_stats(ro, rd, tris, tc, visits)
         print(f"    R = {r} ({label}): call {call_ms:.4f} ms, device {dev_ms:.4f} ms; plain "
               f"{plain_ms:.1f} ms (one call); chunks visited a ray {float(visits.float().mean()):.3f}"
               f" (max {int(visits.max())}), pairs {pairs:.4e}; bound {b_ms:.5f} ms ({b_by}), "
               f"device share {b_ms / dev_ms:.4f}; K5 on the same rays {k5_ms:.4f} ms (call); "
-              f"{launch}; device first design / shipped / shipped "
-              f"/ first {' / '.join(f'{x:.4f}' for x in sides)} ms  [{card}]", flush=True)
+              f"{launch}; device first design {first_ms:.4f} ms (one round of 10), shipped "
+              f"{dev_ms:.4f} ms"
+              f"  [{card}]", flush=True)
         if r == 1 << 20:  # step 1's split: the first design on the rays reordered
             order = rv.ray_order(ro, rd, tris)
             so, sd = ro[order].contiguous(), rd[order].contiguous()
-            split = [queued_ms(lambda: rv.first_design_intersect(ro, rd, tris, tc)),
-                     queued_ms(lambda: rv.first_design_intersect(so, sd, tris, tc)),
-                     queued_ms(lambda: tr.intersect_culled(ro, rd, tris, tc))]
+            split = [first_ms,
+                     queued_ms(lambda: rv.first_design_intersect(so, sd, tris, tc), reps=1),
+                     dev_ms]
             order_ms = cuda_ms(lambda: rv.ray_order(ro, rd, tris), warmup=1, reps=5)
             print(f"    the first design on R = {r} as they come / sorted by first chunk, and "
                   f"the shipped kernel: " + "; ".join(
@@ -3146,10 +3147,9 @@ def culled_times(dev, card, host, launches: int, gate_err: float) -> dict:
           f"(one launch), so the brute force's primaries of a {NS_SAMPLES}-sample frame alone "
           f"would take about {k5_frame_ms * NS_SAMPLES / 1e3:.1f} s (estimated, bounces left out)"
           f"  [{card}]", flush=True)
-    sides_big = culled_forms_frames(big, cam)
-    print(f"  K9's first design / shipped / shipped / first, {t_big:,} triangles: "
-          f"{' / '.join(f'{x:.4f}' for x in sides_big)} s a frame (one frame each)  [{card}]",
-          flush=True)
+    first_big = culled_first_design_frame(big, cam, warm=False)
+    print(f"  K9's first design, {t_big:,} triangles: {first_big:.4f} s a frame (one frame), "
+          f"the shipped kernel {s9_big:.4f} s (above)  [{card}]", flush=True)
     del big, fo, fd, bo, bd, ro, rd
     torch.cuda.empty_cache()
     if not all(np.isfinite(x) and x > 0 for x in (s9, s5, s9_big, k5_frame_ms)):
@@ -3265,9 +3265,10 @@ def byte_loops(card, fixtures: Path, fail) -> None:
     TIFF's LZW, QOI's ops, PSD's PackBits, SGI's and PCX's run lengths,
     TIFF's CCITT fax decoder, DDS's BC6H blocks, SUN's, MSP's and ICNS's
     run lengths, FLI's frame chunks; native/src/jpeg.cpp: the arithmetic
-    (QM) decoder and lossless JPEG's difference and predictor loops):
-    each file decoded with the native library and with it hidden (the
-    Python twins), the two results equal and both host times printed."""
+    (QM) decoder and lossless JPEG's difference and predictor loops;
+    native/src/zstd.cpp: the Zstandard frame decoder): each file decoded
+    with the native library and with it hidden (the Python twins), the two
+    results equal and both host times printed."""
     from unittest import mock
 
     from gaussian_splatterer_tpu_torch import native
@@ -3293,10 +3294,10 @@ def product_phase(dev, card) -> dict:
     against their Pillow decodes, the cut-out textures' frames through K5
     (``keyed_texture_frames``: the keyed palette PNG, the DXT1 DDS, the
     lossy WebP with alpha, the PackBits PSD and the BLP2 DXT5) and those of
-    the opaque JPEG-in-TIFF and arithmetic-coded JPEG textures, the
-    1024^2 PNG, LZW TIFF and QOI, the 256^2 PSD, RLE SGI and PCX and the
-    arithmetic-coded and lossless JPEGs through the native byte loops and
-    their Python twins (``byte_loops``), a
+    the opaque JPEG-in-TIFF, arithmetic-coded JPEG, CIELab and Zstandard
+    textures, the 1024^2 PNG, LZW TIFF and QOI, the 256^2 PSD, RLE SGI and
+    PCX, the arithmetic-coded and lossless JPEGs and the Zstandard TIFFs
+    through the native byte loops and their Python twins (``byte_loops``), a
     JPEG-textured north star through the CLI
     (new -> train), its export to .ply, .html and .gobj and
     render --mode viewer, the .ply imported into a fresh session and
@@ -3325,10 +3326,8 @@ def product_phase(dev, card) -> dict:
         raise SystemExit(f"phase 21 failed: {why}")
 
     phase(f"21. the rest of the product: the texture fixtures, five cut-out textures, a "
-          f"JPEG-in-TIFF, an arithmetic-coded JPEG and a CIELab texture on the card, the "
-          f"decoders' "
-          f"native byte loops, a JPEG texture, "
-          f"export (.ply, .html, .gobj, "
+          f"JPEG-in-TIFF, an arithmetic-coded JPEG, a CIELab and a Zstandard texture on the "
+          f"card, the decoders' native byte loops, a JPEG texture, export (.ply, .html, .gobj, "
           f"render --mode viewer), the .ply imported and rendered, doctor, the native parsers "
           f"({card})")
     launches: dict[str, int] = {}
@@ -3357,7 +3356,7 @@ def product_phase(dev, card) -> dict:
     for name in CUTOUT_FIXTURES:
         add_launches(launches, {"mt_intersect": keyed_texture_frames(
             dev, card, textures / name, fail)})
-    for name in (JPEG_TIFF_TEXTURE, ARITH_TEXTURE, LAB_TEXTURE):
+    for name in (JPEG_TIFF_TEXTURE, ARITH_TEXTURE, LAB_TEXTURE, ZSTD_TEXTURE):
         add_launches(launches, {"mt_intersect": keyed_texture_frames(
             dev, card, textures / name, fail, cutout=False)})
     byte_loops(card, HERE / "tests" / "data", fail)

@@ -12,7 +12,8 @@ The writer emits 8-bit RGB, non-interlaced, filter type 0.  The readers
 give Pillow's ``Image.open(path).convert("RGBA")`` (or ``"RGB"``) byte for
 byte: PNG of every colour type and bit depth, interlaced or not, with
 ``PLTE`` and ``tRNS`` (io/png.py), TGA of image types 1, 2, 3, 9, 10 and 11
-(io/tga.py), JPEG (io/jpeg.py), BMP and DIB (io/bmp.py), TIFF (io/tiff.py),
+(io/tga.py), JPEG (io/jpeg.py), BMP and DIB (io/bmp.py), TIFF in every coding
+Pillow reads (io/tiff.py; Zstandard through io/zstd.py),
 DDS (io/dds.py), GIF (io/gif.py), PNM and grey PFM (io/pnm.py), WebP,
 lossy, lossless, with alpha or animated (io/webp.py), PSD (io/psd.py), QOI
 (io/qoi.py), SGI (io/sgi.py), PCX (io/pcx.py), ICO (io/ico.py), CUR

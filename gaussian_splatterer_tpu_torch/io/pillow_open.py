@@ -12,7 +12,8 @@ A reader of the port says "try the next one" by raising ``NotThisFormat``
 and refuses a file by raising ``ValueError``.
 
 Pillow 12.1's order over the 43 formats it registers is ``ORDER``.  The
-port reads 35 of them; ``FOREIGN`` holds the other eight, each with its
+port reads 35 of them (TIFF is one, in every coding Pillow's libtiff
+reads, Zstandard included); ``FOREIGN`` holds the other eight, each with its
 ``accept``: AVIF and JPEG 2000 (ROADMAP A-6c), and BUFR, EPS, GRIB, HDF5,
 MPEG and WMF, which give no pixels without other software.  A file that a
 foreign format takes is refused: Pillow reads it as that format, or turns

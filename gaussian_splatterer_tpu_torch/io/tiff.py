@@ -12,7 +12,8 @@ classic TIFF's); strips or tiles; ``PlanarConfiguration`` 1 and 2; ``FillOrder``
 (3, one- or two-dimensional by ``T4Options``) and Group 4 (4), decoded by
 io/ccitt.py, LZW (5, decoded by io/lzw.py), JPEG (7, each strip or tile one
 stream over io/jpeg.py's ``decode_jpeg_stream`` with the ``JPEGTables``),
-Deflate (8, 32946), PackBits (32773) and LZMA (34925, an xz stream);
+Deflate (8, 32946), PackBits (32773), LZMA (34925, an xz stream) and
+Zstandard (50000, a frame a strip or tile, decoded by io/zstd.py);
 predictor 1, 2 at 8, 16 and 32 bits, and 3 (floating point); the layouts of
 Pillow's ``OPEN_INFO``: ``Photometric`` 0 and 1 (1, 2, 4, 8 and 16 bits,
 grey and alpha at 8; signed 8-bit; 12-bit, little-endian only; signed
@@ -22,8 +23,8 @@ or none), 3 (palette at 1, 2, 4 and 8 bits, and an 8-bit palette index with
 an unused or an alpha sample), 5 (CMYK at 8 bits, with up to two unused
 samples), 6 (YCbCr: through libjpeg's YCbCr -> RGB in a JPEG file, read
 raw as Pillow reads it when uncompressed, and through libtiff's RGBA
-interface under LZW, Deflate, PackBits or LZMA, io/tiff_rgba.py) and 8
-(CIELab at 8 bits, through io/lab.py's littleCMS transform).
+interface under LZW, Deflate, PackBits, LZMA or Zstandard, io/tiff_rgba.py)
+and 8 (CIELab at 8 bits, through io/lab.py's littleCMS transform).
 
 Pillow's conversion is kept with its quirks:
 
@@ -80,9 +81,10 @@ Pillow's conversion is kept with its quirks:
     band unpackers copy the planes as stored and leave alpha 0;
   * compressed YCbCr is libtiff's RGBA conversion (io/tiff_rgba.py): each
     strip, or row of tiles, read into a buffer libtiff zeroes, a strip it
-    cannot read or decode reads as what its codec wrote, then zeros; where
-    Pillow's mode has one sample its unpacker takes the first bytes of each
-    row of libtiff's RGBA raster;
+    cannot read or decode reads as what its codec wrote, then zeros (under
+    Zstandard nothing after an error of libzstd, what it flushed where the
+    data ran out: io/zstd.decode_kept); where Pillow's mode has one sample
+    its unpacker takes the first bytes of each row of libtiff's RGBA raster;
   * a compressed file's layout is libtiff's reading of the directory
     (``_Libtiff``): the first entry of a tag, the strip and tile arrays
     read up to the image's count and padded with zeros, byte counts
@@ -100,16 +102,22 @@ Pillow's conversion is kept with its quirks:
 
 Where Pillow or libtiff refuses a file, and for the variants not listed
 above, this module raises ValueError naming TIFF and the variant:
-old-style JPEG, Zstandard, WebP, LogLuv and the other compressions, YCbCr
+old-style JPEG, WebP, LogLuv and the other compressions, YCbCr
 subsamplings libtiff's RGBA interface has no routine for, ICCLab, ITULab
 and the other photometric interpretations, the layouts ``OPEN_INFO`` lacks
 (big-endian 12-bit and unsigned 32-bit grey, float RGB, 16-bit LAB, ...),
 planar strips with unused samples (Pillow's decoder refuses them) and
 planar palette tiles with one (Pillow's PX unpacker reads two bytes a
-pixel from the one-byte plane, past libtiff's tile buffer), predictor 3 on integer
-samples, predictor 2 below 8 bits or at 12, a JPEG stream whose size,
-components or sampling factors libtiff refuses, 12-bit JPEG, old-style LZW,
-data that ends early.
+pixel from the one-byte plane, past libtiff's tile buffer), a palette
+without its ColorMap (Pillow's ``_setup`` raises KeyError and no plugin
+reads the file), with more than 256 entries ("invalid palette size") or,
+below 8 bits in a compressed file, with one libtiff does not take (it
+refuses the directory), entries of an UNDEFINED type where Pillow's mode
+wants integers, a strip whose RowsPerStrip times a row's bytes passes
+INT_MAX (Pillow's decoder), predictor 3 on integer samples, predictor 2
+below 8 bits or at 12, a JPEG stream whose size, components or sampling
+factors libtiff refuses, 12-bit JPEG, old-style LZW, a Zstandard frame
+libzstd refuses or that ends short of its strip, data that ends early.
 """
 
 from __future__ import annotations
@@ -120,7 +128,7 @@ import zlib
 
 import numpy as np
 
-from gaussian_splatterer_tpu_torch.io import tiff_rgba, xz
+from gaussian_splatterer_tpu_torch.io import tiff_rgba, xz, zstd
 from gaussian_splatterer_tpu_torch.io.bmp import raw_rows, unpack_bits
 from gaussian_splatterer_tpu_torch.io.ccitt import FaxState, decode_fax
 from gaussian_splatterer_tpu_torch.io.jpeg import cmyk_to_rgb, decode_jpeg_stream
@@ -132,7 +140,7 @@ _COMPRESSIONS = {1: "none", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 
                  5: "LZW", 6: "old-style JPEG", 7: "JPEG", 8: "Deflate", 32773: "PackBits",
                  32946: "Deflate", 34676: "SGI LogLuv", 34677: "SGI LogLuv24",
                  34925: "LZMA", 50000: "Zstandard", 50001: "WebP"}
-_READ = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925)
+_READ = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925, 50000)
 # the integer field types: BYTE, SHORT, LONG, SBYTE, UNDEFINED (JPEGTables'
 # bytes), SSHORT, SLONG, IFD, LONG8, SLONG8, IFD8
 _TYPE_CODE = {1: "B", 3: "H", 4: "I", 6: "b", 7: "B", 8: "h", 9: "i", 13: "I", 16: "Q",
@@ -198,6 +206,12 @@ def _modes() -> dict:
 _MODES = _modes()
 
 
+def _ints(v):
+    """A tag's values as a tuple, but Pillow's bytes of an UNDEFINED entry
+    kept as bytes (no mode of Pillow's matches them)."""
+    return v if isinstance(v, bytes) else tuple(v)
+
+
 def _header(blob: bytes) -> tuple[str, bool, int]:
     """(byte order, BigTIFF, offset of IFD 0), as Pillow reads them: it
     tells a BigTIFF by its third byte, so a big-endian one reads as a
@@ -210,9 +224,12 @@ def _header(blob: bytes) -> tuple[str, bool, int]:
     raise ValueError("not a TIFF file")
 
 
-# the sizes of the field types Pillow loads; it skips the others
+# the sizes of the field types libtiff reads, and of those Pillow loads (it
+# skips the others: in a classic TIFF and a BigTIFF alike, SLONG8 and IFD8,
+# fault C-13)
 _TYPE_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4,
               16: 8, 17: 8, 18: 8}
+_PILLOW_TYPE_SIZE = {k: v for k, v in _TYPE_SIZE.items() if k not in (17, 18)}
 
 
 def _ifd(blob: bytes, e: str, pos: int, bigtiff: bool, skip: bool = False) -> dict:
@@ -233,9 +250,9 @@ def _ifd(blob: bytes, e: str, pos: int, bigtiff: bool, skip: bool = False) -> di
             break
         tag, kind = struct.unpack_from(e + "HH", blob, at)
         count = struct.unpack_from(e + ("Q" if bigtiff else "I"), blob, at + 4)[0]
-        if kind not in _TYPE_SIZE:
+        if kind not in _PILLOW_TYPE_SIZE:
             continue
-        size = _TYPE_SIZE[kind] * count
+        size = _PILLOW_TYPE_SIZE[kind] * count
         at += entry - field
         if size > field:
             at = struct.unpack_from(e + ("Q" if bigtiff else "I"), blob, at)[0]
@@ -243,8 +260,12 @@ def _ifd(blob: bytes, e: str, pos: int, bigtiff: bool, skip: bool = False) -> di
                 if skip:
                     continue
                 break
+        if kind == 7 and skip and tag != 347:
+            continue  # libtiff takes UNDEFINED for none of the integer tags read here
         if kind in _TYPE_CODE and count:
-            tags[tag] = struct.unpack_from(f"{e}{count}{_TYPE_CODE[kind]}", blob, at)
+            v = struct.unpack_from(f"{e}{count}{_TYPE_CODE[kind]}", blob, at)
+            # Pillow keeps UNDEFINED as bytes, which match no integer (fault C-15)
+            tags[tag] = bytes(v) if kind == 7 and not skip else v
     return tags
 
 
@@ -298,6 +319,35 @@ class _Libtiff:
                 raise ValueError(f"TIFF with SampleFormat {v} (libtiff refuses it)")
             if tag == 258:
                 self.bits = 1 if v is None else v
+
+    def fill_order(self) -> int:
+        """FillOrder as libtiff sets it: the tag's value where it reads as
+        one value of 1 or 2, else 1 (libtiff passes the tag over)."""
+        try:
+            v = self.one(266, _U16, 1)
+        except ValueError:
+            return 1
+        return v if v in (1, 2) else 1
+
+    def palette_refused(self) -> bool:
+        """libtiff's TIFFReadDirectory refuses a palette image of fewer than
+        8 bits whose ColorMap it does not take ("missing required Colormap"):
+        one that is absent, comes before BitsPerSample in the directory, or
+        holds other than 3 << bits values of 16 bits."""
+        try:
+            photometric = self.one(262, _U16)
+        except ValueError:
+            return False
+        if photometric != 3 or self.bits >= 8:
+            return False
+        if 320 not in self.ents or 258 not in self.ents or self.ents[258][3] > self.ents[320][3]:
+            return True
+        if self.ents[320][1] != 3 << self.bits:
+            return True
+        try:
+            return max(self.values(320)) > _U16
+        except ValueError:
+            return True
 
     def values(self, tag: int, limit: int | None = None) -> tuple:
         """The tag's values as TIFFReadDirEntry*Array reads them (at most
@@ -505,8 +555,8 @@ def _unxz(data: bytes, size: int) -> bytes:
 
 
 def _inflate(data: bytes, comp: int, size: int) -> np.ndarray:
-    """One LZW, PackBits, Deflate or LZMA strip or tile -> its ``size``
-    bytes, as libtiff."""
+    """One LZW, PackBits, Deflate, LZMA or Zstandard strip or tile -> its
+    ``size`` bytes, as libtiff."""
     if comp == 5:
         if len(data) >= 2 and data[0] == 0 and data[1] & 1:
             raise ValueError("unsupported TIFF (old-style LZW)")
@@ -518,6 +568,11 @@ def _inflate(data: bytes, comp: int, size: int) -> np.ndarray:
         out = np.frombuffer(_packbits(data, size), np.uint8)
     elif comp == 34925:
         out = np.frombuffer(_unxz(data, size), np.uint8)
+    elif comp == 50000:
+        try:
+            out = np.frombuffer(zstd.decode(data, size), np.uint8)
+        except zstd.ZstdError as exc:
+            raise ValueError(f"corrupt TIFF Zstandard data ({exc})") from None
     else:
         try:
             out = np.frombuffer(zlib.decompressobj().decompress(data, size), np.uint8)
@@ -628,10 +683,12 @@ def decode_tiff(blob: bytes) -> np.ndarray:
     check_size("TIFF", w, h)
     fill = get(266, 1)
     orientation = tags.get(274, (1,))[0]  # Pillow keeps the first of several values
-    fmt = tuple(tags.get(339, (1,)))
+    if isinstance(tags.get(274), bytes):
+        orientation = 1  # exif_transpose finds no orientation it knows
+    fmt = _ints(tags.get(339, (1,)))
     if len(fmt) > 1 and fmt == (1,) * len(fmt):
         fmt = (1,)
-    bps, extra = tuple(tags.get(258, (1,))), tuple(tags.get(338, ()))
+    bps, extra = _ints(tags.get(258, (1,))), _ints(tags.get(338, ()))
     spp = get(277, 1)
     if not isinstance(spp, int):  # several values: Pillow's mode lookup fails
         raise ValueError("TIFF with a SamplesPerPixel of several values")
@@ -644,6 +701,13 @@ def decode_tiff(blob: bytes) -> np.ndarray:
         raise ValueError(f"unsupported TIFF (photometric {photo}, sample format {fmt}, fill "
                          f"order {fill}, bits per sample {bps}, extra samples {extra})")
     kind, rawmode = _MODES[key]
+    if kind in ("P", "PA") and 320 not in tags:  # fault C-10: Pillow's _setup raises
+        # KeyError reading the ColorMap, and no later plugin takes the file
+        raise ValueError("TIFF palette image without its ColorMap (tag 320): Pillow cannot "
+                         "identify the file")
+    if lt is not None and kind in ("P", "PA") and lt.palette_refused():  # fault C-12
+        raise ValueError(f"TIFF palette of {lt.bits} bits whose ColorMap libtiff does not "
+                         "take: libtiff refuses the directory")
     if comp != 1 and fill == 2:  # libtiff undoes the fill order: Pillow's fill order 1 key
         kind, rawmode = _MODES[(big, photo, fmt, 1, bps, extra)]
     elif rawmode in ("L;IR", "P;1R", "P;2R", "P;4R") and planar != 2:
@@ -673,8 +737,8 @@ def decode_tiff(blob: bytes) -> np.ndarray:
     if fax and (bits != 1 or spp != 1):
         raise ValueError(f"unsupported TIFF (CCITT with {spp} samples of {bits} bits; libtiff "
                          "reads bilevel only)")
-    # libtiff undoes the predictor for LZW, Deflate and LZMA only
-    predictor = lay(317, 1) if comp in (5, 8, 32946, 34925) else 1
+    # libtiff undoes the predictor for LZW, Deflate, LZMA and Zstandard only
+    predictor = lay(317, 1) if comp in (5, 8, 32946, 34925, 50000) else 1
     if (predictor not in (1, 2, 3) or (predictor == 2 and bits not in (8, 16, 32))
             or (predictor == 3 and (fmt != (3,) or bits != 32))):
         raise ValueError(f"unsupported TIFF (predictor {predictor} at {bits} bits, sample "
@@ -684,7 +748,13 @@ def decode_tiff(blob: bytes) -> np.ndarray:
         if tiled:
             cw, ch = lt.one(322, _U32, 0), lt.one(323, _U32, 0)
         else:
-            cw, ch = w, min(lt.one(278, _U32, _U32), h)
+            rows = lt.one(278, _U32, _U32)
+            if not rgba and rows != _U32 and rows > 0x7FFFFFFF // -(-w * sum(bps) // 8):
+                # fault C-14: Pillow's strip decoder checks RowsPerStrip, as libtiff
+                # holds it, times a row's bytes against INT_MAX before it clamps
+                raise ValueError(f"TIFF of {rows} rows a strip (Pillow's decoder: out of "
+                                 "memory)")
+            cw, ch = w, min(rows, h)
     else:
         if 273 not in layout and 324 not in layout:
             raise ValueError("TIFF without strip or tile offsets (unknown data organization)")
@@ -707,7 +777,9 @@ def decode_tiff(blob: bytes) -> np.ndarray:
         offsets, counts = lt.strips(planes * per_plane, tiled, planar)
     elif len(offsets) < planes * per_plane and planar == 2:
         raise ValueError("TIFF with fewer strip or tile offsets than its image needs")
-    reverse = fill == 2
+    # a compressed strip's bits are reversed as libtiff reads FillOrder (fault
+    # C-11: Pillow may stop reading the directory before the tag)
+    reverse = (lt.fill_order() if lt is not None else fill) == 2
     if comp == 1 and planar == 2:
         # Pillow reads each plane with one letter of its raw mode, never reversed
         if (kind in ("LA", "PA") or len(offsets) != planes * per_plane
@@ -742,8 +814,8 @@ def decode_tiff(blob: bytes) -> np.ndarray:
             raise ValueError(f"TIFF with YCbCrSubsampling {sub} (libtiff refuses it)")
     if rgba:
         rgba_px = np.full((h, w, 4), 255, np.uint8)
-        rgba_px[..., :3] = _ycbcr_rgba(blob, comp, fill, predictor, planar, sub, lt, (w, h),
-                                       (tiled, cw, ch, across, down), offsets, counts)
+        rgba_px[..., :3] = _ycbcr_rgba(blob, comp, lt.fill_order(), predictor, planar, sub, lt,
+                                       (w, h), (tiled, cw, ch, across, down), offsets, counts)
         if kind == "L":  # Pillow's mode of one sample: its L unpacker takes the first
             # w bytes of each row of libtiff's RGBA raster
             rgba_px[..., :3] = rgba_px.reshape(h, 4 * w)[:, :w, None]
@@ -835,10 +907,12 @@ def decode_tiff(blob: bytes) -> np.ndarray:
 
 def _inflate_partial(data: bytes, comp: int, size: int) -> np.ndarray:
     """One strip or tile as libtiff's codec writes it into the buffer: at
-    most ``size`` bytes of LZW, PackBits, Deflate or LZMA, where the data
-    are damaged the bytes it wrote before its error (libtiff zeroes the
-    rest).  libtiff's LZW table starts below its first entry, so a first
-    code other than Clear fails before any output."""
+    most ``size`` bytes of LZW, PackBits, Deflate, LZMA or Zstandard, where
+    the data are damaged the bytes it wrote before its error (libtiff zeroes
+    the rest).  libtiff's LZW table starts below its first entry, so a first
+    code other than Clear fails before any output; ZSTDDecode keeps nothing
+    after an error of libzstd, and what libzstd flushed where the data ran
+    out (io/zstd.decode_kept)."""
     if comp == 5:
         if len(data) >= 2 and data[0] == 0 and data[1] & 1:
             raise ValueError("unsupported TIFF (old-style LZW)")
@@ -849,6 +923,8 @@ def _inflate_partial(data: bytes, comp: int, size: int) -> np.ndarray:
         return np.frombuffer(_packbits(data, size, partial=True), np.uint8)
     if comp == 34925:
         return np.frombuffer(xz.decode_until_error(data, size), np.uint8)[:size]
+    if comp == 50000:
+        return np.frombuffer(zstd.decode_kept(data, size), np.uint8)
     d, out = zlib.decompressobj(), bytearray()
     try:
         out += d.decompress(data, size)
@@ -866,9 +942,9 @@ def _inflate_partial(data: bytes, comp: int, size: int) -> np.ndarray:
 
 def _ycbcr_rgba(blob: bytes, comp: int, fill: int, predictor: int, planar: int, sub: tuple,
                 lt: _Libtiff, size: tuple, grid: tuple, offsets, counts) -> np.ndarray:
-    """A YCbCr TIFF under LZW, Deflate, PackBits or LZMA as Pillow reads it
-    through libtiff's TIFFRGBAImageGet -> (H, W, 3) uint8, before the
-    orientation: Pillow asks for a strip or a row of tiles at a time, and
+    """A YCbCr TIFF under LZW, Deflate, PackBits, LZMA or Zstandard as Pillow
+    reads it through libtiff's TIFFRGBAImageGet -> (H, W, 3) uint8, before
+    the orientation: Pillow asks for a strip or a row of tiles at a time, and
     libtiff reads each strip (the rows it asks for: whole blocks, at most
     ``TIFFScanlineSize`` times their rows) or tile into a buffer it zeroes
     at the first and reuses for the rest of the row (one a plane in planar
@@ -970,8 +1046,10 @@ def _convert(s: np.ndarray, kind: str, bits: int, rawmode: str, tags: dict) -> n
         if kind == "LA":
             rgba[..., 3] = s[..., 1]
     elif kind in ("P", "PA"):
-        cmap = np.asarray(tags.get(320, ()), np.int64) // 256
+        cmap = np.asarray(list(tags[320]), np.int64) // 256
         k = len(cmap) // 3
+        if k > 256:  # Pillow's putpalette of "RGB;L"
+            raise ValueError(f"TIFF ColorMap of {len(cmap)} values: invalid palette size")
         palette = np.zeros((256, 3), np.uint8)
         palette[:k] = cmap[:3 * k].reshape(3, k).T
         rgba[..., :3] = palette[s[..., 0]]

@@ -1,5 +1,5 @@
 """libtiff's RGBA interface for YCbCr, in numpy: how Pillow reads a YCbCr TIFF
-under LZW, Deflate, PackBits or LZMA.
+under LZW, Deflate, PackBits, LZMA or Zstandard.
 
 Pillow hands such a file to libtiff's ``TIFFRGBAImageGet``
 (tif_getimage.c), which reads each strip or tile of 8-bit samples laid out

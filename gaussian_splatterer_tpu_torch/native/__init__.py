@@ -3,11 +3,13 @@ the texture decoders' byte loops (PNG's row unfilter, GIF's and TIFF's
 LZW, PSD's PackBits rows, SGI's, PCX's, SUN's, MSP's and ICNS's run-length
 rows, QOI's ops, TIFF's CCITT fax decoder, DDS's BC6H blocks, FLI's frame
 chunks, JPEG's arithmetic (QM) decoder and lossless loops, the xz decoder
-of damaged LZMA strips) and WebP's bit-serial decoders (VP8, VP8L, ALPH),
+of damaged LZMA strips, the Zstandard frame decoder of TIFF strips) and
+WebP's bit-serial decoders (VP8, VP8L, ALPH),
 loaded with ctypes (counterpart of gaussian_splatterer_tpu.native).
 
-``src/parsers.cpp``, ``src/codecs.cpp``, ``src/jpeg.cpp``, ``src/xz.cpp`` and
-``src/webp.cpp`` expose a plain C interface.  At first use they are compiled
+``src/parsers.cpp``, ``src/codecs.cpp``, ``src/jpeg.cpp``, ``src/xz.cpp``,
+``src/zstd.cpp`` and ``src/webp.cpp`` expose a plain C interface (none links
+a codec library).  At first use they are compiled
 with ``g++`` into one library in ``build/native/`` at the root of the
 checkout, named by a hash of the sources and flags (an unchanged source is
 reused across processes, a changed one builds anew), and loaded.  Nothing is
@@ -15,7 +17,7 @@ built at import time.  A failed build prints the compiler's message to
 standard error; ``lib()`` then returns None and io/obj.py, io/gobj.py,
 io/png.py, io/lzw.py, io/psd.py, io/sgi.py, io/pcx.py, io/qoi.py,
 io/ccitt.py, io/dds.py, io/sun.py, io/msp.py, io/icns.py, io/fli.py,
-io/jpeg_arith.py, io/jpeg_lossless.py and io/xz.py take their pure-Python
+io/jpeg_arith.py, io/jpeg_lossless.py, io/xz.py and io/zstd.py take their pure-Python
 loops, which stay as the plain twins of these; io/webp.py has no Python
 twin and refuses WebP files then.
 """
@@ -37,6 +39,7 @@ CODECS_SRC = SRC.with_name("codecs.cpp")
 WEBP_SRC = SRC.with_name("webp.cpp")
 JPEG_SRC = SRC.with_name("jpeg.cpp")
 XZ_SRC = SRC.with_name("xz.cpp")
+ZSTD_SRC = SRC.with_name("zstd.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
@@ -45,7 +48,7 @@ _state: dict = {}  # "lib": the loaded library or None, once tried
 
 def sources() -> tuple[Path, ...]:
     """The C++ sources built into the library."""
-    return SRC, CODECS_SRC, WEBP_SRC, JPEG_SRC, XZ_SRC
+    return SRC, CODECS_SRC, WEBP_SRC, JPEG_SRC, XZ_SRC, ZSTD_SRC
 
 
 def lib_path() -> Path:
@@ -151,6 +154,9 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     cdll.gst_jpeg_undifference.restype = None
     cdll.gst_xz_until_error.argtypes = [ctypes.c_char_p, i64, i64, pu8]
     cdll.gst_xz_until_error.restype = i64
+    cdll.gst_zstd_decode.argtypes = [ctypes.c_char_p, i64, i64, pu8, ctypes.c_char_p, i64,
+                                     pi64]
+    cdll.gst_zstd_decode.restype = i64
     return cdll
 
 
@@ -491,3 +497,22 @@ def xz_until_error(data: bytes, size: int):
     out = np.zeros(max(size, 0), np.uint8)
     n = cdll.gst_xz_until_error(bytes(data), len(data), max(size, 0), _u8(out))
     return out[:n].tobytes()
+
+
+def zstd_decode(data: bytes, size: int):
+    """io/zstd.decode_python's ``size`` bytes from the native decoder, or
+    None when the library is missing.  Where it refuses the strip it raises
+    a ValueError with libzstd's or libtiff's reason, whose ``kept`` is the
+    bytes libtiff keeps."""
+    cdll = lib()
+    if cdll is None:
+        return None
+    out = np.zeros(max(size, 1), np.uint8)
+    reason = ctypes.create_string_buffer(256)
+    kept = ctypes.c_int64()
+    if cdll.gst_zstd_decode(bytes(data), len(data), max(size, 0), _u8(out), reason, 256,
+                            ctypes.byref(kept)) < 0:
+        exc = ValueError(reason.value.decode())
+        exc.kept = out[:kept.value].tobytes()
+        raise exc
+    return out[:max(size, 0)].tobytes()

@@ -84,6 +84,9 @@ save_png quantises), and beside each its Pillow decode
     see ``lab_ycbcr``;
   * mushroom256_bc6h_uf16.dds and mushroom256_bc6h_sf16.dds: DX10 DDS of
     4,096 BC6H blocks each, seeded random bytes (every block is valid);
+  * mushroom256_zstd_pred2.tif: Zstandard RGBA with predictor 2 (Pillow
+    through libtiff, ``compression="zstd"``: Pillow's ``"tiff_zstd"`` writes
+    an uncompressed file without a word, so ``zstd_tiffs`` checks tag 259);
 
 and from tests/data/jpeg/mushroom1024_q90_420.png (the 1024^2 JPEG
 fixture's Pillow decode) mushroom1024_jpeg.tif, JPEG in TIFF of its pixels
@@ -95,7 +98,9 @@ mushroom1024_lzw.tif, an LZW TIFF of its pixels
 lossless WebP of its pixels, likewise; and mushroom1024_q90.webp, lossy
 WebP at quality 90, beside its Pillow decode mushroom1024_q90.pillow.png;
 and mushroom1024.qoi, QOI of its pixels (Pillow; smaller than a PackBits
-PSD of them), whose Pillow decode is that PNG's.
+PSD of them), whose Pillow decode is that PNG's; and mushroom1024_zstd.tif,
+a Zstandard TIFF of its pixels (Pillow: strips of 21 rows, each a frame of
+a 4 MiB window), beside mushroom1024_zstd.pillow.png.
 
     python tests/data/textures/make_fixtures.py
 """
@@ -390,6 +395,19 @@ def tiff_1024() -> None:
             os.path.join(HERE, f"{name}.pillow.png"), optimize=True)
 
 
+def zstd_tiffs(rgba: np.ndarray) -> None:
+    """The Zstandard TIFFs (Pillow through libtiff); each file's tag 259 is
+    checked, since Pillow writes ``compression="tiff_zstd"`` uncompressed."""
+    rgb = Image.open(os.path.join(TESTS, "data", "jpeg", "mushroom1024_q90_420.png")).convert("RGB")
+    for img, name, info in ((Image.fromarray(rgba), "mushroom256_zstd_pred2", {317: 2}),
+                            (rgb, "mushroom1024_zstd", {})):
+        path = os.path.join(HERE, f"{name}.tif")
+        img.save(path, compression="zstd", tiffinfo=info)
+        with Image.open(path) as im:
+            assert im.tag_v2[259] == 50000, f"{name}: Pillow wrote compression {im.tag_v2[259]}"
+            im.convert("RGBA").save(os.path.join(HERE, f"{name}.pillow.png"), optimize=True)
+
+
 def qoi_1024() -> None:
     rgb = Image.open(os.path.join(TESTS, "data", "jpeg", "mushroom1024_q90_420.png")).convert("RGB")
     rgb.save(os.path.join(HERE, "mushroom1024.qoi"))
@@ -413,7 +431,7 @@ def main() -> None:
     rgba = float_image_to_u8(mushroom_texture(n=N, spot_alpha=0.5))
     for write in (palette_trns, rgba16, adam7, map_rle, cmyk, bitfields, lzw_pred2, dxt1,
                   gif_trns, ppm, webp, qoi, sgi, pcx, ico, pfm, psd, cur, tiff_codecs, bc6h,
-                  pillow_readers, jpeg_codings, lab_ycbcr):
+                  pillow_readers, jpeg_codings, lab_ycbcr, zstd_tiffs):
         write(rgba)
     lzw_1024()
     tiff_1024()

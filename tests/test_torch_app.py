@@ -398,7 +398,7 @@ def test_port_imports_no_jax_flax_or_pillow():
         "import gaussian_splatterer_tpu_torch.io.webp\n"
         "import gaussian_splatterer_tpu_torch.io.pillow_open\n"
         "from gaussian_splatterer_tpu_torch.io import ccitt, cur, ico, pcx, psd, qoi, sgi\n"
-        "from gaussian_splatterer_tpu_torch.io import jpeg_arith, jpeg_lossless, xz\n"
+        "from gaussian_splatterer_tpu_torch.io import jpeg_arith, jpeg_lossless, xz, zstd\n"
         "from gaussian_splatterer_tpu_torch.io import (blp, dcx, fits, fli, ftex, gbr, icns, im,\n"
         "    imt, iptc, mcidas, msp, pcd, pixar, rawmode, spider, sun, xbm, xpm, xvthumb)\n"
         "import gaussian_splatterer_tpu_torch.native\n"
@@ -407,7 +407,7 @@ def test_port_imports_no_jax_flax_or_pillow():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in ('jax', 'flax', 'PIL', 'gaussian_splatterer_tpu')"
+        "bad = sorted(k for k in ('jax', 'flax', 'PIL', 'gaussian_splatterer_tpu', 'zstandard')"
         " if k in sys.modules)\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -6,12 +6,14 @@ the port reads, the grey sample formats (signed 8-bit, 12-bit, signed
 16-bit, 32-bit integer and float), predictor 2 at 32 bits and 3, JPEG in
 strips and tiles at photometric 1, 2 and 6, raw YCbCr, LZMA and CCITT 2, 3
 and 4, each byte-equal on its writer cases and fixtures; the variants both
-refuse, and those Pillow reads and the port leaves to ROADMAP A-6c or
-refuses on purpose; seeded mutants equal to Pillow or refused by both, but
-for faults C-5 (CCITT data that ends early, where Pillow leaves rows
-uninitialised) and C-9 (a JPEG stream smaller than its strip), counted,
-with 120 three-flip JPEG-in-TIFF mutants among them; the CCITT loop in C++
-equal to its Python twin and never crashing the process."""
+refuse, and those Pillow reads and the port refuses on purpose; the
+palette rules of faults C-10 and C-12 (a ColorMap Pillow or libtiff lacks,
+one Pillow finds too long) and the directory rules of C-11, C-13 and C-14;
+seeded mutants equal to Pillow or refused by both, but for faults C-5 (CCITT
+data that ends early, where Pillow leaves rows uninitialised) and C-9 (a
+JPEG stream smaller than its strip), counted, with 120 three-flip
+JPEG-in-TIFF mutants among them; the CCITT loop in C++ equal to its Python
+twin and never crashing the process, nor the Zstandard decoder."""
 
 import io
 import lzma
@@ -213,6 +215,12 @@ CASES = {
     "lzma_pred2_rgba_tiles": _tiff(8, 2, 4, extra=(2,), compression=34925, predictor=2,
                                    tile=(16, 16)),
     "lzma_rgb16": _tiff(16, 2, 3, compression=34925, rows_per_strip=10),
+    # Zstandard (tests/test_torch_zstd.py holds the rest)
+    "zstd_pillow_rgb": _pillow("RGB", compression="zstd"),
+    "zstd_pred2_rgba_tiles": _tiff(8, 2, 4, extra=(2,), compression=50000, predictor=2,
+                                   tile=(16, 16)),
+    "zstd_palette2_fill2": _tiff(2, 3, colormap=list(range(0, 3 * 4 * 5000, 5000)),
+                                 fill_order=2, compression=50000),
     # CCITT
     "ccitt_rle_pillow": _pillow("1", compression="tiff_ccitt"),
     "group3_pillow": _pillow("1", compression="group3"),
@@ -240,6 +248,20 @@ CASES = {
     # Pillow keeps the first of an Orientation's several values
     "orientation_of_two_values_jpeg": _tiff(8, 6, 3, compression=7, rows_per_strip=16,
                                             tags={274: (3, [6, 1])}),
+    # short ColorMaps: Pillow pads them with black; libtiff passes over a
+    # wrong-sized one at 8 bits
+    "palette8_raw_colormap_of_3": _tiff(8, 3, colormap=[40000, 20000, 60000]),
+    "palette8_lzw_colormap_of_384": _tiff(8, 3, colormap=list(range(0, 384 * 150, 150)),
+                                          compression=5),
+    "palette4_raw_colormap_of_768": _tiff(4, 3, colormap=list(range(0, 768 * 80, 80))),
+    # fault C-11: Pillow stops at Photometric, whose values run past the end
+    # of the file, so it never sees FillOrder 2; libtiff reads the strip
+    # reversed all the same
+    "fill2_lzw_fill_order_past_pillows_directory": lambda rng: _patch_entry(
+        CASES["fill2_palette2_lzw"](rng), 262, count=25857),
+    # fault C-13: Pillow skips an IFD8 entry in a classic TIFF (Photometric 0)
+    "photometric_of_type_ifd8_lzw": lambda rng: _patch_entry(
+        CASES["fill2_palette2_lzw"](rng), 262, kind=18),
 }
 
 
@@ -286,8 +308,8 @@ def _oj_peg(rng):
 # name -> (make, the port's message, the JAX package refuses it too)
 REFUSED = {
     "old_style_jpeg": (_oj_peg, "TIFF \\(compression old-style JPEG", True),
-    "zstd_pillow": (_pillow("RGB", compression="zstd"), "TIFF \\(compression Zstandard",
-                    False),
+    "zstd_pillow": (lambda rng: _damage_first_frame(_pillow("RGB", compression="zstd")(rng)),
+                    "corrupt TIFF Zstandard data \\(Unknown frame descriptor", True),
     "webp_in_tiff": (_tiff(8, 2, 3, tags={259: (3, [50001])}), "TIFF \\(compression WebP",
                      True),
     "logluv": (_tiff(16, 32844, 3, tags={259: (3, [34676])}), "TIFF \\(compression SGI LogLuv",
@@ -330,7 +352,59 @@ REFUSED = {
     "group4_grey8": (_tiff(8, 1, tags={259: (3, [4])}), "CCITT with 1 samples of 8 bits", True),
     "ccitt_rle_truncated": (lambda rng: _truncate_strip(_pillow("1", compression="tiff_ccitt")
                                                         (rng)), "corrupt TIFF CCITT", True),
+    # fault C-10: a palette without tag 320 (Pillow's _setup raises KeyError)
+    # or with more than 256 entries (Pillow's putpalette)
+    "fill2_palette8_raw_without_colormap": (
+        _tiff(8, 3, colormap=list(range(0, 3 * 256 * 80, 80)), fill_order=2, tags={320: None}),
+        "without its ColorMap", True),
+    "fill2_palette2_lzw_without_colormap": (
+        _tiff(2, 3, colormap=list(range(0, 3 * 4 * 5000, 5000)), fill_order=2, compression=5,
+              tags={320: None}), "without its ColorMap", True),
+    "palette8_raw_colormap_of_266": (_tiff(8, 3, colormap=list(range(0, 3 * 266 * 80, 80))),
+                                     "invalid palette size", True),
+    "palette8_lzw_colormap_of_771_values": (
+        _tiff(8, 3, colormap=list(range(0, 771 * 80, 80)), compression=5),
+        "invalid palette size", True),
+    # fault C-12: libtiff takes no ColorMap of the wrong size below 8 bits,
+    # nor one that comes before BitsPerSample, and refuses the directory
+    "palette2_lzw_colormap_of_6": (_tiff(2, 3, colormap=list(range(0, 6 * 5000, 5000)),
+                                         compression=5), "ColorMap libtiff does not take", True),
+    "palette2_lzw_without_bits_per_sample": (
+        lambda rng: _patch_entry(CASES["fill2_palette2_lzw"](rng), 258, tag_to=33026),
+        "ColorMap libtiff does not take", True),
+    # fault C-14: RowsPerStrip times a row's bytes past INT_MAX
+    "rows_per_strip_past_int_max_lzw": (
+        lambda rng: _patch_entry(CASES["fill2_palette2_lzw"](rng), 278, value=0x85000000),
+        "rows a strip", True),
+    # fault C-15: Pillow keeps an UNDEFINED FillOrder as bytes, no mode's key
+    "fill_order_undefined_raw": (
+        lambda rng: _patch_entry(CASES["fill2_palette8_raw"](rng), 266, kind=7),
+        "unsupported TIFF", True),
 }
+
+
+def _patch_entry(blob: bytes, tag: int, kind=None, count=None, value=None,
+                 tag_to=None) -> bytes:
+    """A little-endian classic TIFF with IFD 0's entry of ``tag`` given
+    another type, count, inline value or tag number."""
+    at = struct.unpack_from("<I", blob, 4)[0]
+    b = bytearray(blob)
+    for i in range(struct.unpack_from("<H", blob, at)[0]):
+        pos = at + 2 + 12 * i
+        if struct.unpack_from("<H", blob, pos)[0] == tag:
+            for field, fmt, v in ((0, "<H", tag_to), (2, "<H", kind), (4, "<I", count),
+                                  (8, "<I", value)):
+                if v is not None:
+                    struct.pack_into(fmt, b, pos + field, v)
+            return bytes(b)
+    raise KeyError(tag)
+
+
+def _damage_first_frame(blob: bytes) -> bytes:
+    """The file with the magic number of strip 0's Zstandard frame broken."""
+    im = Image.open(io.BytesIO(blob))
+    off = im.tag_v2[273][0]
+    return blob[:off] + bytes([blob[off] ^ 1]) + blob[off + 1:]
 
 
 def _truncate_strip(blob: bytes) -> bytes:
@@ -358,8 +432,8 @@ def _patch_long(blob: bytes, tag: int, value: int) -> bytes:
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_refused_variants(tmp_path, name):
     """The variants the port refuses with ValueError naming them: where
-    Pillow refuses too, so does the JAX package; where it reads them
-    (Zstandard), ROADMAP A-6c lists them."""
+    Pillow refuses too, so does the JAX package; where it reads them (a
+    palette tile with an unused sample), the port refuses on purpose."""
     make, match, jax_refuses = REFUSED[name]
     path = tmp_path / f"{name}.tif"
     path.write_bytes(make(_rng(name)))
@@ -465,9 +539,12 @@ MUTANT_SOURCES = {
              "signed32_big_endian_raw"),
     "fill2": ("fill2_tiff_lzw", "fill2_group4", "fill2_raw"),
     "ycbcr": ("ycbcr_raw_padded", "ycbcr_raw_subsampled_padded"),
+    "zstd": ("zstd_pillow_rgb", "zstd_pred2_rgba_tiles", "zstd_palette2_fill2"),
+    # the palettes of fault C-10: many of their mutants lose tag 320
+    "palette": ("fill2_palette8_raw", "fill2_palette2_lzw"),
 }
 # (mutants, mutation) of a group other than the 60 mixed mutants
-MUTATIONS = {"jpeg_flips": (120, _flips)}
+MUTATIONS = {"jpeg_flips": (120, _flips), "palette": (200, _mutant)}
 # the mutants at these seeds that fall in a recorded fault (ROADMAP C): C-5,
 # CCITT data that ends early, where Pillow returns rows it never wrote; C-9,
 # a JPEG stream smaller than its strip or tile, where Pillow shows what
@@ -481,7 +558,8 @@ def test_mutants_agree_with_jax(tmp_path, group):
     """60 seeded mutants (truncations, byte flips, insertions) of the
     group's writer cases, or the group's own number and mutation
     (``MUTATIONS``: 120 JPEG-in-TIFFs with three byte flips each, where
-    libtiff's handling of damaged JPEG strips and directories shows): each
+    libtiff's handling of damaged JPEG strips and directories shows; 200
+    of the palettes, a tenth of which lose tag 320, fault C-10): each
     is read to the JAX package's bytes or refused by both (the port with
     ValueError), but for the recorded faults, whose counts at this seed are
     held exactly."""
@@ -566,12 +644,12 @@ print(counts)
 
 @needs_gxx
 def test_mutated_fixtures_never_crash_the_native_loops(tmp_path):
-    """60 seeded mutants of each CCITT and BC6H fixture through
-    read_texture (the C++ fax decoder and BC6H blocks), all in one
-    subprocess: each gives an array or ValueError, and the process exits
-    0 (a crash in the C++ fails this test only)."""
+    """60 seeded mutants of each CCITT, BC6H and Zstandard fixture through
+    read_texture (the C++ fax decoder, BC6H blocks and Zstandard decoder),
+    all in one subprocess: each gives an array or ValueError, and the
+    process exits 0 (a crash in the C++ fails this test only)."""
     names = ("mushroom256_g4_fill2.tif", "mushroom256_g3_2d.tif", "mushroom256_bc6h_uf16.dds",
-             "mushroom256_bc6h_sf16.dds")
+             "mushroom256_bc6h_sf16.dds", "mushroom256_zstd_pred2.tif", "mushroom1024_zstd.tif")
     script = tmp_path / "mutants.py"
     script.write_text(CRASH_SCRIPT)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -326,18 +326,30 @@ def ycbcr_blocks(s: np.ndarray, sub: tuple, predictor: int = 1) -> bytes:
     return raw.astype(np.uint8).tobytes()
 
 
+def _zstd_frame(data: bytes, level: int) -> bytes:
+    """A Zstandard frame of ``data`` as libtiff's ZSTDEncode streams it: no
+    content size, no checksum."""
+    import zstandard
+
+    c = zstandard.ZstdCompressor(level=level, write_content_size=False)
+    obj = c.compressobj()
+    return obj.compress(data) + obj.flush()
+
+
 def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, compression: int = 1,
                predictor: int = 1, planar: int = 1, tile=None, rows_per_strip=None,
                extra=None, colormap=None, big_endian: bool = False, tags=None,
                big_tiff: bool = False, fill_order: int = 1, sample_format: int = 1,
                jpeg_subsampling: int = 0, pad: bytes = b"", jpeg_encoder=None,
-               ycbcr_subsampling=None) -> bytes:
+               ycbcr_subsampling=None, zstd_level: int = 9) -> bytes:
     """(H, W, S) samples -> a TIFF of one image: strips of
     ``rows_per_strip`` rows or ``tile`` (width, height) tiles (padded with
     zeros at the edges), planar configuration ``planar``, compression 1,
     5 (LZW), 7 (JPEG: each strip or tile Pillow's JPEG of it, the tables in
-    ``JPEGTables``), 8 or 32946 (Deflate), 32773 (PackBits) or 34925
-    (LZMA, an xz stream), ``extra`` the ExtraSamples values, ``colormap``
+    ``JPEGTables``), 8 or 32946 (Deflate), 32773 (PackBits), 34925
+    (LZMA, an xz stream) or 50000 (Zstandard: a frame of the ``zstandard``
+    module at ``zstd_level``, without content size or checksum as libtiff
+    writes it), ``extra`` the ExtraSamples values, ``colormap``
     the 3 * 2**bits ColorMap values; 1 to 32 bits a sample (float32
     samples stored as their bits with ``sample_format`` 3); ``fill_order``
     2 reverses every data byte's bits, as libtiff writes it; ``pad`` follows
@@ -377,7 +389,8 @@ def tiff_bytes(samples: np.ndarray, bits: int, photometric: int, compression: in
     else:
         encode = {1: lambda b: b, 5: lzw_bytes, 8: zlib.compress, 32946: zlib.compress,
                   32773: packbits_bytes,
-                  34925: lambda b: lzma.compress(b, format=lzma.FORMAT_XZ)}[compression]
+                  34925: lambda b: lzma.compress(b, format=lzma.FORMAT_XZ),
+                  50000: lambda b: _zstd_frame(b, zstd_level)}[compression]
         datas = [encode(ycbcr_blocks(c, ycbcr_subsampling, predictor) if ycbcr_subsampling
                         else _tiff_chunk(c, bits, big_endian, predictor)) for c in chunks]
     if fill_order == 2 and compression != 7:  # libtiff's JPEG codec ignores it
