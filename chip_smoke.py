@@ -168,11 +168,12 @@ Phases:
      their Pillow decodes, with the seconds; the texture fixtures
      (tests/data/textures, TEXTURE_FIXTURES, the last 19 Pillow readers'
      among them, the arithmetic-coded and lossless JPEGs, and the
-     compressed YCbCr TIFFs, the CIELab TIFF, the LAB PSD and the 256^2
-     and 1024^2 Zstandard TIFFs) likewise; the cut-out textures (the BLP2
-     DXT5 among them), the 1024^2 JPEG-in-TIFF texture, an
-     arithmetic-coded JPEG texture, the CIELab TIFF and the 256^2
-     Zstandard TIFF on the north-star mesh through K5, each frame
+     compressed YCbCr TIFFs, the CIELab TIFF, the LAB PSD, the 256^2
+     and 1024^2 Zstandard TIFFs and the three JPEG 2000 files) likewise;
+     the cut-out textures (the BLP2 DXT5 among them), the 1024^2
+     JPEG-in-TIFF texture, an arithmetic-coded JPEG texture, the CIELab
+     TIFF, the 256^2 Zstandard TIFF and the 1024^2 9/7 JPEG 2000 file on
+     the north-star mesh through K5, each frame
      bit-equal to the frame under its Pillow decode; the native byte loops
      (BYTE_LOOP_FIXTURES, the 1024^2 Group 4 TIFF, the QM decoder on the
      largest arithmetic-coded fixture and the Zstandard decoder on both
@@ -422,7 +423,8 @@ TEXTURE_FIXTURES = ("mushroom256_palette_trns.png", "mushroom256_rgba16.png",
                     "mushroom256_arith.tif", "mushroom256_ycbcr420_lzw.tif",
                     "mushroom256_ycbcr422_tiles.tif", "mushroom256_cielab.tif",
                     "mushroom256_lab.psd", "mushroom256_zstd_pred2.tif",
-                    "mushroom1024_zstd.tif")
+                    "mushroom1024_zstd.tif", "mushroom256_53.jp2", "mushroom256_rpcl.j2k",
+                    "mushroom1024_9x7.jp2")
 PILLOW_DECODES = {"mushroom1024_lzw.tif": "../jpeg/mushroom1024_q90_420.png",
                   "mushroom1024_lossless.webp": "../jpeg/mushroom1024_q90_420.png",
                   "mushroom1024.qoi": "../jpeg/mushroom1024_q90_420.png"}
@@ -448,6 +450,9 @@ JPEG_TIFF_TEXTURE = "mushroom1024_jpeg.tif"
 ARITH_TEXTURE = "mushroom256_arith_420.jpg"
 LAB_TEXTURE = "mushroom256_cielab.tif"
 ZSTD_TEXTURE = "mushroom256_zstd_pred2.tif"
+# and a JPEG 2000 texture (io/jpeg2000.py over native/src/j2k.cpp; 1024^2,
+# irreversible 9/7)
+J2K_TEXTURE = "mushroom1024_9x7.jp2"
 P21_KEYED_RES, P21_KEYED_SAMPLES, P21_KEYED_SEED = 512, 8, 21
 P21_STEPS = 3
 PLY_RENDER_ATOL = 1e-4
@@ -3294,8 +3299,8 @@ def product_phase(dev, card) -> dict:
     against their Pillow decodes, the cut-out textures' frames through K5
     (``keyed_texture_frames``: the keyed palette PNG, the DXT1 DDS, the
     lossy WebP with alpha, the PackBits PSD and the BLP2 DXT5) and those of
-    the opaque JPEG-in-TIFF, arithmetic-coded JPEG, CIELab and Zstandard
-    textures, the 1024^2 PNG, LZW TIFF and QOI, the 256^2 PSD, RLE SGI and
+    the opaque JPEG-in-TIFF, arithmetic-coded JPEG, CIELab, Zstandard and
+    JPEG 2000 textures, the 1024^2 PNG, LZW TIFF and QOI, the 256^2 PSD, RLE SGI and
     PCX, the arithmetic-coded and lossless JPEGs and the Zstandard TIFFs
     through the native byte loops and their Python twins (``byte_loops``), a
     JPEG-textured north star through the CLI
@@ -3326,8 +3331,8 @@ def product_phase(dev, card) -> dict:
         raise SystemExit(f"phase 21 failed: {why}")
 
     phase(f"21. the rest of the product: the texture fixtures, five cut-out textures, a "
-          f"JPEG-in-TIFF, an arithmetic-coded JPEG, a CIELab and a Zstandard texture on the "
-          f"card, the decoders' native byte loops, a JPEG texture, export (.ply, .html, .gobj, "
+          f"JPEG-in-TIFF, an arithmetic-coded JPEG, a CIELab, a Zstandard and a JPEG 2000 "
+          f"texture on the card, the decoders' native byte loops, a JPEG texture, export (.ply, .html, .gobj, "
           f"render --mode viewer), the .ply imported and rendered, doctor, the native parsers "
           f"({card})")
     launches: dict[str, int] = {}
@@ -3356,7 +3361,7 @@ def product_phase(dev, card) -> dict:
     for name in CUTOUT_FIXTURES:
         add_launches(launches, {"mt_intersect": keyed_texture_frames(
             dev, card, textures / name, fail)})
-    for name in (JPEG_TIFF_TEXTURE, ARITH_TEXTURE, LAB_TEXTURE, ZSTD_TEXTURE):
+    for name in (JPEG_TIFF_TEXTURE, ARITH_TEXTURE, LAB_TEXTURE, ZSTD_TEXTURE, J2K_TEXTURE):
         add_launches(launches, {"mt_intersect": keyed_texture_frames(
             dev, card, textures / name, fail, cutout=False)})
     byte_loops(card, HERE / "tests" / "data", fail)

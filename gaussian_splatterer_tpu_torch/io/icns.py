@@ -6,9 +6,10 @@ Pillow.
 
 Coverage: the icon Pillow picks: of the sizes whose elements the file
 holds, the largest (``IcnsFile.bestsize``: by width, height, then scale),
-read as a PNG (io/png.py) where its PNG element is there, else as 24-bit
-RGB (``it32``, ``ih32``, ``il32``, ``is32``; raw or run-length encoded)
-with its 8-bit mask (``t8mk``, ``h8mk``, ``l8mk``, ``s8mk``) as alpha.
+read as a PNG (io/png.py) or a JPEG 2000 file (io/jpeg2000.py) where its
+PNG or JPEG 2000 element is there, else as 24-bit RGB (``it32``, ``ih32``,
+``il32``, ``is32``; raw or run-length encoded) with its 8-bit mask
+(``t8mk``, ``h8mk``, ``l8mk``, ``s8mk``) as alpha.
 The run-length loop runs in C++ (native/src/codecs.cpp) when the native
 library is built; ``rle_channels_python`` is its plain twin.
 
@@ -22,13 +23,16 @@ Pillow's reading is kept with its quirks:
     else each channel is run-length encoded in turn, reading on past the
     element's end if need be; a run that passes a channel's end refuses
     the file;
+  * a JPEG 2000 element is the element's bytes read as a JPEG 2000 file,
+    so one that starts with the short signature ``0D 0A 87 0A`` (which
+    Pillow's ``read_png_or_jpeg2000`` takes and its JPEG 2000 plugin does
+    not open) refuses the file;
   * without a mask the icon is opaque; ``it32`` starts with four zero
     bytes.
 
-Where Pillow refuses a file this module raises ValueError naming ICNS: a
-JPEG 2000 element (which Pillow decodes through OpenJPEG and the port
-does not read, queued as ROADMAP A-6c), an element of another kind, a
-channel or mask that ends early, a PNG io/png.py refuses.  A header that
+Where Pillow refuses a file this module raises ValueError naming ICNS: an
+element of another kind, a channel or mask that ends early, a PNG
+io/png.py refuses, a JPEG 2000 element io/jpeg2000.py refuses.  A header that
 ends early, a block of length 0, or no icon element turns the file away
 (``NotThisFormat``).
 """
@@ -41,6 +45,7 @@ import numpy as np
 
 from gaussian_splatterer_tpu_torch import native
 from gaussian_splatterer_tpu_torch.io.pillow_open import check_size, falls_through
+from gaussian_splatterer_tpu_torch.io import jpeg2000
 from gaussian_splatterer_tpu_torch.io.png import decode_png_rgba
 
 MAGIC = b"icns"
@@ -148,6 +153,19 @@ def _allowed(sizes: list, w: int, h: int) -> bool:
     return False
 
 
+def _jpeg2000(element: bytes) -> np.ndarray:
+    """A JPEG 2000 element as ``read_png_or_jpeg2000`` reads it: the
+    element's bytes opened as a JPEG 2000 file, where any refusal of
+    ``_open`` (the short signature ``0D 0A 87 0A`` among them) refuses the
+    icon, then Pillow's decompression-bomb check and ``convert("RGBA")``."""
+    try:
+        _, (w, h), _, _ = jpeg2000.opens(element)
+    except jpeg2000.NotThisFormat as exc:
+        raise ValueError(f"ICNS JPEG 2000 element: {exc}") from None
+    check_size("ICNS JPEG 2000", w, h)
+    return jpeg2000.decode_jpeg2000(element)
+
+
 def decode_icns(blob: bytes) -> np.ndarray:
     """ICNS bytes -> (H, W, 4) uint8 RGBA, row 0 the top of the picture."""
     dct, sizes, best = opens(blob)
@@ -171,8 +189,7 @@ def decode_icns(blob: bytes) -> np.ndarray:
                 check_size("ICNS PNG", png.shape[1], png.shape[0])
             elif (sig.startswith((b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a"))
                   or sig == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"):
-                raise ValueError("ICNS JPEG 2000 element (the port does not read JPEG 2000, "
-                                 "ROADMAP A-6c)")
+                png = _jpeg2000(blob[start:start + length])
             else:
                 raise ValueError("Unsupported icon subimage format (ICNS)")
     if png is not None:

@@ -22,7 +22,8 @@ lossy, lossless, with alpha or animated (io/webp.py), PSD (io/psd.py), QOI
 (io/xpm.py), GBR (io/gbr.py), SUN (io/sun.py), MSP (io/msp.py), IM
 (io/im.py), FLI (io/fli.py), SPIDER (io/spider.py), FITS (io/fits.py),
 McIdas (io/mcidas.py), PIXAR (io/pixar.py), IMT (io/imt.py), XVThumb
-(io/xvthumb.py), PCD (io/pcd.py) and IPTC (io/iptc.py), over Pillow's raw
+(io/xvthumb.py), PCD (io/pcd.py) and IPTC (io/iptc.py), and JPEG 2000,
+JP2 or raw codestream, 5/3 or 9/7 (io/jpeg2000.py), over Pillow's raw
 modes and conversions (io/rawmode.py); each module lists what it reads,
 the quirks of Pillow's it keeps and what it refuses.
 
@@ -58,8 +59,9 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 
 from gaussian_splatterer_tpu_torch.io import (blp, cur, dcx, fits, fli, ftex, gbr, icns, ico, im,
-                                              imt, iptc, mcidas, msp, pcd, pcx, pixar, pnm, psd,
-                                              qoi, sgi, spider, sun, tga, xbm, xpm, xvthumb)
+                                              imt, iptc, jpeg2000, mcidas, msp, pcd, pcx, pixar,
+                                              pnm, psd, qoi, sgi, spider, sun, tga, xbm, xpm,
+                                              xvthumb)
 from gaussian_splatterer_tpu_torch.io.bmp import DIB_HEADER_SIZES, decode_bmp
 from gaussian_splatterer_tpu_torch.io.dds import decode_dds
 from gaussian_splatterer_tpu_torch.io.gif import decode_gif
@@ -71,8 +73,8 @@ from gaussian_splatterer_tpu_torch.io.tiff import decode_tiff
 from gaussian_splatterer_tpu_torch.io.webp import decode_webp
 
 READS = ("PNG, JPEG, BMP, DIB, GIF, PNM, PFM, TIFF, DDS, WebP, TGA, PSD, QOI, SGI, PCX, ICO, CUR, "
-         "BLP, DCX, FITS, FLI, FTEX, GBR, ICNS, IM, IMT, IPTC, McIdas, MSP, PCD, PIXAR, SPIDER, "
-         "SUN, XBM, XPM, XVThumb")
+         "BLP, DCX, FITS, FLI, FTEX, GBR, ICNS, IM, IMT, IPTC, JPEG 2000, McIdas, MSP, PCD, "
+         "PIXAR, SPIDER, SUN, XBM, XPM, XVThumb")
 
 
 class Format(NamedTuple):
@@ -122,6 +124,7 @@ _READERS = {
     "IM": (_always, im.opens, im.decode_im),
     "IMT": (_always, imt.opens, imt.decode_imt),
     "IPTC": (_always, iptc.opens, iptc.decode_iptc),
+    "JPEG2000": (jpeg2000.accept, jpeg2000.opens, jpeg2000.decode_jpeg2000),
     "MCIDAS": (lambda p: p[:8] == mcidas.MAGIC, mcidas.opens, mcidas.decode_mcidas),
     "MSP": (msp.accept, msp.opens, msp.decode_msp),
     "PCD": (_always, pcd.opens, pcd.decode_pcd),

@@ -12,10 +12,11 @@ A reader of the port says "try the next one" by raising ``NotThisFormat``
 and refuses a file by raising ``ValueError``.
 
 Pillow 12.1's order over the 43 formats it registers is ``ORDER``.  The
-port reads 35 of them (TIFF is one, in every coding Pillow's libtiff
-reads, Zstandard included); ``FOREIGN`` holds the other eight, each with its
-``accept``: AVIF and JPEG 2000 (ROADMAP A-6c), and BUFR, EPS, GRIB, HDF5,
-MPEG and WMF, which give no pixels without other software.  A file that a
+port reads 36 of them (TIFF is one, in every coding Pillow's libtiff
+reads, Zstandard included; JPEG 2000 is one, JP2 or raw codestream);
+``FOREIGN`` holds the other seven, each with its ``accept``: AVIF (ROADMAP
+A-6c), and BUFR, EPS, GRIB, HDF5, MPEG and WMF, which give no pixels
+without other software.  A file that a
 foreign format takes is refused: Pillow reads it as that format, or turns
 it away deeper in that software, which the port does not tell apart.
 
@@ -143,7 +144,6 @@ FOREIGN = {name: (accept, _mirror(check)) for name, (accept, check) in {
     "EPS": (_eps_accept, None),
     "GRIB": (_grib_accept, None),
     "HDF5": (_magic(b"\x89HDF\r\n\x1a\n"), None),
-    "JPEG2000": (_magic(b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"), None),
     "MPEG": (_magic(b"\x00\x00\x01\xb3"), _mpeg_opens),
     "WMF": (_magic(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"), None),
 }.items()}

@@ -3,23 +3,24 @@ the texture decoders' byte loops (PNG's row unfilter, GIF's and TIFF's
 LZW, PSD's PackBits rows, SGI's, PCX's, SUN's, MSP's and ICNS's run-length
 rows, QOI's ops, TIFF's CCITT fax decoder, DDS's BC6H blocks, FLI's frame
 chunks, JPEG's arithmetic (QM) decoder and lossless loops, the xz decoder
-of damaged LZMA strips, the Zstandard frame decoder of TIFF strips) and
-WebP's bit-serial decoders (VP8, VP8L, ALPH),
-loaded with ctypes (counterpart of gaussian_splatterer_tpu.native).
+of damaged LZMA strips, the Zstandard frame decoder of TIFF strips),
+WebP's bit-serial decoders (VP8, VP8L, ALPH) and the JPEG 2000 codestream
+decoder, loaded with ctypes (counterpart of gaussian_splatterer_tpu.native).
 
 ``src/parsers.cpp``, ``src/codecs.cpp``, ``src/jpeg.cpp``, ``src/xz.cpp``,
-``src/zstd.cpp`` and ``src/webp.cpp`` expose a plain C interface (none links
-a codec library).  At first use they are compiled
-with ``g++`` into one library in ``build/native/`` at the root of the
-checkout, named by a hash of the sources and flags (an unchanged source is
-reused across processes, a changed one builds anew), and loaded.  Nothing is
-built at import time.  A failed build prints the compiler's message to
+``src/zstd.cpp``, ``src/webp.cpp`` and ``src/j2k.cpp`` expose a plain C
+interface (none links a codec library); they are built without
+floating-point contraction, as j2k.cpp's 9/7 path needs. At first use they are
+compiled with ``g++`` into one library in ``build/native/`` at the root of
+the checkout, named by a hash of the sources and flags (an unchanged source
+is reused across processes, a changed one builds anew), and loaded. Nothing
+is built at import time. A failed build prints the compiler's message to
 standard error; ``lib()`` then returns None and io/obj.py, io/gobj.py,
 io/png.py, io/lzw.py, io/psd.py, io/sgi.py, io/pcx.py, io/qoi.py,
 io/ccitt.py, io/dds.py, io/sun.py, io/msp.py, io/icns.py, io/fli.py,
-io/jpeg_arith.py, io/jpeg_lossless.py, io/xz.py and io/zstd.py take their pure-Python
-loops, which stay as the plain twins of these; io/webp.py has no Python
-twin and refuses WebP files then.
+io/jpeg_arith.py, io/jpeg_lossless.py, io/xz.py and io/zstd.py take their
+pure-Python loops, which stay as the plain twins of these; io/webp.py and
+io/jpeg2000.py have no Python twin and refuse WebP and JPEG 2000 files then.
 """
 
 from __future__ import annotations
@@ -40,15 +41,16 @@ WEBP_SRC = SRC.with_name("webp.cpp")
 JPEG_SRC = SRC.with_name("jpeg.cpp")
 XZ_SRC = SRC.with_name("xz.cpp")
 ZSTD_SRC = SRC.with_name("zstd.cpp")
+J2K_SRC = SRC.with_name("j2k.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off")
 
 _state: dict = {}  # "lib": the loaded library or None, once tried
 
 
 def sources() -> tuple[Path, ...]:
     """The C++ sources built into the library."""
-    return SRC, CODECS_SRC, WEBP_SRC, JPEG_SRC, XZ_SRC, ZSTD_SRC
+    return SRC, CODECS_SRC, WEBP_SRC, JPEG_SRC, XZ_SRC, ZSTD_SRC, J2K_SRC
 
 
 def lib_path() -> Path:
@@ -157,6 +159,9 @@ def _bind(cdll: ctypes.CDLL) -> ctypes.CDLL:
     cdll.gst_zstd_decode.argtypes = [ctypes.c_char_p, i64, i64, pu8, ctypes.c_char_p, i64,
                                      pi64]
     cdll.gst_zstd_decode.restype = i64
+    cdll.gst_j2k_decode.argtypes = [ctypes.c_char_p, i64, i64, ctypes.c_uint32, ctypes.c_uint32,
+                                    pi64, ctypes.POINTER(pi), pi64, ctypes.c_char_p, i64]
+    cdll.gst_j2k_decode.restype = ctypes.c_int
     return cdll
 
 
@@ -516,3 +521,37 @@ def zstd_decode(data: bytes, size: int):
         exc.kept = out[:kept.value].tobytes()
         raise exc
     return out[:max(size, 0)].tobytes()
+
+
+def j2k_decode(data: bytes, start: int, ihdr_w: int = 0, ihdr_h: int = 0):
+    """native/src/j2k.cpp's decode of the codestream at ``data[start:]``:
+    (info, tiles).  info: the image's ``x0``, ``y0``, ``x1``, ``y1``, the
+    stream position after the last read (``end``) and ``comps``, a
+    (dx, dy, prec, sgnd) a component; tiles: for each decoded tile, in
+    decoding order, ((tileno, x0, y0, x1, y1), [an (h, w) int32 plane a
+    component]).  Raises ValueError with OpenJPEG's reason where it fails
+    the stream; the library must be built (``lib()`` not None)."""
+    cdll = lib()
+    info = (ctypes.c_int64 * 24)()
+    out = ctypes.POINTER(ctypes.c_int32)()
+    n = ctypes.c_int64()
+    reason = ctypes.create_string_buffer(256)
+    status = cdll.gst_j2k_decode(bytes(data), len(data), start, ihdr_w, ihdr_h, info,
+                                 ctypes.byref(out), ctypes.byref(n), reason, 256)
+    if status:
+        raise ValueError(reason.value.decode(errors="replace"))
+    buf = _take(cdll, out, (n.value,), np.int32)
+    nc = info[4]
+    comps = [tuple(info[8 + 4 * c:12 + 4 * c]) for c in range(nc)]
+    tiles, at = [], 0
+    for _ in range(info[6]):
+        head = tuple(int(v) for v in buf[at:at + 5])
+        at += 5
+        planes = []
+        for _ in range(nc):
+            w, h = int(buf[at]), int(buf[at + 1])
+            planes.append(buf[at + 2:at + 2 + w * h].reshape(h, w))
+            at += 2 + w * h
+        tiles.append((head, planes))
+    return {"x0": info[0], "y0": info[1], "x1": info[2], "y1": info[3], "end": info[5],
+            "comps": comps}, tiles

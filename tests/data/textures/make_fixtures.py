@@ -100,7 +100,12 @@ WebP at quality 90, beside its Pillow decode mushroom1024_q90.pillow.png;
 and mushroom1024.qoi, QOI of its pixels (Pillow; smaller than a PackBits
 PSD of them), whose Pillow decode is that PNG's; and mushroom1024_zstd.tif,
 a Zstandard TIFF of its pixels (Pillow: strips of 21 rows, each a frame of
-a 4 MiB window), beside mushroom1024_zstd.pillow.png.
+a 4 MiB window), beside mushroom1024_zstd.pillow.png; the JPEG 2000
+fixtures (``jpeg2000``): mushroom256_53.jp2, reversible 5/3 RGBA;
+mushroom256_rpcl.j2k, an irreversible 9/7 RGB codestream in RPCL order, in
+96^2 tiles offset by (3, 2), the image offset by (7, 5); and
+mushroom1024_9x7.jp2, irreversible at a rate of 20 (about 150 KB), beside
+mushroom1024_9x7.pillow.png.
 
     python tests/data/textures/make_fixtures.py
 """
@@ -427,11 +432,27 @@ def webp_1024() -> None:
         os.path.join(HERE, "mushroom1024_q90.pillow.png"), optimize=True)
 
 
+def jpeg2000(rgba: np.ndarray) -> None:
+    """The JPEG 2000 fixtures (Pillow through OpenJPEG 2.5.4): a reversible
+    RGBA JP2, an irreversible RGB codestream in RPCL order with tiles and an
+    image offset, and a 1024^2 irreversible JP2 at a rate of 20 (about 150
+    KB), beside its Pillow decode."""
+    Image.fromarray(rgba).save(os.path.join(HERE, "mushroom256_53.jp2"))
+    Image.fromarray(rgba[..., :3]).save(os.path.join(HERE, "mushroom256_rpcl.j2k"),
+                                        irreversible=True, progression="RPCL", tile_size=(96, 96),
+                                        offset=(7, 5), tile_offset=(3, 2), num_resolutions=4)
+    rgb = Image.open(os.path.join(TESTS, "data", "jpeg", "mushroom1024_q90_420.png")).convert("RGB")
+    path = os.path.join(HERE, "mushroom1024_9x7.jp2")
+    rgb.save(path, irreversible=True, quality_mode="rates", quality_layers=[20])
+    Image.open(path).convert("RGBA").save(os.path.join(HERE, "mushroom1024_9x7.pillow.png"),
+                                          optimize=True)
+
+
 def main() -> None:
     rgba = float_image_to_u8(mushroom_texture(n=N, spot_alpha=0.5))
     for write in (palette_trns, rgba16, adam7, map_rle, cmyk, bitfields, lzw_pred2, dxt1,
                   gif_trns, ppm, webp, qoi, sgi, pcx, ico, pfm, psd, cur, tiff_codecs, bc6h,
-                  pillow_readers, jpeg_codings, lab_ycbcr, zstd_tiffs):
+                  pillow_readers, jpeg_codings, lab_ycbcr, zstd_tiffs, jpeg2000):
         write(rgba)
     lzw_1024()
     tiff_1024()

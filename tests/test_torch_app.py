@@ -398,7 +398,7 @@ def test_port_imports_no_jax_flax_or_pillow():
         "import gaussian_splatterer_tpu_torch.io.webp\n"
         "import gaussian_splatterer_tpu_torch.io.pillow_open\n"
         "from gaussian_splatterer_tpu_torch.io import ccitt, cur, ico, pcx, psd, qoi, sgi\n"
-        "from gaussian_splatterer_tpu_torch.io import jpeg_arith, jpeg_lossless, xz, zstd\n"
+        "from gaussian_splatterer_tpu_torch.io import jpeg_arith, jpeg_lossless, jpeg2000, xz, zstd\n"
         "from gaussian_splatterer_tpu_torch.io import (blp, dcx, fits, fli, ftex, gbr, icns, im,\n"
         "    imt, iptc, mcidas, msp, pcd, pixar, rawmode, spider, sun, xbm, xpm, xvthumb)\n"
         "import gaussian_splatterer_tpu_torch.native\n"

@@ -361,7 +361,7 @@ def test_quirks_of_the_new_formats():
     32-bit pixels BGRX, the pad byte last; FITS's 16-bit samples read
     little-endian; the XPM ``None`` key's characters as the first
     palette alphas (and a pixel of that key refused); an ICNS JPEG 2000
-    element refused."""
+    element read as Pillow reads it."""
     block = struct.pack("<HHI", 0xFFFF, 0x0841, 0)  # c0 white, c1 (1, 2, 1) in 5:6:5
     dxt1 = blp_bytes(2, 4, 4, block, encoding=2, alpha_encoding=0)
     assert timage.decode_texture(dxt1)[0, 0].tolist() == [248, 252, 248, 255]
@@ -379,9 +379,11 @@ def test_quirks_of_the_new_formats():
     assert timage.decode_texture(xpm)[0, 0].tolist() == [9, 8, 7, ord("$")]
     with pytest.raises(ValueError, match="palette lacks"):
         timage.decode_texture(xpm.replace(b'"##",', b'"#$",'))
-    j2k = icns_bytes([(b"ic08", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a" + bytes(40))])
-    with pytest.raises(ValueError, match="JPEG 2000.*A-6c"):
-        timage.decode_texture(j2k)
+    buf = io.BytesIO()
+    Image.fromarray(_rng("j").integers(0, 256, (256, 256, 4), dtype=np.uint8)).save(buf, "JPEG2000")
+    j2k = icns_bytes([(b"ic08", buf.getvalue())])
+    with Image.open(io.BytesIO(j2k)) as im:
+        np.testing.assert_array_equal(timage.decode_texture(j2k), np.asarray(im.convert("RGBA")))
 
 
 # -- the dispatch over all of Image.ID --
@@ -422,13 +424,13 @@ def test_dispatch_follows_pillow(tmp_path, name):
 
 def test_foreign_formats_are_the_eight():
     """FORMATS covers every reader Pillow registers, in Image.ID's order,
-    and only AVIF, JPEG 2000 and the six that need other software are not
-    read by the port."""
+    and only AVIF and the six that need other software are not read by
+    the port."""
     Image.preinit()
     Image.init()
     assert [f.name for f in timage.FORMATS] == list(Image.ID)
     foreign = [f.name for f in timage.FORMATS if f.decode is None]
-    assert foreign == ["AVIF", "BUFR", "EPS", "GRIB", "HDF5", "JPEG2000", "MPEG", "WMF"]
+    assert foreign == ["AVIF", "BUFR", "EPS", "GRIB", "HDF5", "MPEG", "WMF"]
 
 
 REFUSED = {  # name -> (bytes, message, the JAX package refuses it too)

@@ -1752,3 +1752,314 @@ def _lossless_data(seq, codes, tables, every: int) -> bytes:
         flush_bytes()
     flush_bytes(final=True)
     return bytes(data)
+
+
+# ---- JPEG 2000: OpenJPEG 2.5.4 through ctypes, JP2 boxes, PPM/PPT ------------------
+#
+# Pillow's wheel bundles the libopenjp2 it decodes with.  Its encoder writes
+# what Pillow's writer cannot ask for (code-block styles, SOP/EPH, POC, ROI,
+# sub-sampling, per-component precision), and its opj_decode gives the
+# planes the port's codestream decoder is held to.  opj_cparameters_t and
+# opj_image_t are laid out from openjpeg.h 2.5; ``_opj_check_layout`` holds
+# the layout against opj_set_default_encoder_parameters' defaults.
+
+def _openjp2():
+    import ctypes
+    import glob
+    import os
+
+    import PIL
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+    found = sorted(glob.glob(os.path.join(libs, "libopenjp2*.so*")))
+    if not found:
+        raise FileNotFoundError("Pillow's bundled libopenjp2 is not there")
+    lib = ctypes.CDLL(found[0])
+    vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+    lib.opj_version.restype = ctypes.c_char_p
+    lib.opj_create_decompress.restype = vp
+    lib.opj_create_compress.restype = vp
+    lib.opj_stream_create_default_file_stream.restype = vp
+    lib.opj_stream_create_default_file_stream.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    for name, n in (("opj_setup_decoder", 2), ("opj_read_header", 3), ("opj_decode", 3),
+                    ("opj_end_decompress", 2), ("opj_setup_encoder", 3), ("opj_start_compress", 3),
+                    ("opj_encode", 2), ("opj_end_compress", 2), ("opj_destroy_codec", 1),
+                    ("opj_stream_destroy", 1), ("opj_image_destroy", 1),
+                    ("opj_set_default_decoder_parameters", 1),
+                    ("opj_set_default_encoder_parameters", 1)):
+        getattr(lib, name).argtypes = [vp] * n
+    lib.opj_image_create.restype = vp
+    lib.opj_image_create.argtypes = [u32, vp, ctypes.c_int]
+    return lib
+
+
+def _opj_structs():
+    import ctypes
+
+    c_int, u32 = ctypes.c_int, ctypes.c_uint32
+
+    class Comp(ctypes.Structure):
+        _fields_ = [(n, u32) for n in ("dx", "dy", "w", "h", "x0", "y0", "prec", "bpp", "sgnd",
+                                        "resno_decoded", "factor")] + [
+            ("data", ctypes.POINTER(ctypes.c_int32)), ("alpha", ctypes.c_uint16)]
+
+    class Image(ctypes.Structure):
+        _fields_ = [(n, u32) for n in ("x0", "y0", "x1", "y1", "numcomps")] + [
+            ("color_space", c_int), ("comps", ctypes.POINTER(Comp)), ("icc", ctypes.c_void_p),
+            ("icc_len", u32)]
+
+    class Poc(ctypes.Structure):
+        _fields_ = [(n, u32) for n in ("resno0", "compno0", "layno1", "resno1", "compno1",
+                                        "layno0", "precno0", "precno1")] + [
+            ("prg1", c_int), ("prg", c_int), ("progorder", ctypes.c_char * 5), ("tile", u32)] + [
+            (n, ctypes.c_int32) for n in ("tx0", "tx1", "ty0", "ty1")] + [
+            (n, u32) for n in ("layS", "resS", "compS", "prcS", "layE", "resE", "compE", "prcE",
+                               "txS", "txE", "tyS", "tyE", "dx", "dy", "lay_t", "res_t",
+                               "comp_t", "prc_t", "tx0_t", "ty0_t")]
+
+    class CParams(ctypes.Structure):
+        _fields_ = [
+            ("tile_size_on", c_int), ("cp_tx0", c_int), ("cp_ty0", c_int), ("cp_tdx", c_int),
+            ("cp_tdy", c_int), ("cp_disto_alloc", c_int), ("cp_fixed_alloc", c_int),
+            ("cp_fixed_quality", c_int), ("cp_matrice", ctypes.c_void_p),
+            ("cp_comment", ctypes.c_char_p), ("csty", c_int), ("prog_order", c_int),
+            ("POC", Poc * 32), ("numpocs", u32), ("tcp_numlayers", c_int),
+            ("tcp_rates", ctypes.c_float * 100), ("tcp_distoratio", ctypes.c_float * 100),
+            ("numresolution", c_int), ("cblockw_init", c_int), ("cblockh_init", c_int),
+            ("mode", c_int), ("irreversible", c_int), ("roi_compno", c_int), ("roi_shift", c_int),
+            ("res_spec", c_int), ("prcw_init", c_int * 33), ("prch_init", c_int * 33),
+            ("infile", ctypes.c_char * 4096), ("outfile", ctypes.c_char * 4096),
+            ("index_on", c_int), ("index", ctypes.c_char * 4096), ("image_offset_x0", c_int),
+            ("image_offset_y0", c_int), ("subsampling_dx", c_int), ("subsampling_dy", c_int),
+            ("decod_format", c_int), ("cod_format", c_int), ("jpwl_epc_on", c_int),
+            ("jpwl_hprot_MH", c_int), ("jpwl_hprot_TPH_tileno", c_int * 16),
+            ("jpwl_hprot_TPH", c_int * 16), ("jpwl_pprot_tileno", c_int * 16),
+            ("jpwl_pprot_packno", c_int * 16), ("jpwl_pprot", c_int * 16),
+            ("jpwl_sens_size", c_int), ("jpwl_sens_addr", c_int), ("jpwl_sens_range", c_int),
+            ("jpwl_sens_MH", c_int), ("jpwl_sens_TPH_tileno", c_int * 16),
+            ("jpwl_sens_TPH", c_int * 16), ("cp_cinema", c_int), ("max_comp_size", c_int),
+            ("cp_rsiz", c_int), ("tp_on", ctypes.c_char), ("tp_flag", ctypes.c_char),
+            ("tcp_mct", ctypes.c_char), ("jpip_on", c_int), ("mct_data", ctypes.c_void_p),
+            ("max_cs_size", c_int), ("rsiz", ctypes.c_uint16)]
+
+    class CmptParm(ctypes.Structure):
+        _fields_ = [(n, u32) for n in ("dx", "dy", "w", "h", "x0", "y0", "prec", "bpp", "sgnd")]
+
+    return Comp, Image, Poc, CParams, CmptParm
+
+
+def _opj_check_layout(lib, CParams) -> None:
+    import ctypes
+
+    p = CParams()
+    lib.opj_set_default_encoder_parameters(ctypes.byref(p))
+    got = (p.numresolution, p.cblockw_init, p.cblockh_init, p.roi_compno, p.subsampling_dx,
+           p.subsampling_dy, p.decod_format, p.cod_format, p.prog_order, p.tp_on)
+    if got != (6, 64, 64, -1, 1, 1, -1, -1, 0, b"\0"):
+        raise RuntimeError(f"opj_cparameters_t laid out wrong: defaults read as {got}")
+
+
+def opj_encode(planes, prec=8, sgnd: bool = False, dx=None, dy=None, origin=(0, 0),
+               rates=(0,), pocs=(), prc=(), tile=None, **fields) -> bytes:
+    """A raw codestream written by libopenjp2 2.5.4: ``planes`` (h, w) int
+    arrays at their components' sizes; ``dx``/``dy`` each component's
+    sub-sampling; ``origin`` the image offset; ``rates`` the layers'
+    compression ratios (0: lossless); ``pocs`` POC entries (resno0,
+    compno0, layno1, resno1, compno1, progression); ``prc`` the
+    precincts' (log2 w, log2 h) from the highest resolution down; ``tile``
+    the tile size; other keywords set opj_cparameters_t fields (``mode``
+    for the code-block styles, ``csty`` 2 for SOP and 4 for EPH,
+    ``irreversible``, ``roi_compno``/``roi_shift``, ``numresolution``,
+    ``prog_order``, ``cblockw_init``/``cblockh_init``)."""
+    import ctypes
+    import os
+    import tempfile
+
+    lib = _openjp2()
+    _, Image, _, CParams, CmptParm = _opj_structs()
+    _opj_check_layout(lib, CParams)
+    p = CParams()
+    lib.opj_set_default_encoder_parameters(ctypes.byref(p))
+    p.tcp_numlayers, p.cp_disto_alloc = len(rates), 1
+    for i, r in enumerate(rates):
+        p.tcp_rates[i] = r
+    for i, (r0, c0, l1, r1, c1, prg) in enumerate(pocs):
+        q = p.POC[i]
+        q.resno0, q.compno0, q.layno1, q.resno1, q.compno1 = r0, c0, l1, r1, c1
+        q.prg1, q.tile = prg, 1
+    p.numpocs = len(pocs)
+    if prc:
+        p.csty |= 1
+        p.res_spec = len(prc)
+        for i, (w, h) in enumerate(prc):
+            p.prcw_init[i], p.prch_init[i] = 1 << w, 1 << h
+    if tile is not None:
+        p.tile_size_on, (p.cp_tdx, p.cp_tdy) = 1, tile
+    for k, v in fields.items():
+        setattr(p, k, v)
+    n = len(planes)
+    dx, dy = dx or [1] * n, dy or [1] * n
+    parms = (CmptParm * n)()
+    for i, a in enumerate(planes):
+        c = parms[i]
+        c.dx, c.dy, c.w, c.h = dx[i], dy[i], a.shape[1], a.shape[0]
+        c.x0, c.y0 = -(-origin[0] // dx[i]), -(-origin[1] // dy[i])
+        c.prec = prec[i] if isinstance(prec, (list, tuple)) else prec
+        c.sgnd = int(sgnd)
+    img = ctypes.cast(lib.opj_image_create(n, parms, 1 if n >= 3 else 2), ctypes.POINTER(Image))
+    im = img.contents
+    im.x0, im.y0 = origin
+    im.x1, im.y1 = origin[0] + planes[0].shape[1] * dx[0], origin[1] + planes[0].shape[0] * dy[0]
+    for i, a in enumerate(planes):
+        samples = np.ascontiguousarray(a, np.int32)  # held while memmove reads it
+        ctypes.memmove(im.comps[i].data, samples.ctypes.data, samples.size * 4)
+    codec = lib.opj_create_compress(0)
+    fd, path = tempfile.mkstemp(suffix=".j2k")
+    os.close(fd)
+    try:
+        if not lib.opj_setup_encoder(codec, ctypes.byref(p), img):
+            raise ValueError("opj_setup_encoder refused the parameters")
+        stream = lib.opj_stream_create_default_file_stream(path.encode(), 0)
+        ok = (lib.opj_start_compress(codec, img, stream) and lib.opj_encode(codec, stream)
+              and lib.opj_end_compress(codec, stream))
+        lib.opj_stream_destroy(stream)
+        if not ok:
+            raise ValueError("libopenjp2 failed to encode")
+        with open(path, "rb") as fh:
+            return fh.read()
+    finally:
+        lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(img)
+        os.unlink(path)
+
+
+def opj_decode_planes(codestream: bytes):
+    """libopenjp2 2.5.4's opj_decode of a raw codestream: a list of (h, w)
+    int32 planes, or None where it fails the stream."""
+    import ctypes
+    import os
+    import tempfile
+
+    lib = _openjp2()
+    _, Image, _, _, _ = _opj_structs()
+    fd, path = tempfile.mkstemp(suffix=".j2k")
+    os.write(fd, codestream)
+    os.close(fd)
+    codec = lib.opj_create_decompress(0)
+    params = ctypes.create_string_buffer(1 << 14)
+    lib.opj_set_default_decoder_parameters(params)
+    lib.opj_setup_decoder(codec, params)
+    stream = lib.opj_stream_create_default_file_stream(path.encode(), 1)
+    img = ctypes.POINTER(Image)()
+    try:
+        if not (lib.opj_read_header(stream, codec, ctypes.byref(img))
+                and lib.opj_decode(codec, stream, img) and lib.opj_end_decompress(codec, stream)):
+            return None
+        im = img.contents
+        return [np.ctypeslib.as_array(im.comps[c].data, (im.comps[c].h, im.comps[c].w)).copy()
+                for c in range(im.numcomps)]
+    finally:
+        if img:
+            lib.opj_image_destroy(img)
+        lib.opj_stream_destroy(stream)
+        lib.opj_destroy_codec(codec)
+        os.unlink(path)
+
+
+def jp2_box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + kind + payload
+
+
+def jp2_bytes(codestream: bytes, nc: int, w: int, h: int, bpc: int = 7, colr: bytes | None = None,
+              extra: bytes = b"", brand: bytes = b"jp2 ", before_header: bytes = b"") -> bytes:
+    """A JP2 file around a raw codestream: ``colr`` the colour box's
+    payload (None: enumerated sRGB for 3 or 4 components, else grey;
+    b"": no colour box), ``extra`` more boxes inside ``jp2h`` after it,
+    ``before_header`` boxes between ``ftyp`` and ``jp2h``."""
+    if colr is None:
+        colr = b"\x01\x00\x00" + struct.pack(">I", 16 if nc >= 3 else 17)
+    ihdr = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, bpc, 7, 0, 0))
+    header = ihdr + (jp2_box(b"colr", colr) if colr else b"") + extra
+    return (jp2_box(b"jP  ", b"\x0d\x0a\x87\x0a") + jp2_box(b"ftyp", brand + b"\0\0\0\0" + brand)
+            + before_header + jp2_box(b"jp2h", header) + jp2_box(b"jp2c", codestream))
+
+
+def j2k_segments(cs: bytes):
+    """A raw codestream's main header, then its tile-parts as (SOT and
+    header markers, SOD data), then what follows the last (EOC)."""
+    pos = 2
+    while struct.unpack_from(">H", cs, pos)[0] != 0xFF90:
+        pos += 2 + struct.unpack_from(">H", cs, pos + 2)[0]
+    main, parts = cs[:pos], []
+    while struct.unpack_from(">H", cs, pos)[0] == 0xFF90:
+        psot = struct.unpack_from(">I", cs, pos + 6)[0]
+        part = cs[pos:pos + psot]
+        sod = 12
+        while struct.unpack_from(">H", part, sod)[0] != 0xFF93:
+            sod += 2 + struct.unpack_from(">H", part, sod + 2)[0]
+        parts.append((part[:sod], part[sod + 2:]))
+        pos += psot
+    return main, parts, cs[pos:]
+
+
+def j2k_join(main: bytes, parts, tail: bytes = b"\xff\xd9") -> bytes:
+    out = [main]
+    for head, data in parts:
+        psot = len(head) + 2 + len(data)
+        out.append(head[:6] + struct.pack(">I", psot) + head[10:] + b"\xff\x93" + data)
+    out.append(tail)
+    return b"".join(out)
+
+
+def j2k_marker(code: int, payload: bytes) -> bytes:
+    return struct.pack(">HH", code, 2 + len(payload)) + payload
+
+
+def _packets(data: bytes):
+    """A tile-part's packets, each (SOP, header ending in EPH, body), by
+    their SOP markers (a stream written with SOP and EPH)."""
+    starts = []
+    i = data.find(b"\xff\x91")
+    while i >= 0:
+        starts.append(i)
+        i = data.find(b"\xff\x91", i + 6)
+    if not starts or starts[0] != 0:
+        raise ValueError("the tile-part does not start with an SOP marker")
+    out = []
+    for k, s in enumerate(starts):
+        e = starts[k + 1] if k + 1 < len(starts) else len(data)
+        eph = data.find(b"\xff\x92", s + 6, e)
+        if eph < 0:
+            raise ValueError("a packet without its EPH marker")
+        out.append((data[s:s + 6], data[s + 6:eph + 2], data[eph + 2:e]))
+    return out
+
+
+def _split(code: int, stream: bytes, z_first: int = 0, room: int = 60000) -> bytes:
+    return b"".join(j2k_marker(code, bytes([z_first + k]) + stream[i:i + room])
+                    for k, i in enumerate(range(0, max(len(stream), 1), room)))
+
+
+def j2k_ppt(cs: bytes) -> bytes:
+    """Move every packet header (with its EPH) of an SOP/EPH stream into
+    PPT markers of its tile-part; the SOPs stay with the bodies."""
+    main, parts, tail = j2k_segments(cs)
+    out = []
+    for head, data in parts:
+        pk = _packets(data)
+        out.append((head + _split(0xFF61, b"".join(h for _, h, _ in pk)),
+                    b"".join(s + b for s, _, b in pk)))
+    return j2k_join(main, out, tail)
+
+
+def j2k_ppm(cs: bytes, room: int = 60000) -> bytes:
+    """Move every packet header of an SOP/EPH stream into PPM markers of
+    the main header, each tile-part's headers after its Nppm."""
+    main, parts, tail = j2k_segments(cs)
+    stream, out = b"", []
+    for head, data in parts:
+        pk = _packets(data)
+        hdrs = b"".join(h for _, h, _ in pk)
+        stream += struct.pack(">I", len(hdrs)) + hdrs
+        out.append((head, b"".join(s + b for s, _, b in pk)))
+    return j2k_join(main + _split(0xFF60, stream, room=room), out, tail)
